@@ -1,0 +1,588 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port's GraphSAGE serve path on one H100.
+
+  python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and nothing is wrapped in a
+``try`` that carries on:
+
+1. device  — the card's name and power limit (nvidia-smi) and the torch
+   device name; no card → exit 2 before any result.
+2. build   — nvcc compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a,
+   one process per source, all in parallel (ptxas usage is printed).
+3. kernels — each kernel (both digit-pass variants) against its plain-torch
+   twin on the card at the serve path's shapes, element for element, with
+   its time (CUDA events after a warm-up), the twin's time, one PyTorch
+   library call's time as a yardstick, and its bound.
+4. main path — launch counters set to 0; the Reddit-scale ``convert``
+   (232,965 nodes, 114,615,892 synthetic power-law edges in a 2^27 COO)
+   under the slice configuration, then ``GnnServeEngine`` serving 16
+   requests of 1..1024 seeds at full graphsage-reddit width (602 features,
+   2 × 128 hidden, fanouts 25-10, 41 classes, 4 slots); counters read.
+5. checks  — convert bit-identical to the torch.sort strategy on the same
+   COO; every request bit-identical to a sequential per-request slot_fn
+   loop; the convert-scale pointer rank (232,966 queries over 2^27) and the
+   digit pass at 2^24 pairs against their twins, the digit pass also timed
+   at 2^27; a small graph served on the card equal to the CPU path.
+   Then the largest request once more under ``torch.profiler``: its wall
+   time, its kernels' device time and the ops that take the most of it.
+6. report  — the kernels JSON line, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Weights and data are random, made from ``--seed``. Details go to
+``chiprun_out/chip_smoke.json``. Float32 matmuls run in full precision
+(TF32 off).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# Peak 32-bit rate outside the tensor cores (the data sheet's float32
+# figure); the integer kernels here are far below it, bound by bytes.
+ALU_OPS_PER_S = 67e12
+SERVE_CAP = 524_288  # pow2 VID list / subgraph edge bucket of one request
+SERVE_NODES = 282_624  # 1024 + 1024·25 + 1024·25·10 VIDs per request
+SERVE_EDGES = 281_600  # 1024·25 + 1024·25·10 sampled edges
+REDDIT = dict(nodes=232_965, edges=114_615_892, feats=602, classes=41)
+TILE, RADIX_BITS = 4096, 4
+CONVERT_CAP = 1 << 27  # pow2 COO capacity of the Reddit edge list
+SEED_CAP, N_SLOTS = 1024, 4  # the batch Workload.b prices; engine slots
+# digit-pass sizes checked (2^24: compared with the twin) and timed (2^27)
+DIGIT_SIZES = ((1 << 24, True), (1 << 27, False))
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def check(cond, what):
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` in ms: CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, ops):
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def max_err(got, want):
+    import torch
+    return max(float((g.cpu().to(torch.int64) - w.cpu().to(torch.int64)
+                      ).abs().max()) if g.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------- phase 3
+def kernel_phase(dev, seed):
+    """Every kernel against its twin at the serve path's shapes."""
+    import torch
+    from repro_torch.core.graph import SENTINEL
+    from repro_torch.core.set_partition import rank_gather_sources
+    from repro_torch.kernels import radix_sort as trs
+    from repro_torch.kernels import reindex_epilogue as tre
+    from repro_torch.kernels import _build
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb, n = 1 << RADIX_BITS, SERVE_CAP
+    n_tiles = n // TILE
+    rows, extra = {}, {}
+
+    # the reindex sort's pair stream: VIDs of one request (< bound), then
+    # the SENTINEL padding clipped to the key bound
+    bound_vid = REDDIT["nodes"]
+    keys = torch.full((n,), bound_vid, dtype=torch.int32, device=dev)
+    keys[:SERVE_NODES] = torch.randint(0, bound_vid, (SERVE_NODES,),
+                                       generator=g, device=dev,
+                                       dtype=torch.int32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    lib = trs._lib()
+    for with_vals in (True, False):
+        v = vals if with_vals else None
+        got = trs.digit_partition_hist(keys, v, 0, TILE, RADIX_BITS)
+        want = trs._partition_hist_plain(keys, v, 0, TILE, RADIX_BITS)
+        torch.cuda.synchronize()
+        err = max_err([x for x in got if x is not None],
+                      [x for x in want if x is not None])
+        check(err == 0, f"digit_partition_hist (vals={with_vals}) == twin")
+        pk, pv, lbase, hist = got
+        ms = cuda_ms(lambda: lib.digit_partition_hist(
+            keys.data_ptr(), None if v is None else v.data_ptr(),
+            pk.data_ptr(), None if pv is None else pv.data_ptr(),
+            lbase.data_ptr(), hist.data_ptr(), n_tiles, TILE, 0, nb,
+            _build.stream_of(keys)))
+        plain_ms = cuda_ms(lambda: trs._partition_hist_plain(
+            keys, v, 0, TILE, RADIX_BITS), iters=5)
+        digit2 = (keys & (nb - 1)).view(n_tiles, TILE)
+
+        def library():
+            order = torch.sort(digit2, dim=1, stable=True).indices
+            out = keys.view(n_tiles, TILE).gather(1, order)
+            return out, (None if v is None
+                         else v.view(n_tiles, TILE).gather(1, order))
+        lib_ms = cuda_ms(library, iters=5)
+        streams = 2 if with_vals else 1
+        b_ms, b_by = bound(4 * n * streams * 2 + 2 * 4 * n_tiles * nb, 4 * n)
+        # the main path sorts pairs only; the keys-only variant is checked
+        # and timed here and reported beside the kernels line
+        name = "digit_partition_hist" + ("" if with_vals else "/keys_only")
+        rows[name] = dict(
+            name="digit_partition_hist", route="cuda",
+            source="src/repro_torch/csrc/digit_pass.cu",
+            replaces="src/repro/kernels/radix_sort.py:"
+                     + ("195" if with_vals else "185"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms,
+            shape=f"{n} {'pairs' if with_vals else 'keys'}, tile {TILE}, "
+                  f"{nb} buckets")
+
+    incl = torch.cumsum(hist, 0, dtype=torch.int32)
+    excl = incl - hist
+    gbase = (torch.cumsum(incl[-1], 0, dtype=torch.int32) - incl[-1]
+             ).contiguous()
+    src = trs.digit_rank_gather(gbase, incl, excl, lbase, TILE)
+    want = rank_gather_sources(gbase, incl, excl, lbase, TILE)
+    torch.cuda.synchronize()
+    err = max_err([src], [want])
+    check(err == 0, "digit_rank_gather == twin")
+    ms = cuda_ms(lambda: lib.digit_rank_gather(
+        gbase.data_ptr(), incl.data_ptr(), excl.data_ptr(), lbase.data_ptr(),
+        src.data_ptr(), n, n_tiles, TILE, nb, _build.stream_of(src)))
+    plain_ms = cuda_ms(lambda: rank_gather_sources(gbase, incl, excl, lbase,
+                                                   TILE), iters=5)
+    b_ms, b_by = bound(4 * (3 * n_tiles * nb + nb + n),
+                       n * (RADIX_BITS + max(1, n_tiles.bit_length())))
+    rows["digit_rank_gather"] = dict(
+        name="digit_rank_gather", route="cuda",
+        source="src/repro_torch/csrc/digit_pass.cu",
+        replaces="src/repro/kernels/radix_sort.py:208", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=f"{n} slots, [{n_tiles}, {nb}] tables")
+
+    # the whole digit pass against one library sort + gather
+    digit = keys & (nb - 1)
+    extra["digit_pass_pairs_ms"] = cuda_ms(
+        lambda: trs.global_digit_pass(keys, vals, 0, TILE, RADIX_BITS))
+    extra["torch_sort_digit_plus_gather_ms"] = cuda_ms(
+        lambda: (lambda o: (keys[o], vals[o]))(
+            torch.sort(digit, stable=True).indices))
+
+    # rank: the subgraph pointer build (SERVE_NODES + 1 targets over the
+    # sorted subgraph dst, valid edges then a SENTINEL tail)
+    sdst = torch.full((n,), SENTINEL, dtype=torch.int32, device=dev)
+    sdst[:SERVE_EDGES] = torch.sort(torch.randint(
+        0, SERVE_NODES, (SERVE_EDGES,), generator=g, device=dev,
+        dtype=torch.int32)).values
+    targets = torch.arange(SERVE_NODES + 1, dtype=torch.int32, device=dev)
+    got = tre.rank_search(sdst, targets, "left")
+    want = tre._unrolled_rank(sdst, targets, "left")
+    torch.cuda.synchronize()
+    err = max_err([got], [want])
+    check(err == 0, "rank_search == twin")
+    rlib = tre._lib()
+    ms = cuda_ms(lambda: rlib.rank_search(
+        sdst.data_ptr(), n, targets.data_ptr(), got.data_ptr(),
+        targets.numel(), 0, _build.stream_of(got)))
+    plain_ms = cuda_ms(lambda: tre._unrolled_rank(sdst, targets, "left"),
+                       iters=5)
+    lib_ms = cuda_ms(lambda: torch.searchsorted(sdst, targets, side="left"))
+    q = targets.numel()
+    b_ms, b_by = bound(4 * (n + 2 * q), q * max(1, n.bit_length()))
+    rows["rank_search"] = dict(
+        name="rank_search", route="cuda",
+        source="src/repro_torch/csrc/reindex_epilogue.cu",
+        replaces="src/repro/kernels/reindex_epilogue.py:57", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, shape=f"{q} queries over {n}")
+
+    # rename: the edge rename, 2·edges queries over the sorted VID stream
+    sv = torch.sort(keys[:SERVE_NODES]).values
+    table = torch.arange(SERVE_NODES, dtype=torch.int32, device=dev)
+    queries = torch.randint(0, bound_vid, (2 * SERVE_EDGES,), generator=g,
+                            device=dev, dtype=torch.int32)
+    queries[::7] = SENTINEL
+    got = tre.rename(sv, table, queries)
+    want = tre._rename_plain(sv, table, queries)
+    torch.cuda.synchronize()
+    err = max_err([got], [want])
+    check(err == 0, "rename == twin")
+    ms = cuda_ms(lambda: rlib.rename_lookup(
+        sv.data_ptr(), table.data_ptr(), SERVE_NODES, queries.data_ptr(),
+        got.data_ptr(), queries.numel(), _build.stream_of(got)))
+    plain_ms = cuda_ms(lambda: tre._rename_plain(sv, table, queries), iters=5)
+    lib_ms = cuda_ms(lambda: torch.searchsorted(sv, queries, side="left"))
+    q = queries.numel()
+    b_ms, b_by = bound(4 * (2 * SERVE_NODES + 2 * q),
+                       q * (max(1, SERVE_NODES.bit_length()) + 2))
+    rows["rename"] = dict(
+        name="rename", route="cuda",
+        source="src/repro_torch/csrc/reindex_epilogue.cu",
+        replaces="src/repro/kernels/reindex_epilogue.py:93", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, shape=f"{q} queries over {SERVE_NODES}")
+    return rows, extra
+
+
+# ------------------------------------------------------------- phases 4-5
+def main_path(dev, seed, n_requests):
+    """Launch counters to 0, the Reddit-scale convert, the serve run,
+    counters read. Returns what the checks need."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.graphsage_reddit import config
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import SLICE_CFG, percentile
+    from repro_torch.models.gnn import GraphSAGE
+    from repro_torch.serve import GnnServeEngine
+
+    out = {}
+    t0 = time.perf_counter()
+    coo = synthetic_coo(REDDIT["nodes"], REDDIT["edges"], CONVERT_CAP, seed,
+                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    feats = torch.randn((REDDIT["nodes"], REDDIT["feats"]), generator=g,
+                        device=dev)
+    model = GraphSAGE(config(), d_in=REDDIT["feats"],
+                      n_classes=REDDIT["classes"],
+                      generator=torch.Generator().manual_seed(seed + 2))
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    csc = pipeline.convert(coo, SLICE_CFG, device=dev)
+    torch.cuda.synchronize()
+    out["convert_s"] = time.perf_counter() - t0
+    out["convert_launches"] = launch_counts()
+
+    eng = GnnServeEngine(model, csc, feats, n_slots=N_SLOTS,
+                         seed_cap=SEED_CAP, cfg=SLICE_CFG, device=dev)
+    rng = np.random.default_rng(seed)
+    eng.submit(rng.choice(REDDIT["nodes"], 16, replace=False).tolist())
+    eng.close_submissions()
+    eng.run()  # warm-up request: cuBLAS handles, allocator pools
+    torch.cuda.synchronize()
+    eng.reopen()
+    reqs = [rng.choice(REDDIT["nodes"], int(k), replace=False).tolist()
+            for k in rng.integers(1, SEED_CAP + 1, n_requests)]
+    before = launch_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(s) for s in reqs]
+    eng.close_submissions()
+    completed = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    out["serve_launches"] = {k: launches[k] - before[k] for k in launches}
+    out["launches"] = launches
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check(len(completed) == n_requests, "every request retired")
+    lat = [r.total_latency_s for r in completed]
+    out["serve"] = dict(
+        requests=n_requests, seeds=sum(map(len, reqs)), steps=eng.stats.steps,
+        wall_s=dt, preds_per_s=sum(map(len, reqs)) / dt,
+        p50_ms=percentile(lat, 0.5) * 1e3, p99_ms=percentile(lat, 0.99) * 1e3)
+    return out, coo, csc, eng, reqs, handles
+
+
+def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
+    """Everything held against a reference, after the counted run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.core.costmodel import EngineConfig
+    from repro_torch.core.graph import COO, SENTINEL, random_coo
+    from repro_torch.kernels import radix_sort as trs
+    from repro_torch.kernels import reindex_epilogue as tre
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.configs.graphsage_reddit import smoke_config
+    from repro_torch.models.gnn import GraphSAGE
+    from repro_torch.serve import GnnServeEngine
+
+    # (a) convert == the torch.sort strategy on the same COO
+    t0 = time.perf_counter()
+    ref = pipeline.convert(coo, EngineConfig(sort_strategy="xla_sort",
+                                             reindex_strategy="fused"),
+                           device=dev)
+    torch.cuda.synchronize()
+    extra["convert_torch_sort_s"] = time.perf_counter() - t0
+    check(torch.equal(csc.ptr, ref.ptr), "convert ptr == torch.sort strategy")
+    check(torch.equal(csc.idx, ref.idx), "convert idx == torch.sort strategy")
+    check(int(csc.ptr[-1]) == REDDIT["edges"], "ptr[-1] == edge count")
+    del ref
+
+    # (b) batched serving == the sequential per-request slot_fn loop
+    for h, seeds in zip(handles, reqs):
+        row = torch.full((eng.seed_cap,), SENTINEL, dtype=torch.int32)
+        row[:len(seeds)] = torch.tensor(seeds, dtype=torch.int32)
+        seq = eng.slot_fn(eng.params, row.to(dev), eng.request_key(h.rid))
+        check(h.tokens_out == seq[:len(seeds)].tolist(),
+              f"request {h.rid}: batched == sequential")
+        check(all(0 <= p < REDDIT["classes"] for p in h.tokens_out),
+              f"request {h.rid}: predictions are class ids")
+
+    # (c) the convert-scale pointer rank (232,966 queries over 2^27)
+    n = REDDIT["nodes"]
+    deg = torch.diff(csc.ptr)
+    sorted_dst = torch.full((coo.capacity,), SENTINEL, dtype=torch.int32,
+                            device=dev)
+    sorted_dst[:REDDIT["edges"]] = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dev), deg)
+    targets = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    got = tre.rank_search(sorted_dst, targets, "left")
+    check(torch.equal(got, tre._unrolled_rank(sorted_dst, targets, "left")),
+          "convert-scale rank_search == twin")
+    check(torch.equal(got, csc.ptr), "rank of the sorted stream == ptr")
+    extra["rank_search_convert_ms"] = cuda_ms(lambda: tre._lib().rank_search(
+        sorted_dst.data_ptr(), coo.capacity, targets.data_ptr(),
+        got.data_ptr(), n + 1, 0, _build.stream_of(got)))
+    extra["torch_searchsorted_convert_ms"] = cuda_ms(
+        lambda: torch.searchsorted(sorted_dst, targets))
+    del sorted_dst
+
+    # (d) the digit pass at a stated smaller convert size (2^24 pairs)
+    # against its twin, and the kernels alone at the full 2^27
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    for n_pairs, compare in DIGIT_SIZES:
+        keys = torch.randint(0, n + 1, (n_pairs,), generator=g, device=dev,
+                             dtype=torch.int32)
+        vals = torch.arange(n_pairs, dtype=torch.int32, device=dev)
+        got = trs.digit_partition_hist(keys, vals, 4, TILE, RADIX_BITS)
+        if compare:
+            want = trs._partition_hist_plain(keys, vals, 4, TILE, RADIX_BITS)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"digit_partition_hist == twin at {n_pairs}")
+            del want
+        pk, pv, lbase, hist = got
+        nt, nb = n_pairs // TILE, 1 << RADIX_BITS
+        extra[f"digit_partition_hist_{n_pairs}_ms"] = cuda_ms(
+            lambda: trs._lib().digit_partition_hist(
+                keys.data_ptr(), vals.data_ptr(), pk.data_ptr(),
+                pv.data_ptr(), lbase.data_ptr(), hist.data_ptr(), nt, TILE,
+                4, nb, _build.stream_of(keys)), iters=5)
+        incl = torch.cumsum(hist, 0, dtype=torch.int32)
+        excl = incl - hist
+        gbase = (torch.cumsum(incl[-1], 0, dtype=torch.int32)
+                 - incl[-1]).contiguous()
+        src = trs.digit_rank_gather(gbase, incl, excl, lbase, TILE)
+        if compare:
+            from repro_torch.core.set_partition import rank_gather_sources
+            check(torch.equal(src, rank_gather_sources(gbase, incl, excl,
+                                                       lbase, TILE)),
+                  f"digit_rank_gather == twin at {n_pairs}")
+        extra[f"digit_rank_gather_{n_pairs}_ms"] = cuda_ms(
+            lambda: trs._lib().digit_rank_gather(
+                gbase.data_ptr(), incl.data_ptr(), excl.data_ptr(),
+                lbase.data_ptr(), src.data_ptr(), n_pairs, nt, TILE, nb,
+                _build.stream_of(src)), iters=5)
+        extra[f"digit_pass_{n_pairs}_ms"] = cuda_ms(
+            lambda: trs.global_digit_pass(keys, vals, 4, TILE, RADIX_BITS),
+            iters=3, warmup=1)
+        extra[f"torch_sort_pairs_{n_pairs}_ms"] = cuda_ms(
+            lambda: torch.sort(keys, stable=True), iters=3, warmup=1)
+        del keys, vals, got, pk, pv, src
+
+    # (e) a small graph served on the card equals the CPU path (integers
+    # exact; logits within 1e-4: cuBLAS and the CUDA cumsum sum in another
+    # order than the CPU)
+    d, s = random_coo(np.random.default_rng(seed), 3000, 20000)
+    small = COO.from_arrays(d, s, 3000, capacity=1 << 15, device="cpu")
+    feats = np.random.default_rng(seed + 1).normal(size=(3000, 24)
+                                                   ).astype(np.float32)
+    model = GraphSAGE(smoke_config(), d_in=24, n_classes=5,
+                      generator=torch.Generator().manual_seed(seed))
+    csc_c = pipeline.convert(small, SLICE_CFG, device="cpu")
+    csc_g = pipeline.convert(small, SLICE_CFG, device=dev)
+    check(torch.equal(csc_g.ptr.cpu(), csc_c.ptr) and
+          torch.equal(csc_g.idx.cpu(), csc_c.idx), "small convert: card == CPU")
+    import copy
+    e_c = GnnServeEngine(copy.deepcopy(model), csc_c, feats, seed_cap=64,
+                         fanouts=(25, 10), cfg=SLICE_CFG, device="cpu")
+    e_g = GnnServeEngine(copy.deepcopy(model), csc_g, feats, seed_cap=64,
+                         fanouts=(25, 10), cfg=SLICE_CFG, device=dev)
+    seeds = np.random.default_rng(seed + 2).choice(3000, 64, replace=False)
+    key = e_c.request_key(0)
+    row = torch.from_numpy(seeds.astype(np.int32))
+    sub_c = pipeline.sample_subgraph(csc_c, row, (25, 10), key, SLICE_CFG)
+    sub_g = pipeline.sample_subgraph(csc_g, row.to(dev), (25, 10), key,
+                                     SLICE_CFG)
+    for a, b, what in ((sub_g.csc.ptr, sub_c.csc.ptr, "ptr"),
+                       (sub_g.csc.idx, sub_c.csc.idx, "idx"),
+                       (sub_g.order, sub_c.order, "order")):
+        check(torch.equal(a.cpu(), b), f"small subgraph {what}: card == CPU")
+    from repro_torch.models.gnn import subgraph_batch
+    with torch.no_grad():
+        lc = e_c.params["gnn"](subgraph_batch(sub_c, e_c.params["features"]))
+        lg = e_g.params["gnn"](subgraph_batch(sub_g, e_g.params["features"]))
+    err = float((lg.cpu() - lc).abs().max())
+    extra["small_logit_max_abs_err"] = err
+    check(torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4),
+          f"small logits card vs CPU within 1e-4 (max err {err})")
+    check(bool(torch.isfinite(lg).all()), "finite logits")
+
+
+def profile_phase(eng, seeds, rid, top=8):
+    """One full-width request (``slot_fn``) under ``torch.profiler``: the
+    host wall time, the device time summed over every op's own kernels,
+    and the ops and kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.graph import SENTINEL
+
+    row = torch.full((eng.seed_cap,), SENTINEL, dtype=torch.int32)
+    row[:len(seeds)] = torch.tensor(seeds, dtype=torch.int32)
+    row = row.to(eng.device)
+    key = eng.request_key(rid)
+    eng.slot_fn(eng.params, row, key)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.slot_fn(eng.params, row, key)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events]
+    # an op's own device time is its kernels' time: sum the kernels alone
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    rows.sort(key=lambda r: -r[1])
+    return dict(seeds=len(seeds), wall_ms=wall_ms, device_ms=device_ms,
+                device_busy_share=device_ms / wall_ms,
+                top=[dict(name=k[:120], device_ms=t, count=c)
+                     for k, t, c in rows[:top]])
+
+
+# ------------------------------------------------------------------ main
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=16)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build  # the port must be importable
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0].strip()
+    log(f"[device] nvidia-smi: {smi}")
+    log(f"[device] torch: {torch.cuda.get_device_name(0)} "
+        f"(torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} visible)")
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"[build] {sorted(_build.SOURCES)} in "
+        f"{time.perf_counter() - t0:.2f}s wall ({built})")
+    for name, text in sorted(_build.BUILD_LOG.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # 3. kernels
+    rows, extra = kernel_phase(dev, args.seed)
+    for key, r in rows.items():
+        log(f"[kernel] {key} ({r['shape']}): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']}")
+
+    # 4. main path
+    out, coo, csc, eng, reqs, handles = main_path(dev, args.seed,
+                                                  args.requests)
+    log(f"[convert] Reddit scale ({REDDIT['nodes']} nodes, "
+        f"{REDDIT['edges']} edges, capacity 2^27): {out['convert_s']:.3f}s; "
+        f"launches {out['convert_launches']}")
+    sv = out["serve"]
+    log(f"[serve] {sv['requests']} requests, {sv['seeds']} predictions in "
+        f"{sv['wall_s']:.3f}s: {sv['preds_per_s']:.1f} pred/s, request "
+        f"latency p50 {sv['p50_ms']:.1f} ms p99 {sv['p99_ms']:.1f} ms, "
+        f"{sv['steps']} steps; launches {out['serve_launches']}; peak "
+        f"{out['peak_mem_gib']:.2f} GiB")
+    launches = out["launches"]
+    check(all(v > 0 for v in launches.values()),
+          f"every kernel launched on the main path: {launches}")
+
+    # 5. checks
+    checks(dev, args.seed, coo, csc, eng, reqs, handles, extra)
+    log(f"[checks] convert == torch.sort strategy, batched == sequential, "
+        f"kernels == twins at convert scale, card == CPU on a small graph: "
+        f"ok; {json.dumps(extra)}")
+
+    # where a request's time goes (largest request of the run)
+    big = max(range(len(reqs)), key=lambda i: len(reqs[i]))
+    prof = profile_phase(eng, reqs[big], handles[big].rid)
+    out["profile"] = prof
+    del coo, csc, eng
+    log(f"[profile] one request of {prof['seeds']} seeds: wall "
+        f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
+        f"(busy share {prof['device_busy_share']:.3f}); top by device time:")
+    for r in prof["top"]:
+        log(f"[profile]   {r['device_ms']:10.3f} ms  x{r['count']:<5d} "
+            f"{r['name']}")
+
+    # 6. report
+    kernels = []
+    for key in ("digit_partition_hist", "digit_rank_gather", "rank_search",
+                "rename"):
+        r = {k: v for k, v in rows[key].items() if k != "shape"}
+        r["launches"] = launches[key]
+        kernels.append(r)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(dict(card=smi, rows=rows, main_path=out, extra=extra,
+                       seconds=time.perf_counter() - t_start), f, indent=1)
+    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    log(smi)
+    log(json.dumps({"kernel_launches": launches}))
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

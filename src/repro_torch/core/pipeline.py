@@ -1,0 +1,127 @@
+"""End-to-end preprocessing pipeline (port of ``repro/core/pipeline.py``).
+
+COO → [Ordering] → sorted COO → [Reshaping] → CSC → [Selecting] → sampled
+nodes/edges → [Reindexing] → sampled Subgraph, itself re-converted to CSC
+by a second Ordering + Reshaping pass. Everything runs on the device that
+holds the graph; ``convert`` and ``preprocess`` default to the card.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .costmodel import (EngineConfig, Workload, pointer_reindex_strategy,
+                        reindex_query_count, resolve_reindex_strategy,
+                        resolve_sort_strategy)
+from .graph import (COO, CSC, SENTINEL, Subgraph, next_pow2, pad_to,
+                    resolve_device, take)
+from .ordering import edge_ordering, stable_sort_by_key
+from .reindexing import build_reindex_map, reindex_edges
+from .reshaping import data_reshaping
+from .sampling import sample_khop
+
+
+class KernelFns(NamedTuple):
+    count_fn: object
+    digit_pass_fn: object
+    rank_fn: object
+    rename_fn: object
+
+
+def _set_count_less_todo(sorted_dst, targets):
+    raise NotImplementedError(
+        "the unfused pointer build under use_pallas needs the set_count_less "
+        "kernel (repro/kernels/set_count.py), not ported yet; pin "
+        "reindex_strategy='fused' to build pointers with the rank kernel")
+
+
+def kernel_fns(cfg: EngineConfig) -> KernelFns:
+    """The kernel routing rule: ``use_pallas`` swaps in the digit-pass
+    kernels (digit width ``cfg.radix_bits``, histogram tile ``cfg.w_upe``)
+    and the rank-epilogue kernels. Each wrapper launches its kernel on a
+    CUDA tensor and runs its plain twin on a CPU tensor."""
+    if not cfg.use_pallas:
+        return KernelFns(None, None, None, None)
+    from repro_torch.kernels.radix_sort import make_digit_pass_fn
+    from repro_torch.kernels.reindex_epilogue import rank_fn, rename_fn
+    return KernelFns(_set_count_less_todo,
+                     make_digit_pass_fn(cfg.radix_bits, cfg.w_upe),
+                     rank_fn, rename_fn)
+
+
+def convert(coo: COO, cfg: EngineConfig | None = None,
+            device="cuda") -> CSC:
+    """Graph conversion: Ordering + Reshaping under an engine config, on
+    ``device`` (the COO is moved there; a missing card raises)."""
+    coo = coo.to(resolve_device(device))
+    cfg = cfg or EngineConfig()
+    kf = kernel_fns(cfg)
+    w = Workload(n=coo.n_nodes, e=coo.capacity)
+    sorted_coo = edge_ordering(coo, chunk=min(cfg.w_upe, coo.capacity),
+                               radix_bits=cfg.radix_bits, mode=cfg.sort_mode,
+                               strategy=resolve_sort_strategy(cfg, w),
+                               digit_pass_fn=kf.digit_pass_fn)
+    ptr_fused = pointer_reindex_strategy(cfg, w) == "fused"
+    return data_reshaping(sorted_coo, count_fn=kf.count_fn, unroll=ptr_fused,
+                          rank_fn=kf.rank_fn if ptr_fused else None)
+
+
+def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,
+                    fanouts: tuple[int, ...], key,
+                    cfg: EngineConfig | None = None) -> Subgraph:
+    """Selecting + Reindexing + subgraph conversion → sampled CSC subgraph,
+    on the device that holds ``csc``."""
+    cfg = cfg or EngineConfig()
+    kf = kernel_fns(cfg)
+    nodes, e_dst, e_src = sample_khop(csc, batch_nodes, fanouts, key,
+                                      selection=cfg.selection)
+    n_cap = nodes.shape[0]
+    r_sort_strat = resolve_sort_strategy(
+        cfg, Workload(n=csc.n_nodes, e=next_pow2(n_cap)))
+
+    def reindex_sort_fn(k, v, bound):
+        return stable_sort_by_key(k, v, bound, chunk=min(cfg.w_upe, k.shape[0]),
+                                  radix_bits=cfg.radix_bits,
+                                  strategy=r_sort_strat,
+                                  digit_pass_fn=kf.digit_pass_fn)
+
+    r_strat = resolve_reindex_strategy(
+        cfg, reindex_query_count(n_cap, e_dst.shape[0]), n_cap)
+    r_fused = r_strat == "fused"
+    rmap = build_reindex_map(nodes, vid_bound=csc.n_nodes, strategy=r_strat,
+                             sort_fn=reindex_sort_fn,
+                             rank_fn=kf.rank_fn if r_fused else None,
+                             rename_fn=kf.rename_fn if r_fused else None)
+    raw = reindex_edges(rmap, e_dst, e_src, n_nodes_cap=n_cap)
+    e_cap = next_pow2(raw.dst.shape[0])
+    sub_coo = COO(dst=pad_to(raw.dst, e_cap, SENTINEL),
+                  src=pad_to(raw.src, e_cap, SENTINEL),
+                  n_edges=raw.n_edges, n_nodes=n_cap)
+    strategy = resolve_sort_strategy(cfg, Workload(n=n_cap, e=e_cap))
+    sub_sorted = edge_ordering(sub_coo, chunk=min(cfg.w_upe, e_cap),
+                               radix_bits=cfg.radix_bits, mode=cfg.sort_mode,
+                               strategy=strategy,
+                               digit_pass_fn=kf.digit_pass_fn)
+    sub_ptr_fused = resolve_reindex_strategy(cfg, n_cap + 1, e_cap) == "fused"
+    sub_csc = data_reshaping(sub_sorted, count_fn=kf.count_fn,
+                             unroll=sub_ptr_fused,
+                             rank_fn=kf.rank_fn if sub_ptr_fused else None)
+    return Subgraph(csc=sub_csc, order=rmap.order, n_sub_nodes=rmap.n_unique)
+
+
+def preprocess(coo: COO, batch_nodes, fanouts: tuple[int, ...], key,
+               cfg: EngineConfig | None = None, device="cuda") -> Subgraph:
+    """The full workflow: convert, then sample one subgraph."""
+    dev = resolve_device(device)
+    csc = convert(coo, cfg, device=dev)
+    seeds = torch.as_tensor(batch_nodes, dtype=torch.int32).to(dev)
+    return sample_subgraph(csc, seeds, fanouts, key, cfg)
+
+
+def gather_features(sub: Subgraph, features: torch.Tensor) -> torch.Tensor:
+    """Feature rows of the sampled subgraph's nodes (zero on padding)."""
+    rows = take(features, sub.order)
+    valid = (sub.order != SENTINEL)[:, None]
+    return torch.where(valid, rows, torch.zeros((), dtype=rows.dtype,
+                                                device=rows.device))

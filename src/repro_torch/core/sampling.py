@@ -1,0 +1,73 @@
+"""Unique random Selecting with Floyd's algorithm (port of the ``floyd``
+path of ``repro/core/sampling.py``).
+
+Each of the k steps draws from the not-yet-sampled range and resolves a
+collision with a k-wide membership compare, vectorised over the whole
+frontier. The draws come from ``prng`` with the reference's key schedule
+(``fold_in(key, layer)``, then one ``split`` per step), so the sampled
+neighbours equal the reference's bit for bit. ``keysort``, ``reservoir``
+and layer-wise selection are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import prng
+from .graph import CSC, SENTINEL, take
+
+
+def _ranges(csc: CSC, frontier: torch.Tensor):
+    """(start, degree) per frontier node; sentinel/OOB nodes get degree 0."""
+    nv = csc.n_nodes
+    f = torch.clamp(frontier, 0, nv - 1)
+    start = take(csc.ptr, f)
+    deg = take(csc.ptr, f + 1) - start
+    valid = (frontier >= 0) & (frontier < nv)
+    return start, torch.where(valid, deg, torch.zeros_like(deg))
+
+
+def select_floyd(csc: CSC, frontier: torch.Tensor, k: int,
+                 key: prng.Key) -> torch.Tensor:
+    """Floyd's k unique uniform draws for every frontier node: neighbour
+    VIDs [F, k], SENTINEL-padded where deg < k."""
+    start, deg = _ranges(csc, frontier)
+    f = frontier.shape[0]
+    subs = []
+    for _ in range(k):  # the reference's per-step split, on the host
+        key, sub = prng.split(key)
+        subs.append(sub)
+    u_all = prng.uniform_rows(subs, f, frontier.device)  # [k, F]
+    sel = torch.full((f, k), -1, dtype=torch.int32, device=frontier.device)
+    for i in range(k):
+        j = deg - k + i  # Floyd index (valid when deg >= k)
+        t = torch.floor(u_all[i] * (j + 1).to(torch.float32)).to(torch.int32)
+        t = torch.minimum(torch.clamp(t, min=0), torch.clamp(j, min=0))
+        member = (sel == t[:, None]).any(dim=1)
+        floyd_pick = torch.where(member, j, t)
+        small_pick = torch.where(i < deg, torch.full_like(deg, i),
+                                 torch.full_like(deg, -1))
+        sel[:, i] = torch.where(deg >= k, floyd_pick, small_pick)
+    nbrs = take(csc.idx, start[:, None] + sel)
+    return torch.where(sel >= 0, nbrs, torch.full_like(nbrs, SENTINEL))
+
+
+def sample_khop(csc: CSC, batch_nodes: torch.Tensor, fanouts: tuple[int, ...],
+                key: prng.Key, selection: str = "floyd"
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Node-wise k-hop expansion → (all_nodes, edge_dst, edge_src) in
+    original VIDs, SENTINEL-padded, duplicates kept (Reindexing dedups).
+    The sampled child is the edge's source, the frontier node its dst."""
+    if selection != "floyd":
+        raise NotImplementedError(
+            f"selection {selection!r} is not ported yet (only 'floyd')")
+    frontier = batch_nodes.to(torch.int32)
+    nodes = [frontier]
+    e_dst, e_src = [], []
+    for l, k_l in enumerate(fanouts):
+        nbrs = select_floyd(csc, frontier, k_l, prng.fold_in(key, l))
+        children = nbrs.reshape(-1)
+        e_dst.append(torch.repeat_interleave(frontier, k_l))
+        e_src.append(children)
+        nodes.append(children)
+        frontier = children
+    return torch.cat(nodes), torch.cat(e_dst), torch.cat(e_src)

@@ -1,0 +1,44 @@
+"""Set-counting as a batched rank search (port of ``rank_in_sorted`` from
+``repro/core/set_count.py``).
+
+Every query is independent: log₂(n) rounds of one compare against a
+gathered pivot. Both lowerings of the reference are kept, and both land on
+the exact searchsorted rank of a sorted stream, so they are bit-identical.
+"""
+from __future__ import annotations
+
+import torch
+
+from .graph import take
+
+
+def rank_in_sorted(sorted_arr: torch.Tensor, queries: torch.Tensor,
+                   side: str = "left", unroll: bool = False) -> torch.Tensor:
+    """rank[t] = searchsorted(sorted_arr, queries[t], side) as int32.
+
+    ``unroll=True`` is the reference's single-carry binary lifting (``pos
+    += 2^s`` while the pivot still ranks below the query); ``unroll=False``
+    its two-sided (lo, hi) bisection with the converged-lane freeze.
+    """
+    n = sorted_arr.shape[0]
+    steps = max(1, int(n).bit_length())  # search range is n+1 wide
+    if unroll:
+        pos = torch.zeros(queries.shape, dtype=torch.int32,
+                          device=queries.device)
+        for s in reversed(range(steps)):
+            cand = pos + (1 << s)
+            pivot = take(sorted_arr, torch.clamp(cand - 1, max=n - 1))
+            ok = (pivot < queries) if side == "left" else (pivot <= queries)
+            pos = torch.where(ok & (cand <= n), cand, pos)
+        return pos
+    lo = torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
+    hi = torch.full(queries.shape, n, dtype=torch.int32,
+                    device=queries.device)
+    for _ in range(steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        pivot = take(sorted_arr, mid)
+        go_right = (pivot < queries) if side == "left" else (pivot <= queries)
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo

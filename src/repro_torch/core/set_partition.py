@@ -1,0 +1,140 @@
+"""Set-partitioning — the UPE primitive (port of
+``repro/core/set_partition.py``, the parts the serve path runs).
+
+A stable digit pass is a multi-way set-partition: per-bucket inclusive
+prefix sums give each element its rank inside its bucket, and the
+relocation is a gather by the inverse permutation. ``tiled_digit_sources``
+splits one pass over a large array into per-tile partitions plus rank
+arithmetic over small [T, B] histogram tables — the merge-free
+``global_radix`` Ordering and the plain twin of the digit-pass kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from .graph import take
+
+
+def prefix_sum(x: torch.Tensor, axis: int = 0,
+               exclusive: bool = False) -> torch.Tensor:
+    """Inclusive (or exclusive) prefix sum along ``axis``, dtype kept."""
+    incl = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    return incl - x if exclusive else incl
+
+
+def gather_sources_from_counts(incl_counts: torch.Tensor,
+                               base: torch.Tensor) -> torch.Tensor:
+    """Inverse-permutation router: source index of every output slot.
+
+    ``incl_counts`` [N, B] inclusive per-bucket prefix sums, ``base`` [B]
+    exclusive bucket starts. Slot j belongs to the last bucket whose base
+    is ≤ j, at local rank r = j - base[b]; its source is the first i with
+    ``incl_counts[i, b] == r + 1`` (log₂ N bisection rounds per slot).
+    """
+    n, nb = incl_counts.shape
+    dev = incl_counts.device
+    j = torch.arange(n, dtype=torch.int32, device=dev)
+    b = (base[None, :] <= j[:, None]).sum(1, dtype=torch.int32) - 1
+    target = j - take(base, b) + 1
+    flat = incl_counts.reshape(-1)
+    lo = torch.zeros(n, dtype=torch.int32, device=dev)
+    hi = torch.full((n,), n, dtype=torch.int32, device=dev)
+    for _ in range(max(1, int(n).bit_length())):
+        mid = (lo + hi) >> 1
+        pivot = take(flat, torch.clamp(mid, 0, n - 1) * nb + b)
+        go_right = pivot < target
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
+def digit_relocation_sources(digit: torch.Tensor, n_buckets: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sources, bucket bases) for one stable digit pass over ``digit``."""
+    onehot = (digit[:, None] == torch.arange(
+        n_buckets, dtype=digit.dtype, device=digit.device)[None, :])
+    incl = prefix_sum(onehot.to(torch.int32), axis=0)  # [N, B]
+    counts = incl[-1]
+    base = prefix_sum(counts) - counts
+    return gather_sources_from_counts(incl, base), base
+
+
+def partition_tiles(digit: torch.Tensor, n_buckets: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile stable partition of ``digit`` [T, tile] by bucket.
+
+    Returns (local_src [T, tile], lbase [T, B]): ``local_src[t, s]`` is the
+    in-tile position of the element landing in slot s, which is what
+    ``digit_relocation_sources`` gives per tile (the inverse of the unique
+    stable-partition permutation), computed here by one scatter of each
+    element's destination instead of a bisection per slot.
+    """
+    t, tile = digit.shape
+    d = digit.to(torch.int64)
+    onehot = torch.zeros((t, tile, n_buckets), dtype=torch.int32,
+                         device=digit.device)
+    onehot.scatter_(2, d[:, :, None], 1)
+    incl = torch.cumsum(onehot, dim=1, dtype=torch.int32)
+    counts = incl[:, -1, :]  # [T, B]
+    lbase = torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
+    rank = incl.gather(2, d[:, :, None])[:, :, 0] - 1
+    dest = (lbase.gather(1, d) + rank).to(torch.int64)
+    local_src = torch.empty((t, tile), dtype=torch.int32, device=digit.device)
+    pos = torch.arange(tile, dtype=torch.int32,
+                       device=digit.device).expand(t, tile)
+    local_src.scatter_(1, dest, pos)
+    return local_src, lbase
+
+
+def tiled_digit_sources(digit: torch.Tensor, n_buckets: int,
+                        tile: int) -> torch.Tensor:
+    """Global one-digit-pass relocation sources via two-level rank
+    arithmetic: in-tile partitions plus the [T, B] histogram tables.
+
+    Output slot j of the stable pass lies in bucket b (last bucket with
+    global base ≤ j) at rank r = j - gbase[b]; its tile is the first t with
+    inclusive-over-tiles count ≥ r + 1, and its source is that tile's
+    in-tile permutation at ``lbase[t, b] + r - excl[t, b]``.
+    """
+    n = digit.shape[0]
+    if tile >= n:
+        return digit_relocation_sources(digit, n_buckets)[0]
+    assert n % tile == 0, (n, tile)
+    local_src, lbase = partition_tiles(digit.reshape(-1, tile), n_buckets)
+    hist = torch.diff(lbase, dim=1, append=torch.full(
+        (lbase.shape[0], 1), tile, dtype=torch.int32, device=digit.device))
+    incl_t = prefix_sum(hist, axis=0)
+    excl_t = incl_t - hist
+    counts = incl_t[-1]
+    gbase = prefix_sum(counts) - counts
+    part_src = rank_gather_sources(gbase, incl_t, excl_t, lbase, tile)
+    t = part_src // tile
+    return t * tile + take(local_src.reshape(-1), part_src)
+
+
+def rank_gather_sources(gbase: torch.Tensor, incl_t: torch.Tensor,
+                        excl_t: torch.Tensor, lbase: torch.Tensor,
+                        tile: int, j: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Output slot → source in the tile-partitioned layout (every slot
+    independent: log₂ T bisection rounds over the [T, B] tables).
+    ``j=None`` = all slots."""
+    n_tiles, nb = incl_t.shape
+    dev = incl_t.device
+    if j is None:
+        j = torch.arange(n_tiles * tile, dtype=torch.int32, device=dev)
+    b = (gbase[None, :] <= j[:, None]).sum(1, dtype=torch.int32) - 1
+    r = j - take(gbase, b)
+    target = r + 1
+    flat_incl = incl_t.reshape(-1)
+    lo = torch.zeros(j.shape, dtype=torch.int32, device=dev)
+    hi = torch.full(j.shape, n_tiles, dtype=torch.int32, device=dev)
+    for _ in range(max(1, int(n_tiles).bit_length())):
+        mid = (lo + hi) >> 1
+        pivot = take(flat_incl, torch.clamp(mid, 0, n_tiles - 1) * nb + b)
+        go_right = pivot < target
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    t = lo
+    r_in_tile = r - take(excl_t.reshape(-1), t * nb + b)
+    return t * tile + take(lbase.reshape(-1), t * nb + b) + r_in_tile

@@ -1,0 +1,165 @@
+"""The global_radix digit pass: tiled partition + histogram, a [T, B] table
+scan, the rank-gather of output-slot sources, and one gather (port of
+``global_digit_pass`` in ``repro/kernels/radix_sort.py``).
+
+``digit_partition_hist`` and ``digit_rank_gather`` launch the kernels of
+``csrc/digit_pass.cu`` on CUDA tensors and run their plain-torch twins on
+CPU tensors. The table scan and the final gather are plain torch on
+whichever device holds the data, as they were jnp in the reference.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.graph import take
+from repro_torch.core.ordering import DEFAULT_CHUNK
+from repro_torch.core.set_partition import partition_tiles, rank_gather_sources
+
+from . import _build
+
+# Dynamic shared memory one CTA of an H100 can use.
+MAX_SMEM_BYTES = 232448
+MAX_RADIX_BITS = 8
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "digit_partition_hist": (ctypes.c_int, (_P, _P, _P, _P, _P, _P, _I, _I,
+                                            _I, _I, _P)),
+    "digit_rank_gather": (ctypes.c_int, (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _P)),
+    "digit_partition_smem_bytes": (ctypes.c_size_t, (_I, _I, _I)),
+}
+
+
+def _lib():
+    return _build.load("digit_pass", _SIGNATURES)
+
+
+def _check_cuda_i32(*ts):
+    dev = ts[0].device
+    for t in ts:
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError("digit-pass kernels take contiguous int32 CUDA "
+                             "tensors on one device")
+
+
+def partition_smem_bytes(tile: int, n_buckets: int, has_vals: bool) -> int:
+    """Dynamic shared memory of one partition CTA (mirrors the C side)."""
+    return 4 * ((2 if has_vals else 1) * tile + (8 + 2) * n_buckets)
+
+
+def _partition_hist_plain(keys, vals, shift, tile, radix_bits):
+    nb = 1 << radix_bits
+    k2 = keys.reshape(-1, tile)
+    local_src, lbase = partition_tiles((k2 >> shift) & (nb - 1), nb)
+    hist = torch.diff(lbase, dim=1, append=torch.full(
+        (lbase.shape[0], 1), tile, dtype=torch.int32, device=keys.device))
+    idx = local_src.to(torch.int64)
+    pk = k2.gather(1, idx).reshape(-1)
+    pv = None if vals is None else vals.reshape(-1, tile).gather(
+        1, idx).reshape(-1)
+    return pk, pv, lbase, hist
+
+
+def digit_partition_hist(keys: torch.Tensor, vals: torch.Tensor | None,
+                         shift: int, tile: int, radix_bits: int = 4):
+    """Stable in-tile partition by digit ``(key >> shift) & (2^rb - 1)``.
+
+    keys (vals) [N] int32, N % tile == 0. Returns (partitioned keys,
+    partitioned vals or None, lbase [T, B], hist [T, B]): every tile laid
+    out bucket-major, then by in-tile position, with its in-tile bucket
+    bases and counts.
+    """
+    n = keys.shape[0]
+    if n % tile:
+        raise ValueError(f"size {n} is not a multiple of tile {tile}")
+    if not keys.is_cuda:
+        return _partition_hist_plain(keys, vals, shift, tile, radix_bits)
+    _check_cuda_i32(keys, *(() if vals is None else (vals,)))
+    nb = 1 << radix_bits
+    if radix_bits > MAX_RADIX_BITS:
+        raise ValueError(f"radix_bits {radix_bits} > {MAX_RADIX_BITS}: the "
+                         "kernel takes at most 256 buckets")
+    smem = partition_smem_bytes(tile, nb, vals is not None)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"tile {tile} needs {smem} bytes of shared memory; "
+                         f"one CTA has {MAX_SMEM_BYTES}")
+    n_tiles = n // tile
+    pk = torch.empty_like(keys)
+    pv = None if vals is None else torch.empty_like(vals)
+    lbase = torch.empty((n_tiles, nb), dtype=torch.int32, device=keys.device)
+    hist = torch.empty_like(lbase)
+    if n_tiles:
+        lib = _lib()
+        assert lib.digit_partition_smem_bytes(tile, nb, vals is not None) == smem
+        digit_partition_hist.launches += 1
+        _build.check(lib.digit_partition_hist(
+            keys.data_ptr(), None if vals is None else vals.data_ptr(),
+            pk.data_ptr(), None if pv is None else pv.data_ptr(),
+            lbase.data_ptr(), hist.data_ptr(), n_tiles, tile, shift, nb,
+            _build.stream_of(keys)), "digit_partition_hist")
+    return pk, pv, lbase, hist
+
+
+digit_partition_hist.launches = 0
+
+
+def digit_rank_gather(gbase: torch.Tensor, incl_t: torch.Tensor,
+                      excl_t: torch.Tensor, lbase: torch.Tensor,
+                      tile: int) -> torch.Tensor:
+    """Source index, in the tile-partitioned layout, of every output slot
+    of the stable pass (``set_partition.rank_gather_sources``)."""
+    if not gbase.is_cuda:
+        return rank_gather_sources(gbase, incl_t, excl_t, lbase, tile)
+    _check_cuda_i32(gbase, incl_t, excl_t, lbase)
+    n_tiles, nb = incl_t.shape
+    n = n_tiles * tile
+    out = torch.empty(n, dtype=torch.int32, device=gbase.device)
+    if n:
+        digit_rank_gather.launches += 1
+        _build.check(_lib().digit_rank_gather(
+            gbase.data_ptr(), incl_t.data_ptr(), excl_t.data_ptr(),
+            lbase.data_ptr(), out.data_ptr(), n, n_tiles, tile, nb,
+            _build.stream_of(gbase)), "digit_rank_gather")
+    return out
+
+
+digit_rank_gather.launches = 0
+
+
+def global_digit_pass(keys: torch.Tensor, values: torch.Tensor | None,
+                      shift: int, tile: int, radix_bits: int = 4
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One tiled global LSD digit pass: stable-partition the whole array by
+    ``(key >> shift) & (2^radix_bits - 1)``; ``values=None`` relocates the
+    keys alone."""
+    pk, pv, lbase, hist = digit_partition_hist(keys, values, shift, tile,
+                                               radix_bits)
+    # the small [T, B] table scan between the kernels, over tiles; run as a
+    # last-axis scan of the [B, T] transpose (a leading-axis CUDA cumsum
+    # walks the T rows one after another)
+    incl_t = torch.cumsum(hist.T.contiguous(), dim=1,
+                          dtype=torch.int32).T.contiguous()
+    excl_t = incl_t - hist
+    counts = incl_t[-1]
+    gbase = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+    src = digit_rank_gather(gbase.contiguous(), incl_t, excl_t, lbase, tile)
+    pk = take(pk, src)
+    if pv is not None:
+        pv = take(pv, src)
+    return pk, pv
+
+
+def make_digit_pass_fn(radix_bits: int = 4, tile: int | None = None):
+    """``digit_pass_fn`` for ``ordering.global_radix_sort_by_key`` with the
+    digit width and histogram tile routed from ``EngineConfig``."""
+
+    def digit_pass_fn(keys, vals, shift):
+        t = min(DEFAULT_CHUNK if tile is None else tile, keys.shape[0])
+        return global_digit_pass(keys, vals, shift, tile=t,
+                                 radix_bits=radix_bits)
+
+    return digit_pass_fn

@@ -22,3 +22,9 @@ def run_under_devices(code: str, n: int = 8) -> str:
                        timeout=600)
     assert r.returncode == 0, r.stdout + "\n" + r.stderr
     return r.stdout
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card and nvcc (the hand-written "
+        "kernels); skips with a reason on a host without them")

@@ -1,0 +1,71 @@
+"""The port stands alone: no module under src/repro_torch/, and not
+chip_smoke.py, imports jax or the JAX package `repro`; importing the port
+leaves jax out of sys.modules; and importing a kernel module builds
+nothing (kernels compile at first launch)."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_file_inventory():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for must in ("chip_smoke.py", "src/repro_torch/core/pipeline.py",
+                 "src/repro_torch/kernels/radix_sort.py",
+                 "src/repro_torch/kernels/reindex_epilogue.py",
+                 "src/repro_torch/serve/gnn.py"):
+        assert must in names, must
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.core.pipeline, repro_torch.serve\n"
+        "import repro_torch.kernels.radix_sort\n"
+        "import repro_torch.kernels.reindex_epilogue\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.kernels import _build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "assert not _build._LIBS\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
