@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's GraphSAGE serve path on one H100.
+"""Drive the PyTorch + CUDA port's GraphSAGE serve paths on one H100.
 
   python3 chip_smoke.py
 
@@ -10,23 +10,40 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    device name; no card → exit 2 before any result.
 2. build   — nvcc compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a,
    one process per source, all in parallel (ptxas usage is printed).
-3. kernels — each kernel (both digit-pass variants) against its plain-torch
-   twin on the card at the serve path's shapes, element for element, with
-   its time (CUDA events after a warm-up), the twin's time, one PyTorch
-   library call's time as a yardstick, and its bound.
-4. main path — launch counters set to 0; the Reddit-scale ``convert``
+3. kernels — each of the eight kernels (and the keys-only, shuffled and
+   D = 1 variants) against its plain-torch twin on the card at the serve
+   paths' shapes, with its time (CUDA events after a warm-up), the twin's
+   time, one PyTorch library call's time as a yardstick, and its bound.
+   Integer kernels must match element for element; the segment sum must
+   be within rtol 1e-5 / atol 1e-4 of the float64 sum and give the same
+   bits on two launches.
+4. slice path — launch counters set to 0; the Reddit-scale ``convert``
    (232,965 nodes, 114,615,892 synthetic power-law edges in a 2^27 COO)
-   under the slice configuration, then ``GnnServeEngine`` serving 16
-   requests of 1..1024 seeds at full graphsage-reddit width (602 features,
-   2 × 128 hidden, fanouts 25-10, 41 classes, 4 slots); counters read.
-5. checks  — convert bit-identical to the torch.sort strategy on the same
-   COO; every request bit-identical to a sequential per-request slot_fn
-   loop; the convert-scale pointer rank (232,966 queries over 2^27) and the
-   digit pass at 2^24 pairs against their twins, the digit pass also timed
-   at 2^27; a small graph served on the card equal to the CPU path.
-   Then the largest request once more under ``torch.profiler``: its wall
-   time, its kernels' device time and the ops that take the most of it.
-6. report  — the kernels JSON line, then the last line
+   under ``SLICE_CFG``, then ``GnnServeEngine`` serving 16 requests of
+   1..1024 seeds at full graphsage-reddit width (602 features, 2 × 128
+   hidden, fanouts 25-10, 41 classes, 4 slots); counters read.
+5. slice checks — convert bit-identical to the torch.sort strategy on the
+   same COO; every request bit-identical to a sequential per-request
+   slot_fn loop; the convert-scale pointer rank (232,966 queries over
+   2^27) and the digit pass at 2^24 pairs against their twins, the digit
+   pass also timed at 2^27; a small graph served on the card equal to the
+   CPU path. Then the largest request once more under ``torch.profiler``:
+   its wall time, its kernels' device time and the ops that take the most
+   of it.
+6. merge path — launch counters set to 0; ``convert`` under ``MERGE_CFG``
+   (chunked_merge sorts, unfused set-count pointer build) of a 2^24-edge
+   power-law COO over Reddit's 232,965 nodes (a reduced depth: the
+   set-count pointer build is all-pairs), then the same 16 requests served
+   under ``MERGE_CFG`` with ``use_pallas_agg`` on the slice path's CSC;
+   counters read.
+7. merge checks — that convert bit-identical to the torch.sort strategy;
+   batched == sequential; four requests' subgraphs equal to the slice
+   path's and their logits within LOGIT_TOL of the slice path's forward (argmax
+   equal wherever the top-two margin exceeds it); a small graph under
+   ``MERGE_CFG`` on the card equal to the CPU path; the profile of one
+   request.
+8. report  — every one of the eight kernels launched across the two paths;
+   the kernels JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
@@ -58,6 +75,18 @@ CONVERT_CAP = 1 << 27  # pow2 COO capacity of the Reddit edge list
 SEED_CAP, N_SLOTS = 1024, 4  # the batch Workload.b prices; engine slots
 # digit-pass sizes checked (2^24: compared with the twin) and timed (2^27)
 DIGIT_SIZES = ((1 << 24, True), (1 << 27, False))
+MERGE_CONVERT_CAP = 1 << 24  # the merge path's convert: 2^24 edges
+SEG_RTOL, SEG_ATOL = 1e-5, 1e-4  # segment sum against the float64 sum
+# MERGE_CFG logits against the slice path's: the pointer segment sum
+# differences float32 prefix sums over 2^19 message rows (cancellation of
+# about 1e-4 per aggregate), the kernel sums each segment directly. Ten
+# times the largest error read on the card: 7.3e-5 (NVIDIA H100 80GB HBM3,
+# 700 W, every run of this script so far)
+LOGIT_TOL = 7.5e-4
+SLICE_KERNELS = ("digit_partition_hist", "digit_rank_gather", "rank_search",
+                 "rename")
+MERGE_KERNELS = ("chunk_sort", "fused_merge", "set_count_less",
+                 "segment_sum_sorted")
 
 
 def log(*a):
@@ -248,6 +277,176 @@ def kernel_phase(dev, seed):
     return rows, extra
 
 
+def merge_kernel_phase(dev, seed):
+    """The merge path's four kernels against their twins at its shapes:
+    the sub-convert's 2^19-pair sort (chunk 4096, a 19-bit bound: 5
+    passes), the subgraph pointer build's set count (282,625 targets over
+    the 524,288-long sorted dst), and the two layers' segment sums."""
+    import torch
+    from repro_torch.core.graph import SENTINEL
+    from repro_torch.core.set_count import count_less_than
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import merge as tm
+    from repro_torch.kernels import radix_sort as trs
+    from repro_torch.kernels import segment_agg as tsa
+    from repro_torch.kernels import set_count as tsc
+
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    n = SERVE_CAP
+    rows, runs = {}, {}
+    key_bits = SERVE_NODES.bit_length()
+    passes = -(-key_bits // RADIX_BITS)
+    keys = torch.full((n,), SERVE_NODES, dtype=torch.int32, device=dev)
+    keys[:SERVE_EDGES] = torch.randint(0, SERVE_NODES, (SERVE_EDGES,),
+                                       generator=g, device=dev,
+                                       dtype=torch.int32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    lib = trs._lib()
+    for with_vals in (True, False):
+        v = vals if with_vals else None
+        got = trs.chunk_sort(keys, v, TILE, key_bits, RADIX_BITS)
+        want = trs._chunk_sort(keys, v, TILE, key_bits, RADIX_BITS)
+        torch.cuda.synchronize()
+        err = max_err([x for x in got if x is not None],
+                      [x for x in want if x is not None])
+        check(err == 0, f"chunk_sort (vals={with_vals}) == twin")
+        runs[with_vals] = got
+        ok, ov = (x.clone() if x is not None else None for x in got)
+        ms = cuda_ms(lambda: lib.chunk_sort(
+            keys.data_ptr(), None if v is None else v.data_ptr(),
+            ok.data_ptr(), None if ov is None else ov.data_ptr(), n // TILE,
+            TILE, passes, RADIX_BITS, _build.stream_of(keys)))
+        plain_ms = cuda_ms(lambda: trs._chunk_sort(
+            keys, v, TILE, key_bits, RADIX_BITS), iters=3, warmup=1)
+
+        def library():
+            st = torch.sort(keys.view(-1, TILE), dim=1, stable=True)
+            return st.values, (None if v is None else
+                               v.view(-1, TILE).gather(1, st.indices))
+        streams = 2 if with_vals else 1
+        b_ms, b_by = bound(2 * 4 * n * streams, n * passes)
+        rows["chunk_sort" + ("" if with_vals else "/keys_only")] = dict(
+            name="chunk_sort", route="cuda",
+            source="src/repro_torch/csrc/digit_pass.cu",
+            replaces="src/repro/kernels/radix_sort.py:"
+                     + ("65" if with_vals else "98"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=cuda_ms(library, iters=5),
+            shape=f"{n} {'pairs' if with_vals else 'keys'}, chunk {TILE}, "
+                  f"{passes} passes of {RADIX_BITS} bits")
+
+    fans = tm._round_fan_ins(n, TILE, tm.DEFAULT_MAX_BLOCK, 2)
+    mlib = _build.load("merge", tm._SIGNATURES)
+    for with_vals in (True, False):
+        ks, vs = runs[with_vals]
+        ok, ov, block = tm.fused_merge_rounds(ks, vs, TILE)
+        want = tm.merge_ladder(ks, vs, TILE, fans)
+        torch.cuda.synchronize()
+        check(block == min(n, tm.DEFAULT_MAX_BLOCK), f"merged run {block}")
+        err = max_err([x for x in (ok, ov) if x is not None],
+                      [x for x in want if x is not None])
+        check(err == 0, f"fused_merge (vals={with_vals}) == twin")
+        ms = cuda_ms(lambda: mlib.fused_merge(
+            ks.data_ptr(), None if vs is None else vs.data_ptr(),
+            ok.data_ptr(), None if ov is None else ov.data_ptr(), n, TILE,
+            block, _build.stream_of(ks)))
+        plain_ms = cuda_ms(lambda: tm.merge_ladder(ks, vs, TILE, fans),
+                           iters=3, warmup=1)
+
+        def library():
+            st = torch.sort(ks.view(-1, block), dim=1, stable=True)
+            return st.values, (None if vs is None else
+                               vs.view(-1, block).gather(1, st.indices))
+        streams = 2 if with_vals else 1
+        b_ms, b_by = bound(2 * 4 * n * streams, n * len(fans))
+        rows["fused_merge" + ("" if with_vals else "/keys_only")] = dict(
+            name="fused_merge", route="cuda",
+            source="src/repro_torch/csrc/merge.cu",
+            replaces="src/repro/kernels/merge.py:"
+                     + ("118" if with_vals else "109"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=cuda_ms(library, iters=5),
+            shape=f"{n} {'pairs' if with_vals else 'keys'}, runs {TILE} → "
+                  f"{block} ({len(fans)} rungs of fan-in 2)")
+
+    # set count: the subgraph pointer build, the sorted dst with its
+    # SENTINEL tail, then the same elements shuffled
+    sdst = torch.full((n,), SENTINEL, dtype=torch.int32, device=dev)
+    sdst[:SERVE_EDGES] = torch.sort(torch.randint(
+        0, SERVE_NODES, (SERVE_EDGES,), generator=g, device=dev,
+        dtype=torch.int32)).values
+    targets = torch.arange(SERVE_NODES + 1, dtype=torch.int32, device=dev)
+    q = targets.numel()
+    rank = torch.searchsorted(sdst, targets, out_int32=True)
+    sclib = _build.load("set_count", tsc._SIGNATURES)
+    for shuffled in (False, True):
+        el = sdst[torch.randperm(n, generator=g, device=dev)] if shuffled \
+            else sdst
+        got = tsc.set_count_less(el, targets)
+        want = count_less_than(el, targets)
+        torch.cuda.synchronize()
+        err = max_err([got], [want])
+        check(err == 0 and torch.equal(got, rank),
+              f"set_count_less (shuffled={shuffled}) == twin == rank")
+        ms = cuda_ms(lambda: sclib.set_count_less(
+            el.data_ptr(), n, targets.data_ptr(), q, got.data_ptr(),
+            _build.stream_of(got)), iters=5)
+        plain_ms = cuda_ms(lambda: count_less_than(el, targets), iters=2,
+                           warmup=1)
+        b_ms, b_by = bound(4 * (n + 2 * q), q * n)
+        rows["set_count_less" + ("/shuffled" if shuffled else "")] = dict(
+            name="set_count_less", route="cuda",
+            source="src/repro_torch/csrc/set_count.cu",
+            replaces="src/repro/kernels/set_count.py:44", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: torch.searchsorted(sdst, targets)),
+            shape=f"{q} targets over {n} {'shuffled' if shuffled else 'sorted'}"
+                  " elements (library: torch.searchsorted on the sorted "
+                  "elements)")
+
+    # segment sum: the two message widths of layer 1 (features, degree)
+    dst = sdst
+    dst_lib = torch.clamp(dst, max=SERVE_NODES).to(torch.int64)
+    salib = _build.load("segment_agg", tsa._SIGNATURES)
+    for d in (REDDIT["feats"], 1):
+        msgs = torch.randn((n, d), generator=g, device=dev)
+        got = tsa.segment_sum_sorted(dst, msgs, SERVE_NODES)
+        again = tsa.segment_sum_sorted(dst, msgs, SERVE_NODES)
+        w64 = torch.zeros((SERVE_NODES + 1, d), dtype=torch.float64,
+                          device=dev).index_add_(0, dst_lib, msgs.double())
+        w64 = w64[:SERVE_NODES]
+        torch.cuda.synchronize()
+        err = float((got.double() - w64).abs().max())
+        check(torch.allclose(got.double(), w64, rtol=SEG_RTOL, atol=SEG_ATOL),
+              f"segment_sum_sorted D={d} within rtol {SEG_RTOL} atol "
+              f"{SEG_ATOL} of the float64 sum (max err {err})")
+        check(torch.equal(got, again), f"segment_sum_sorted D={d}: two "
+              "launches give the same bits")
+        del w64, again
+        ms = cuda_ms(lambda: salib.segment_sum_sorted(
+            dst.data_ptr(), n, msgs.data_ptr(), d, got.data_ptr(),
+            SERVE_NODES, _build.stream_of(got)))
+        plain_ms = cuda_ms(lambda: tsa._segment_sum_plain(dst, msgs,
+                                                          SERVE_NODES),
+                           iters=5)
+        lib_ms = cuda_ms(lambda: torch.zeros(
+            (SERVE_NODES + 1, d), device=dev).index_add_(0, dst_lib, msgs))
+        # only the live rows count: the per-node spans never reach the
+        # SENTINEL tail of dst or its message rows
+        b_ms, b_by = bound(4 * (SERVE_EDGES * d + SERVE_NODES * d
+                                + SERVE_EDGES), SERVE_EDGES * d)
+        rows["segment_sum_sorted" + ("" if d > 1 else "/d1")] = dict(
+            name="segment_sum_sorted", route="cuda",
+            source="src/repro_torch/csrc/segment_agg.cu",
+            replaces="src/repro/kernels/segment_agg.py:63", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
+            shape=f"[{n}, {d}] → [{SERVE_NODES}, {d}] float32 (error "
+                  "against the float64 sum; library: index_add_)")
+        del msgs, got
+    return rows
+
+
 # ------------------------------------------------------------- phases 4-5
 def main_path(dev, seed, n_requests):
     """Launch counters to 0, the Reddit-scale convert, the serve run,
@@ -271,7 +470,8 @@ def main_path(dev, seed, n_requests):
                         device=dev)
     model = GraphSAGE(config(), d_in=REDDIT["feats"],
                       n_classes=REDDIT["classes"],
-                      generator=torch.Generator().manual_seed(seed + 2))
+                      generator=torch.Generator().manual_seed(seed + 2),
+                      device=dev)
     torch.cuda.synchronize()
     out["setup_s"] = time.perf_counter() - t0
 
@@ -310,23 +510,20 @@ def main_path(dev, seed, n_requests):
         requests=n_requests, seeds=sum(map(len, reqs)), steps=eng.stats.steps,
         wall_s=dt, preds_per_s=sum(map(len, reqs)) / dt,
         p50_ms=percentile(lat, 0.5) * 1e3, p99_ms=percentile(lat, 0.99) * 1e3)
-    return out, coo, csc, eng, reqs, handles
+    return out, coo, csc, eng, reqs, handles, feats
 
 
 def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
     """Everything held against a reference, after the counted run."""
-    import numpy as np
     import torch
     from repro_torch.core import pipeline
     from repro_torch.core.costmodel import EngineConfig
-    from repro_torch.core.graph import COO, SENTINEL, random_coo
+    from repro_torch.core.graph import SENTINEL
     from repro_torch.kernels import radix_sort as trs
     from repro_torch.kernels import reindex_epilogue as tre
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import SLICE_CFG
     from repro_torch.configs.graphsage_reddit import smoke_config
-    from repro_torch.models.gnn import GraphSAGE
-    from repro_torch.serve import GnnServeEngine
 
     # (a) convert == the torch.sort strategy on the same COO
     t0 = time.perf_counter()
@@ -341,14 +538,7 @@ def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
     del ref
 
     # (b) batched serving == the sequential per-request slot_fn loop
-    for h, seeds in zip(handles, reqs):
-        row = torch.full((eng.seed_cap,), SENTINEL, dtype=torch.int32)
-        row[:len(seeds)] = torch.tensor(seeds, dtype=torch.int32)
-        seq = eng.slot_fn(eng.params, row.to(dev), eng.request_key(h.rid))
-        check(h.tokens_out == seq[:len(seeds)].tolist(),
-              f"request {h.rid}: batched == sequential")
-        check(all(0 <= p < REDDIT["classes"] for p in h.tokens_out),
-              f"request {h.rid}: predictions are class ids")
+    batched_equals_sequential(eng, reqs, handles, "slice")
 
     # (c) the convert-scale pointer rank (232,966 queries over 2^27)
     n = REDDIT["nodes"]
@@ -411,43 +601,195 @@ def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
             lambda: torch.sort(keys, stable=True), iters=3, warmup=1)
         del keys, vals, got, pk, pv, src
 
-    # (e) a small graph served on the card equals the CPU path (integers
-    # exact; logits within 1e-4: cuBLAS and the CUDA cumsum sum in another
-    # order than the CPU)
+    # (e) a small graph served on the card equals the CPU path
+    small_graph_check(dev, seed, SLICE_CFG, smoke_config(), extra, "slice")
+
+
+def seed_row(eng, seeds):
+    """A request's SENTINEL-padded seed row on the engine's device."""
+    import torch
+    from repro_torch.core.graph import SENTINEL
+    row = torch.full((eng.seed_cap,), SENTINEL, dtype=torch.int32)
+    row[:len(seeds)] = torch.tensor(seeds, dtype=torch.int32)
+    return row.to(eng.device)
+
+
+def batched_equals_sequential(eng, reqs, handles, tag):
+    """Every served request equals the sequential per-request slot_fn."""
+    for h, seeds in zip(handles, reqs):
+        seq = eng.slot_fn(eng.params, seed_row(eng, seeds),
+                          eng.request_key(h.rid))
+        check(h.tokens_out == seq[:len(seeds)].tolist(),
+              f"{tag} request {h.rid}: batched == sequential")
+        check(all(0 <= p < REDDIT["classes"] for p in h.tokens_out),
+              f"{tag} request {h.rid}: predictions are class ids")
+
+
+def small_graph_check(dev, seed, cfg, gnn_cfg, extra, tag):
+    """A small graph converted, sampled and run through the forward on the
+    card under ``cfg`` equals the CPU path: integers exact, logits within
+    1e-4 (cuBLAS and the card's sums add in another order than the
+    CPU)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import COO, random_coo
+    from repro_torch.models.gnn import GraphSAGE, subgraph_batch
+
     d, s = random_coo(np.random.default_rng(seed), 3000, 20000)
     small = COO.from_arrays(d, s, 3000, capacity=1 << 15, device="cpu")
-    feats = np.random.default_rng(seed + 1).normal(size=(3000, 24)
-                                                   ).astype(np.float32)
-    model = GraphSAGE(smoke_config(), d_in=24, n_classes=5,
-                      generator=torch.Generator().manual_seed(seed))
-    csc_c = pipeline.convert(small, SLICE_CFG, device="cpu")
-    csc_g = pipeline.convert(small, SLICE_CFG, device=dev)
+    feats = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(3000, 24)).astype(np.float32))
+    model = GraphSAGE(gnn_cfg, d_in=24, n_classes=5,
+                      generator=torch.Generator().manual_seed(seed),
+                      device="cpu")
+    csc_c = pipeline.convert(small, cfg, device="cpu")
+    csc_g = pipeline.convert(small, cfg, device=dev)
     check(torch.equal(csc_g.ptr.cpu(), csc_c.ptr) and
-          torch.equal(csc_g.idx.cpu(), csc_c.idx), "small convert: card == CPU")
-    import copy
-    e_c = GnnServeEngine(copy.deepcopy(model), csc_c, feats, seed_cap=64,
-                         fanouts=(25, 10), cfg=SLICE_CFG, device="cpu")
-    e_g = GnnServeEngine(copy.deepcopy(model), csc_g, feats, seed_cap=64,
-                         fanouts=(25, 10), cfg=SLICE_CFG, device=dev)
+          torch.equal(csc_g.idx.cpu(), csc_c.idx),
+          f"{tag} small convert: card == CPU")
     seeds = np.random.default_rng(seed + 2).choice(3000, 64, replace=False)
-    key = e_c.request_key(0)
+    from repro_torch.core import prng
+    key = prng.fold_in(prng.PRNGKey(0), 0)
     row = torch.from_numpy(seeds.astype(np.int32))
-    sub_c = pipeline.sample_subgraph(csc_c, row, (25, 10), key, SLICE_CFG)
-    sub_g = pipeline.sample_subgraph(csc_g, row.to(dev), (25, 10), key,
-                                     SLICE_CFG)
+    sub_c = pipeline.sample_subgraph(csc_c, row, (25, 10), key, cfg)
+    sub_g = pipeline.sample_subgraph(csc_g, row.to(dev), (25, 10), key, cfg)
     for a, b, what in ((sub_g.csc.ptr, sub_c.csc.ptr, "ptr"),
                        (sub_g.csc.idx, sub_c.csc.idx, "idx"),
                        (sub_g.order, sub_c.order, "order")):
-        check(torch.equal(a.cpu(), b), f"small subgraph {what}: card == CPU")
-    from repro_torch.models.gnn import subgraph_batch
+        check(torch.equal(a.cpu(), b),
+              f"{tag} small subgraph {what}: card == CPU")
     with torch.no_grad():
-        lc = e_c.params["gnn"](subgraph_batch(sub_c, e_c.params["features"]))
-        lg = e_g.params["gnn"](subgraph_batch(sub_g, e_g.params["features"]))
+        lc = model(subgraph_batch(sub_c, feats))
+        lg = model.to(dev)(subgraph_batch(sub_g, feats.to(dev)))
     err = float((lg.cpu() - lc).abs().max())
-    extra["small_logit_max_abs_err"] = err
+    extra[f"{tag}_small_logit_max_abs_err"] = err
     check(torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4),
-          f"small logits card vs CPU within 1e-4 (max err {err})")
-    check(bool(torch.isfinite(lg).all()), "finite logits")
+          f"{tag} small logits card vs CPU within 1e-4 (max err {err})")
+    check(bool(torch.isfinite(lg).all()), f"{tag} finite logits")
+
+
+# ------------------------------------------------------------- phases 6-7
+def merge_path(dev, seed, n_requests, csc, feats):
+    """Launch counters to 0, the MERGE_CFG convert at 2^24 edges, then the
+    slice path's requests served under MERGE_CFG with use_pallas_agg on
+    the slice path's CSC (same weights), counters read."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.graphsage_reddit import config
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import MERGE_CFG, percentile
+    from repro_torch.models.gnn import GraphSAGE
+    from repro_torch.serve import GnnServeEngine
+
+    out = {}
+    coo = synthetic_coo(REDDIT["nodes"], MERGE_CONVERT_CAP, MERGE_CONVERT_CAP,
+                        seed + 5, device=dev)
+    model = GraphSAGE(dataclasses.replace(config(), use_pallas_agg=True),
+                      d_in=REDDIT["feats"], n_classes=REDDIT["classes"],
+                      generator=torch.Generator().manual_seed(seed + 2),
+                      device=dev)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    csc_m = pipeline.convert(coo, MERGE_CFG, device=dev)
+    torch.cuda.synchronize()
+    out["convert_s"] = time.perf_counter() - t0
+    out["convert_launches"] = launch_counts()
+
+    eng = GnnServeEngine(model, csc, feats, n_slots=N_SLOTS,
+                         seed_cap=SEED_CAP, cfg=MERGE_CFG, device=dev)
+    rng = np.random.default_rng(seed)  # the slice path's requests and ids
+    eng.submit(rng.choice(REDDIT["nodes"], 16, replace=False).tolist())
+    eng.close_submissions()
+    eng.run()  # warm-up request
+    torch.cuda.synchronize()
+    eng.reopen()
+    reqs = [rng.choice(REDDIT["nodes"], int(k), replace=False).tolist()
+            for k in rng.integers(1, SEED_CAP + 1, n_requests)]
+    before = launch_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(s) for s in reqs]
+    eng.close_submissions()
+    completed = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    out["serve_launches"] = {k: launches[k] - before[k] for k in launches}
+    out["launches"] = launches
+    check(len(completed) == n_requests, "merge: every request retired")
+    lat = [r.total_latency_s for r in completed]
+    out["serve"] = dict(
+        requests=n_requests, seeds=sum(map(len, reqs)), steps=eng.stats.steps,
+        wall_s=dt, preds_per_s=sum(map(len, reqs)) / dt,
+        p50_ms=percentile(lat, 0.5) * 1e3, p99_ms=percentile(lat, 0.99) * 1e3)
+    return out, coo, csc_m, eng, reqs, handles
+
+
+def merge_checks(dev, seed, coo, csc_m, eng, reqs, handles, eng_s, extra):
+    """The merge path held against the torch.sort convert, its own
+    sequential loop, the slice path's subgraphs and logits, and the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.graphsage_reddit import smoke_config
+    from repro_torch.core import pipeline
+    from repro_torch.core.costmodel import EngineConfig
+    from repro_torch.launch.serve import MERGE_CFG, SLICE_CFG
+    from repro_torch.models.gnn import subgraph_batch
+
+    # (a) the 2^24 convert == the torch.sort strategy on the same COO
+    t0 = time.perf_counter()
+    ref = pipeline.convert(coo, EngineConfig(sort_strategy="xla_sort",
+                                             reindex_strategy="fused"),
+                           device=dev)
+    torch.cuda.synchronize()
+    extra["merge_convert_torch_sort_s"] = time.perf_counter() - t0
+    check(torch.equal(csc_m.ptr, ref.ptr) and torch.equal(csc_m.idx, ref.idx),
+          "merge convert (2^24) == torch.sort strategy")
+    check(int(csc_m.ptr[-1]) == MERGE_CONVERT_CAP, "merge ptr[-1] == edges")
+    del ref
+
+    # (b) batched == sequential
+    batched_equals_sequential(eng, reqs, handles, "merge")
+
+    # (c) four requests: the same subgraph as SLICE_CFG samples, and logits
+    # within LOGIT_TOL of the slice path's pointer-segment-sum forward
+    big = sorted(range(len(reqs)), key=lambda i: -len(reqs[i]))[:4]
+    errs = []
+    for i in big:
+        row, key = seed_row(eng, reqs[i]), eng.request_key(handles[i].rid)
+        check(key == eng_s.request_key(handles[i].rid), "same request key")
+        sub_m = pipeline.sample_subgraph(eng.params["csc"], row, eng.fanouts,
+                                         key, MERGE_CFG)
+        sub_s = pipeline.sample_subgraph(eng_s.params["csc"], row,
+                                         eng_s.fanouts, key, SLICE_CFG)
+        for a, b, what in ((sub_m.order, sub_s.order, "order"),
+                           (sub_m.csc.ptr, sub_s.csc.ptr, "ptr"),
+                           (sub_m.csc.idx, sub_s.csc.idx, "idx")):
+            check(torch.equal(a, b), f"merge subgraph {what} == slice "
+                  f"(request {handles[i].rid})")
+        batch = subgraph_batch(sub_m, eng.params["features"])
+        with torch.no_grad():
+            lm = eng.params["gnn"](batch)
+            ls = eng_s.params["gnn"](batch)
+        err = float((lm - ls).abs().max())
+        errs.append(err)
+        check(err <= LOGIT_TOL, f"merge logits within {LOGIT_TOL} of slice "
+              f"(request {handles[i].rid}: {err})")
+        top2 = torch.topk(ls, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+        check(torch.equal(lm.argmax(-1)[clear], ls.argmax(-1)[clear]),
+              f"merge argmax == slice where the margin exceeds {LOGIT_TOL}")
+    extra["merge_vs_slice_logit_max_abs_err"] = max(errs)
+
+    # (d) a small graph under MERGE_CFG on the card equals the CPU path
+    small_graph_check(dev, seed, MERGE_CFG,
+                      dataclasses.replace(smoke_config(), use_pallas_agg=True),
+                      extra, "merge")
 
 
 def profile_phase(eng, seeds, rid, top=8):
@@ -523,57 +865,69 @@ def main():
 
     # 3. kernels
     rows, extra = kernel_phase(dev, args.seed)
+    rows.update(merge_kernel_phase(dev, args.seed))
     for key, r in rows.items():
         log(f"[kernel] {key} ({r['shape']}): {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']}")
 
-    # 4. main path
-    out, coo, csc, eng, reqs, handles = main_path(dev, args.seed,
-                                                  args.requests)
+    # 4. the slice path
+    out, coo, csc, eng, reqs, handles, feats = main_path(dev, args.seed,
+                                                         args.requests)
     log(f"[convert] Reddit scale ({REDDIT['nodes']} nodes, "
         f"{REDDIT['edges']} edges, capacity 2^27): {out['convert_s']:.3f}s; "
         f"launches {out['convert_launches']}")
-    sv = out["serve"]
-    log(f"[serve] {sv['requests']} requests, {sv['seeds']} predictions in "
-        f"{sv['wall_s']:.3f}s: {sv['preds_per_s']:.1f} pred/s, request "
-        f"latency p50 {sv['p50_ms']:.1f} ms p99 {sv['p99_ms']:.1f} ms, "
-        f"{sv['steps']} steps; launches {out['serve_launches']}; peak "
-        f"{out['peak_mem_gib']:.2f} GiB")
-    launches = out["launches"]
-    check(all(v > 0 for v in launches.values()),
-          f"every kernel launched on the main path: {launches}")
+    log_serve("serve", out)
+    check(all(out["launches"][k] > 0 for k in SLICE_KERNELS),
+          f"every kernel of the slice path launched: {out['launches']}")
 
-    # 5. checks
+    # 5. slice checks and profile
     checks(dev, args.seed, coo, csc, eng, reqs, handles, extra)
-    log(f"[checks] convert == torch.sort strategy, batched == sequential, "
-        f"kernels == twins at convert scale, card == CPU on a small graph: "
-        f"ok; {json.dumps(extra)}")
-
-    # where a request's time goes (largest request of the run)
+    log("[checks] convert == torch.sort strategy, batched == sequential, "
+        "kernels == twins at convert scale, card == CPU on a small graph: ok")
     big = max(range(len(reqs)), key=lambda i: len(reqs[i]))
-    prof = profile_phase(eng, reqs[big], handles[big].rid)
-    out["profile"] = prof
-    del coo, csc, eng
-    log(f"[profile] one request of {prof['seeds']} seeds: wall "
-        f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
-        f"(busy share {prof['device_busy_share']:.3f}); top by device time:")
-    for r in prof["top"]:
-        log(f"[profile]   {r['device_ms']:10.3f} ms  x{r['count']:<5d} "
-            f"{r['name']}")
+    out["profile"] = profile_phase(eng, reqs[big], handles[big].rid)
+    log_profile("profile", out["profile"])
+    del coo
 
-    # 6. report
+    # 6. the merge path
+    mout, mcoo, mcsc, meng, mreqs, mhandles = merge_path(dev, args.seed,
+                                                         args.requests, csc,
+                                                         feats)
+    log(f"[merge convert] {REDDIT['nodes']} nodes, {MERGE_CONVERT_CAP} "
+        f"edges (capacity 2^24) under MERGE_CFG: {mout['convert_s']:.3f}s; "
+        f"launches {mout['convert_launches']}")
+    log_serve("merge serve", mout)
+    check(all(mout["launches"][k] > 0 for k in MERGE_KERNELS),
+          f"every kernel of the merge path launched: {mout['launches']}")
+
+    # 7. merge checks and profile
+    merge_checks(dev, args.seed, mcoo, mcsc, meng, mreqs, mhandles, eng,
+                 extra)
+    log("[merge checks] convert == torch.sort strategy, batched == "
+        "sequential, subgraphs == slice path's, logits within "
+        f"{LOGIT_TOL} of the slice path's, card == CPU on a small graph: ok")
+    mout["profile"] = profile_phase(meng, mreqs[big], mhandles[big].rid)
+    log_profile("merge profile", mout["profile"])
+    log(f"[extra] {json.dumps(extra)}")
+    del mcoo, mcsc, meng, csc, eng
+
+    # 8. report
+    launches = {k: out["launches"][k] + mout["launches"][k]
+                for k in out["launches"]}
+    check(all(v > 0 for v in launches.values()),
+          f"all eight kernels launched across the two paths: {launches}")
     kernels = []
-    for key in ("digit_partition_hist", "digit_rank_gather", "rank_search",
-                "rename"):
+    for key in SLICE_KERNELS + MERGE_KERNELS:
         r = {k: v for k, v in rows[key].items() if k != "shape"}
         r["launches"] = launches[key]
         kernels.append(r)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=smi, rows=rows, main_path=out, extra=extra,
-                       seconds=time.perf_counter() - t_start), f, indent=1)
+        json.dump(dict(card=smi, rows=rows, main_path=out, merge_path=mout,
+                       extra=extra, seconds=time.perf_counter() - t_start),
+                  f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernel_launches": launches}))
@@ -582,6 +936,25 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def log_serve(tag, out):
+    sv = out["serve"]
+    log(f"[{tag}] {sv['requests']} requests, {sv['seeds']} predictions in "
+        f"{sv['wall_s']:.3f}s: {sv['preds_per_s']:.1f} pred/s, request "
+        f"latency p50 {sv['p50_ms']:.1f} ms p99 {sv['p99_ms']:.1f} ms, "
+        f"{sv['steps']} steps; launches {out['serve_launches']}"
+        + (f"; peak {out['peak_mem_gib']:.2f} GiB" if "peak_mem_gib" in out
+           else ""))
+
+
+def log_profile(tag, prof):
+    log(f"[{tag}] one request of {prof['seeds']} seeds: wall "
+        f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
+        f"(busy share {prof['device_busy_share']:.3f}); top by device time:")
+    for r in prof["top"]:
+        log(f"[{tag}]   {r['device_ms']:10.3f} ms  x{r['count']:<5d} "
+            f"{r['name']}")
 
 
 if __name__ == "__main__":

@@ -1,39 +1,37 @@
-"""Edge Ordering (port of ``repro/core/ordering.py``, global_radix and
-xla_sort strategies).
+"""Edge Ordering (port of ``repro/core/ordering.py``).
 
 Sort the COO edge array by (dst, src), either as one packed int32 key
 ``(dst << src_bits) | src`` when ``2 · bits(n_nodes) ≤ 31`` or as two stable
 passes (by src, then by dst). Both give the same output. Every global sort
 runs under a strategy:
 
+* ``"chunked_merge"`` — the UPE's splitting and merging: a stable LSD radix
+  sort of every ``chunk`` block (``_chunk_sort``, or the chunk-sort kernel
+  through ``chunk_sort_fn``), then a ladder of k-ary stable merge rungs
+  (``merge_rounds``; the fused-merge kernel takes the first rungs through
+  ``merge_fn``). An element's slot in a merged run is its own index plus
+  its rank in every sibling run, earlier runs winning ties.
 * ``"global_radix"`` — merge-free LSD radix sort: each digit pass
   stable-partitions the whole array through the tiled two-level router
   (``set_partition.tiled_digit_sources``), or through the digit-pass
   kernels when ``digit_pass_fn`` is given (``EngineConfig.use_pallas``).
 * ``"xla_sort"`` — the platform's native sort, here ``torch.sort``.
-* ``"chunked_merge"`` — not ported yet; it raises.
 
-Sentinel handling: keys are clipped to ``key_bound`` (one past any valid
-key) before sorting so the radix width stays ``bits(key_bound)``, and
-restored to SENTINEL afterwards.
+All three give the same output. Sentinel handling: keys are clipped to
+``key_bound`` (one past any valid key) before sorting so the radix width
+stays ``bits(key_bound)``, and restored to SENTINEL afterwards.
 """
 from __future__ import annotations
 
 import torch
 
 from .graph import COO, SENTINEL, take
-from .set_partition import tiled_digit_sources
+from .set_partition import (radix_sort_by_key, radix_sort_keys,
+                            tiled_digit_sources)
 
 # The chunk-width default (``EngineConfig.w_upe``), also the global-radix
 # histogram tile.
 DEFAULT_CHUNK = 4096
-
-CHUNKED_MERGE_TODO = (
-    "sort_strategy 'chunked_merge' is not ported yet: it needs the "
-    "radix_sort_chunks and fused_merge_rounds kernels (repro/kernels/"
-    "radix_sort.py, repro/kernels/merge.py), the next slice of the port; "
-    "use sort_strategy='global_radix' or 'xla_sort'")
-
 
 def _bits_for(n: int) -> int:
     return max(1, int(n).bit_length())
@@ -60,6 +58,100 @@ def merge_round_fan_ins(n: int, run: int, fan_in: int = 2) -> list[int]:
         out.append(k)
         run *= k
     return out
+
+
+def _rank_rows(sorted_rows: torch.Tensor, queries: torch.Tensor,
+               right: bool) -> torch.Tensor:
+    """Row-wise searchsorted (int64): the rank of every query of a row in
+    the same row of ``sorted_rows``."""
+    return torch.searchsorted(sorted_rows.contiguous(), queries.contiguous(),
+                              right=right)
+
+
+def merge_sorted(a_keys, a_vals, b_keys, b_vals):
+    """Stable merge of two sorted runs along the last axis (any equal
+    leading batch axes); A wins ties. Each element lands at its own index
+    plus its rank in the other run — a permutation, written by one scatter
+    per run. ``a_vals``/``b_vals`` both None merges the keys alone."""
+    la, lb = a_keys.shape[-1], b_keys.shape[-1]
+    dev = a_keys.device
+    pos_a = torch.arange(la, device=dev) + _rank_rows(b_keys, a_keys, False)
+    pos_b = torch.arange(lb, device=dev) + _rank_rows(a_keys, b_keys, True)
+    shape = a_keys.shape[:-1] + (la + lb,)
+
+    def place(a, b):
+        out = torch.empty(shape, dtype=a.dtype, device=dev)
+        return out.scatter_(-1, pos_a, a).scatter_(-1, pos_b, b)
+
+    return (place(a_keys, b_keys),
+            None if a_vals is None else place(a_vals, b_vals))
+
+
+def merge_sorted_k(kr: torch.Tensor, vr: torch.Tensor | None):
+    """Stable k-way merge of ``k`` sorted runs — one ladder rung of fan-in
+    k. ``kr`` [..., k, run] (``vr`` the same, or None); earlier runs win
+    ties, so the output equals folding ``merge_sorted`` left to right. The
+    slot of element i of run r is i plus its rank in every sibling run
+    (right against earlier runs, left against later ones)."""
+    k, run = kr.shape[-2:]
+    pos = []
+    for r in range(k):
+        p = torch.arange(run, device=kr.device)
+        for s in range(k):
+            if s != r:
+                p = p + _rank_rows(kr[..., s, :], kr[..., r, :], s < r)
+        pos.append(p)
+    pos = torch.stack(pos, dim=-2).flatten(-2)
+    shape = kr.shape[:-2] + (k * run,)
+
+    def place(x):
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        return out.scatter_(-1, pos, x.flatten(-2))
+
+    return place(kr), None if vr is None else place(vr)
+
+
+def _chunk_sort(keys, vals, chunk: int, key_bits: int, radix_bits: int):
+    """Stable LSD radix sort of every ``chunk`` block, all chunks at once as
+    a [C, chunk] view; the chunk-sort kernel's plain twin. ``vals=None``
+    sorts the keys alone."""
+    n = keys.shape[0]
+    if n % chunk:
+        raise ValueError(f"size {n} is not a multiple of chunk {chunk}")
+    kc = keys.reshape(-1, chunk)
+    if vals is None:
+        return radix_sort_keys(kc, key_bits, radix_bits).reshape(n), None
+    ks, vs = radix_sort_by_key(vals.reshape(-1, chunk), kc, key_bits,
+                               radix_bits)
+    return ks.reshape(n), vs.reshape(n)
+
+
+def merge_ladder(ks: torch.Tensor, vs: torch.Tensor | None, run: int,
+                 fan_ins: list[int]):
+    """Merge sorted runs of ``run`` on the given rungs (``merge_sorted_k``
+    with fan-in k per rung); returns the keys and vals, ``vs=None`` merges
+    keys alone."""
+    n = ks.shape[0]
+    for k in fan_ins:
+        ks, vs = merge_sorted_k(ks.reshape(-1, k, run),
+                                None if vs is None else vs.reshape(-1, k, run))
+        ks = ks.reshape(n)
+        vs = None if vs is None else vs.reshape(n)
+        run *= k
+    return ks, vs
+
+
+def merge_rounds(ks: torch.Tensor, vs: torch.Tensor | None, run: int,
+                 merge_fn=None, fan_in: int = 2):
+    """k-ary merge ladder: sorted runs of ``run`` → one sorted array, on
+    the rungs ``merge_round_fan_ins`` prescribes. ``merge_fn(ks, vs, run)
+    -> (ks, vs, new_run)`` takes the first rungs (the fused-merge kernel);
+    the rest run as ``merge_sorted_k`` here. ``vs=None`` merges keys
+    alone."""
+    if merge_fn is not None and run < ks.shape[0]:
+        ks, vs, run = merge_fn(ks, vs, run)
+    return merge_ladder(ks, vs, run, merge_round_fan_ins(ks.shape[0], run,
+                                                         fan_in))
 
 
 def _global_radix_passes(keys, vals, key_bits: int, tile: int,
@@ -113,9 +205,12 @@ def xla_stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
 def stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
                        key_bound: int, chunk: int | None = None,
                        radix_bits: int = 4, strategy: str = "global_radix",
-                       digit_pass_fn=None):
+                       digit_pass_fn=None, chunk_sort_fn=None, merge_fn=None, fan_in: int = 2):
     """Global stable sort under a ``strategy``; ``key_bound`` is the
-    exclusive bound of valid keys, ``chunk`` the global-radix tile."""
+    exclusive bound of valid keys, ``chunk`` the UPE chunk (chunked_merge)
+    or the histogram tile (global_radix). ``chunk_sort_fn(keys, vals,
+    chunk, key_bits)`` and ``merge_fn`` swap in the chunk-sort and
+    fused-merge kernels, ``digit_pass_fn`` the digit-pass kernels."""
     n = keys.shape[0]
     chunk = min(DEFAULT_CHUNK if chunk is None else chunk, n)
     if strategy == "global_radix":
@@ -124,26 +219,37 @@ def stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
                                         digit_pass_fn=digit_pass_fn)
     if strategy == "xla_sort":
         return xla_stable_sort_by_key(keys, vals, key_bound)
-    if strategy == "chunked_merge":
-        raise NotImplementedError(CHUNKED_MERGE_TODO)
-    raise ValueError(f"unknown sort strategy {strategy!r}")
+    if strategy != "chunked_merge":
+        raise ValueError(f"unknown sort strategy {strategy!r}")
+    key_bits = _bits_for(key_bound)
+    clipped = torch.clamp(keys, max=key_bound)
+    if chunk_sort_fn is None:
+        ks, vs = _chunk_sort(clipped, vals, chunk, key_bits, radix_bits)
+    else:
+        ks, vs = chunk_sort_fn(clipped, vals, chunk, key_bits)
+    ks, vs = merge_rounds(ks, vs, chunk, merge_fn=merge_fn, fan_in=fan_in)
+    return _restore_sentinels(ks, key_bound), vs
 
 
 def edge_ordering(coo: COO, chunk: int | None = None, radix_bits: int = 4,
                   sort_fn=None, mode: str = "auto", keys_only: bool = True,
-                  strategy: str = "global_radix", digit_pass_fn=None) -> COO:
+                  strategy: str = "global_radix", digit_pass_fn=None,
+                  chunk_sort_fn=None, merge_fn=None, fan_in: int = 2) -> COO:
     """Sort edges by (dst, src) — packed single pass or two-pass LSD.
 
     ``sort_fn(keys, vals, key_bound) -> (keys, vals)`` overrides the global
-    stable sorter. ``keys_only`` (packed mode): sort the packed key with no
-    payload; False carries the edge id along (same output).
+    stable sorter; the other knobs feed ``stable_sort_by_key``.
+    ``keys_only`` (packed mode): sort the packed key with no payload; False
+    carries the edge id along (same output).
     """
     if sort_fn is None:
         def sort_fn(k, v, bound):
             return stable_sort_by_key(k, v, bound, chunk=chunk,
                                       radix_bits=radix_bits,
                                       strategy=strategy,
-                                      digit_pass_fn=digit_pass_fn)
+                                      digit_pass_fn=digit_pass_fn,
+                                      chunk_sort_fn=chunk_sort_fn,
+                                      merge_fn=merge_fn, fan_in=fan_in)
     bound = coo.n_nodes
     if mode == "auto":
         mode = "packed" if supports_packed_keys(bound) else "two_pass"

@@ -23,57 +23,70 @@ from .sampling import sample_khop
 
 
 class KernelFns(NamedTuple):
+    chunk_sort_fn: object
     count_fn: object
+    merge_fn: object
     digit_pass_fn: object
     rank_fn: object
     rename_fn: object
 
 
-def _set_count_less_todo(sorted_dst, targets):
-    raise NotImplementedError(
-        "the unfused pointer build under use_pallas needs the set_count_less "
-        "kernel (repro/kernels/set_count.py), not ported yet; pin "
-        "reindex_strategy='fused' to build pointers with the rank kernel")
-
-
 def kernel_fns(cfg: EngineConfig) -> KernelFns:
-    """The kernel routing rule: ``use_pallas`` swaps in the digit-pass
-    kernels (digit width ``cfg.radix_bits``, histogram tile ``cfg.w_upe``)
-    and the rank-epilogue kernels. Each wrapper launches its kernel on a
-    CUDA tensor and runs its plain twin on a CPU tensor."""
+    """The kernel routing rule: ``use_pallas`` swaps in the chunk-sort
+    kernel (digit width ``cfg.radix_bits``), the set-count kernel, the
+    fused-merge kernel (ladder fan-in ``cfg.merge_fan_in``), the digit-pass
+    kernels (histogram tile ``cfg.w_upe``) and the rank-epilogue kernels.
+    Each wrapper launches its kernel on a CUDA tensor and runs its plain
+    twin on a CPU tensor."""
     if not cfg.use_pallas:
-        return KernelFns(None, None, None, None)
-    from repro_torch.kernels.radix_sort import make_digit_pass_fn
+        return KernelFns(None, None, None, None, None, None)
+    from repro_torch.kernels.merge import make_merge_fn
+    from repro_torch.kernels.radix_sort import (make_chunk_sort_fn,
+                                                make_digit_pass_fn)
     from repro_torch.kernels.reindex_epilogue import rank_fn, rename_fn
-    return KernelFns(_set_count_less_todo,
+    from repro_torch.kernels.set_count import count_fn
+    return KernelFns(make_chunk_sort_fn(cfg.radix_bits), count_fn,
+                     make_merge_fn(cfg.merge_fan_in),
                      make_digit_pass_fn(cfg.radix_bits, cfg.w_upe),
                      rank_fn, rename_fn)
 
 
-def convert(coo: COO, cfg: EngineConfig | None = None,
-            device="cuda") -> CSC:
+def _sort_kwargs(cfg: EngineConfig, kf: KernelFns, chunk_sort_fn) -> dict:
+    """The sort knobs every global sort of a config shares."""
+    return dict(radix_bits=cfg.radix_bits, chunk_sort_fn=chunk_sort_fn, merge_fn=kf.merge_fn,
+                fan_in=cfg.merge_fan_in, digit_pass_fn=kf.digit_pass_fn)
+
+
+def convert(coo: COO, cfg: EngineConfig | None = None, device="cuda",
+            count_fn=None, chunk_sort_fn=None) -> CSC:
     """Graph conversion: Ordering + Reshaping under an engine config, on
-    ``device`` (the COO is moved there; a missing card raises)."""
+    ``device`` (the COO is moved there; a missing card raises). Explicit
+    ``count_fn`` / ``chunk_sort_fn`` override the config's routing."""
     coo = coo.to(resolve_device(device))
     cfg = cfg or EngineConfig()
     kf = kernel_fns(cfg)
+    count_fn = count_fn or kf.count_fn
     w = Workload(n=coo.n_nodes, e=coo.capacity)
-    sorted_coo = edge_ordering(coo, chunk=min(cfg.w_upe, coo.capacity),
-                               radix_bits=cfg.radix_bits, mode=cfg.sort_mode,
-                               strategy=resolve_sort_strategy(cfg, w),
-                               digit_pass_fn=kf.digit_pass_fn)
+    sorted_coo = edge_ordering(
+        coo, chunk=min(cfg.w_upe, coo.capacity), mode=cfg.sort_mode,
+        strategy=resolve_sort_strategy(cfg, w),
+        **_sort_kwargs(cfg, kf, chunk_sort_fn or kf.chunk_sort_fn))
     ptr_fused = pointer_reindex_strategy(cfg, w) == "fused"
-    return data_reshaping(sorted_coo, count_fn=kf.count_fn, unroll=ptr_fused,
+    return data_reshaping(sorted_coo, count_fn=count_fn, unroll=ptr_fused,
                           rank_fn=kf.rank_fn if ptr_fused else None)
 
 
 def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,
                     fanouts: tuple[int, ...], key,
-                    cfg: EngineConfig | None = None) -> Subgraph:
+                    cfg: EngineConfig | None = None, count_fn=None,
+                    chunk_sort_fn=None) -> Subgraph:
     """Selecting + Reindexing + subgraph conversion → sampled CSC subgraph,
-    on the device that holds ``csc``."""
+    on the device that holds ``csc``. Explicit ``count_fn`` /
+    ``chunk_sort_fn`` override the config's routing."""
     cfg = cfg or EngineConfig()
     kf = kernel_fns(cfg)
+    count_fn = count_fn or kf.count_fn
+    sort_kw = _sort_kwargs(cfg, kf, chunk_sort_fn or kf.chunk_sort_fn)
     nodes, e_dst, e_src = sample_khop(csc, batch_nodes, fanouts, key,
                                       selection=cfg.selection)
     n_cap = nodes.shape[0]
@@ -82,9 +95,7 @@ def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,
 
     def reindex_sort_fn(k, v, bound):
         return stable_sort_by_key(k, v, bound, chunk=min(cfg.w_upe, k.shape[0]),
-                                  radix_bits=cfg.radix_bits,
-                                  strategy=r_sort_strat,
-                                  digit_pass_fn=kf.digit_pass_fn)
+                                  strategy=r_sort_strat, **sort_kw)
 
     r_strat = resolve_reindex_strategy(
         cfg, reindex_query_count(n_cap, e_dst.shape[0]), n_cap)
@@ -100,11 +111,10 @@ def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,
                   n_edges=raw.n_edges, n_nodes=n_cap)
     strategy = resolve_sort_strategy(cfg, Workload(n=n_cap, e=e_cap))
     sub_sorted = edge_ordering(sub_coo, chunk=min(cfg.w_upe, e_cap),
-                               radix_bits=cfg.radix_bits, mode=cfg.sort_mode,
-                               strategy=strategy,
-                               digit_pass_fn=kf.digit_pass_fn)
+                               mode=cfg.sort_mode, strategy=strategy,
+                               **sort_kw)
     sub_ptr_fused = resolve_reindex_strategy(cfg, n_cap + 1, e_cap) == "fused"
-    sub_csc = data_reshaping(sub_sorted, count_fn=kf.count_fn,
+    sub_csc = data_reshaping(sub_sorted, count_fn=count_fn,
                              unroll=sub_ptr_fused,
                              rank_fn=kf.rank_fn if sub_ptr_fused else None)
     return Subgraph(csc=sub_csc, order=rmap.order, n_sub_nodes=rmap.n_unique)

@@ -1,15 +1,32 @@
-"""Set-counting as a batched rank search (port of ``rank_in_sorted`` from
+"""Set-counting (port of ``count_less_than`` and ``rank_in_sorted`` from
 ``repro/core/set_count.py``).
 
-Every query is independent: log₂(n) rounds of one compare against a
-gathered pivot. Both lowerings of the reference are kept, and both land on
-the exact searchsorted rank of a sorted stream, so they are bit-identical.
+``count_less_than`` is the SCR comparator array + adder tree: a blocked
+all-pairs compare-reduce, correct on unsorted input. ``rank_in_sorted`` is
+the batched rank search over a sorted stream: every query is independent,
+log₂(n) rounds of one compare against a gathered pivot. Both lowerings of
+the reference are kept, and both land on the exact searchsorted rank, so
+they are bit-identical.
 """
 from __future__ import annotations
 
 import torch
 
 from .graph import take
+
+
+def count_less_than(elements: torch.Tensor, targets: torch.Tensor,
+                    block: int = 2048) -> torch.Tensor:
+    """counts[t] = |{x in elements : x < targets[t]}| (int32) by blocked
+    compare-reduce: a [T, block] comparator tile per element block, summed
+    along the block. The input need not be sorted; on sorted input this is
+    ``searchsorted(side="left")``."""
+    counts = torch.zeros(targets.shape, dtype=torch.int32,
+                         device=targets.device)
+    for lo in range(0, elements.shape[0], block):
+        chunk = elements[lo:lo + block]
+        counts += (chunk[None, :] < targets[:, None]).sum(1, dtype=torch.int32)
+    return counts
 
 
 def rank_in_sorted(sorted_arr: torch.Tensor, queries: torch.Tensor,

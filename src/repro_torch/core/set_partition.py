@@ -138,3 +138,36 @@ def rank_gather_sources(gbase: torch.Tensor, incl_t: torch.Tensor,
     t = lo
     r_in_tile = r - take(excl_t.reshape(-1), t * nb + b)
     return t * tile + take(lbase.reshape(-1), t * nb + b) + r_in_tile
+
+
+def radix_sort_by_key(values: torch.Tensor, keys: torch.Tensor,
+                      key_bits: int, radix_bits: int = 4
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable LSD radix sort of (keys, values) along the last axis:
+    ``ceil(key_bits / radix_bits)`` digit passes, each a stable
+    set-partition of every row (``partition_tiles``) and one gather of
+    keys and values by its source permutation. A ``[C, chunk]`` view sorts
+    every chunk at once — the plain twin of the chunk-sort kernel."""
+    n_buckets = 1 << radix_bits
+    n_passes = max(1, -(-key_bits // radix_bits))
+    shape = keys.shape
+    k = keys.reshape(-1, shape[-1])
+    v = values.reshape(-1, shape[-1])
+    for p in range(n_passes):
+        digit = (k >> (p * radix_bits)) & (n_buckets - 1)
+        src = partition_tiles(digit, n_buckets)[0].to(torch.int64)
+        k, v = k.gather(1, src), v.gather(1, src)
+    return k.reshape(shape), v.reshape(shape)
+
+
+def radix_sort_keys(keys: torch.Tensor, key_bits: int,
+                    radix_bits: int = 4) -> torch.Tensor:
+    """Keys-only ``radix_sort_by_key``: no payload gather per pass."""
+    n_buckets = 1 << radix_bits
+    n_passes = max(1, -(-key_bits // radix_bits))
+    shape = keys.shape
+    k = keys.reshape(-1, shape[-1])
+    for p in range(n_passes):
+        digit = (k >> (p * radix_bits)) & (n_buckets - 1)
+        k = k.gather(1, partition_tiles(digit, n_buckets)[0].to(torch.int64))
+    return k.reshape(shape)

@@ -8,12 +8,18 @@ from __future__ import annotations
 
 
 def kernel_wrappers():
-    """The four kernel wrappers of the serve path, by name."""
-    from .radix_sort import digit_partition_hist, digit_rank_gather
+    """The eight kernel wrappers of the serve paths, by name."""
+    from .merge import fused_merge_rounds
+    from .radix_sort import chunk_sort, digit_partition_hist, digit_rank_gather
     from .reindex_epilogue import rank_search, rename
+    from .segment_agg import segment_sum_sorted
+    from .set_count import set_count_less
     return {"digit_partition_hist": digit_partition_hist,
             "digit_rank_gather": digit_rank_gather,
-            "rank_search": rank_search, "rename": rename}
+            "rank_search": rank_search, "rename": rename,
+            "chunk_sort": chunk_sort, "fused_merge": fused_merge_rounds,
+            "set_count_less": set_count_less,
+            "segment_sum_sorted": segment_sum_sorted}
 
 
 def launch_counts() -> dict[str, int]:

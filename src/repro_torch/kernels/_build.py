@@ -22,7 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parents[1] / "build" / "repro_torch"
-SOURCES = ("digit_pass", "reindex_epilogue")
+# every csrc/*.cu, so a new source can never be missing from the build
+SOURCES = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,14 @@
-"""The global_radix digit pass: tiled partition + histogram, a [T, B] table
-scan, the rank-gather of output-slot sources, and one gather (port of
-``global_digit_pass`` in ``repro/kernels/radix_sort.py``).
+"""The UPE chunk sort and the global_radix digit pass (port of
+``repro/kernels/radix_sort.py``).
 
-``digit_partition_hist`` and ``digit_rank_gather`` launch the kernels of
-``csrc/digit_pass.cu`` on CUDA tensors and run their plain-torch twins on
-CPU tensors. The table scan and the final gather are plain torch on
-whichever device holds the data, as they were jnp in the reference.
+``chunk_sort`` (behind ``radix_sort_chunks`` / ``radix_sort_chunks_keys``)
+sorts every chunk of the chunked_merge Ordering. The digit pass is a tiled
+partition + histogram, a [T, B] table scan, the rank-gather of output-slot
+sources, and one gather. ``chunk_sort``, ``digit_partition_hist`` and
+``digit_rank_gather`` launch the kernels of ``csrc/digit_pass.cu`` on CUDA
+tensors and run their plain-torch twins on CPU tensors. The table scan and
+the final gather are plain torch on whichever device holds the data, as
+they were jnp in the reference.
 """
 from __future__ import annotations
 
@@ -14,8 +17,9 @@ import ctypes
 import torch
 
 from repro_torch.core.graph import take
-from repro_torch.core.ordering import DEFAULT_CHUNK
-from repro_torch.core.set_partition import partition_tiles, rank_gather_sources
+from repro_torch.core.ordering import DEFAULT_CHUNK, _chunk_sort
+from repro_torch.core.set_partition import (partition_tiles,
+                                            rank_gather_sources)
 
 from . import _build
 
@@ -31,6 +35,8 @@ _SIGNATURES = {
     "digit_rank_gather": (ctypes.c_int, (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P)),
     "digit_partition_smem_bytes": (ctypes.c_size_t, (_I, _I, _I)),
+    "chunk_sort": (ctypes.c_int, (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "chunk_sort_smem_bytes": (ctypes.c_size_t, (_I, _I, _I)),
 }
 
 
@@ -49,6 +55,76 @@ def _check_cuda_i32(*ts):
 def partition_smem_bytes(tile: int, n_buckets: int, has_vals: bool) -> int:
     """Dynamic shared memory of one partition CTA (mirrors the C side)."""
     return 4 * ((2 if has_vals else 1) * tile + (8 + 2) * n_buckets)
+
+
+def chunk_sort_smem_bytes(chunk: int, n_buckets: int, has_vals: bool) -> int:
+    """Dynamic shared memory of one chunk-sort CTA: the chunk in and out,
+    plus the partition's counters (mirrors the C side)."""
+    return 4 * ((4 if has_vals else 2) * chunk + (8 + 2) * n_buckets)
+
+
+def chunk_sort(keys: torch.Tensor, vals: torch.Tensor | None, chunk: int,
+               key_bits: int, radix_bits: int = 4):
+    """Stable LSD radix sort of every ``chunk`` block of (keys, vals):
+    ``ceil(key_bits / radix_bits)`` digit passes. keys (vals) [N] int32,
+    N % chunk == 0; ``vals=None`` sorts keys alone. Returns (keys, vals or
+    None)."""
+    n = keys.shape[0]
+    if chunk <= 0 or n % chunk:
+        raise ValueError(f"size {n} is not a multiple of chunk {chunk}")
+    if not keys.is_cuda:
+        return _chunk_sort(keys, vals, chunk, key_bits, radix_bits)
+    _check_cuda_i32(keys, *(() if vals is None else (vals,)))
+    if not 1 <= radix_bits <= MAX_RADIX_BITS:
+        raise ValueError(f"radix_bits {radix_bits} not in [1, "
+                         f"{MAX_RADIX_BITS}]: the kernel takes at most 256 "
+                         "buckets")
+    nb = 1 << radix_bits
+    smem = chunk_sort_smem_bytes(chunk, nb, vals is not None)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk} needs {smem} bytes of shared "
+                         f"memory; one CTA has {MAX_SMEM_BYTES}")
+    out_k = torch.empty_like(keys)
+    out_v = None if vals is None else torch.empty_like(vals)
+    if n:
+        lib = _lib()
+        assert lib.chunk_sort_smem_bytes(chunk, nb, vals is not None) == smem
+        chunk_sort.launches += 1
+        _build.check(lib.chunk_sort(
+            keys.data_ptr(), None if vals is None else vals.data_ptr(),
+            out_k.data_ptr(), None if out_v is None else out_v.data_ptr(),
+            n // chunk, chunk, max(1, -(-key_bits // radix_bits)), radix_bits,
+            _build.stream_of(keys)), "chunk_sort")
+    return out_k, out_v
+
+
+chunk_sort.launches = 0
+
+
+def radix_sort_chunks(keys: torch.Tensor, values: torch.Tensor, chunk: int,
+                      key_bits: int, radix_bits: int = 4):
+    """Sort each ``chunk``-sized block of (keys, values) independently
+    (stable LSD radix sort per chunk)."""
+    return chunk_sort(keys, values, chunk, key_bits, radix_bits)
+
+
+def radix_sort_chunks_keys(keys: torch.Tensor, chunk: int, key_bits: int,
+                           radix_bits: int = 4) -> torch.Tensor:
+    """Keys-only ``radix_sort_chunks``."""
+    return chunk_sort(keys, None, chunk, key_bits, radix_bits)[0]
+
+
+def make_chunk_sort_fn(radix_bits: int = 4):
+    """``chunk_sort_fn`` for ``ordering.stable_sort_by_key`` with the digit
+    width routed from ``EngineConfig.radix_bits``; ``vals=None`` sorts the
+    keys alone and returns ``(keys, None)``."""
+
+    def chunk_sort_fn(keys, vals, chunk, key_bits):
+        return chunk_sort(keys.contiguous(),
+                          None if vals is None else vals.contiguous(),
+                          chunk, key_bits, radix_bits)
+
+    return chunk_sort_fn
 
 
 def _partition_hist_plain(keys, vals, shift, tile, radix_bits):

@@ -1,0 +1,61 @@
+"""The SCR set-count (port of ``set_count_less`` and ``pallas_count_fn``
+in ``repro/kernels/set_count.py``).
+
+``set_count_less`` launches the kernel of ``csrc/set_count.cu`` on CUDA
+tensors and runs its plain twin, the blocked compare-reduce
+``core.set_count.count_less_than``, on CPU tensors. ``count_fn`` is the
+adapter ``build_pointer_array(count_fn=...)`` takes.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.set_count import count_less_than
+
+from . import _build
+from .common import SENTINEL, pad_pow2_1d
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "set_count_less": (ctypes.c_int, (_P, _I, _P, _I, _P, _P)),
+}
+
+
+def set_count_less(elements: torch.Tensor, targets: torch.Tensor
+                   ) -> torch.Tensor:
+    """counts[t] = |{x in elements : x < targets[t]}| (int32), all pairs:
+    the elements need not be sorted. elements [E] int32 (pad with
+    INT32_MAX, which is never below a target), targets [T] int32."""
+    if not elements.is_cuda:
+        return count_less_than(elements, targets)
+    for t in (elements, targets):
+        if (t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous()
+                or t.device != elements.device):
+            raise ValueError("set_count_less takes contiguous 1-D int32 "
+                             "CUDA tensors on one device")
+    out = torch.empty_like(targets)
+    if targets.shape[0]:
+        set_count_less.launches += 1
+        _build.check(_build.load("set_count", _SIGNATURES).set_count_less(
+            elements.data_ptr(), elements.shape[0], targets.data_ptr(),
+            targets.shape[0], out.data_ptr(), _build.stream_of(targets)),
+            "set_count_less")
+    return out
+
+
+set_count_less.launches = 0
+
+
+def count_fn(sorted_dst: torch.Tensor, targets: torch.Tensor,
+             e_block: int = 2048, t_block: int = 256) -> torch.Tensor:
+    """Adapter for ``build_pointer_array(count_fn=...)``: the reference's
+    block padding (elements with INT32_MAX, targets with 0), then the
+    count, sliced back to the targets."""
+    elems = pad_pow2_1d(sorted_dst.contiguous(),
+                        min(e_block, sorted_dst.shape[0]), SENTINEL)
+    tgts = pad_pow2_1d(targets.contiguous(), min(t_block, targets.shape[0]),
+                       0)
+    return set_count_less(elems, tgts)[:targets.shape[0]]

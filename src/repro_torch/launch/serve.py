@@ -2,19 +2,29 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch graphsage-reddit
   PYTHONPATH=src python -m repro_torch.launch.serve --arch graphsage-reddit \
-      --smoke --device cpu
+      --smoke --device cpu --engine-cfg merge
 
 Builds a synthetic power-law graph on the device (``--nodes`` nodes,
 ``--edges`` edges), converts it, and submits ``--requests`` requests of
 mixed seed counts in [1, ``--seed-cap``] to a GnnServeEngine with random
 weights made from ``--seed``. The preprocessing runs under the
-hand-written kernels (``use_pallas=True``, ``global_radix`` sorts, fused
-rank epilogue); on ``--device cpu`` the same routing runs their plain
-twins. Prints the predictions, predictions/s and request latency.
+hand-written kernels, in one of two engine configurations
+(``--engine-cfg``):
+
+* ``slice`` (``SLICE_CFG``): ``global_radix`` sorts through the digit-pass
+  kernels, the fused rank epilogue through the rank kernels;
+* ``merge`` (``MERGE_CFG``): ``chunked_merge`` sorts through the
+  chunk-sort and fused-merge kernels, the unfused pointer build through
+  the set-count kernel, and the model's aggregation through the
+  segment-sum kernel (``use_pallas_agg``).
+
+On ``--device cpu`` the same routing runs the kernels' plain twins. Prints
+the predictions, predictions/s and request latency.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -29,6 +39,10 @@ from repro_torch.serve import GnnServeEngine
 
 SLICE_CFG = EngineConfig(use_pallas=True, sort_strategy="global_radix",
                          reindex_strategy="fused")
+MERGE_CFG = EngineConfig(use_pallas=True, sort_strategy="chunked_merge",
+                         reindex_strategy="unfused")
+# --engine-cfg → (engine configuration, GNNConfig.use_pallas_agg)
+ENGINE_CFGS = {"slice": (SLICE_CFG, False), "merge": (MERGE_CFG, True)}
 
 
 def percentile(xs: list[float], q: float) -> float:
@@ -50,20 +64,24 @@ def main(argv=None):
     ap.add_argument("--classes", type=int, default=8)
     ap.add_argument("--seed-cap", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine-cfg", choices=sorted(ENGINE_CFGS),
+                    default="slice")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    engine_cfg, pallas_agg = ENGINE_CFGS[args.engine_cfg]
+    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
+                              use_pallas_agg=pallas_agg)
     edges = args.edges or 6 * args.nodes
     coo = synthetic_coo(args.nodes, edges, next_pow2(edges), args.seed,
                         device=dev)
-    csc = pipeline.convert(coo, SLICE_CFG, device=dev)
+    csc = pipeline.convert(coo, engine_cfg, device=dev)
     g = torch.Generator().manual_seed(args.seed)
     feats = torch.randn((args.nodes, args.features), generator=g)
     model = GraphSAGE(cfg, d_in=args.features, n_classes=args.classes,
-                      generator=g)
+                      generator=g, device=dev)
     eng = GnnServeEngine(model, csc, feats, n_slots=args.slots,
-                         seed_cap=args.seed_cap, cfg=SLICE_CFG, device=dev)
+                         seed_cap=args.seed_cap, cfg=engine_cfg, device=dev)
     rng = np.random.default_rng(args.seed + 1)
     t0 = time.perf_counter()
     for _ in range(args.requests):

@@ -4,7 +4,9 @@
 Message passing is edge gather → segment reduce. The serve path attaches
 the subgraph's CSC pointers to the batch, so every reduction is the
 scatter-free pointer form: one cumulative sum of the masked message stream
-and a difference of prefix sums at each node's pointer span. Weights keep
+and a difference of prefix sums at each node's pointer span; under
+``GNNConfig.use_pallas_agg`` it is the segment-sum kernel over the
+dst-sorted edges instead (``kernels/segment_agg.py``). Weights keep
 the reference's layout, ``h @ W`` with ``W`` shaped [d_in, d_out], so a
 parameter tree from the reference's ``gnn_init`` loads without transposes
 (``load_reference_params``).
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.graph import SENTINEL, take
+from repro_torch.core.graph import SENTINEL, resolve_device, take
 from repro_torch.core.pipeline import gather_features
 from repro_torch.core.set_count import rank_in_sorted
 
@@ -74,13 +76,15 @@ def _ptr_seg_sum(ptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
 
 def seg_sum(batch: GraphBatch, msgs: torch.Tensor,
             use_pallas: bool = False) -> torch.Tensor:
-    """Σ over incoming edges per dst node; SENTINEL edges contribute 0."""
-    if use_pallas:
-        raise NotImplementedError(
-            "use_pallas_agg needs the segment_sum_sorted kernel "
-            "(repro/kernels/segment_agg.py), not ported yet")
+    """Σ over incoming edges per dst node; SENTINEL edges contribute 0.
+    ``use_pallas`` runs the segment-sum kernel over ``edge_dst`` (which
+    must then be sorted) and ignores ``ptr``."""
     msgs = torch.where(_valid(batch)[:, None], msgs,
                        torch.zeros((), dtype=msgs.dtype, device=msgs.device))
+    if use_pallas:
+        from repro_torch.kernels.segment_agg import segment_sum_padded
+        return segment_sum_padded(batch.edge_dst, msgs,
+                                  batch.n_nodes).to(msgs.dtype)
     if batch.ptr is not None:
         return _ptr_seg_sum(batch.ptr, msgs)
     dst = torch.clamp(batch.edge_dst, max=batch.n_nodes - 1).to(torch.int64)
@@ -108,15 +112,18 @@ class GraphSAGE(nn.Module):
     Per layer: ``h = h @ w_self + mean_nb(h) @ w_nb + b``, then ReLU and L2
     row normalisation on every layer but the last; ``head`` maps the last
     layer to ``n_classes`` logits. Random init draws N(0, 1/d_in) weights
-    from ``generator`` (the reference's ``dense_init`` scale).
+    from the CPU ``generator`` (the reference's ``dense_init`` scale), so
+    the values do not depend on ``device``, where they are then placed (a
+    missing card raises).
     """
 
     def __init__(self, cfg: GNNConfig, d_in: int, n_classes: int = 0,
-                 generator: torch.Generator | None = None, device="cpu"):
+                 generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
         if cfg.kind != "graphsage":
             raise NotImplementedError(f"GNN kind {cfg.kind!r} is not ported")
         self.cfg = cfg
+        device = resolve_device(device)
 
         def dense(a, b):
             w = torch.randn((a, b), generator=generator, dtype=torch.float32)

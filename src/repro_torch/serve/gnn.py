@@ -11,7 +11,14 @@ equal a sequential per-request ``slot_fn`` loop bit for bit:
 * each slot samples its own subgraph (no cross-request dedup);
 * the per-request key is folded from the request id, never the slot or
   the step;
-* the forward uses the pointer-based segment sum on both legs.
+* the forward uses one deterministic segment sum on both legs.
+
+``cfg`` pins the preprocessing dispatch. ``launch/serve.py`` names the two
+configurations the port serves: ``SLICE_CFG`` (global_radix sorts through
+the digit-pass kernels, the fused rank epilogue, the pointer-based segment
+sum) and ``MERGE_CFG`` (chunked_merge sorts through the chunk-sort and
+fused-merge kernels, the unfused set-count pointer build, and, with the
+model's ``use_pallas_agg``, the segment-sum kernel).
 
 Streamed graph updates (``submit_update``) are not ported yet.
 """

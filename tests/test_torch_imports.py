@@ -41,6 +41,9 @@ def test_port_file_inventory():
     for must in ("chip_smoke.py", "src/repro_torch/core/pipeline.py",
                  "src/repro_torch/kernels/radix_sort.py",
                  "src/repro_torch/kernels/reindex_epilogue.py",
+                 "src/repro_torch/kernels/merge.py",
+                 "src/repro_torch/kernels/set_count.py",
+                 "src/repro_torch/kernels/segment_agg.py",
                  "src/repro_torch/serve/gnn.py"):
         assert must in names, must
 
@@ -58,6 +61,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.pipeline, repro_torch.serve\n"
         "import repro_torch.kernels.radix_sort\n"
         "import repro_torch.kernels.reindex_epilogue\n"
+        "import repro_torch.kernels.merge, repro_torch.kernels.set_count\n"
+        "import repro_torch.kernels.segment_agg\n"
         "import repro_torch.launch.serve\n"
         "from repro_torch.kernels import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -69,3 +74,13 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=ROOT, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_build_list_follows_csrc():
+    """Every csrc/*.cu is in the build list, sorted, and nothing else."""
+    from repro_torch.kernels import _build
+    cu = sorted(f[:-3] for f in os.listdir(os.path.join(PORT, "csrc"))
+                if f.endswith(".cu"))
+    assert list(_build.SOURCES) == cu
+    assert {"digit_pass", "merge", "reindex_epilogue", "segment_agg",
+            "set_count"} <= set(cu)

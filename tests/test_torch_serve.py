@@ -53,7 +53,8 @@ def _t_csc():
 
 def _model():
     return load_reference_params(
-        GraphSAGE(smoke_config(), d_in=D_FEAT, n_classes=N_CLASSES), J_PARAMS)
+        GraphSAGE(smoke_config(), d_in=D_FEAT, n_classes=N_CLASSES,
+                  device="cpu"), J_PARAMS)
 
 
 def _requests(n, seed):
@@ -77,7 +78,8 @@ def test_weights_carry_keeps_reference_layout():
     bad = {**J_PARAMS, "head": np.zeros((N_CLASSES, 16), np.float32)}
     with pytest.raises(ValueError, match="shape"):
         load_reference_params(
-            GraphSAGE(smoke_config(), d_in=D_FEAT, n_classes=N_CLASSES), bad)
+            GraphSAGE(smoke_config(), d_in=D_FEAT, n_classes=N_CLASSES,
+                      device="cpu"), bad)
 
 
 @pytest.mark.parametrize("fanouts", [(3, 2), (4,)])
@@ -173,6 +175,8 @@ def test_entry_points_refuse_missing_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GnnServeEngine(_model(), _t_csc(), FEATS, seed_cap=SEED_CAP)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphSAGE(smoke_config(), d_in=D_FEAT, n_classes=N_CLASSES)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from repro_torch.launch.serve import main
         main(["--arch", "graphsage-reddit", "--smoke"])

@@ -120,18 +120,19 @@ def test_common_helpers_match_reference(n):
         np.asarray(jcommon.pad_pow2_1d(jnp.asarray(x[:, 0]), 8, SEN)))
 
 
-def test_sort_strategies_agree_and_chunked_merge_raises():
+def test_sort_strategies_agree_including_chunked_merge():
+    """global_radix, xla_sort and chunked_merge give the same pairs."""
     rng = np.random.default_rng(3)
     keys = _t(rng.integers(0, 5000, 1024).astype(np.int32))
     vals = _t(np.arange(1024, dtype=np.int32))
     a = stable_sort_by_key(keys, vals, 5000, chunk=128,
                            strategy="global_radix")
     b = stable_sort_by_key(keys, vals, 5000, strategy="xla_sort")
-    for x, y in zip(a, b):
+    c = stable_sort_by_key(keys, vals, 5000, chunk=128,
+                           strategy="chunked_merge")
+    for x, y, z in zip(a, b, c):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
-    with pytest.raises(NotImplementedError,
-                       match="radix_sort_chunks.*fused_merge_rounds"):
-        stable_sort_by_key(keys, vals, 5000, strategy="chunked_merge")
+        np.testing.assert_array_equal(z.numpy(), y.numpy())
 
 
 def _graph(n, e, cap, seed):
