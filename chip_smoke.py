@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's GraphSAGE serve paths on one H100.
+"""Drive the PyTorch + CUDA port's GraphSAGE serve paths and its gemma2-9b
+prefill on one H100.
 
   python3 chip_smoke.py
 
@@ -42,9 +43,34 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    equal wherever the top-two margin exceeds it); a small graph under
    ``MERGE_CFG`` on the card equal to the CPU path; the profile of one
    request.
-8. report  — every one of the eight kernels launched across the two paths;
-   the kernels JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. LM kernels — the GNN paths' memory freed; the flash-attention forward
+   against its twin at gemma2-9b's head shapes (16 heads over 8 kv heads,
+   dh 256, bf16, 8192 tokens) as a global layer (causal, cap 50) and a
+   local one (window 4096), queries scaled by FLASH_Q_SCALE so that the
+   cap acts, within one bf16 ulp (FLASH_RTOL, FLASH_ATOL), a planted
+   fault (no cap; window + 1) rejected; in float32 at 2048 tokens within
+   2e-5; ``prefix_partition`` and ``filter_tree_lookup``
+   (no path runs them) equal to their twins at the reference tests'
+   shapes and at one timed size each (2^24 values in blocks of 1024;
+   65,536 keys × 65,536 targets). Yardsticks the port never calls:
+   ``scaled_dot_product_attention`` (causal, no cap: a near function), a
+   per-block stable ``torch.sort`` + gather, ``torch.searchsorted``.
+9. LM path — launch counters set to 0; ``lm_prefill_cell`` builds
+   gemma2-9b at full width (42 layers, d 3584, vocab 256,000, bf16,
+   random weights from ``--seed``) and prefills one sequence of 8192
+   tokens (the ``prefill_32k`` cell with its sequence cut from 32,768 and
+   its batch from 32 to 1); counters read: 42 flash launches, no other
+   kernel. A second prefill gives the same bits; the logits are finite;
+   each of the 42 launches of a third is within one bf16 ulp of the twin
+   on its own inputs; the same prefill with the flash twin in every layer
+   agrees within PATH_TOL, and three planted faults of the twin (no cap,
+   window + 1, the next kv head) are read; the smoke model on the card
+   gives the CPU's logits. Then a
+   profiled prefill (device busy share, top ops) and, when the run has
+   room, one prefill at 32,768 tokens.
+10. report — every kernel of each path launched in its run; the kernels
+   JSON line (all eleven; prefix_partition and filter_tree_lookup with 0
+   launches), then the last line ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
 ``chiprun_out/chip_smoke.json``. Float32 matmuls run in full precision
@@ -53,6 +79,7 @@ Weights and data are random, made from ``--seed``. Details go to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -87,6 +114,33 @@ SLICE_KERNELS = ("digit_partition_hist", "digit_rank_gather", "rank_search",
                  "rename")
 MERGE_KERNELS = ("chunk_sort", "fused_merge", "set_count_less",
                  "segment_sum_sorted")
+LM_KERNELS = ("flash_attention_fwd",)
+OFF_PATH_KERNELS = ("prefix_partition", "filter_tree_lookup")
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+LM_ARCH, LM_SEQ, LM_BATCH, LM_LONG_SEQ = "gemma2-9b", 8192, 1, 32768
+# flash kernel against its twin in bf16: both work in float32 and round
+# once to bf16, so they may differ by one bf16 ulp of the output (2^-7 of
+# it at most) plus float32 sums that cancel near zero (1e-5). The queries
+# are scaled by FLASH_Q_SCALE, so that the scores (about N(0, 8^2)) reach
+# the range where gemma2's cap of 50 acts; float32 at 2048 tokens: 2e-5
+FLASH_RTOL, FLASH_ATOL, FLASH_Q_SCALE = 2 ** -7, 1e-5, 8.0
+FLASH_F32_TOL, FLASH_F32_SEQ = 2e-5, 2048
+PARTITION_SHAPES = ((128, 128), (512, 128), (2048, 512))  # test_kernels.py
+PARTITION_TIMED = (1 << 24, 1024)
+FILTER_SHAPES = ((2048, 256), (4096, 128))  # test_kernels.py
+FILTER_TIMED = (65536, 65536)
+# the full-width prefill with the kernel against the same prefill with the
+# flash twin in every layer (bf16 activations round after every op, so
+# one flipped ulp in one layer travels through the rest): about twice the
+# 0.121 and 0.109 read on seeds 0 and 1, a thirtieth of the 7.5 and 7.9
+# that the twin with every query head on the next kv head reads (NVIDIA
+# H100 80GB HBM3, 700 W). A cap left off or a window one key too wide
+# reads like the sound twin there (0.125, 0.117; 0.125, 0.114): the
+# per-launch check is the one that sees those
+PATH_TOL = 0.25
+# the 32,768-token prefill (9.6 s on the card) runs if the script is not
+# yet this far; the whole script must end within 1200 s
+LONG_PREFILL_BY_S = 600
 
 
 def log(*a):
@@ -115,8 +169,8 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, ops):
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+def bound(nbytes, ops, ops_per_s=ALU_OPS_PER_S):
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -445,6 +499,191 @@ def merge_kernel_phase(dev, seed):
                   "against the float64 sum; library: index_add_)")
         del msgs, got
     return rows
+
+
+def flash_close(got, want):
+    """(within FLASH_RTOL / FLASH_ATOL, max abs error, largest share of
+    the tolerance) of a bf16 flash output against its twin's."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    share = float((diff / (FLASH_ATOL + FLASH_RTOL * w.abs())).max())
+    return (share <= 1.0 and bool(torch.isfinite(g).all()),
+            float(diff.max()), share)
+
+
+def causal_pairs(seq, window=None):
+    """Live (query, key) pairs of one head under the causal mask with an
+    optional window: query q sees min(q + 1, window) keys."""
+    if window is None or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
+def lm_kernel_phase(dev, seed):
+    """The LM slice's three kernels against their twins: the flash forward
+    at gemma2-9b's head shapes, prefix_partition and filter_tree_lookup at
+    the reference tests' shapes and one timed size each."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.set_count import filter_lookup
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import prefix_partition as tpp
+    from repro_torch.kernels import set_count as tsc
+    from repro_torch.models.attention import flash_attention_plain
+
+    from repro_torch.configs import get_config
+
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    rows, extra = {}, {}
+    cfg = get_config(LM_ARCH)  # the attention shapes of its layers
+    h, hkv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.attn_logit_cap
+    flib = _build.load("flash_attention", tfa._SIGNATURES)
+
+    def qkv(seq, dtype):
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   for shape in ((1, h, seq, dh), (1, hkv, seq, dh),
+                                 (1, hkv, seq, dh)))
+        return [t.to(dtype) for t in (q * FLASH_Q_SCALE, k, v)]
+
+    # float32 at FLASH_F32_SEQ tokens: the kernel's arithmetic against the
+    # twin's without bf16 output rounding in the way
+    q, k, v = qkv(FLASH_F32_SEQ, torch.float32)
+    for window in (None, cfg.sliding_window // 4):
+        kw = dict(causal=True, window=window, logit_cap=cap)
+        err = float((tfa.flash_attention_bhsd(q, k, v, **kw)
+                     - flash_attention_plain(q, k, v, **kw)).abs().max())
+        extra[f"flash_f32_{FLASH_F32_SEQ}_window_{window}_max_abs_err"] = err
+        check(err <= FLASH_F32_TOL, f"flash float32 (window {window}) within "
+              f"{FLASH_F32_TOL} of the twin ({err})")
+
+    q, k, v = qkv(LM_SEQ, cfg.dtype)
+    k_rep = k.repeat_interleave(h // hkv, dim=1)
+    v_rep = v.repeat_interleave(h // hkv, dim=1)
+    # each layer kind with the planted fault the tolerance must reject:
+    # the cap left off (global), the window one key too wide (local)
+    for name, window, fault in (
+            ("", None, dict(logit_cap=None)),
+            ("/local", cfg.sliding_window,
+             dict(window=cfg.sliding_window + 1))):
+        kw = dict(causal=True, window=window, logit_cap=cap)
+        got = tfa.flash_attention_bhsd(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        ok, err, share = flash_close(got, want)
+        extra[f"flash{name}_share_of_tol"] = share
+        check(ok, f"flash_attention_fwd{name} within rtol {FLASH_RTOL} atol "
+              f"{FLASH_ATOL} of the twin ({err}, {share:.3f} of the "
+              "tolerance)")
+        bad, fault_err, _ = flash_close(
+            flash_attention_plain(q, k, v, **{**kw, **fault}), want)
+        extra[f"flash{name}_fault_{next(iter(fault))}_max_abs_err"] = (
+            fault_err)
+        check(not bad, f"the flash tolerance rejects the twin with {fault} "
+              f"({fault_err})")
+        ms = cuda_ms(lambda: flib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), 1, h,
+            hkv, LM_SEQ, LM_SEQ, dh, 1, 1, int(window is not None),
+            window or 0, 1, cap, dh ** -0.5, 0,
+            _build.stream_of(q)), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                           iters=3, warmup=1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True), iters=5, warmup=1)
+        pairs = causal_pairs(LM_SEQ, window)
+        b_ms, b_by = bound(2 * LM_SEQ * dh * (2 * h + 2 * hkv),
+                           4 * dh * pairs * h, BF16_FLOPS_PER_S)
+        rows["flash_attention_fwd" + name] = dict(
+            name="flash_attention_fwd", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:80",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms,
+            shape=f"B 1, H {h} over Hkv {hkv}, dh {dh}, {LM_SEQ} tokens, "
+                  f"bf16, q x {FLASH_Q_SCALE}, causal, window {window}, "
+                  f"cap {cap}; "
+                  f"{4 * dh * pairs * h:.3e} FLOPs (library: "
+                  "scaled_dot_product_attention, causal, no cap, no "
+                  "window: a near function)")
+        del got, want
+
+    # prefix_partition: the reference test shapes, then the timed size
+    plib = _build.load("prefix_partition", tpp._SIGNATURES)
+    for n, block in PARTITION_SHAPES + (PARTITION_TIMED,):
+        vals = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                             device=dev, dtype=torch.int32)
+        cond = torch.rand((n,), generator=g, device=dev) < 0.4
+        got = tpp.prefix_partition(vals, cond, block)
+        want = tpp._partition_plain(vals, cond, block)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(err == 0, f"prefix_partition ({n}, block {block}) == twin")
+        if (n, block) != PARTITION_TIMED:
+            continue
+        out, nsel = got
+        ms = cuda_ms(lambda: plib.prefix_partition(
+            vals.data_ptr(), cond.data_ptr(), n, block, out.data_ptr(),
+            nsel.data_ptr(), _build.stream_of(vals)))
+        plain_ms = cuda_ms(lambda: tpp._partition_plain(vals, cond, block),
+                           iters=3, warmup=1)
+        v2, c2 = vals.view(-1, block), (~cond).view(-1, block).to(torch.uint8)
+
+        def library():
+            order = torch.sort(c2, dim=1, stable=True).indices
+            return v2.gather(1, order), cond.view(-1, block).sum(1)
+        b_ms, b_by = bound(9 * n + 4 * (n // block), n)
+        rows["prefix_partition"] = dict(
+            name="prefix_partition", route="cuda",
+            source="src/repro_torch/csrc/prefix_partition.cu",
+            replaces="src/repro/kernels/prefix_partition.py:36",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=cuda_ms(library, iters=5),
+            shape=f"{n} int32 values, block {block}, 40% selected (also "
+                  f"checked at {list(PARTITION_SHAPES)}; library: per-block "
+                  "stable torch.sort of the condition + gather)")
+
+    # filter_tree_lookup: the reference test shapes, then the timed size
+    for e, t in FILTER_SHAPES + (FILTER_TIMED,):
+        keys = torch.randperm(10 * e, generator=g, device=dev)[:e].to(
+            torch.int32)
+        pays = torch.arange(e, dtype=torch.int32, device=dev)
+        tgts = torch.randint(0, 10 * e, (t,), generator=g, device=dev,
+                             dtype=torch.int32)
+        tgts[:t // 4] = keys[torch.randint(0, e, (t // 4,), generator=g,
+                                           device=dev)]
+        got = tsc.filter_tree_lookup(keys, pays, tgts)
+        want = filter_lookup(keys, pays, tgts)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(err == 0 and 0 < int(got[1].sum()) < t,
+              f"filter_tree_lookup ({e} keys, {t} targets) == twin")
+        if (e, t) != FILTER_TIMED:
+            continue
+        out, hit = got
+        flt = _build.load("set_count", tsc._SIGNATURES)
+        ms = cuda_ms(lambda: flt.filter_tree_lookup(
+            keys.data_ptr(), pays.data_ptr(), e, tgts.data_ptr(), t,
+            out.data_ptr(), hit.data_ptr(), _build.stream_of(tgts)))
+        plain_ms = cuda_ms(lambda: filter_lookup(keys, pays, tgts), iters=3,
+                           warmup=1)
+        sk, order = torch.sort(keys)
+        sp = pays[order]
+
+        def library():
+            i = torch.clamp(torch.searchsorted(sk, tgts), max=e - 1)
+            hit_ = sk[i] == tgts
+            return torch.where(hit_, sp[i], -1), hit_
+        b_ms, b_by = bound(4 * (2 * e + 2 * t) + t, e * t)
+        rows["filter_tree_lookup"] = dict(
+            name="filter_tree_lookup", route="cuda",
+            source="src/repro_torch/csrc/set_count.cu",
+            replaces="src/repro/kernels/set_count.py:73", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(library),
+            shape=f"{t} targets over {e} unique keys, a quarter hit (also "
+                  f"checked at {list(FILTER_SHAPES)}; library: "
+                  "torch.searchsorted on the sorted keys, another algorithm)")
+    return rows, extra
 
 
 # ------------------------------------------------------------- phases 4-5
@@ -793,12 +1032,8 @@ def merge_checks(dev, seed, coo, csc_m, eng, reqs, handles, eng_s, extra):
 
 
 def profile_phase(eng, seeds, rid, top=8):
-    """One full-width request (``slot_fn``) under ``torch.profiler``: the
-    host wall time, the device time summed over every op's own kernels,
-    and the ops and kernels that take the most device time."""
+    """One full-width request (``slot_fn``) under ``torch.profiler``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.graph import SENTINEL
 
     row = torch.full((eng.seed_cap,), SENTINEL, dtype=torch.int32)
@@ -807,10 +1042,22 @@ def profile_phase(eng, seeds, rid, top=8):
     key = eng.request_key(rid)
     eng.slot_fn(eng.params, row, key)
     torch.cuda.synchronize()
+    return dict(seeds=len(seeds),
+                **profile_call(lambda: eng.slot_fn(eng.params, row, key), top))
+
+
+def profile_call(fn, top=8):
+    """``fn()`` once under ``torch.profiler``: the host wall time, the
+    device time summed over every op's own kernels, and the ops and
+    kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.slot_fn(eng.params, row, key)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -819,10 +1066,159 @@ def profile_phase(eng, seeds, rid, top=8):
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
     rows.sort(key=lambda r: -r[1])
-    return dict(seeds=len(seeds), wall_ms=wall_ms, device_ms=device_ms,
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
                 top=[dict(name=k[:120], device_ms=t, count=c)
                      for k, t, c in rows[:top]])
+
+
+# ------------------------------------------------------------- phase 9
+def lm_path(dev, seed):
+    """Launch counters to 0, the full-width gemma2-9b prefill cell at
+    LM_SEQ tokens, one prefill, counters read; a second prefill for the
+    bits and the steady time."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import lm_prefill_cell
+
+    out = {}
+    t0 = time.perf_counter()
+    cell = lm_prefill_cell(LM_ARCH, seq_len=LM_SEQ, batch=LM_BATCH,
+                           device=dev, seed=seed)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in cell.model.parameters())
+    out["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = cell.step()
+    torch.cuda.synchronize()
+    out["first_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    again = cell.step()
+    torch.cuda.synchronize()
+    out["steady_s"] = time.perf_counter() - t0
+    out["tokens_per_s"] = LM_BATCH * LM_SEQ / out["steady_s"]
+    check(torch.equal(logits, again), "two prefills give the same bits")
+    return out, cell, logits
+
+
+def lm_checks(dev, seed, cell, logits, extra):
+    """Each flash launch of a prefill held against the twin on its own
+    inputs; the prefill's logits against the same prefill with the twin
+    in every layer (and the readings of three planted faults); the smoke
+    model on the card against the CPU."""
+    import torch
+    from repro_torch.launch.steps import lm_prefill_cell
+    from repro_torch.models import transformer
+    from repro_torch.models.attention import flash_attention_plain
+
+    cfg = cell.model.cfg
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab)
+          and logits.dtype == cfg.dtype, f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "finite logits")
+    check(float(logits.float().abs().max()) <= cfg.final_logit_cap,
+          "logits within the final softcap")
+
+    # every launch of a prefill against the twin on that launch's inputs
+    kernel_fn = transformer.flash_attention_bhsd
+    layers, faults = [], {}
+
+    def checked(q, k, v, **kw):
+        got = kernel_fn(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        layers.append(flash_close(got, want))
+        if len(layers) <= 2:  # the first local and global layers' inputs:
+            # would the kernel phase's planted faults show here?
+            fault = (dict(window=kw["window"] + 1) if kw["window"]
+                     else dict(logit_cap=None))
+            faults[f"layer{len(layers) - 1}_{next(iter(fault))}"] = (
+                flash_close(flash_attention_plain(q, k, v, **{**kw, **fault}),
+                            want)[2])
+        return got
+    transformer.flash_attention_bhsd = checked
+    again = cell.step()
+    transformer.flash_attention_bhsd = kernel_fn
+    extra["lm_layers_max_abs_err"] = max(e for _, e, _ in layers)
+    extra["lm_layers_share_of_tol"] = max(sh for _, _, sh in layers)
+    check(len(layers) == cfg.n_layers and all(ok for ok, _, _ in layers),
+          f"each of the prefill's {cfg.n_layers} flash launches within rtol "
+          f"{FLASH_RTOL} atol {FLASH_ATOL} of the twin on its own inputs "
+          f"({len(layers)} checked, max {extra['lm_layers_max_abs_err']}, "
+          f"{extra['lm_layers_share_of_tol']:.3f} of the tolerance)")
+    check(torch.equal(again, logits), "the checked prefill gives the bits")
+    extra["lm_layer_fault_share_of_tol"] = faults
+    check(len(faults) == 2 and all(v > 1 for v in faults.values()),
+          f"the per-launch check rejects the planted faults on the path's "
+          f"own inputs: {faults}")
+    del again
+
+    # the whole prefill with the twin in every layer, and with the twin
+    # carrying a planted fault: the cap left off, the window one key too
+    # wide, every query head on the next kv head
+    def twin(cap=True, window_plus=0, kv_shift=0):
+        def fn(q, k, v, *, window=None, logit_cap=None, **kw):
+            return flash_attention_plain(
+                q, k.roll(kv_shift, dims=1), v.roll(kv_shift, dims=1),
+                window=None if window is None else window + window_plus,
+                logit_cap=logit_cap if cap else None, **kw)
+        return fn
+    runs = {"twin": twin(), "no_cap": twin(cap=False),
+            "window_plus_1": twin(window_plus=1), "kv_shift": twin(kv_shift=1)}
+    errs = {}
+    for key, fn in runs.items():
+        transformer.flash_attention_bhsd = fn
+        t0 = time.perf_counter()
+        plain = cell.step()
+        torch.cuda.synchronize()
+        extra[f"lm_{key}_prefill_s"] = time.perf_counter() - t0
+        transformer.flash_attention_bhsd = kernel_fn
+        errs[key] = float((logits.float() - plain.float()).abs().max())
+        extra[f"lm_kernel_vs_{key}_logit_max_abs_err"] = errs[key]
+        extra[f"lm_kernel_vs_{key}_argmax_equal"] = bool(torch.equal(
+            logits.argmax(-1), plain.argmax(-1)))
+        del plain
+    check(errs["twin"] <= PATH_TOL < errs["kv_shift"],
+          f"prefill logits with the kernel within {PATH_TOL} of the twin's "
+          f"({errs['twin']}), the next-kv-head fault outside "
+          f"({errs['kv_shift']})")
+
+    # the smoke model (float32) at 64 tokens: card == CPU within 1e-4
+    small = lm_prefill_cell(LM_ARCH, seq_len=64, batch=2, device="cpu",
+                            seed=seed, smoke=True)
+    want = small.step()
+    got = transformer.lm_prefill(small.model.to(dev), small.tokens.to(dev))
+    err = float((got.cpu() - want).abs().max())
+    extra["lm_smoke_card_vs_cpu_max_abs_err"] = err
+    check(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+          and torch.equal(got.argmax(-1).cpu(), want.argmax(-1)),
+          f"smoke prefill card vs CPU within 1e-4 ({err})")
+
+
+def long_prefill(cell, seed):
+    """One prefill of LM_LONG_SEQ tokens on the same model (the cell's
+    full sequence), timed on the host clock."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import PrefillCell
+
+    toks = np.random.default_rng(seed).integers(
+        0, cell.model.cfg.vocab, (LM_BATCH, LM_LONG_SEQ)).astype(np.int32)
+    long = PrefillCell(cell.arch_id, cell.model,
+                       torch.from_numpy(toks).to(cell.tokens.device))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = long.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits.float()).all()), "finite long logits")
+    return dict(tokens=LM_LONG_SEQ, seconds=dt,
+                tokens_per_s=LM_BATCH * LM_LONG_SEQ / dt,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 # ------------------------------------------------------------------ main
@@ -867,10 +1263,7 @@ def main():
     rows, extra = kernel_phase(dev, args.seed)
     rows.update(merge_kernel_phase(dev, args.seed))
     for key, r in rows.items():
-        log(f"[kernel] {key} ({r['shape']}): {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
-            f"{r['max_abs_err']}")
+        log_row(key, r)
 
     # 4. the slice path
     out, coo, csc, eng, reqs, handles, feats = main_path(dev, args.seed,
@@ -910,24 +1303,80 @@ def main():
         f"{LOGIT_TOL} of the slice path's, card == CPU on a small graph: ok")
     mout["profile"] = profile_phase(meng, mreqs[big], mhandles[big].rid)
     log_profile("merge profile", mout["profile"])
-    log(f"[extra] {json.dumps(extra)}")
-    del mcoo, mcsc, meng, csc, eng
+    del mcoo, mcsc, meng, csc, eng, feats, handles, mhandles
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] GNN phases done at {time.perf_counter() - t_start:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
-    # 8. report
+    # 8. the LM slice's kernels
+    lm_rows, lm_extra = lm_kernel_phase(dev, args.seed)
+    extra.update(lm_extra)
+    for key, r in lm_rows.items():
+        log_row(key, r)
+    rows.update(lm_rows)
+    log(f"[lm kernels] flash float32 at {FLASH_F32_SEQ} tokens within "
+        f"{FLASH_F32_TOL} of the twin: {lm_extra}")
+
+    # 9. the LM prefill path
+    lout, cell, logits = lm_path(dev, args.seed)
+    n_layers = cell.model.cfg.n_layers
+    log(f"[lm] {LM_ARCH} at full width: {lout['params']:,} parameters "
+        f"({lout['weights_gib']:.2f} GiB on the card), built in "
+        f"{lout['setup_s']:.2f}s")
+    log(f"[lm] prefill of {LM_BATCH} x {LM_SEQ} tokens: first "
+        f"{lout['first_s']:.3f}s, second {lout['steady_s']:.3f}s "
+        f"({lout['tokens_per_s']:.1f} tokens/s); peak "
+        f"{lout['peak_mem_gib']:.2f} GiB; launches {lout['launches']}")
+    check(lout["launches"]["flash_attention_fwd"] == n_layers,
+          f"{n_layers} flash launches in one prefill: {lout['launches']}")
+    check(all(v == 0 for k, v in lout["launches"].items()
+              if k not in LM_KERNELS),
+          f"no other kernel on the LM path: {lout['launches']}")
+    lm_checks(dev, args.seed, cell, logits, extra)
+    log("[lm checks] two prefills bit-equal, finite logits within the "
+        f"softcap, each flash launch within one bf16 ulp of the twin on its "
+        f"inputs (max {extra['lm_layers_max_abs_err']}), kernel path within "
+        f"{PATH_TOL} of the twin path "
+        f"({extra['lm_kernel_vs_twin_logit_max_abs_err']}, argmax equal: "
+        f"{extra['lm_kernel_vs_twin_argmax_equal']}; planted faults: no cap "
+        f"{extra['lm_kernel_vs_no_cap_logit_max_abs_err']}, window + 1 "
+        f"{extra['lm_kernel_vs_window_plus_1_logit_max_abs_err']}, next kv "
+        f"head {extra['lm_kernel_vs_kv_shift_logit_max_abs_err']}), smoke "
+        "card == CPU: ok")
+    lout["profile"] = dict(tokens=LM_BATCH * LM_SEQ,
+                           **profile_call(cell.step, top=10))
+    log_profile("lm profile", lout["profile"])
+    elapsed = time.perf_counter() - t_start
+    if elapsed < LONG_PREFILL_BY_S:
+        lout["long"] = long_prefill(cell, args.seed)
+        log(f"[lm long] prefill of {LM_BATCH} x {LM_LONG_SEQ} tokens: "
+            f"{lout['long']['seconds']:.3f}s "
+            f"({lout['long']['tokens_per_s']:.1f} tokens/s), peak "
+            f"{lout['long']['peak_mem_gib']:.2f} GiB")
+    else:
+        log(f"[lm long] skipped: the run was at {elapsed:.0f}s, past "
+            f"{LONG_PREFILL_BY_S}s")
+    log(f"[extra] {json.dumps(extra)}")
+    del cell, logits
+
+    # 10. report
     launches = {k: out["launches"][k] + mout["launches"][k]
-                for k in out["launches"]}
+                for k in SLICE_KERNELS + MERGE_KERNELS}
     check(all(v > 0 for v in launches.values()),
-          f"all eight kernels launched across the two paths: {launches}")
+          f"all eight GNN kernels launched across the two paths: {launches}")
+    launches.update({k: lout["launches"][k]
+                     for k in LM_KERNELS + OFF_PATH_KERNELS})
     kernels = []
-    for key in SLICE_KERNELS + MERGE_KERNELS:
+    for key in SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + OFF_PATH_KERNELS:
         r = {k: v for k, v in rows[key].items() if k != "shape"}
         r["launches"] = launches[key]
         kernels.append(r)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, rows=rows, main_path=out, merge_path=mout,
-                       extra=extra, seconds=time.perf_counter() - t_start),
-                  f, indent=1)
+                       lm_path=lout, extra=extra,
+                       seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernel_launches": launches}))
@@ -936,6 +1385,13 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def log_row(key, r):
+    log(f"[kernel] {key} ({r['shape']}): {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+        f"{r['max_abs_err']}")
 
 
 def log_serve(tag, out):
@@ -949,7 +1405,9 @@ def log_serve(tag, out):
 
 
 def log_profile(tag, prof):
-    log(f"[{tag}] one request of {prof['seeds']} seeds: wall "
+    what = (f"one request of {prof['seeds']} seeds" if "seeds" in prof
+            else f"one prefill of {prof['tokens']} tokens")
+    log(f"[{tag}] {what}: wall "
         f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
         f"(busy share {prof['device_busy_share']:.3f}); top by device time:")
     for r in prof["top"]:

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the AutoGNN preprocessing and GNN serve path.
+"""PyTorch + CUDA port of the AutoGNN preprocessing and GNN serve path,
+and of the LM substrate's prefill (gemma2-9b).
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core/``, ``kernels/``, ``models/``, ``serve/``, ``configs/``,

@@ -1,9 +1,15 @@
-"""Model configurations of the port (the GNN family only)."""
+"""Model configurations of the port: graphsage-reddit (the GNN serve
+paths) and gemma2-9b (the LM prefill path)."""
 from __future__ import annotations
 
-from . import graphsage_reddit
+from . import gemma2_9b, graphsage_reddit
 
-_CONFIGS = {"graphsage-reddit": graphsage_reddit}
+_CONFIGS = {"graphsage-reddit": graphsage_reddit, "gemma2-9b": gemma2_9b}
+
+# the reference's LM shape cells (repro/configs/base.py) the port runs
+LM_SHAPES = {
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+}
 
 
 def get_config(arch: str, smoke: bool = False):

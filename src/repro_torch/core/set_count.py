@@ -1,5 +1,5 @@
-"""Set-counting (port of ``count_less_than`` and ``rank_in_sorted`` from
-``repro/core/set_count.py``).
+"""Set-counting (port of ``count_less_than``, ``rank_in_sorted`` and
+``filter_lookup`` from ``repro/core/set_count.py``).
 
 ``count_less_than`` is the SCR comparator array + adder tree: a blocked
 all-pairs compare-reduce, correct on unsorted input. ``rank_in_sorted`` is
@@ -12,7 +12,10 @@ from __future__ import annotations
 
 import torch
 
-from .graph import take
+from .graph import pad_to, take
+
+INT32_MIN = -(1 << 31)
+FILTER_BLOCK = 2048  # the reference's block, and csrc/set_count.cu kTile
 
 
 def count_less_than(elements: torch.Tensor, targets: torch.Tensor,
@@ -59,3 +62,27 @@ def rank_in_sorted(sorted_arr: torch.Tensor, queries: torch.Tensor,
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return lo
+
+
+def filter_lookup(keys: torch.Tensor, payloads: torch.Tensor,
+                  targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Reindexer's filter (OR) tree: each target's payload.
+
+    Returns (payload or -1 [T] int32, hit [T] bool). Keys are unique (the
+    mapping table keyed by original VID). Per block of FILTER_BLOCK keys a
+    [T, block] equality comparator tile encodes ``payload + 1`` where it
+    fires and 0 elsewhere, reduced by max (at most one comparator fires per
+    target, so max is the OR tree). Keys pad with INT32_MIN, payloads with
+    0, as in the reference (the filter kernel pads its last tile alike).
+    """
+    e = keys.shape[0]
+    size = e + (-e) % FILTER_BLOCK
+    ks = pad_to(keys, size, INT32_MIN).reshape(-1, FILTER_BLOCK)
+    ps = pad_to(payloads, size, 0).reshape(-1, FILTER_BLOCK)
+    enc = torch.zeros(targets.shape, dtype=torch.int32, device=targets.device)
+    for k, p in zip(ks, ps):
+        hit = k[None, :] == targets[:, None]  # [T, block]
+        enc = torch.maximum(enc, torch.where(hit, p[None, :] + 1,
+                                             0).amax(dim=1))
+    hit = enc > 0
+    return torch.where(hit, enc - 1, -1), hit

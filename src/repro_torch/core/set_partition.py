@@ -26,22 +26,24 @@ def gather_sources_from_counts(incl_counts: torch.Tensor,
                                base: torch.Tensor) -> torch.Tensor:
     """Inverse-permutation router: source index of every output slot.
 
-    ``incl_counts`` [N, B] inclusive per-bucket prefix sums, ``base`` [B]
-    exclusive bucket starts. Slot j belongs to the last bucket whose base
-    is ≤ j, at local rank r = j - base[b]; its source is the first i with
+    ``incl_counts`` [..., N, B] inclusive per-bucket prefix sums, ``base``
+    [..., B] exclusive bucket starts (leading axes are independent
+    partitions). Slot j belongs to the last bucket whose base is ≤ j, at
+    local rank r = j - base[b]; its source is the first i with
     ``incl_counts[i, b] == r + 1`` (log₂ N bisection rounds per slot).
     """
-    n, nb = incl_counts.shape
+    *lead, n, nb = incl_counts.shape
     dev = incl_counts.device
     j = torch.arange(n, dtype=torch.int32, device=dev)
-    b = (base[None, :] <= j[:, None]).sum(1, dtype=torch.int32) - 1
-    target = j - take(base, b) + 1
-    flat = incl_counts.reshape(-1)
-    lo = torch.zeros(n, dtype=torch.int32, device=dev)
-    hi = torch.full((n,), n, dtype=torch.int32, device=dev)
+    b = (base[..., None, :] <= j[:, None]).sum(-1, dtype=torch.int32) - 1
+    target = j - base.gather(-1, b.to(torch.int64)) + 1
+    flat = incl_counts.reshape(*lead, n * nb)
+    lo = torch.zeros(b.shape, dtype=torch.int32, device=dev)
+    hi = torch.full(b.shape, n, dtype=torch.int32, device=dev)
     for _ in range(max(1, int(n).bit_length())):
         mid = (lo + hi) >> 1
-        pivot = take(flat, torch.clamp(mid, 0, n - 1) * nb + b)
+        pivot = flat.gather(-1, (torch.clamp(mid, 0, n - 1) * nb
+                                 + b).to(torch.int64))
         go_right = pivot < target
         lo = torch.where(go_right, mid + 1, lo)
         hi = torch.where(go_right, hi, mid)

@@ -8,18 +8,25 @@ from __future__ import annotations
 
 
 def kernel_wrappers():
-    """The eight kernel wrappers of the serve paths, by name."""
+    """Every kernel wrapper, by name: the eight of the GNN serve paths,
+    the flash attention of the LM prefill path, and the two kernels no
+    path runs (prefix_partition, filter_tree_lookup)."""
+    from .flash_attention import flash_attention_bhsd
     from .merge import fused_merge_rounds
+    from .prefix_partition import prefix_partition
     from .radix_sort import chunk_sort, digit_partition_hist, digit_rank_gather
     from .reindex_epilogue import rank_search, rename
     from .segment_agg import segment_sum_sorted
-    from .set_count import set_count_less
+    from .set_count import filter_tree_lookup, set_count_less
     return {"digit_partition_hist": digit_partition_hist,
             "digit_rank_gather": digit_rank_gather,
             "rank_search": rank_search, "rename": rename,
             "chunk_sort": chunk_sort, "fused_merge": fused_merge_rounds,
             "set_count_less": set_count_less,
-            "segment_sum_sorted": segment_sum_sorted}
+            "segment_sum_sorted": segment_sum_sorted,
+            "flash_attention_fwd": flash_attention_bhsd,
+            "prefix_partition": prefix_partition,
+            "filter_tree_lookup": filter_tree_lookup}
 
 
 def launch_counts() -> dict[str, int]:

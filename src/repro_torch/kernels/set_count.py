@@ -1,9 +1,11 @@
-"""The SCR set-count (port of ``set_count_less`` and ``pallas_count_fn``
-in ``repro/kernels/set_count.py``).
+"""The SCR set-count and filter tree (port of ``set_count_less``,
+``filter_tree_lookup`` and ``pallas_count_fn`` in
+``repro/kernels/set_count.py``).
 
-``set_count_less`` launches the kernel of ``csrc/set_count.cu`` on CUDA
-tensors and runs its plain twin, the blocked compare-reduce
-``core.set_count.count_less_than``, on CPU tensors. ``count_fn`` is the
+``set_count_less`` and ``filter_tree_lookup`` launch the kernels of
+``csrc/set_count.cu`` on CUDA tensors and run their plain twins, the
+blocked compare-reduces ``core.set_count.count_less_than`` and
+``core.set_count.filter_lookup``, on CPU tensors. ``count_fn`` is the
 adapter ``build_pointer_array(count_fn=...)`` takes.
 """
 from __future__ import annotations
@@ -12,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.set_count import count_less_than
+from repro_torch.core.set_count import count_less_than, filter_lookup
 
 from . import _build
 from .common import SENTINEL, pad_pow2_1d
@@ -21,6 +23,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "set_count_less": (ctypes.c_int, (_P, _I, _P, _I, _P, _P)),
+    "filter_tree_lookup": (ctypes.c_int, (_P, _P, _I, _P, _I, _P, _P, _P)),
 }
 
 
@@ -47,6 +50,38 @@ def set_count_less(elements: torch.Tensor, targets: torch.Tensor
 
 
 set_count_less.launches = 0
+
+
+def filter_tree_lookup(keys: torch.Tensor, payloads: torch.Tensor,
+                       targets: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SCR Reindexer mode: (payload of the key equal to each target, or -1;
+    hit flag). keys and payloads [E] int32 with unique keys, targets [T]
+    int32; any E and T. The kernel pads its ragged last tile of keys with
+    INT32_MIN keys of payload 0, as the twin and the reference pad to
+    their blocks."""
+    if keys.shape != payloads.shape:
+        raise ValueError("filter_tree_lookup takes keys and payloads of one "
+                         "shape")
+    if not keys.is_cuda:
+        return filter_lookup(keys, payloads, targets)
+    for t in (keys, payloads, targets):
+        if (t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous()
+                or t.device != keys.device):
+            raise ValueError("filter_tree_lookup takes contiguous 1-D int32 "
+                             "CUDA tensors on one device")
+    out = torch.empty_like(targets)
+    hit = torch.empty(targets.shape, dtype=torch.bool, device=targets.device)
+    if targets.shape[0]:
+        filter_tree_lookup.launches += 1
+        _build.check(_build.load("set_count", _SIGNATURES).filter_tree_lookup(
+            keys.data_ptr(), payloads.data_ptr(), keys.shape[0],
+            targets.data_ptr(), targets.shape[0], out.data_ptr(),
+            hit.data_ptr(), _build.stream_of(targets)), "filter_tree_lookup")
+    return out, hit
+
+
+filter_tree_lookup.launches = 0
 
 
 def count_fn(sorted_dst: torch.Tensor, targets: torch.Tensor,

@@ -1,1 +1,1 @@
-"""Models of the port (GraphSAGE)."""
+"""Models of the port (GraphSAGE; the gemma2-style LM transformer)."""

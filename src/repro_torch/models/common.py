@@ -1,0 +1,69 @@
+"""Shared model components (port of the parts of ``repro/models/common.py``
+the LM prefill path runs): seeded initialisers, RMSNorm, the gated MLP and
+the logit softcap.
+
+Weights keep the reference's layout, ``x @ W`` with ``W`` shaped
+[d_in, d_out], so a parameter tree from the reference loads without
+transposes.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, device=None,
+               scale: float | None = None) -> torch.Tensor:
+    """N(0, 1) × ``scale`` (default 1/√d_in), drawn in float32 by
+    ``generator`` on ``device`` (the generator's device), then cast."""
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * s).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = False) -> torch.Tensor:
+    """RMSNorm in float32; with ``zero_centered`` the weight is
+    ``1 + scale``, rounded in the parameter's dtype before the product."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    w = (1.0 + scale) if zero_centered else scale
+    return (x * w).to(dt)
+
+
+def glu_init(generator: torch.Generator, d_model: int, d_ff: int,
+             dtype=torch.float32, device=None) -> dict[str, torch.Tensor]:
+    return {
+        "w_gate": dense_init(generator, d_model, d_ff, dtype, device),
+        "w_in": dense_init(generator, d_model, d_ff, dtype, device),
+        "w_out": dense_init(generator, d_ff, d_model, dtype, device),
+    }
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def glu_apply(w_gate: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+              x: torch.Tensor, act=F.silu) -> torch.Tensor:
+    return (act(x @ w_gate) * (x @ w_in)) @ w_out
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)

@@ -1,0 +1,248 @@
+"""LM-family transformer, the prefill path (port of ``LMConfig`` and the
+forward of ``repro/models/transformer.py``) for gemma2-style alternating
+local / global layers.
+
+``LM`` is an ``nn.Module`` whose weights keep the reference's layout
+(``x @ W`` with ``W`` shaped [d_in, d_out]). The reference stacks the
+local and the global layers as ``[n_layers / 2, ...]`` trees and scans
+over (local, global) pairs; here ``LM.layers`` lists the layers in the
+order they run, local first in each pair. ``load_reference_lm_params``
+carries a reference ``lm_init`` tree into the module. Every layer's
+attention is ``kernels.flash_attention.flash_attention_bhsd``: the flash
+kernel on the card, its plain twin on the CPU.
+
+Branches gemma2 does not take raise ``NotImplementedError``: MoE blocks,
+the unrolled ``blocks_list`` and stacked ``blocks`` layouts (configs
+without ``local_global``) and ``qkv_bias`` wait for the LM substrate's
+later slices (ROADMAP.md, A12).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.graph import resolve_device
+
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
+
+from .attention import rope
+from .common import (dense_init, embed_init, gelu_tanh, glu_apply, glu_init,
+                     rms_norm, softcap)
+
+_UNPORTED = "is not ported yet (ROADMAP.md, A12: the LM substrate)"
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 → d_model // n_heads
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    qkv_bias: bool = False
+    local_global: bool = False  # gemma2 alternating local/global
+    sliding_window: int = 4096
+    attn_logit_cap: float | None = None
+    final_logit_cap: float | None = None
+    rope_theta: float = 10000.0
+    norm_zero_centered: bool = False
+    post_norm: bool = False
+    tied_embed: bool = False
+    embed_scale: bool = False  # gemma2 multiplies by sqrt(d)
+    dtype: torch.dtype = torch.float32
+    remat: bool = False
+    kv_cache_dtype: str = "bf16"  # "bf16" | "int8"
+    kv_block: int = 512
+    train_layout: str = "tp"
+    scan_layers: bool = True
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe_experts > 0
+
+
+def _check_ported(cfg: LMConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(f"MoE blocks ({cfg.name}) {_UNPORTED}")
+    if cfg.qkv_bias:
+        raise NotImplementedError(f"qkv_bias ({cfg.name}) {_UNPORTED}")
+    if not cfg.local_global:
+        layout = "stacked 'blocks'" if cfg.scan_layers else "'blocks_list'"
+        raise NotImplementedError(
+            f"the {layout} layer layout ({cfg.name}) {_UNPORTED}")
+
+
+def _norm(cfg: LMConfig, device) -> nn.Parameter:
+    fill = torch.zeros if cfg.norm_zero_centered else torch.ones
+    return nn.Parameter(fill((cfg.d_model,), dtype=cfg.dtype, device=device))
+
+
+class Block(nn.Module):
+    """One pre-norm block (``_block_init``'s tree, ``mlp`` flattened)."""
+
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+        super().__init__()
+        d, dh, dt = cfg.d_model, cfg.dh, cfg.dtype
+
+        def dense(a, b):
+            return nn.Parameter(dense_init(generator, a, b, dt, device))
+
+        self.wq = dense(d, cfg.n_heads * dh)
+        self.wk = dense(d, cfg.n_kv_heads * dh)
+        self.wv = dense(d, cfg.n_kv_heads * dh)
+        self.wo = dense(cfg.n_heads * dh, d)
+        self.ln_attn = _norm(cfg, device)
+        self.ln_mlp = _norm(cfg, device)
+        if cfg.post_norm:
+            self.ln_post_attn = _norm(cfg, device)
+            self.ln_post_mlp = _norm(cfg, device)
+        for name, w in glu_init(generator, d, cfg.d_ff, dt, device).items():
+            setattr(self, name, nn.Parameter(w))
+
+
+class LM(nn.Module):
+    """The transformer of ``lm_init``: ``embed``, the layers in run order
+    (local, global, local, ...), ``ln_final`` and, untied, ``lm_head``.
+
+    Random init draws N(0, 1/d_in) weights and a N(0, 0.02²) embedding
+    (the reference's scales) in float32 from one generator seeded with
+    ``seed`` on ``device``, one tensor at a time, each cast to
+    ``cfg.dtype`` at once: a full-width model never holds its weights in
+    float32. The values depend on the device's generator (a missing card
+    raises).
+    """
+
+    def __init__(self, cfg: LMConfig, seed: int = 0, device="cuda"):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        device = resolve_device(device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        self.embed = nn.Parameter(embed_init(g, cfg.vocab, cfg.d_model,
+                                             cfg.dtype, device))
+        self.layers = nn.ModuleList(
+            Block(cfg, g, device) for _ in range(2 * (cfg.n_layers // 2)))
+        self.ln_final = _norm(cfg, device)
+        self.lm_head = None if cfg.tied_embed else nn.Parameter(
+            dense_init(g, cfg.d_model, cfg.vocab, cfg.dtype, device))
+
+    def window(self, i: int) -> int | None:
+        """Layer i's sliding window: local layers (even i) have one."""
+        return self.cfg.sliding_window if i % 2 == 0 else None
+
+    def forward(self, tokens: torch.Tensor):
+        return lm_forward(self, tokens)
+
+
+def load_reference_lm_params(model: LM, params) -> LM:
+    """Carry the reference's ``lm_init`` tree (``embed``, ``ln_final``,
+    ``local`` / ``global`` stacked ``[n_layers / 2, ...]``, ``lm_head``
+    when untied; arrays convertible by ``np.asarray``) into ``model``, in
+    place; shapes must match exactly (same [d_in, d_out] layout)."""
+    if "blocks" in params or "blocks_list" in params:
+        raise NotImplementedError(f"the stacked layer layouts {_UNPORTED}")
+
+    def put(dst: nn.Parameter, src):
+        arr = torch.from_numpy(np.array(src, dtype=np.float32))
+        if tuple(arr.shape) != tuple(dst.shape):
+            raise ValueError(f"shape {tuple(arr.shape)} != {tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(arr.to(device=dst.device, dtype=dst.dtype))
+
+    put(model.embed, params["embed"])
+    put(model.ln_final, params["ln_final"])
+    n_pairs = len(model.layers) // 2
+    for kind, off in (("local", 0), ("global", 1)):
+        tree = params[kind]
+        if np.asarray(tree["wq"]).shape[0] != n_pairs:
+            raise ValueError(f"{kind} stack depth differs")
+        for i in range(n_pairs):
+            layer = model.layers[2 * i + off]
+            for name, p in layer.named_parameters():
+                src = tree["mlp"][name] if name.startswith("w_") else tree[name]
+                put(p, np.asarray(src)[i])
+    if ("lm_head" in params) != (model.lm_head is not None):
+        raise ValueError("lm_head presence differs")
+    if model.lm_head is not None:
+        put(model.lm_head, params["lm_head"])
+    return model
+
+
+# ------------------------------------------------------------------ forward
+def _attn(cfg: LMConfig, p: Block, x, positions, *, window=None):
+    b, s, _ = x.shape
+    dh = cfg.dh
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, dh).transpose(1, 2)
+    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
+    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
+    q = rope(q, positions[None, None, :], cfg.rope_theta)
+    k = rope(k, positions[None, None, :], cfg.rope_theta)
+    o = flash_attention_bhsd(q, k, v.contiguous(), causal=True,
+                            window=window, logit_cap=cfg.attn_logit_cap,
+                            kv_block=min(cfg.kv_block, s))
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
+    return o @ p.wo, k, v
+
+
+def _block(cfg: LMConfig, p: Block, x, positions, *, window=None):
+    zc = cfg.norm_zero_centered
+    h, _, _ = _attn(cfg, p, rms_norm(x, p.ln_attn, zero_centered=zc),
+                    positions, window=window)
+    if cfg.post_norm:
+        h = rms_norm(h, p.ln_post_attn, zero_centered=zc)
+    x = x + h
+    z = rms_norm(x, p.ln_mlp, zero_centered=zc)
+    act = gelu_tanh if cfg.name.startswith("gemma") else F.silu
+    y = glu_apply(p.w_gate, p.w_in, p.w_out, z, act=act)
+    if cfg.post_norm:
+        y = rms_norm(y, p.ln_post_mlp, zero_centered=zc)
+    return x + y
+
+
+def lm_trunk(model: LM, tokens: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] → (hidden [B, S, d] after the final norm, aux loss)."""
+    cfg = model.cfg
+    s = tokens.shape[1]
+    x = model.embed[tokens.to(torch.int64)].to(cfg.dtype)
+    if cfg.embed_scale:
+        # the reference rounds √d to the model dtype (60.0 in bf16 at 3584)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
+    positions = torch.arange(s, device=tokens.device)
+    for i, layer in enumerate(model.layers):
+        x = _block(cfg, layer, x, positions, window=model.window(i))
+    x = rms_norm(x, model.ln_final, zero_centered=cfg.norm_zero_centered)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_head_logits(model: LM, x: torch.Tensor) -> torch.Tensor:
+    head = model.embed.T if model.cfg.tied_embed else model.lm_head
+    return softcap(x @ head.to(x.dtype), model.cfg.final_logit_cap)
+
+
+def lm_forward(model: LM, tokens: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] → (logits [B, S, V], aux loss)."""
+    x, aux = lm_trunk(model, tokens)
+    return lm_head_logits(model, x), aux
+
+
+@torch.no_grad()
+def lm_prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """Prefill: the trunk over the prompt, the head on the last position
+    only ([B, V] logits), with no autograd record."""
+    x, _ = lm_trunk(model, tokens)
+    return lm_head_logits(model, x[:, -1])

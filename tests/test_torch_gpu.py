@@ -1,10 +1,11 @@
 """Card-only checks of the hand-written kernels (marker ``gpu``): each
 integer CUDA kernel equals its plain-torch twin element for element, the
 segment sum is within rtol = 1e-5, atol = 1e-4 of its float64 twin and
-gives the same bits on every launch, the wrappers refuse what the kernels
-cannot take, and both serve paths on the card give the integers the CPU
-path gives. Every test skips with a reason on a host without a card or
-nvcc.
+gives the same bits on every launch, the flash kernel is within 2e-5 of
+its twin in float32 and within one bf16 ulp in bf16, the wrappers refuse what the kernels cannot take, both serve paths on the
+card give the integers the CPU path gives, and the gemma2 smoke prefill on
+the card gives the CPU's logits. Every test skips with a reason on a host
+without a card or nvcc.
 
 Run them on a machine with an H100:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -21,6 +22,8 @@ from repro_torch.core import graph as tg  # noqa: E402
 from repro_torch.core import pipeline as tp  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import prefix_partition as tpp  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels import merge as tm  # noqa: E402
 from repro_torch.kernels import radix_sort as trs  # noqa: E402
@@ -266,3 +269,148 @@ def test_merge_serve_path_on_card_equals_cpu(cuda):
     assert torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     counts = launch_counts()
     assert all(counts[k] > 0 for k in NEW_KERNELS), counts
+
+
+# --------------------------------------------------- LM prefill slice
+# (rtol, atol): float32 at the reference's 2e-5; in bf16 the kernel and the
+# twin both work in float32 and round once, so they may differ by one bf16
+# ulp of the output (2^-7 of it at most) plus float32 sums that cancel
+# near zero (1e-5)
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+
+
+def _qkv(seed, b, h, hkv, sq, skv, dh, dtype):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(dtype)
+                 for shape in ((b, h, sq, dh), (b, hkv, skv, dh),
+                               (b, hkv, skv, dh)))
+
+
+def _flash_both(cuda, q, k, v, **kw):
+    want = tfa.flash_attention_bhsd(q, k, v, **kw)
+    got = tfa.flash_attention_bhsd(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    torch.cuda.synchronize()
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("causal,window,cap", [
+    (True, None, None), (False, None, None), (True, 16, None),
+    (True, None, 50.0), (True, 40, 50.0), (False, 24, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+def test_flash_kernel_equals_twin(cuda, causal, window, cap, dtype, dh):
+    q, k, v = _qkv(dh, 2, 4, 2, 128, 128, dh, dtype)
+    got, want = _flash_both(cuda, q, k, v, causal=causal, window=window,
+                            logit_cap=cap, kv_block=64)
+    assert got.dtype == dtype
+    rtol, atol = FLASH_TOL[dtype]
+    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_kernel_q_offset_and_longer_kv(cuda, window):
+    """A chunk of 64 queries at positions 128..191 over 256 keys."""
+    q, k, v = _qkv(7, 1, 4, 1, 64, 256, 64, torch.float32)
+    got, want = _flash_both(cuda, q, k, v, causal=True, window=window,
+                            logit_cap=50.0, q_offset=128, kv_block=64)
+    assert torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 4096])
+def test_flash_kernel_at_gemma2_head_shapes(cuda, window):
+    """gemma2-9b's heads (16 over 8 kv heads, dh 256, cap 50) at 8192
+    tokens in bf16: a global layer and a local (window 4096) one. The
+    queries are scaled by 8, so that the scores (about N(0, 8^2)) reach
+    the range where the cap of 50 acts."""
+    q, k, v = _qkv(8, 1, 16, 8, 8192, 8192, 256, torch.float32)
+    q, k, v = (q * 8).bfloat16(), k.bfloat16(), v.bfloat16()
+    got, want = _flash_both(cuda, q, k, v, causal=True, window=window,
+                            logit_cap=50.0)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert bool(torch.isfinite(got.float()).all())
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(0, 1, 2, 1, 64, 64, 64,
+                                        torch.float32))
+    with pytest.raises(ValueError, match="dh"):
+        big = torch.zeros((1, 2, 64, 512), device=cuda)
+        tfa.flash_attention_bhsd(big, big[:, :1], big[:, :1])
+    with pytest.raises(ValueError, match="dh"):
+        odd = torch.zeros((1, 2, 64, 48), device=cuda)
+        tfa.flash_attention_bhsd(odd, odd[:, :1], odd[:, :1])
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tfa.flash_attention_bhsd(q[:, :, :32].contiguous(), k, v)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        tfa.flash_attention_bhsd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_bhsd(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="65535"):
+        many = torch.zeros((1, 65536, 64, 16), device=cuda)
+        tfa.flash_attention_bhsd(many, many[:, :1], many[:, :1])
+
+
+@pytest.mark.parametrize("n,block,p", [(128, 128, 0.4), (512, 128, 0.4),
+                                       (2048, 512, 0.4), (3000, 300, 0.5),
+                                       (1 << 20, 1024, 0.3),
+                                       (4096, 1024, 0.0), (4096, 1024, 1.0)])
+def test_prefix_partition_kernel_equals_twin(cuda, n, block, p):
+    rng = np.random.default_rng(n + block)
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n,
+                                         dtype=np.int64).astype(np.int32))
+    cond = torch.from_numpy(rng.random(n) < p)
+    want = tpp.prefix_partition(vals, cond, block)
+    got = tpp.prefix_partition(vals.to(cuda), cond.to(cuda), block)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("e,t", [(2048, 256), (4096, 128), (3000, 300),
+                                 (65536, 4096)])
+def test_filter_tree_lookup_kernel_equals_twin(cuda, e, t):
+    rng = np.random.default_rng(e + t)
+    keys = rng.permutation(10 * e)[:e].astype(np.int32)
+    pays = rng.integers(-5, 1 << 30, e).astype(np.int32)
+    tgts = rng.integers(0, 10 * e, t).astype(np.int32)
+    tgts[: t // 4] = keys[rng.integers(0, e, t // 4)]
+    tgts[-1] = -2**31  # hits the INT32_MIN padding of a ragged key count
+    args = [torch.from_numpy(a) for a in (keys, pays, tgts)]
+    want = tsc.filter_tree_lookup(*args)
+    got = tsc.filter_tree_lookup(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_partition_and_filter_refuse_what_they_cannot_take(cuda):
+    v = torch.zeros(1024, dtype=torch.int64, device=cuda)
+    c = torch.zeros(1024, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        tpp.prefix_partition(v, c, 256)
+    with pytest.raises(ValueError, match="bool"):
+        tpp.prefix_partition(v.int(), c.int(), 256)
+    with pytest.raises(ValueError, match="multiple of block"):
+        tpp.prefix_partition(v.int(), c, 300)
+    with pytest.raises(ValueError, match="int32"):
+        tsc.filter_tree_lookup(v, v, v)
+
+
+def test_gemma2_smoke_prefill_on_card_equals_cpu(cuda):
+    """The smoke model (float32) at 64 tokens, a multiple of the flash
+    tile: the card's logits within 1e-4 of the CPU's (cuBLAS and the
+    kernel sum in another order), equal argmax, one flash launch per
+    layer."""
+    from repro_torch.launch.steps import lm_prefill_cell
+    from repro_torch.models.transformer import lm_prefill
+    cell = lm_prefill_cell("gemma2-9b", seq_len=64, batch=2, device="cpu",
+                           seed=0, smoke=True)
+    want = cell.step()
+    model = cell.model.to(cuda)
+    reset_launch_counts()
+    got = lm_prefill(model, cell.tokens.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_fwd"] == model.cfg.n_layers
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))

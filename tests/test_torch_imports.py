@@ -1,7 +1,8 @@
 """The port stands alone: no module under src/repro_torch/, and not
 chip_smoke.py, imports jax or the JAX package `repro`; importing the port
 leaves jax out of sys.modules; and importing a kernel module builds
-nothing (kernels compile at first launch)."""
+nothing and needs neither nvcc nor triton (kernels compile at first
+launch)."""
 import ast
 import os
 import subprocess
@@ -44,6 +45,13 @@ def test_port_file_inventory():
                  "src/repro_torch/kernels/merge.py",
                  "src/repro_torch/kernels/set_count.py",
                  "src/repro_torch/kernels/segment_agg.py",
+                 "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/kernels/prefix_partition.py",
+                 "src/repro_torch/models/common.py",
+                 "src/repro_torch/models/attention.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/configs/gemma2_9b.py",
+                 "src/repro_torch/launch/steps.py",
                  "src/repro_torch/serve/gnn.py"):
         assert must in names, must
 
@@ -56,21 +64,35 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_importing_the_port_loads_no_jax():
+    """Also with nvcc and triton unreachable: PATH holds only the
+    interpreter's directory, CUDA_HOME points nowhere, and an import hook
+    refuses triton."""
     code = (
         "import sys\n"
+        "class _NoTriton:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'triton':\n"
+        "            raise ImportError('triton is not reachable here')\n"
+        "sys.meta_path.insert(0, _NoTriton())\n"
         "import repro_torch.core.pipeline, repro_torch.serve\n"
         "import repro_torch.kernels.radix_sort\n"
         "import repro_torch.kernels.reindex_epilogue\n"
         "import repro_torch.kernels.merge, repro_torch.kernels.set_count\n"
         "import repro_torch.kernels.segment_agg\n"
         "import repro_torch.launch.serve\n"
-        "from repro_torch.kernels import _build\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.prefix_partition\n"
+        "import repro_torch.models.transformer, repro_torch.launch.steps\n"
+        "from repro_torch.kernels import _build, kernel_wrappers\n"
+        "assert len(kernel_wrappers()) == 11\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "assert not _build._LIBS\n"
         "print('ok')\n")
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "PATH": os.path.dirname(sys.executable),
+           "CUDA_HOME": os.path.join(ROOT, "no-such-cuda")}
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=ROOT, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
@@ -82,5 +104,5 @@ def test_build_list_follows_csrc():
     cu = sorted(f[:-3] for f in os.listdir(os.path.join(PORT, "csrc"))
                 if f.endswith(".cu"))
     assert list(_build.SOURCES) == cu
-    assert {"digit_pass", "merge", "reindex_epilogue", "segment_agg",
-            "set_count"} <= set(cu)
+    assert {"digit_pass", "flash_attention", "merge", "prefix_partition",
+            "reindex_epilogue", "segment_agg", "set_count"} <= set(cu)
