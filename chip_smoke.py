@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's GraphSAGE serve paths and its gemma2-9b
-prefill on one H100.
+"""Drive the PyTorch + CUDA port's GraphSAGE serve paths, its gemma2-9b
+prefill and its gemma2-9b training step on one H100.
 
   python3 chip_smoke.py
 
@@ -67,10 +67,35 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    window + 1, the next kv head) are read; the smoke model on the card
    gives the CPU's logits. Then a
    profiled prefill (device busy share, top ops) and, when the run has
-   room, one prefill at 32,768 tokens.
-10. report — every kernel of each path launched in its run; the kernels
-   JSON line (all eleven; prefix_partition and filter_tree_lookup with 0
-   launches), then the last line ``{"ok": true, "device": {...}}``.
+   room, one prefill at 32,768 tokens. The prefill model is freed.
+10. LM backward kernels — flash_dq_kernel and flash_dkv_kernel against
+   the twin ``flash_attention_bwd_plain`` on the forward kernel's own out
+   and lse, at gemma2-9b's head shapes in bf16 with queries x
+   FLASH_Q_SCALE: a global layer at 4096 and 8192 tokens and a local one
+   (window 4096) at 8192, within BWD_RTOL / BWD_ATOL, two launches
+   bit-equal, and four planted faults (no (1 - t²) factor, window + 1,
+   the next kv head's dk / dv, a group sum missing a head) read outside
+   the tolerance; float32 at 2048 tokens within BWD_F32_TOL, and the
+   forward's lse against the twin's. Timed at 4096 tokens against their
+   bounds, the twin and the backward of ``scaled_dot_product_attention``
+   (a yardstick the port never calls).
+11. train path — launch counters set to 0; ``lm_train_cell`` builds
+   gemma2-9b at full width cut to 16 layers (the ``train_4k`` cell with
+   batch 256 cut to one sequence of 4096 tokens; bf16 weights from
+   ``--seed``, AdamW with float32 moments) and runs three steps; counters
+   read: 32 forward, 16 dq and 16 dk/dv launches a step, no other
+   kernel; finite losses, the first near ln(256000). One more step under
+   ``torch.profiler``.
+12. train checks — on the cell's own tokens, each of the 16 backward
+   launches against the twin; the step's gradients against the same step
+   with the twin backward in every layer within TRAIN_GRAD_TOL (relative
+   L2 per parameter), two planted faults read outside it; the smoke
+   model's step on the card against the CPU; ``launch/train.run_lm`` on
+   the card, crashed at a step and resumed from its checkpoint, against
+   an uninterrupted run.
+13. report — every kernel of each path launched in its run; the kernels
+   JSON line (all thirteen; prefix_partition and filter_tree_lookup with
+   0 launches), then the last line ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
 ``chiprun_out/chip_smoke.json``. Float32 matmuls run in full precision
@@ -81,6 +106,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -141,6 +167,35 @@ PATH_TOL = 0.25
 # the 32,768-token prefill (9.6 s on the card) runs if the script is not
 # yet this far; the whole script must end within 1200 s
 LONG_PREFILL_BY_S = 600
+# the train path: the train_4k cell cut to 16 layers (8 local / global
+# pairs) and one sequence of 4096 tokens (reference: 42 layers, batch
+# 256), every width kept; three AdamW steps
+TRAIN_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 16, 4096, 1, 3
+# flash backward launches per step: the forward runs twice per layer (the
+# step's forward and the remat recompute), dq and dk/dv once
+TRAIN_LAUNCHES = {"flash_attention_fwd": 2 * TRAIN_LAYERS,
+                  "flash_attention_bwd_dq": TRAIN_LAYERS,
+                  "flash_attention_bwd_dkv": TRAIN_LAYERS}
+# the backward kernels against their twin at gemma2's head shapes (bf16):
+# a global layer at 4096 and 8192 tokens, a local one (window 4096, which
+# masks a pair only past 4096 tokens) at 8192
+BWD_CASES = ((4096, None), (8192, None), (8192, 4096))
+# both sum in float32 in other orders and round once to bf16: one bf16 ulp
+# (2^-7 of the value) plus 1e-3 of the tensor's largest value, where sums
+# cancel. Read on the card: at most 0.73 of this tolerance (max error
+# 0.125 on dk values up to 45), every planted fault 77 times it or more
+# (NVIDIA H100 80GB HBM3, 700 W). float32 at 2048 tokens: 1e-5 of the
+# largest value (read: 2.5e-6)
+BWD_RTOL, BWD_ATOL = 2 ** -7, 1e-3
+BWD_F32_TOL, BWD_F32_SEQ = 1e-5, 2048
+# the step's gradients with the kernels against the same step with the
+# twin backward in every layer, relative L2 per parameter (bf16: a flipped
+# ulp in one layer's backward travels through the layers below): read
+# 0.0127 at worst (layers.0.wq); the next-kv-head and missing-head faults
+# read 1.53 and 0.84
+TRAIN_GRAD_TOL = 0.05
+RUN_LM_STEPS, RUN_LM_FAIL_AT = 24, 13  # checkpoints at 10, 20, 24
 
 
 def log(*a):
@@ -582,8 +637,8 @@ def lm_kernel_phase(dev, seed):
         check(not bad, f"the flash tolerance rejects the twin with {fault} "
               f"({fault_err})")
         ms = cuda_ms(lambda: flib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), 1, h,
-            hkv, LM_SEQ, LM_SEQ, dh, 1, 1, int(window is not None),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), None,
+            1, h, hkv, LM_SEQ, LM_SEQ, dh, 1, 1, int(window is not None),
             window or 0, 1, cap, dh ** -0.5, 0,
             _build.stream_of(q)), iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -1221,6 +1276,420 @@ def long_prefill(cell, seed):
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
+# ------------------------------------------------------------ phase 10
+def grad_close(got, want):
+    """(within BWD_RTOL · |want| + BWD_ATOL · max |want|, max abs error,
+    largest share of that tolerance) of a flash gradient against the
+    twin's."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = BWD_ATOL * max(float(w.abs().max()), 1e-30) + BWD_RTOL * w.abs()
+    share = float((diff / tol).max())
+    return (share <= 1.0 and bool(torch.isfinite(g).all()),
+            float(diff.max()), share)
+
+
+def grads_close(got, want):
+    """grad_close over (dq, dk, dv): (all within, max error, max share)."""
+    res = [grad_close(g, w) for g, w in zip(got, want)]
+    return (all(ok for ok, _, _ in res), max(e for _, e, _ in res),
+            max(sh for _, _, sh in res))
+
+
+def bwd_twin_no_cap_factor(q, k, v, out, lse, dout, *, causal, window,
+                           logit_cap, q_offset=0, kv_block=512):
+    """A planted fault: the backward twin without the softcap's (1 - t²)
+    factor (``models.attention._flash_bwd_scan`` less that line)."""
+    import torch
+    from repro_torch.models import attention as ta
+
+    b, h, sq, dh = q.shape
+    hkv = k.shape[1]
+    qg, kb, vb, blk = ta._blocks(q, k, v, kv_block)
+    og = ta._group_q(out, hkv).float()
+    dog = ta._group_q(dout, hkv).float()
+    lse = lse.reshape(b, hkv, h // hkv, sq)
+    delta = (dog * og).sum(-1)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for j in range(kb.shape[0]):
+        kj, vj = kb[j].float(), vb[j].float()
+        s = ta._softcap(torch.einsum("bkgqd,bkcd->bkgqc", qg, kj), logit_cap)
+        mask = ta._blk_mask(sq, blk, j, q_offset, causal, window, q.device)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        ds = p * (torch.einsum("bkgqd,bkcd->bkgqc", dog, vj)
+                  - delta[..., None])
+        dq += torch.einsum("bkgqc,bkcd->bkgqd", ds, kj)
+        dks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qg))
+        dvs.append(torch.einsum("bkgqc,bkgqd->bkcd", p, dog))
+    return ((dq * dh ** -0.5).reshape(q.shape).to(q.dtype),
+            torch.movedim(torch.stack(dks), 0, 2).reshape(k.shape).to(
+                k.dtype),
+            torch.movedim(torch.stack(dvs), 0, 2).reshape(v.shape).to(
+                v.dtype))
+
+
+def bwd_faults(q, k, v, out, lse, dout, want, mask):
+    """The backward twin with each planted fault, as (dq, dk, dv): no
+    (1 - t²) factor; window + 1 (local layers); every kv head's dk / dv
+    taken from the next kv head; each group's sum missing its last query
+    head."""
+    from repro_torch.models.attention import flash_attention_bwd_plain
+
+    g = q.shape[1] // k.shape[1]
+    short = dout.clone()
+    short[:, g - 1::g] = 0
+    faults = {
+        "no_cap_factor": bwd_twin_no_cap_factor(q, k, v, out, lse, dout,
+                                                **mask),
+        "next_kv_head": (want[0], want[1].roll(1, dims=1),
+                         want[2].roll(1, dims=1)),
+        "group_missing_a_head": flash_attention_bwd_plain(
+            q, k, v, out, lse, short, **mask)}
+    if mask["window"] is not None:
+        faults["window_plus_1"] = flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, **{**mask, "window": mask["window"] + 1})
+    return faults
+
+
+def lm_bwd_kernel_phase(dev, seed):
+    """The two flash backward kernels against the twin at gemma2-9b's head
+    shapes: float32 at BWD_F32_SEQ tokens, then bf16 (queries ×
+    FLASH_Q_SCALE so that the cap acts) as a global layer at 4096 and
+    8192 tokens and a local one at 8192, each within BWD_RTOL / BWD_ATOL
+    of the twin on the forward kernel's own out and lse, bit-equal over
+    two launches, with its planted faults read outside the tolerance;
+    timed against their bounds, the twin and the backward of
+    ``scaled_dot_product_attention`` at the train path's 4096 tokens."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.attention import (flash_attention_bwd_plain,
+                                              flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(seed + 30)
+    rows, extra = {}, {}
+    cfg = get_config(LM_ARCH)
+    h, hkv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.attn_logit_cap
+    blib = _build.load("flash_attention_bwd", tfa._BWD_SIGNATURES)
+    flib = _build.load("flash_attention", tfa._SIGNATURES)
+
+    def case(seq, dtype, window):
+        q, k, v, dout = (torch.randn(shape, generator=g, device=dev)
+                         for shape in ((1, h, seq, dh), (1, hkv, seq, dh),
+                                       (1, hkv, seq, dh), (1, h, seq, dh)))
+        q, k, v, dout = (t.to(dtype) for t in (q * FLASH_Q_SCALE, k, v,
+                                                dout))
+        mask = dict(causal=True, window=window, logit_cap=cap, q_offset=0)
+        out, lse = tfa._fwd_kernel(q, k, v, lse=True, **mask)
+        return (q, k, v, out, lse, dout), mask
+
+    # float32: the kernels' arithmetic against the twin's, and the
+    # forward's lse against the twin's
+    args, mask = case(BWD_F32_SEQ, torch.float32, None)
+    q, k, v, out, lse, dout = args
+    _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **mask)
+    lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
+    extra[f"flash_lse_f32_{BWD_F32_SEQ}_max_rel_err"] = lse_err
+    check(lse_err <= FLASH_F32_TOL, f"forward lse within {FLASH_F32_TOL} "
+          f"(relative to 1 + |lse|) of the twin's ({lse_err})")
+    got = tfa.flash_attention_bwd(*args, **mask)
+    want = flash_attention_bwd_plain(*args, **mask)
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((gt - w).abs().max() / w.abs().max())
+        extra[f"flash_bwd_f32_{BWD_F32_SEQ}_{name}_err_over_max"] = err
+        check(err <= BWD_F32_TOL, f"float32 {name} within {BWD_F32_TOL} of "
+              f"the twin's largest value ({err})")
+    del args, got, want, out, lse, dout, q, k, v
+
+    for seq, window in BWD_CASES:
+        tag = f"flash_bwd_{seq}_" + ("local" if window else "global")
+        args, mask = case(seq, cfg.dtype, window)
+        q, k, v, out, lse, dout = args
+        got = tfa.flash_attention_bwd(*args, **mask)
+        want = flash_attention_bwd_plain(*args, **mask)
+        again = tfa.flash_attention_bwd(*args, **mask)
+        torch.cuda.synchronize()
+        for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+            ok, err, share = grad_close(gt, w)
+            extra[f"{tag}_{name}_max_abs_err"] = err
+            extra[f"{tag}_{name}_share_of_tol"] = share
+            extra[f"{tag}_{name}_max_abs"] = float(w.float().abs().max())
+        faults = {key: grads_close(f, want)[2]
+                  for key, f in bwd_faults(*args, want, mask).items()}
+        extra[f"{tag}_fault_share_of_tol"] = faults
+        ok, err, share = grads_close(got, want)
+        check(ok, f"{tag}: dq, dk, dv within rtol {BWD_RTOL} + atol "
+              f"{BWD_ATOL} x max of the twin ({err}, {share:.3f} of the "
+              "tolerance)")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: two launches give the same bits")
+        check(all(v > 1 for v in faults.values()),
+              f"{tag}: the tolerance rejects every planted fault {faults}")
+        delta = torch.sum(dout.float() * out.float(), dim=-1)
+        opts = (1, h, hkv, seq, seq, dh, int(q.dtype == torch.bfloat16), 1,
+                int(window is not None), window or 0, 1, cap, dh ** -0.5, 0,
+                _build.stream_of(q))
+        dq, dk, dv = got
+        ms_dq = cuda_ms(lambda: blib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *opts),
+            iters=5, warmup=1)
+        ms_dkv = cuda_ms(lambda: blib.flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *opts), iters=5, warmup=1)
+        extra[f"{tag}_dq_ms"], extra[f"{tag}_dkv_ms"] = ms_dq, ms_dkv
+        log(f"[bwd kernels] {tag}: dq {ms_dq:.3f} ms, dk/dv {ms_dkv:.3f} ms; "
+            f"max error {err}, share {share:.3f}; faults {faults}")
+        if (seq, window) != (TRAIN_SEQ, None):
+            del args, got, want, again, q, k, v, out, lse, dout, delta
+            continue
+        # the train path's shape: forward with and without lse, the twin
+        # and the library's backward
+        o2 = torch.empty_like(q)
+        for key, lse_ptr in (("", None), ("_lse", lse.data_ptr())):
+            extra[f"flash_fwd{key}_{seq}_ms"] = cuda_ms(
+                lambda: flib.flash_attention_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
+                    lse_ptr, *opts), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(*args, **mask),
+                           iters=2, warmup=1)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), dout, retain_graph=True), iters=5, warmup=1)
+        pairs = causal_pairs(seq, window) * h
+        elt = q.element_size()
+        rd = elt * seq * dh * (2 * h + 2 * hkv) + 8 * seq * h  # q, dO, k, v,
+        # lse, delta read once
+        for key, ms, flops, wr, what in (
+                ("flash_attention_bwd_dq", ms_dq, 6 * dh * pairs,
+                 elt * seq * dh * h, "S, dP, dQ: 6 dh"),
+                ("flash_attention_bwd_dkv", ms_dkv, 8 * dh * pairs,
+                 2 * elt * seq * dh * hkv, "S, dP, dV, dK: 8 dh")):
+            b_ms, b_by = bound(rd + wr, flops, BF16_FLOPS_PER_S)
+            rows[key] = dict(
+                name=key, route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:" + (
+                    "193" if key.endswith("dq") else "229"),
+                max_abs_err=extra[f"{tag}_" + ("dq" if key.endswith("dq")
+                                               else "dk") + "_max_abs_err"],
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+                shape=f"B 1, H {h} over Hkv {hkv}, dh {dh}, {seq} tokens, "
+                      f"bf16, q x {FLASH_Q_SCALE}, causal, cap {cap}; "
+                      f"{flops:.3e} FLOPs ({what} per live pair and head; "
+                      "plain: the twin of both kernels; library: the "
+                      "backward of scaled_dot_product_attention, causal, "
+                      "GQA, no cap, all of dq, dk, dv: a near function)")
+        del args, got, want, again, q, k, v, out, lse, dout, delta, o, qs, ks
+        del vs, o2
+    return rows, extra
+
+
+# ------------------------------------------------------------ phases 11-12
+def train_path(dev, seed):
+    """Launch counters to 0, the gemma2-9b train cell at full width cut to
+    TRAIN_LAYERS layers and TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS
+    AdamW steps, counters read."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import lm_train_cell
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = lm_train_cell(LM_ARCH, n_layers=TRAIN_LAYERS, seq_len=TRAIN_SEQ,
+                         batch=TRAIN_BATCH, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in cell.model.parameters())
+    out["state_gib"] = torch.cuda.memory_allocated() / 2**30
+    out["moments"] = str(cell.opt_cfg.mom_dtype)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = cell.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["steps"].append(dict(seconds=dt, **{k: float(v)
+                                               for k, v in m.items()}))
+        if i == 0:
+            out["launches_first_step"] = launch_counts()
+    out["launches"] = launch_counts()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["first_s"] = out["steps"][0]["seconds"]
+    out["steady_s"] = out["steps"][-1]["seconds"]
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / out["steady_s"]
+    return out, cell
+
+
+def train_checks(dev, seed, cell, extra):
+    """On the cell's own tokens: each layer's backward launches against
+    the twin; the whole step's gradients against the same step with the
+    twin backward in every layer (and with two planted faults); then the
+    smoke model's step card against CPU and ``run_lm``'s
+    fail-and-resume on the card."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.steps import lm_train_cell, lm_train_step
+    from repro_torch.models.attention import flash_attention_bwd_plain
+    from repro_torch.models.transformer import lm_loss
+
+    model, tokens = cell.model, cell.tokens
+    cell.opt_state = None  # the moments' 30 GiB make room for two grad sets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def grads(bwd):
+        """(loss, {name: grad}) with ``bwd`` as every layer's backward."""
+        kernel_bwd = tfa.flash_attention_bwd
+        tfa.flash_attention_bwd = bwd
+        try:
+            for p in model.parameters():
+                p.grad = None
+            loss = lm_loss(model, tokens)
+            loss.backward()
+        finally:
+            tfa.flash_attention_bwd = kernel_bwd
+        out = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), out
+
+    kernel_bwd = tfa.flash_attention_bwd
+    layers = []
+
+    def checked(*a, **kw):
+        got = kernel_bwd(*a, **kw)
+        layers.append(grads_close(got, flash_attention_bwd_plain(*a, **kw)))
+        return got
+    loss_k, g_k = grads(checked)
+    extra["train_layers_max_abs_err"] = max(e for _, e, _ in layers)
+    extra["train_layers_share_of_tol"] = max(sh for _, _, sh in layers)
+    check(len(layers) == TRAIN_LAYERS and all(ok for ok, _, _ in layers),
+          f"each of the step's {TRAIN_LAYERS} backward launches within the "
+          f"kernel tolerance of the twin on its own inputs ({len(layers)} "
+          f"checked, max {extra['train_layers_max_abs_err']}, "
+          f"{extra['train_layers_share_of_tol']:.3f} of the tolerance)")
+
+    def twin(fault=None):
+        def fn(q, k, v, out, lse, dout, **kw):
+            if fault == "group_missing_a_head":
+                dout = dout.clone()
+                g = q.shape[1] // k.shape[1]
+                dout[:, g - 1::g] = 0
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                   **kw)
+            if fault == "next_kv_head":
+                dk, dv = dk.roll(1, dims=1), dv.roll(1, dims=1)
+            return dq, dk, dv
+        return fn
+
+    t0 = time.perf_counter()
+    loss_t, g_t = grads(twin())
+    extra["train_twin_backward_s"] = time.perf_counter() - t0
+    extra["train_kernel_vs_twin_loss_diff"] = abs(loss_k - loss_t)
+
+    def rel_l2(got):
+        return {n: float((got[n].float() - g_t[n].float()).norm()
+                         / g_t[n].float().norm().clamp(min=1e-30))
+                for n in g_t}
+    errs = rel_l2(g_k)
+    worst = max(errs, key=errs.get)
+    extra["train_kernel_vs_twin_worst_rel_l2"] = [worst, errs[worst]]
+    del g_k
+    readings = {}
+    for fault in ("next_kv_head", "group_missing_a_head"):
+        _, g_f = grads(twin(fault))
+        errs_f = rel_l2(g_f)
+        readings[fault] = max(errs_f.values())
+        del g_f
+    extra["train_fault_worst_rel_l2"] = readings
+    check(abs(loss_k - loss_t) <= 1e-6 * abs(loss_t), f"the loss does not "
+          f"depend on the backward ({loss_k} vs {loss_t})")
+    check(errs[worst] <= TRAIN_GRAD_TOL < min(readings.values()),
+          f"the step's gradients with the kernels within relative L2 "
+          f"{TRAIN_GRAD_TOL} of the twin backward's (worst {worst}: "
+          f"{errs[worst]}), every planted fault outside ({readings})")
+    del g_t
+
+    # the smoke model's train step: card against CPU, float32
+    small = lm_train_cell(LM_ARCH, seq_len=64, batch=2, device="cpu",
+                          seed=seed, smoke=True)
+    model_d = copy.deepcopy(small.model).to(dev)
+    state_d = {key: ({n: t.to(dev, copy=True)
+                      for n, t in small.opt_state[key].items()}
+                     if key != "step" else small.opt_state[key].clone())
+               for key in small.opt_state}
+    params_c = dict(small.model.named_parameters())
+    loss_c = lm_loss(small.model, small.tokens)
+    loss_c.backward()
+    grads_c = {n: p.grad.clone() for n, p in params_c.items()}
+    loss_d = lm_loss(model_d, small.tokens.to(dev))
+    loss_d.backward()
+    loss_c, loss_d = float(loss_c.detach()), float(loss_d.detach())
+    g_err = max(float((p.grad.cpu() - grads_c[n]).abs().max()
+                      / grads_c[n].abs().max().clamp(min=1e-30))
+                for n, p in model_d.named_parameters())
+    m_c = small.step()
+    m_d = lm_train_step(model_d, small.opt_cfg, state_d,
+                        small.tokens.to(dev))
+    p_err = max(float((p.detach().cpu() - params_c[n].detach()).abs().max())
+                for n, p in model_d.named_parameters())
+    extra["train_smoke_card_vs_cpu"] = dict(
+        loss=abs(loss_d - loss_c), grad_err_over_max=g_err,
+        param_max_abs_err=p_err, loss_after=[float(m_c["loss"]),
+                                             float(m_d["loss"])])
+    lr0 = m_c["lr"]
+    check(abs(loss_d - loss_c) <= 1e-5 and g_err <= 1e-4
+          and p_err <= 2 * lr0 + 1e-6,
+          f"smoke train step card vs CPU: loss within 1e-5, grads within "
+          f"1e-4 of each parameter's largest, parameters after one AdamW "
+          f"step within 2 lr + 1e-6 = {2 * lr0 + 1e-6} "
+          f"({extra['train_smoke_card_vs_cpu']})")
+    del model_d, state_d
+
+    # launch/train.run_lm on the card: a crash at step RUN_LM_FAIL_AT and a
+    # resume from the last checkpoint against an uninterrupted run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        kw = dict(arch=LM_ARCH, steps=RUN_LM_STEPS, smoke=True,
+                  fail_at=None, seed=seed, device=dev)
+        try:
+            tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "a"),
+                           **{**kw, "fail_at": RUN_LM_FAIL_AT})
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"run_lm failed: {e}")
+        else:
+            check(False, "run_lm did not stop at the injected failure")
+        _, _, resumed = tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "a"), **kw)
+        _, _, clean = tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "b"), **kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tail = [h for h in clean if h["step"] >= resumed[0]["step"]]
+    extra["run_lm_resume"] = dict(resumed=resumed, clean=clean,
+                                  bit_equal=resumed == tail)
+    check(resumed[0]["step"] > 0 and len(resumed) == len(tail) and all(
+        r["step"] == c["step"] and abs(r["loss"] - c["loss"])
+        <= 1e-6 * abs(c["loss"]) for r, c in zip(resumed, tail)),
+        f"run_lm resumed at step {resumed[0]['step']} gives the "
+        f"uninterrupted run's history within rtol 1e-6: {resumed} vs {tail}")
+
+
 # ------------------------------------------------------------------ main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1357,25 +1826,82 @@ def main():
     else:
         log(f"[lm long] skipped: the run was at {elapsed:.0f}s, past "
             f"{LONG_PREFILL_BY_S}s")
-    log(f"[extra] {json.dumps(extra)}")
     del cell, logits
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 10. report
+    # 10. the flash backward kernels
+    bwd_rows, bwd_extra = lm_bwd_kernel_phase(dev, args.seed)
+    extra.update(bwd_extra)
+    for key, r in bwd_rows.items():
+        log_row(key, r)
+    rows.update(bwd_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11. the train path
+    tout, tcell = train_path(dev, args.seed)
+    log(f"[train] {LM_ARCH} at full width, {TRAIN_LAYERS} layers: "
+        f"{tout['params']:,} parameters, {tout['state_gib']:.2f} GiB with "
+        f"{tout['moments']} AdamW moments, built in {tout['setup_s']:.2f}s")
+    for i, st in enumerate(tout["steps"]):
+        log(f"[train] step {i}: {st['seconds']:.3f}s, loss {st['loss']}, "
+            f"grad_norm {st['grad_norm']}, lr {st['lr']}")
+    log(f"[train] {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: first "
+        f"{tout['first_s']:.3f}s, steady {tout['steady_s']:.3f}s "
+        f"({tout['tokens_per_s']:.1f} tokens/s); peak "
+        f"{tout['peak_mem_gib']:.2f} GiB; launches {tout['launches']}")
+    check(all(tout["launches_first_step"][k] == v
+              for k, v in TRAIN_LAUNCHES.items())
+          and all(tout["launches"][k] == TRAIN_STEPS * v
+                  for k, v in TRAIN_LAUNCHES.items()),
+          f"{TRAIN_LAUNCHES} launches a step: {tout['launches_first_step']} "
+          f"in the first, {tout['launches']} in {TRAIN_STEPS}")
+    check(all(v == 0 for k, v in tout["launches"].items()
+              if k not in TRAIN_LAUNCHES),
+          f"no other kernel on the train path: {tout['launches']}")
+    first = tout["steps"][0]
+    check(all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+              for st in tout["steps"]) and 12.0 <= first["loss"] <= 20.0,
+          f"finite losses and grad norms, the first loss near or above "
+          f"ln(256000) = 12.45 as random weights give: {tout['steps']}")
+
+    # 11b. one train step under the profiler
+    tout["profile"] = dict(tokens=TRAIN_BATCH * TRAIN_SEQ,
+                           **profile_call(tcell.step, top=12))
+    log_profile("train profile", tout["profile"])
+
+    # 12. train checks
+    train_checks(dev, args.seed, tcell, extra)
+    log("[train checks] each backward launch of a step within the kernel "
+        f"tolerance of the twin (max {extra['train_layers_max_abs_err']}, "
+        f"{extra['train_layers_share_of_tol']:.3f} of it); the step's "
+        f"gradients within relative L2 {TRAIN_GRAD_TOL} of the twin "
+        f"backward's (worst {extra['train_kernel_vs_twin_worst_rel_l2']}; "
+        f"faults {extra['train_fault_worst_rel_l2']}); smoke step card vs "
+        f"CPU {extra['train_smoke_card_vs_cpu']}; run_lm resumed == "
+        f"uninterrupted (bit-equal: {extra['run_lm_resume']['bit_equal']}): "
+        "ok")
+    del tcell
+    log(f"[extra] {json.dumps(extra)}")
+
+    # 13. report
     launches = {k: out["launches"][k] + mout["launches"][k]
                 for k in SLICE_KERNELS + MERGE_KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"all eight GNN kernels launched across the two paths: {launches}")
-    launches.update({k: lout["launches"][k]
-                     for k in LM_KERNELS + OFF_PATH_KERNELS})
+    launches.update({k: lout["launches"][k] + tout["launches"][k]
+                     for k in LM_KERNELS + TRAIN_KERNELS + OFF_PATH_KERNELS})
     kernels = []
-    for key in SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + OFF_PATH_KERNELS:
+    for key in (SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + TRAIN_KERNELS
+                + OFF_PATH_KERNELS):
         r = {k: v for k, v in rows[key].items() if k != "shape"}
         r["launches"] = launches[key]
         kernels.append(r)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, rows=rows, main_path=out, merge_path=mout,
-                       lm_path=lout, extra=extra,
+                       lm_path=lout, train_path=tout, extra=extra,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(smi)
@@ -1406,7 +1932,8 @@ def log_serve(tag, out):
 
 def log_profile(tag, prof):
     what = (f"one request of {prof['seeds']} seeds" if "seeds" in prof
-            else f"one prefill of {prof['tokens']} tokens")
+            else f"one {'train step' if 'train' in tag else 'prefill'} of "
+                 f"{prof['tokens']} tokens")
     log(f"[{tag}] {what}: wall "
         f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
         f"(busy share {prof['device_busy_share']:.3f}); top by device time:")

@@ -1,5 +1,5 @@
 """Model configurations of the port: graphsage-reddit (the GNN serve
-paths) and gemma2-9b (the LM prefill path)."""
+paths) and gemma2-9b (the LM prefill and training paths)."""
 from __future__ import annotations
 
 from . import gemma2_9b, graphsage_reddit
@@ -8,6 +8,7 @@ _CONFIGS = {"graphsage-reddit": graphsage_reddit, "gemma2-9b": gemma2_9b}
 
 # the reference's LM shape cells (repro/configs/base.py) the port runs
 LM_SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
     "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
 }
 

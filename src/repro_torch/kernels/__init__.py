@@ -9,9 +9,10 @@ from __future__ import annotations
 
 def kernel_wrappers():
     """Every kernel wrapper, by name: the eight of the GNN serve paths,
-    the flash attention of the LM prefill path, and the two kernels no
-    path runs (prefix_partition, filter_tree_lookup)."""
-    from .flash_attention import flash_attention_bhsd
+    the flash attention forward of the LM prefill and training paths, its
+    two backward kernels (training), and the two kernels no path runs
+    (prefix_partition, filter_tree_lookup)."""
+    from .flash_attention import flash_attention_bhsd, flash_dkv, flash_dq
     from .merge import fused_merge_rounds
     from .prefix_partition import prefix_partition
     from .radix_sort import chunk_sort, digit_partition_hist, digit_rank_gather
@@ -25,6 +26,8 @@ def kernel_wrappers():
             "set_count_less": set_count_less,
             "segment_sum_sorted": segment_sum_sorted,
             "flash_attention_fwd": flash_attention_bhsd,
+            "flash_attention_bwd_dq": flash_dq,
+            "flash_attention_bwd_dkv": flash_dkv,
             "prefix_partition": prefix_partition,
             "filter_tree_lookup": filter_tree_lookup}
 

@@ -1,12 +1,16 @@
-"""Attention for the LM prefill path (port of the forward part of
-``repro/models/attention.py``): RoPE, the GQA grouping, the block mask and
-the blocked online-softmax flash attention.
+"""Attention for the LM prefill and training paths (port of
+``repro/models/attention.py`` without decode): RoPE, the GQA grouping,
+the block mask, and the blocked online-softmax flash attention forward
+and backward.
 
 ``flash_attention_plain`` is the reference's ``lax.scan`` over kv blocks
-written as a Python loop: the plain twin of the flash kernel. The model
-calls ``kernels.flash_attention.flash_attention_bhsd``, which launches the
-kernel on a CUDA tensor and runs this twin on a CPU tensor. Decode,
-``quantize_kv`` and the custom VJP belong to later slices.
+written as a Python loop: the plain twin of the flash forward kernel.
+``flash_attention_bwd_plain`` is the reference's custom-VJP backward
+(``_bwd_impl``) as a loop over kv blocks: the plain twin of the two
+backward kernels. The model calls ``kernels.flash_attention
+.flash_attention_bhsd``, which launches the kernels on CUDA tensors and
+runs these twins on CPU tensors. Decode and ``quantize_kv`` belong to a
+later slice.
 """
 from __future__ import annotations
 
@@ -80,27 +84,88 @@ def _flash_fwd_scan(qg, kb, vb, *, sq, kv_block, q_offset, causal, window,
     return out, lse
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int | None = None,
-                          logit_cap: float | None = None,
-                          kv_block: int = 512, q_offset: int = 0
-                          ) -> torch.Tensor:
-    """The plain twin of the flash kernel: the reference's blocked scan.
-    q [B,H,Sq,dh]; k, v [B,Hkv,Skv,dh]; Skv % min(kv_block, Skv) == 0."""
+def _flash_bwd_scan(qg, kb, vb, out, lse, dout, *, sq, kv_block, q_offset,
+                    causal, window, logit_cap):
+    """The reference's ``_bwd_impl``: returns (dqg, dk, dv), dqg the
+    float32 gradient of the pre-scaled qg, dk and dv [nb, B, Hkv,
+    kv_block, dh] in kb's and vb's dtypes. out and dout [B,Hkv,G,Sq,dh],
+    lse [B,Hkv,G,Sq] float32. P is recomputed per block from lse, so no
+    [Sq, Skv] tile outlives its block."""
+    dout = dout.to(torch.float32)
+    delta = torch.sum(dout * out.to(torch.float32), dim=-1)  # [B,K,G,Sq]
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=qg.device)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for j in range(kb.shape[0]):
+        kjf = kb[j].to(torch.float32)
+        vjf = vb[j].to(torch.float32)
+        s_cap = _softcap(torch.einsum("bkgqd,bkcd->bkgqc", qg, kjf),
+                         logit_cap)
+        mask = _blk_mask(sq, kv_block, j, q_offset, causal, window,
+                         qg.device)
+        p = torch.exp(torch.where(mask, s_cap, neg) - lse[..., None])
+        dvs.append(torch.einsum("bkgqc,bkgqd->bkcd", p, dout).to(vb.dtype))
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", dout, vjf)
+        ds = p * (dp - delta[..., None])
+        if logit_cap is not None:
+            t = s_cap / logit_cap  # tanh(s_raw / cap), in [-1, 1]
+            ds = ds * (1.0 - t * t)
+        ds = torch.where(mask, ds, 0.0)
+        dq = dq + torch.einsum("bkgqc,bkcd->bkgqd", ds, kjf)
+        dks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qg).to(kb.dtype))
+    return dq, torch.stack(dks), torch.stack(dvs)
+
+
+def _blocks(q, k, v, kv_block):
+    """(qg scaled float32 [B,Hkv,G,Sq,dh], kb, vb [nb,B,Hkv,blk,dh],
+    the block length)."""
     b, h, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     if h % hkv:
         raise ValueError(f"{h} query heads over {hkv} kv heads")
-    scale = dh ** -0.5
-    qg = _group_q(q, hkv).to(torch.float32) * scale  # [B,Hkv,G,Sq,dh]
+    qg = _group_q(q, hkv).to(torch.float32) * dh ** -0.5
     kv_block = min(kv_block, skv)
     nb = skv // kv_block
     if nb * kv_block != skv:
         raise ValueError(f"kv length {skv} is not a multiple of {kv_block}")
     kb = torch.movedim(k.reshape(b, hkv, nb, kv_block, dh), 2, 0)
     vb = torch.movedim(v.reshape(b, hkv, nb, kv_block, dh), 2, 0)
-    out, _ = _flash_fwd_scan(qg, kb, vb, sq=sq, kv_block=kv_block,
-                             q_offset=q_offset, causal=causal, window=window,
-                             logit_cap=logit_cap)
-    return out.reshape(b, h, sq, dh).to(q.dtype)
+    return qg, kb, vb, kv_block
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          logit_cap: float | None = None,
+                          kv_block: int = 512, q_offset: int = 0,
+                          return_lse: bool = False):
+    """The plain twin of the flash forward kernel: the reference's blocked
+    scan. q [B,H,Sq,dh]; k, v [B,Hkv,Skv,dh]; Skv % min(kv_block, Skv)
+    == 0. Returns out [B,H,Sq,dh] in q's dtype and, with ``return_lse``,
+    also the float32 log-sum-exp [B,H,Sq] of the scaled, capped scores."""
+    b, h, sq, dh = q.shape
+    qg, kb, vb, kv_block = _blocks(q, k, v, kv_block)
+    out, lse = _flash_fwd_scan(qg, kb, vb, sq=sq, kv_block=kv_block,
+                               q_offset=q_offset, causal=causal,
+                               window=window, logit_cap=logit_cap)
+    out = out.reshape(b, h, sq, dh).to(q.dtype)
+    return (out, lse.reshape(b, h, sq)) if return_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
+                              window=None, logit_cap=None, kv_block=512,
+                              q_offset=0):
+    """The plain twin of the flash backward kernels: (dq, dk, dv) in the
+    dtypes of q, k, v, from the forward's out [B,H,Sq,dh] and lse
+    [B,H,Sq] and the output gradient dout [B,H,Sq,dh]. dk and dv sum
+    each kv head's group of query heads."""
+    b, h, sq, dh = q.shape
+    hkv = k.shape[1]
+    qg, kb, vb, kv_block = _blocks(q, k, v, kv_block)
+    dqg, dk, dv = _flash_bwd_scan(
+        qg, kb, vb, _group_q(out, hkv), lse.reshape(b, hkv, h // hkv, sq),
+        _group_q(dout, hkv), sq=sq, kv_block=kv_block, q_offset=q_offset,
+        causal=causal, window=window, logit_cap=logit_cap)
+    dq = (dqg * dh ** -0.5).reshape(b, h, sq, dh).to(q.dtype)
+    return (dq, torch.movedim(dk, 0, 2).reshape(k.shape),
+            torch.movedim(dv, 0, 2).reshape(v.shape))
 

@@ -1,6 +1,6 @@
 """Shared model components (port of the parts of ``repro/models/common.py``
-the LM prefill path runs): seeded initialisers, RMSNorm, the gated MLP and
-the logit softcap.
+the LM prefill and training paths run): seeded initialisers, RMSNorm, the
+gated MLP, the logit softcap and the cross entropy.
 
 Weights keep the reference's layout, ``x @ W`` with ``W`` shaped
 [d_in, d_out], so a parameter tree from the reference loads without
@@ -67,3 +67,17 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross entropy; logits [..., V] upcast to float32, labels
+    integer [...]; with ``mask``, the mean over the masked-in tokens."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,15 +1,20 @@
-"""LM-family transformer, the prefill path (port of ``LMConfig`` and the
-forward of ``repro/models/transformer.py``) for gemma2-style alternating
-local / global layers.
+"""LM-family transformer, the prefill and training paths (port of
+``LMConfig``, the forward and ``lm_loss`` of
+``repro/models/transformer.py``) for gemma2-style alternating local /
+global layers.
 
 ``LM`` is an ``nn.Module`` whose weights keep the reference's layout
 (``x @ W`` with ``W`` shaped [d_in, d_out]). The reference stacks the
 local and the global layers as ``[n_layers / 2, ...]`` trees and scans
 over (local, global) pairs; here ``LM.layers`` lists the layers in the
 order they run, local first in each pair. ``load_reference_lm_params``
-carries a reference ``lm_init`` tree into the module. Every layer's
-attention is ``kernels.flash_attention.flash_attention_bhsd``: the flash
-kernel on the card, its plain twin on the CPU.
+carries a reference ``lm_init`` tree into the module and
+``load_reference_opt_state`` a reference AdamW state into the port's.
+Every layer's attention is ``kernels.flash_attention.flash_attention_bhsd``:
+the flash kernels on the card, their plain twins on the CPU, with the
+kernels' backward under autograd. With ``cfg.remat`` each (local, global)
+pair is recomputed in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint(pair)``.
 
 Branches gemma2 does not take raise ``NotImplementedError``: MoE blocks,
 the unrolled ``blocks_list`` and stacked ``blocks`` layouts (configs
@@ -24,14 +29,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import resolve_device
 
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 
 from .attention import rope
-from .common import (dense_init, embed_init, gelu_tanh, glu_apply, glu_init,
-                     rms_norm, softcap)
+from .common import (cross_entropy, dense_init, embed_init, gelu_tanh,
+                     glu_apply, glu_init, rms_norm, softcap)
 
 _UNPORTED = "is not ported yet (ROADMAP.md, A12: the LM substrate)"
 
@@ -147,38 +153,53 @@ class LM(nn.Module):
         return lm_forward(self, tokens)
 
 
-def load_reference_lm_params(model: LM, params) -> LM:
-    """Carry the reference's ``lm_init`` tree (``embed``, ``ln_final``,
-    ``local`` / ``global`` stacked ``[n_layers / 2, ...]``, ``lm_head``
-    when untied; arrays convertible by ``np.asarray``) into ``model``, in
-    place; shapes must match exactly (same [d_in, d_out] layout)."""
-    if "blocks" in params or "blocks_list" in params:
+def reference_leaf(model: LM, tree, name: str) -> np.ndarray:
+    """The array of the reference ``lm_init``-shaped tree ``tree``
+    (``embed``, ``ln_final``, ``local`` / ``global`` stacked
+    ``[n_layers / 2, ...]`` with the MLP under ``mlp``, ``lm_head`` when
+    untied) that holds the port's parameter ``name``."""
+    if "blocks" in tree or "blocks_list" in tree:
         raise NotImplementedError(f"the stacked layer layouts {_UNPORTED}")
-
-    def put(dst: nn.Parameter, src):
-        arr = torch.from_numpy(np.array(src, dtype=np.float32))
-        if tuple(arr.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {tuple(arr.shape)} != {tuple(dst.shape)}")
-        with torch.no_grad():
-            dst.copy_(arr.to(device=dst.device, dtype=dst.dtype))
-
-    put(model.embed, params["embed"])
-    put(model.ln_final, params["ln_final"])
-    n_pairs = len(model.layers) // 2
-    for kind, off in (("local", 0), ("global", 1)):
-        tree = params[kind]
-        if np.asarray(tree["wq"]).shape[0] != n_pairs:
-            raise ValueError(f"{kind} stack depth differs")
-        for i in range(n_pairs):
-            layer = model.layers[2 * i + off]
-            for name, p in layer.named_parameters():
-                src = tree["mlp"][name] if name.startswith("w_") else tree[name]
-                put(p, np.asarray(src)[i])
-    if ("lm_head" in params) != (model.lm_head is not None):
+    if ("lm_head" in tree) != (model.lm_head is not None):
         raise ValueError("lm_head presence differs")
-    if model.lm_head is not None:
-        put(model.lm_head, params["lm_head"])
+    if not name.startswith("layers."):
+        return np.asarray(tree[name])
+    _, i, leaf = name.split(".")
+    i = int(i)
+    stack = tree["local" if i % 2 == 0 else "global"]
+    if np.asarray(stack["wq"]).shape[0] != len(model.layers) // 2:
+        raise ValueError("stack depth differs")
+    src = stack["mlp"][leaf] if leaf.startswith("w_") else stack[leaf]
+    return np.asarray(src)[i // 2]
+
+
+def _put(dst: torch.Tensor, src) -> None:
+    arr = torch.from_numpy(np.array(src, dtype=np.float32))
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(arr.shape)} != {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(arr.to(device=dst.device, dtype=dst.dtype))
+
+
+def load_reference_lm_params(model: LM, params) -> LM:
+    """Carry the reference's ``lm_init`` tree (arrays convertible by
+    ``np.asarray``) into ``model``, in place; shapes must match exactly
+    (same [d_in, d_out] layout)."""
+    for name, p in model.named_parameters():
+        _put(p, reference_leaf(model, params, name))
     return model
+
+
+def load_reference_opt_state(model: LM, state: dict, ref_state) -> dict:
+    """Carry a reference ``adamw_init`` / ``adamw_update`` state (``m`` and
+    ``v`` trees shaped like ``lm_init``'s, ``step``; arrays convertible by
+    ``np.asarray``) into the port's AdamW ``state`` of ``model``
+    (``train.optim.adamw_init``), in place; returns ``state``."""
+    for name, _ in model.named_parameters():
+        for key in ("m", "v"):
+            _put(state[key][name], reference_leaf(model, ref_state[key], name))
+    state["step"].fill_(int(np.asarray(ref_state["step"])))
+    return state
 
 
 # ------------------------------------------------------------------ forward
@@ -212,9 +233,20 @@ def _block(cfg: LMConfig, p: Block, x, positions, *, window=None):
     return x + y
 
 
+def _pair(model: LM, i: int, x, positions):
+    """Layers i and i + 1, a (local, global) pair: the reference's scan
+    body ``pair``."""
+    for j in (i, i + 1):
+        x = _block(model.cfg, model.layers[j], x, positions,
+                   window=model.window(j))
+    return x
+
+
 def lm_trunk(model: LM, tokens: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] → (hidden [B, S, d] after the final norm, aux loss)."""
+    """tokens [B, S] → (hidden [B, S, d] after the final norm, aux loss).
+    With ``cfg.remat`` and autograd on, each pair keeps only its input
+    and is recomputed in the backward."""
     cfg = model.cfg
     s = tokens.shape[1]
     x = model.embed[tokens.to(torch.int64)].to(cfg.dtype)
@@ -222,8 +254,10 @@ def lm_trunk(model: LM, tokens: torch.Tensor
         # the reference rounds √d to the model dtype (60.0 in bf16 at 3584)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
     positions = torch.arange(s, device=tokens.device)
-    for i, layer in enumerate(model.layers):
-        x = _block(cfg, layer, x, positions, window=model.window(i))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(0, len(model.layers), 2):
+        x = (checkpoint(_pair, model, i, x, positions, use_reentrant=False)
+             if remat else _pair(model, i, x, positions))
     x = rms_norm(x, model.ln_final, zero_centered=cfg.norm_zero_centered)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -238,6 +272,13 @@ def lm_forward(model: LM, tokens: torch.Tensor
     """tokens [B, S] → (logits [B, S, V], aux loss)."""
     x, aux = lm_trunk(model, tokens)
     return lm_head_logits(model, x), aux
+
+
+def lm_loss(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy (+ 0.01 × the MoE aux loss, 0 here)."""
+    logits, aux = lm_forward(model, tokens)
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return loss + 0.01 * aux
 
 
 @torch.no_grad()

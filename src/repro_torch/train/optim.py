@@ -1,0 +1,95 @@
+"""AdamW (port of the AdamW part of ``repro/train/optim.py``).
+
+The reference rebuilds its parameter and moment trees each step; here
+``adamw_update`` writes the parameters and the moments in place under
+``torch.no_grad()``, one leaf at a time, so a full-width model holds only
+one leaf's float32 temporaries at once. The arithmetic is the
+reference's: the global-norm clip, the linear warmup, the bias
+corrections, the update ``u + weight_decay · p`` in float32, parameters
+cast back to their dtype, moments stored in ``mom_dtype``. Parameters and
+gradients are dictionaries name → tensor (``dict(model
+.named_parameters())``); the state is ``{"m": {name: t}, "v": {name: t},
+"step": int32 scalar tensor on the CPU}``. ``SGDConfig`` and
+``sgd_update`` wait for the GNN training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    # bf16 moments halve the optimizer's memory for 100B+ models
+    mom_dtype: torch.dtype = torch.float32
+
+
+def _schedule(cfg: AdamWConfig, step: int) -> np.float32:
+    """The learning rate at ``step`` (linear warmup), in float32 as the
+    reference computes it."""
+    warm = np.minimum(np.float32(1.0),
+                      np.float32(step + 1) / np.float32(max(cfg.warmup_steps,
+                                                            1)))
+    return np.float32(cfg.lr) * warm
+
+
+def adamw_init(params: dict[str, torch.Tensor],
+               mom_dtype=torch.float32) -> dict:
+    """Zero moments in ``mom_dtype`` on each parameter's device, step 0."""
+    return {"m": {n: torch.zeros(p.shape, dtype=mom_dtype, device=p.device)
+                  for n, p in params.items()},
+            "v": {n: torch.zeros(p.shape, dtype=mom_dtype, device=p.device)
+                  for n, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def global_norm(tensors: dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt(Σ ‖g‖²) with each square sum taken in float32; a 0-d float32
+    tensor on the tensors' device."""
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in tensors.values()]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads: dict[str, torch.Tensor],
+                 state: dict, params: dict[str, torch.Tensor]) -> dict:
+    """One AdamW step: writes ``params`` and ``state`` in place and returns
+    the metrics ``{"grad_norm": 0-d tensor, "lr": float}``."""
+    step = int(state["step"])
+    gn = global_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12),
+                         max=1.0) if cfg.grad_clip else 1.0)
+    lr = float(_schedule(cfg, step))
+    t = np.float32(step + 1)
+    bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** t)
+    bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** t)
+    for name, p in params.items():
+        g = grads[name].to(torch.float32) * scale
+        m, v = state["m"][name], state["v"][name]
+        m32 = m.to(torch.float32)  # m itself when the moments are float32
+        v32 = v.to(torch.float32)
+        m32.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v32.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        del g
+        denom = (v32 / bc2).sqrt_().add_(cfg.eps)
+        u = (m32 / bc1).div_(denom)
+        del denom
+        p32 = p.to(torch.float32)  # p itself when p is float32
+        u.add_(p32, alpha=cfg.weight_decay)
+        p32.sub_(u, alpha=lr)
+        del u
+        for dst, src in ((p, p32), (m, m32), (v, v32)):
+            if dst is not src:
+                dst.copy_(src)
+    state["step"].add_(1)
+    return {"grad_norm": gn, "lr": lr}

@@ -2,10 +2,13 @@
 integer CUDA kernel equals its plain-torch twin element for element, the
 segment sum is within rtol = 1e-5, atol = 1e-4 of its float64 twin and
 gives the same bits on every launch, the flash kernel is within 2e-5 of
-its twin in float32 and within one bf16 ulp in bf16, the wrappers refuse what the kernels cannot take, both serve paths on the
-card give the integers the CPU path gives, and the gemma2 smoke prefill on
-the card gives the CPU's logits. Every test skips with a reason on a host
-without a card or nvcc.
+its twin in float32 and within one bf16 ulp in bf16, the flash backward
+kernels are within 1e-5 of the twin's largest value in float32 and one
+bf16 ulp plus 1e-3 of it in bf16 and give the same bits on every launch,
+the wrappers refuse what the kernels cannot take, both serve paths on
+the card give the integers the CPU path gives, and the gemma2 smoke
+prefill and train step on the card give the CPU's results. Every test
+skips with a reason on a host without a card or nvcc.
 
 Run them on a machine with an H100:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -414,3 +417,198 @@ def test_gemma2_smoke_prefill_on_card_equals_cpu(cuda):
     assert launch_counts()["flash_attention_fwd"] == model.cfg.n_layers
     assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+
+
+# ------------------------------------------------- flash backward (training)
+# dq, dk, dv of the kernels against the twin on the same (out, lse, dout):
+# float32 within BWD_F32_TOL of the twin's largest value; bf16 within one
+# bf16 ulp plus BWD_ATOL of the twin's largest value (both round a float32
+# sum once, summed in another order; chip_smoke.py states the readings)
+BWD_F32_TOL = 1e-5
+BWD_RTOL, BWD_ATOL = 2 ** -7, 1e-3
+
+
+def _bwd_inputs(seed, b, h, hkv, sq, skv, dh, dtype, q_scale=1.0, **mask):
+    """(q, k, v, out, lse, dout) on the CPU: out and lse of the forward
+    twin."""
+    from repro_torch.models.attention import flash_attention_plain
+    q, k, v = _qkv(seed, b, h, hkv, sq, skv, dh, torch.float32)
+    dout = torch.randn((b, h, sq, dh),
+                       generator=torch.Generator().manual_seed(seed + 1))
+    q, k, v, dout = ((q * q_scale).to(dtype), k.to(dtype), v.to(dtype),
+                     dout.to(dtype))
+    out, lse = flash_attention_plain(q, k, v, return_lse=True, kv_block=64,
+                                     **mask)
+    return q, k, v, out, lse, dout
+
+
+def _assert_bwd_close(got, want):
+    f32 = got[0].dtype == torch.float32
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        g, w = g.float().cpu(), w.float().cpu()
+        assert bool(torch.isfinite(g).all()), name
+        top, diff = float(w.abs().max()), (g - w).abs()
+        if f32:
+            assert float(diff.max()) <= BWD_F32_TOL * top, name
+        else:
+            assert bool((diff <= BWD_ATOL * top + BWD_RTOL * w.abs()).all()), \
+                name
+
+
+@pytest.mark.parametrize("causal,window,cap", [
+    (True, None, None), (False, None, None), (True, 16, None),
+    (True, None, 50.0), (True, 40, 50.0), (False, 24, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+def test_flash_bwd_kernels_equal_twin(cuda, causal, window, cap, dtype, dh):
+    mask = dict(causal=causal, window=window, logit_cap=cap)
+    args = _bwd_inputs(dh, 2, 4, 2, 128, 128, dh, dtype, **mask)
+    want = tfa.flash_attention_bwd(*args, kv_block=64, **mask)
+    got = tfa.flash_attention_bwd(*(t.to(cuda) for t in args), **mask)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype for g in got)
+    _assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_bwd_kernels_q_offset_and_longer_kv(cuda, window):
+    """A chunk of 64 queries at positions 128..191 over 256 keys."""
+    mask = dict(causal=True, window=window, logit_cap=50.0, q_offset=128)
+    args = _bwd_inputs(7, 1, 4, 1, 64, 256, 64, torch.float32, **mask)
+    want = tfa.flash_attention_bwd(*args, kv_block=64, **mask)
+    got = tfa.flash_attention_bwd(*(t.to(cuda) for t in args), **mask)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("seq,window", [(4096, None), (8192, 4096)])
+def test_flash_bwd_kernels_at_gemma2_head_shapes(cuda, seq, window):
+    """gemma2-9b's heads (16 over 8 kv heads, dh 256, cap 50) in bf16 with
+    queries scaled by 8 (so that the cap acts): a global layer at the
+    train path's 4096 tokens and a local one at 8192, where the window
+    masks. The twin runs on the card on the forward kernel's own out and
+    lse."""
+    from repro_torch.models.attention import flash_attention_bwd_plain
+    mask = dict(causal=True, window=window, logit_cap=50.0)
+    g = torch.Generator(device=cuda).manual_seed(seq)
+    q, k, v, dout = (torch.randn(s, generator=g, device=cuda)
+                     for s in ((1, 16, seq, 256), (1, 8, seq, 256),
+                               (1, 8, seq, 256), (1, 16, seq, 256)))
+    q, k, v, dout = (t.bfloat16() for t in (q * 8, k, v, dout))
+    out, lse = tfa._fwd_kernel(q, k, v, lse=True, q_offset=0, **mask)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, **mask)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **mask)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, want)
+
+
+def test_flash_bwd_kernels_are_bit_deterministic(cuda):
+    mask = dict(causal=True, window=40, logit_cap=50.0)
+    args = [t.to(cuda) for t in _bwd_inputs(3, 2, 8, 2, 256, 256, 128,
+                                            torch.bfloat16, q_scale=8.0,
+                                            **mask)]
+    a = tfa.flash_attention_bwd(*args, **mask)
+    b = tfa.flash_attention_bwd(*args, **mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_forward_lse_equals_twin(cuda):
+    from repro_torch.models.attention import flash_attention_plain
+    mask = dict(causal=True, window=40, logit_cap=50.0, q_offset=0)
+    q, k, v = _qkv(4, 2, 4, 2, 128, 128, 64, torch.float32)
+    _, want = flash_attention_plain(q, k, v, return_lse=True, **mask)
+    _, got = tfa._fwd_kernel(q.to(cuda), k.to(cuda), v.to(cuda), lse=True,
+                             **mask)
+    torch.cuda.synchronize()
+    assert torch.allclose(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_bwd_refuses_what_it_cannot_take(cuda):
+    args = [t.to(cuda) for t in _bwd_inputs(0, 1, 2, 1, 64, 64, 64,
+                                            torch.float32)]
+    q, k, v, out, lse, dout = args
+    with pytest.raises(ValueError, match="lse in float32"):
+        tfa.flash_attention_bwd(q, k, v, out, lse.bfloat16(), dout)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_bwd(q, k, v, out, lse,
+                                dout.transpose(2, 3).contiguous()
+                                .transpose(2, 3))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tfa.flash_attention_bwd(*(t[:, :, :32].contiguous() for t in args))
+    with pytest.raises(ValueError, match="dh"):
+        big = torch.zeros((1, 2, 64, 512), device=cuda)
+        tfa.flash_attention_bwd(big, big[:, :1], big[:, :1], big,
+                                lse, big)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        h = [t.half() for t in (q, k, v, out)]
+        tfa.flash_attention_bwd(*h, lse, dout.half())
+
+
+def test_flash_function_on_card_equals_cpu(cuda):
+    """``flash_attention_bhsd`` under autograd on the card: one forward
+    (with lse), one dq and one dk/dv launch, gradients equal to the CPU
+    Function's (the twins) within the float32 tolerance."""
+    mask = dict(causal=True, window=24, logit_cap=50.0)
+    q, k, v = _qkv(5, 2, 4, 2, 128, 128, 32, torch.float32)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(9))
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev, copy=True).requires_grad_() for t in (q, k, v)]
+        reset_launch_counts()
+        out = tfa.flash_attention_bhsd(*leaves, kv_block=64, **mask)
+        (out * dout.to(dev)).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+        counts = launch_counts()
+    torch.cuda.synchronize()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"]) == (1, 1, 1)
+    _assert_bwd_close(grads[1], grads[0])
+
+
+def test_gemma2_smoke_train_step_on_card_equals_cpu(cuda):
+    """The smoke train cell (float32, 2 x 64 tokens, no remat): one
+    forward, one dq and one dk/dv launch per layer; the loss within 1e-5
+    of the CPU's; every parameter's gradient, and its first moment after
+    one AdamW step (m = (1 - b1) · clip · g), within 1e-4 of the CPU's
+    largest value, as ``chip_smoke.py`` holds them (read there: 2.1e-6);
+    and the parameters after the step within 2 lr + 1e-6 (the first
+    update is lr · g / (|g| + eps), so an element whose gradient is
+    float32 noise may flip sign)."""
+    import copy
+    from repro_torch.launch.steps import lm_train_cell, lm_train_step
+    from repro_torch.models.transformer import lm_loss
+    cell = lm_train_cell("gemma2-9b", seq_len=64, batch=2, device="cpu",
+                         smoke=True)
+    model = copy.deepcopy(cell.model).to(cuda)
+    state = {"m": {n: t.to(cuda) for n, t in cell.opt_state["m"].items()},
+             "v": {n: t.to(cuda) for n, t in cell.opt_state["v"].items()},
+             "step": cell.opt_state["step"].clone()}
+    tokens = cell.tokens.to(cuda)
+
+    def close(got, want):
+        return float((got.detach().cpu() - want).abs().max()) <= (
+            1e-4 * float(want.abs().max().clamp(min=1e-30)))
+
+    lm_loss(cell.model, cell.tokens).backward()
+    reset_launch_counts()
+    lm_loss(model, tokens).backward()
+    torch.cuda.synchronize()
+    n = model.cfg.n_layers
+    counts = launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"]) == (n, n, n)
+    for (name, p), q in zip(model.named_parameters(),
+                            cell.model.parameters()):
+        assert close(p.grad, q.grad), name
+
+    want = cell.step()
+    got = lm_train_step(model, cell.opt_cfg, state, tokens)
+    torch.cuda.synchronize()
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5
+    assert got["lr"] == want["lr"]
+    for (name, p), q in zip(model.named_parameters(),
+                            cell.model.parameters()):
+        assert close(state["m"][name], cell.opt_state["m"][name]), name
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= (
+            2 * want["lr"] + 1e-6), name

@@ -52,6 +52,11 @@ def test_port_file_inventory():
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/configs/gemma2_9b.py",
                  "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/train/optim.py",
+                 "src/repro_torch/train/checkpoint.py",
+                 "src/repro_torch/train/loop.py",
+                 "src/repro_torch/data/synthetic.py",
                  "src/repro_torch/serve/gnn.py"):
         assert must in names, must
 
@@ -83,8 +88,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.prefix_partition\n"
         "import repro_torch.models.transformer, repro_torch.launch.steps\n"
+        "import repro_torch.launch.train, repro_torch.train.loop\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
-        "assert len(kernel_wrappers()) == 11\n"
+        "assert len(kernel_wrappers()) == 13\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -104,5 +110,6 @@ def test_build_list_follows_csrc():
     cu = sorted(f[:-3] for f in os.listdir(os.path.join(PORT, "csrc"))
                 if f.endswith(".cu"))
     assert list(_build.SOURCES) == cu
-    assert {"digit_pass", "flash_attention", "merge", "prefix_partition",
-            "reindex_epilogue", "segment_agg", "set_count"} <= set(cu)
+    assert {"digit_pass", "flash_attention", "flash_attention_bwd", "merge",
+            "prefix_partition", "reindex_epilogue", "segment_agg",
+            "set_count"} <= set(cu)
