@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
 1. device  — the card's name and power limit (nvidia-smi) and the torch
    device name; no card → exit 2 before any result.
 2. build   — nvcc compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a,
-   one process per source, all in parallel (ptxas usage is printed).
+   one process per source, all in parallel (ptxas usage is printed); the
+   bf16 flash forward must show HMMA instructions in its SASS and no
+   spills.
 3. kernels — each of the eight kernels (and the keys-only, shuffled and
    D = 1 variants) against its plain-torch twin on the card at the serve
    paths' shapes, with its time (CUDA events after a warm-up), the twin's
@@ -32,23 +34,28 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    its wall time, its kernels' device time and the ops that take the most
    of it.
 6. merge path — launch counters set to 0; ``convert`` under ``MERGE_CFG``
-   (chunked_merge sorts, unfused set-count pointer build) of a 2^24-edge
-   power-law COO over Reddit's 232,965 nodes (a reduced depth: the
-   set-count pointer build is all-pairs), then the same 16 requests served
-   under ``MERGE_CFG`` with ``use_pallas_agg`` on the slice path's CSC;
-   counters read.
+   (chunked_merge sorts, unfused set-count pointer build) of Reddit's
+   114,615,892 synthetic power-law edges in a 2^27 COO, as the slice path
+   converts them, then the same 16 requests served under ``MERGE_CFG``
+   with ``use_pallas_agg`` on the slice path's CSC; counters read.
 7. merge checks — that convert bit-identical to the torch.sort strategy;
-   batched == sequential; four requests' subgraphs equal to the slice
-   path's and their logits within LOGIT_TOL of the slice path's forward (argmax
-   equal wherever the top-two margin exceeds it); a small graph under
+   ``set_count_less`` at the convert's shape (232,966 targets over the
+   2^27 sorted dst, then shuffled) equal to ``torch.searchsorted`` and to
+   its twin on every 256th target (the twin is all-pairs: 3e13 compares
+   for all of them); batched == sequential; four requests' subgraphs
+   equal to the slice path's and their logits within LOGIT_TOL of the
+   slice path's forward (argmax equal wherever the top-two margin
+   exceeds it); a small graph under
    ``MERGE_CFG`` on the card equal to the CPU path; the profile of one
    request.
 8. LM kernels — the GNN paths' memory freed; the flash-attention forward
-   against its twin at gemma2-9b's head shapes (16 heads over 8 kv heads,
+   (bf16 on tensor cores, float32 on scalar FMAs) against its twin at
+   gemma2-9b's head shapes (16 heads over 8 kv heads,
    dh 256, bf16, 8192 tokens) as a global layer (causal, cap 50) and a
    local one (window 4096), queries scaled by FLASH_Q_SCALE so that the
    cap acts, within one bf16 ulp (FLASH_RTOL, FLASH_ATOL), a planted
-   fault (no cap; window + 1) rejected; in float32 at 2048 tokens within
+   fault (no cap; window + 1) rejected, and FLASH_SWEEP more draws held
+   to the same tolerance; in float32 at 2048 tokens within
    2e-5; ``prefix_partition`` and ``filter_tree_lookup``
    (no path runs them) equal to their twins at the reference tests'
    shapes and at one timed size each (2^24 values in blocks of 1024;
@@ -108,6 +115,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -128,7 +136,8 @@ CONVERT_CAP = 1 << 27  # pow2 COO capacity of the Reddit edge list
 SEED_CAP, N_SLOTS = 1024, 4  # the batch Workload.b prices; engine slots
 # digit-pass sizes checked (2^24: compared with the twin) and timed (2^27)
 DIGIT_SIZES = ((1 << 24, True), (1 << 27, False))
-MERGE_CONVERT_CAP = 1 << 24  # the merge path's convert: 2^24 edges
+MERGE_CONVERT_CAP = CONVERT_CAP  # the merge path converts Reddit too
+CONVERT_TWIN_STRIDE = 256  # targets the all-pairs twin checks at 2^27
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-4  # segment sum against the float64 sum
 # MERGE_CFG logits against the slice path's: the pointer segment sum
 # differences float32 prefix sums over 2^19 message rows (cancellation of
@@ -151,6 +160,7 @@ LM_ARCH, LM_SEQ, LM_BATCH, LM_LONG_SEQ = "gemma2-9b", 8192, 1, 32768
 # the range where gemma2's cap of 50 acts; float32 at 2048 tokens: 2e-5
 FLASH_RTOL, FLASH_ATOL, FLASH_Q_SCALE = 2 ** -7, 1e-5, 8.0
 FLASH_F32_TOL, FLASH_F32_SEQ = 2e-5, 2048
+FLASH_SWEEP = 4  # more bf16 draws checked (global and local), untimed
 PARTITION_SHAPES = ((128, 128), (512, 128), (2048, 512))  # test_kernels.py
 PARTITION_TIMED = (1 << 24, 1024)
 FILTER_SHAPES = ((2048, 256), (4096, 128))  # test_kernels.py
@@ -234,6 +244,57 @@ def max_err(got, want):
     return max(float((g.cpu().to(torch.int64) - w.cpu().to(torch.int64)
                       ).abs().max()) if g.numel() else 0.0
                for g, w in zip(got, want))
+
+
+def set_count_readings(el, targets, want, iters=20):
+    """One ``set_count_less`` call on these inputs through its two C
+    entries: the time of both launches and of each alone, and the work its
+    kernels count (csrc/set_count.cu ``work``) in one more call, whose
+    counts must equal ``want``."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import set_count as tsc
+    lib = _build.load("set_count", tsc._SIGNATURES)
+    tiles, bounds = tsc.set_count_scratch(el.shape[0], el.device)
+    out = torch.empty_like(targets)
+
+    def sort(work=None):
+        _build.check(tsc.tile_sort_c(lib, el, tiles, bounds, work),
+                     "set_count_less (tile sort)")
+
+    def count(work=None):
+        _build.check(tsc.count_c(lib, el.shape[0], targets, out, tiles,
+                                 bounds, work), "set_count_less (count)")
+    r = dict(ms=cuda_ms(lambda: (sort(), count()), iters),
+             sort_ms=cuda_ms(sort, iters), count_ms=cuda_ms(count, iters))
+    work = torch.zeros(4, dtype=torch.int64, device=el.device)
+    out.zero_()
+    sort(work)
+    count(work)
+    check(torch.equal(out, want), "set_count_less: the launches that count "
+          "their work compute the same counts")
+    r.update(zip(("sort_compares", "count_compares", "bisections",
+                  "tile_copies"), work.tolist()))
+    r["compares"] = r["sort_compares"] + r["count_compares"]
+    return r
+
+
+def sass_summary(lib_path, kernel):
+    """{mangled name: (HMMA instructions, local-memory loads and stores)}
+    of each compiled function named ``kernel`` in a built library, from
+    ``cuobjdump -sass``. LDL / STL are where ptxas spills registers."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for block in sass.split("Function :")[1:]:
+        name, body = block.split("\n", 1)
+        if kernel in name:
+            out[name.strip()] = (body.count("HMMA"), len(re.findall(
+                r"\b(?:LDL|STL)\b", body)))
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -402,7 +463,7 @@ def merge_kernel_phase(dev, seed):
 
     g = torch.Generator(device=dev).manual_seed(seed + 10)
     n = SERVE_CAP
-    rows, runs = {}, {}
+    rows, runs, extra = {}, {}, {}
     key_bits = SERVE_NODES.bit_length()
     passes = -(-key_bits // RADIX_BITS)
     keys = torch.full((n,), SERVE_NODES, dtype=torch.int32, device=dev)
@@ -487,31 +548,40 @@ def merge_kernel_phase(dev, seed):
     targets = torch.arange(SERVE_NODES + 1, dtype=torch.int32, device=dev)
     q = targets.numel()
     rank = torch.searchsorted(sdst, targets, out_int32=True)
-    sclib = _build.load("set_count", tsc._SIGNATURES)
     for shuffled in (False, True):
+        tag = "/shuffled" if shuffled else ""
         el = sdst[torch.randperm(n, generator=g, device=dev)] if shuffled \
             else sdst
         got = tsc.set_count_less(el, targets)
         want = count_less_than(el, targets)
+        again = tsc.set_count_less(el, targets)
         torch.cuda.synchronize()
         err = max_err([got], [want])
         check(err == 0 and torch.equal(got, rank),
               f"set_count_less (shuffled={shuffled}) == twin == rank")
-        ms = cuda_ms(lambda: sclib.set_count_less(
-            el.data_ptr(), n, targets.data_ptr(), q, got.data_ptr(),
-            _build.stream_of(got)), iters=5)
+        check(torch.equal(got, again), f"set_count_less (shuffled="
+              f"{shuffled}): two launches give the same bits")
+        r = set_count_readings(el, targets, rank)
+        for k in ("sort_ms", "count_ms", "sort_compares", "count_compares",
+                  "bisections", "tile_copies"):
+            extra[f"set_count_less{tag}_{k}"] = r[k]
         plain_ms = cuda_ms(lambda: count_less_than(el, targets), iters=2,
                            warmup=1)
-        b_ms, b_by = bound(4 * (n + 2 * q), q * n)
-        rows["set_count_less" + ("/shuffled" if shuffled else "")] = dict(
+        # bytes: each input read once, the output written once; the
+        # compares the kernels counted on these inputs go in their own field
+        b_ms, b_by = bound(4 * (n + 2 * q), 0)
+        rows["set_count_less" + tag] = dict(
             name="set_count_less", route="cuda",
             source="src/repro_torch/csrc/set_count.cu",
             replaces="src/repro/kernels/set_count.py:44", max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            ms=r["ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=cuda_ms(lambda: torch.searchsorted(sdst, targets)),
+            compares=r["compares"],
             shape=f"{q} targets over {n} {'shuffled' if shuffled else 'sorted'}"
-                  " elements (library: torch.searchsorted on the sorted "
-                  "elements)")
+                  " elements; ms covers both launches of one call (tile "
+                  "sort, count; each alone in extra); compares: counted by "
+                  "the kernels in one more call (library: torch.searchsorted "
+                  "on the sorted elements, which assumes the order)")
 
     # segment sum: the two message widths of layer 1 (features, degree)
     dst = sdst
@@ -553,7 +623,7 @@ def merge_kernel_phase(dev, seed):
             shape=f"[{n}, {d}] → [{SERVE_NODES}, {d}] float32 (error "
                   "against the float64 sum; library: index_add_)")
         del msgs, got
-    return rows
+    return rows, extra
 
 
 def flash_close(got, want):
@@ -565,6 +635,29 @@ def flash_close(got, want):
     share = float((diff / (FLASH_ATOL + FLASH_RTOL * w.abs())).max())
     return (share <= 1.0 and bool(torch.isfinite(g).all()),
             float(diff.max()), share)
+
+
+def float64_witness(q, k, v, cap, got, want, heads=2, near=1e-3):
+    """Largest |error| of the kernel's and of the twin's bf16 outputs
+    against a float64 causal, capped attention of the first ``heads``
+    query heads, over the outputs whose witness lies within ``near`` of
+    zero: there the tolerance's 1e-5 is all there is."""
+    import torch
+    g = q.shape[1] // k.shape[1]
+    seq, dh = q.shape[2], q.shape[3]
+    pos = torch.arange(seq, device=q.device)
+    live = pos[:, None] >= pos[None, :]
+    errs = {"kernel": 0.0, "twin": 0.0}
+    for h in range(heads):
+        s = (q[0, h].double() * dh ** -0.5) @ k[0, h // g].double().T
+        s = torch.where(live, cap * torch.tanh(s / cap), -1e30)
+        ref = torch.softmax(s, -1) @ v[0, h // g].double()
+        del s
+        small = ref.abs() < near
+        for name, out in (("kernel", got), ("twin", want)):
+            errs[name] = max(errs[name], float(
+                (out[0, h].double() - ref).abs()[small].max()))
+    return errs
 
 
 def causal_pairs(seq, window=None):
@@ -654,6 +747,7 @@ def lm_kernel_phase(dev, seed):
             replaces="src/repro/kernels/flash_attention.py:80",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms,
+            tflops=4 * dh * pairs * h / (ms * 1e-3) / 1e12,
             shape=f"B 1, H {h} over Hkv {hkv}, dh {dh}, {LM_SEQ} tokens, "
                   f"bf16, q x {FLASH_Q_SCALE}, causal, window {window}, "
                   f"cap {cap}; "
@@ -661,6 +755,28 @@ def lm_kernel_phase(dev, seed):
                   "scaled_dot_product_attention, causal, no cap, no "
                   "window: a near function)")
         del got, want
+
+    # FLASH_SWEEP more draws at the same shapes: on outputs near zero the
+    # tolerance's 1e-5 sits near the float32 noise of the scores (the twin
+    # itself lies up to ~1e-5 from a float64 witness there), so one draw
+    # is thin evidence of the kernel's arithmetic
+    shares = []
+    for i in range(FLASH_SWEEP):
+        q, k, v = qkv(LM_SEQ, cfg.dtype)
+        for window in (None, cfg.sliding_window):
+            kw = dict(causal=True, window=window, logit_cap=cap)
+            got = tfa.flash_attention_bhsd(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            ok, err, share = flash_close(got, want)
+            shares.append(share)
+            if i == 0 and window is None:
+                extra["flash_vs_float64_near_zero"] = float64_witness(
+                    q, k, v, cap, got, want)
+            check(ok, f"flash_attention_fwd (window {window}, draw "
+                  f"{len(shares) // 2}) within the bf16 tolerance of the "
+                  f"twin ({err}, {share:.4f} of it)")
+    extra["flash_sweep_share_of_tol"] = shares
+    del q, k, v, k_rep, v_rep
 
     # prefix_partition: the reference test shapes, then the timed size
     plib = _build.load("prefix_partition", tpp._SIGNATURES)
@@ -965,7 +1081,7 @@ def small_graph_check(dev, seed, cfg, gnn_cfg, extra, tag):
 
 # ------------------------------------------------------------- phases 6-7
 def merge_path(dev, seed, n_requests, csc, feats):
-    """Launch counters to 0, the MERGE_CFG convert at 2^24 edges, then the
+    """Launch counters to 0, the MERGE_CFG convert at Reddit scale, then the
     slice path's requests served under MERGE_CFG with use_pallas_agg on
     the slice path's CSC (same weights), counters read."""
     import dataclasses
@@ -980,7 +1096,7 @@ def merge_path(dev, seed, n_requests, csc, feats):
     from repro_torch.serve import GnnServeEngine
 
     out = {}
-    coo = synthetic_coo(REDDIT["nodes"], MERGE_CONVERT_CAP, MERGE_CONVERT_CAP,
+    coo = synthetic_coo(REDDIT["nodes"], REDDIT["edges"], MERGE_CONVERT_CAP,
                         seed + 5, device=dev)
     model = GraphSAGE(dataclasses.replace(config(), use_pallas_agg=True),
                       d_in=REDDIT["feats"], n_classes=REDDIT["classes"],
@@ -1032,10 +1148,13 @@ def merge_checks(dev, seed, coo, csc_m, eng, reqs, handles, eng_s, extra):
     from repro_torch.configs.graphsage_reddit import smoke_config
     from repro_torch.core import pipeline
     from repro_torch.core.costmodel import EngineConfig
+    from repro_torch.core.set_count import count_less_than
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import set_count as tsc
     from repro_torch.launch.serve import MERGE_CFG, SLICE_CFG
     from repro_torch.models.gnn import subgraph_batch
 
-    # (a) the 2^24 convert == the torch.sort strategy on the same COO
+    # (a) the Reddit-scale convert == the torch.sort strategy on the COO
     t0 = time.perf_counter()
     ref = pipeline.convert(coo, EngineConfig(sort_strategy="xla_sort",
                                              reindex_strategy="fused"),
@@ -1043,9 +1162,40 @@ def merge_checks(dev, seed, coo, csc_m, eng, reqs, handles, eng_s, extra):
     torch.cuda.synchronize()
     extra["merge_convert_torch_sort_s"] = time.perf_counter() - t0
     check(torch.equal(csc_m.ptr, ref.ptr) and torch.equal(csc_m.idx, ref.idx),
-          "merge convert (2^24) == torch.sort strategy")
-    check(int(csc_m.ptr[-1]) == MERGE_CONVERT_CAP, "merge ptr[-1] == edges")
+          "merge convert (Reddit scale) == torch.sort strategy")
+    check(int(csc_m.ptr[-1]) == REDDIT["edges"], "merge ptr[-1] == edges")
+
+    # (a2) the convert's set count on its own shape: the sorted dst, then
+    # shuffled, against searchsorted and the twin on every
+    # CONVERT_TWIN_STRIDE-th target
+    sdst = torch.sort(coo.dst).values  # the SENTINEL padding sorts last
     del ref
+    targets = torch.arange(REDDIT["nodes"] + 1, dtype=torch.int32,
+                           device=dev)
+    rank = torch.searchsorted(sdst, targets, out_int32=True)
+    sample = torch.cat([targets[::CONVERT_TWIN_STRIDE], targets[-1:]])
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    for shuffled in (False, True):
+        el = sdst[torch.randperm(sdst.shape[0], generator=g, device=dev)] \
+            if shuffled else sdst
+        got = tsc.set_count_less(el, targets)
+        again = tsc.set_count_less(el, targets)
+        twin = count_less_than(el, sample)
+        torch.cuda.synchronize()
+        check(torch.equal(got, rank) and torch.equal(got, again)
+              and torch.equal(got[sample.long()], twin),
+              f"set_count_less at the convert shape (shuffled={shuffled}) =="
+              f" searchsorted, == the twin on {sample.numel()} targets, "
+              "same bits twice")
+        r = set_count_readings(el, targets, rank, iters=5)
+        for k in ("ms", "sort_ms", "count_ms", "compares", "sort_compares",
+                  "count_compares", "bisections", "tile_copies"):
+            extra[f"set_count_convert_{'shuffled' if shuffled else 'sorted'}"
+                  f"_{k}"] = r[k]
+        del el, got, again
+    extra["set_count_convert_searchsorted_ms"] = cuda_ms(
+        lambda: torch.searchsorted(sdst, targets), iters=5)
+    del sdst, rank
 
     # (b) batched == sequential
     batched_equals_sequential(eng, reqs, handles, "merge")
@@ -1724,13 +1874,39 @@ def main():
     log(f"[build] {sorted(_build.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f}s wall ({built})")
     for name, text in sorted(_build.BUILD_LOG.items()):
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {fn}: {line.strip()}")
+    # the bf16 flash forward, from its SASS (cached builds too): one
+    # instantiation per head width, each with every product of a kv tile on
+    # the tensor cores, S = Q K^T ((dh / 16) (kN / 8) MMAs) and P V with P
+    # split into hi and lo (2 (kN / 16) (dh / 8)), and no local-memory
+    # traffic, so no spills
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    sass = sass_summary(_build.library_path("flash_attention"),
+                        "flash_fwd_mma_kernel")
+    log(f"[build] flash_fwd_mma_kernel (cuobjdump -sass): {{name: (HMMA, "
+        f"LDL + STL)}} {sass}")
+    widths = []
+    for name, (hmma, local) in sass.items():
+        dh, kn = map(int, re.search(r"flash_fwd_mma_kernelILi(\d+)ELi(\d+)E",
+                                    name).groups())
+        widths.append(dh)
+        check(hmma >= 3 * dh * kn // 128 and local == 0,
+              f"flash_fwd_mma_kernel<{dh}, {kn}>: {hmma} HMMA (at least "
+              f"{3 * dh * kn // 128}) and {local} local loads and stores "
+              "(none)")
+    check(sorted(widths) == sorted(HEAD_DIMS),
+          f"the bf16 flash forward is built for every head width: {widths}")
 
     # 3. kernels
     rows, extra = kernel_phase(dev, args.seed)
-    rows.update(merge_kernel_phase(dev, args.seed))
+    merge_rows, merge_extra = merge_kernel_phase(dev, args.seed)
+    rows.update(merge_rows)
+    extra.update(merge_extra)
     for key, r in rows.items():
         log_row(key, r)
 
@@ -1757,8 +1933,8 @@ def main():
     mout, mcoo, mcsc, meng, mreqs, mhandles = merge_path(dev, args.seed,
                                                          args.requests, csc,
                                                          feats)
-    log(f"[merge convert] {REDDIT['nodes']} nodes, {MERGE_CONVERT_CAP} "
-        f"edges (capacity 2^24) under MERGE_CFG: {mout['convert_s']:.3f}s; "
+    log(f"[merge convert] {REDDIT['nodes']} nodes, {REDDIT['edges']} "
+        f"edges (capacity 2^27) under MERGE_CFG: {mout['convert_s']:.3f}s; "
         f"launches {mout['convert_launches']}")
     log_serve("merge serve", mout)
     check(all(mout["launches"][k] > 0 for k in MERGE_KERNELS),
@@ -1917,7 +2093,9 @@ def log_row(key, r):
     log(f"[kernel] {key} ({r['shape']}): {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
-        f"{r['max_abs_err']}")
+        f"{r['max_abs_err']}"
+        + (f", {r['tflops']:.1f} TFLOP/s" if "tflops" in r else "")
+        + (f", {r['compares']:.4g} compares" if "compares" in r else ""))
 
 
 def log_serve(tag, out):

@@ -5,8 +5,11 @@
 ``set_count_less`` and ``filter_tree_lookup`` launch the kernels of
 ``csrc/set_count.cu`` on CUDA tensors and run their plain twins, the
 blocked compare-reduces ``core.set_count.count_less_than`` and
-``core.set_count.filter_lookup``, on CPU tensors. ``count_fn`` is the
-adapter ``build_pointer_array(count_fn=...)`` takes.
+``core.set_count.filter_lookup``, on CPU tensors. On the card the count
+sorts tiles of ``SORT_TILE`` elements into the scratch of
+``set_count_scratch`` and bisects only the tiles that straddle a target,
+for any element order. ``count_fn`` is the adapter
+``build_pointer_array(count_fn=...)`` takes.
 """
 from __future__ import annotations
 
@@ -21,17 +24,55 @@ from .common import SENTINEL, pad_pow2_1d
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+SORT_TILE = 4096  # csrc/set_count.cu kSortTile; its entries refuse a
+# scratch sized for a smaller tile
 _SIGNATURES = {
-    "set_count_less": (ctypes.c_int, (_P, _I, _P, _I, _P, _P)),
+    "set_count_tile_sort": (ctypes.c_int, (_P, _I, _P, _L, _P, _L, _P, _P)),
+    "set_count_count": (ctypes.c_int, (_P, _L, _P, _L, _I, _P, _I, _P, _P,
+                                       _P)),
     "filter_tree_lookup": (ctypes.c_int, (_P, _P, _I, _P, _I, _P, _P, _P)),
 }
 
 
+def set_count_scratch(n_elems: int, device) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The scratch of one ``set_count_less`` call on ``n_elems`` elements:
+    the sorted tiles [n_tiles * SORT_TILE] and each tile's (min, max)
+    [2 * n_tiles], int32."""
+    n_tiles = -(-n_elems // SORT_TILE)
+    return (torch.empty(n_tiles * SORT_TILE, dtype=torch.int32,
+                        device=device),
+            torch.empty(2 * n_tiles, dtype=torch.int32, device=device))
+
+
+def tile_sort_c(lib, elements, tiles, bounds, work=None):
+    """``csrc/set_count.cu``'s tile sort entry on these tensors (the
+    return code); ``work``, a zeroed int64 [4] tensor or None, gets the
+    kernels' work counts."""
+    return lib.set_count_tile_sort(
+        elements.data_ptr(), elements.shape[0], tiles.data_ptr(),
+        tiles.shape[0], bounds.data_ptr(), bounds.shape[0],
+        None if work is None else work.data_ptr(), _build.stream_of(tiles))
+
+
+def count_c(lib, n_elems, targets, out, tiles, bounds, work=None):
+    """``csrc/set_count.cu``'s count entry on sorted tiles of ``n_elems``
+    elements (the return code)."""
+    return lib.set_count_count(
+        tiles.data_ptr(), tiles.shape[0], bounds.data_ptr(), bounds.shape[0],
+        n_elems, targets.data_ptr(), targets.shape[0], out.data_ptr(),
+        None if work is None else work.data_ptr(), _build.stream_of(out))
+
+
 def set_count_less(elements: torch.Tensor, targets: torch.Tensor
                    ) -> torch.Tensor:
-    """counts[t] = |{x in elements : x < targets[t]}| (int32), all pairs:
-    the elements need not be sorted. elements [E] int32 (pad with
-    INT32_MAX, which is never below a target), targets [T] int32."""
+    """counts[t] = |{x in elements : x < targets[t]}| (int32); the
+    elements need not be sorted. elements [E] int32 (pad with INT32_MAX,
+    which is never below a target), targets [T] int32. On the card two
+    kernels, each counted in ``launches``: the first sorts each tile of
+    ``SORT_TILE`` elements into the scratch (with each tile's min and
+    max), the second counts."""
     if not elements.is_cuda:
         return count_less_than(elements, targets)
     for t in (elements, targets):
@@ -41,11 +82,15 @@ def set_count_less(elements: torch.Tensor, targets: torch.Tensor
                              "CUDA tensors on one device")
     out = torch.empty_like(targets)
     if targets.shape[0]:
+        lib = _build.load("set_count", _SIGNATURES)
+        tiles, bounds = set_count_scratch(elements.shape[0], elements.device)
+        if elements.shape[0]:
+            set_count_less.launches += 1
+            _build.check(tile_sort_c(lib, elements, tiles, bounds),
+                         "set_count_less (tile sort)")
         set_count_less.launches += 1
-        _build.check(_build.load("set_count", _SIGNATURES).set_count_less(
-            elements.data_ptr(), elements.shape[0], targets.data_ptr(),
-            targets.shape[0], out.data_ptr(), _build.stream_of(targets)),
-            "set_count_less")
+        _build.check(count_c(lib, elements.shape[0], targets, out, tiles,
+                             bounds), "set_count_less (count)")
     return out
 
 

@@ -6,7 +6,11 @@ in interpret mode, on the parameter grid of ``tests/test_flash_kernel.py``
 (causal or not, window 16, cap 50, three block pairs, dh 16/64/128 in
 float32 and bf16, GQA 4:2) plus a ``q_offset`` case, at the reference's
 own tolerances: rtol = atol = 2e-5 in float32, 2e-2 in bf16. Inputs are
-numpy arrays from a seed, handed to both."""
+numpy arrays from a seed, handed to both. A test-local emulation of the
+bf16 card kernel's rounding of P (split into bf16 hi and lo halves, each
+multiplied by V) is held within the card checks' one-bf16-ulp tolerance
+of the reference model at gemma2's head shapes; a single bf16 rounding of
+P is shown to exceed it."""
 import numpy as np
 import pytest
 
@@ -20,6 +24,10 @@ from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.models import attention as ta  # noqa: E402
 
 TOL = {np.float32: 2e-5, "bf16": 2e-2}
+# the card checks' bf16 tolerance (tests/test_torch_gpu.py FLASH_TOL,
+# chip_smoke.py FLASH_RTOL / FLASH_ATOL): one bf16 ulp of the output plus
+# float32 sums that cancel near zero
+BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-5
 
 
 def _qkv(seed, b=1, h=2, hkv=1, sq=64, skv=64, dh=32):
@@ -147,3 +155,51 @@ def test_wrapper_refuses_mismatched_shapes():
         tfa.flash_attention_bhsd(_t(q), _t(k), _t(v))
     with pytest.raises(ValueError, match="k, v"):
         tfa.flash_attention_bhsd(_t(q), _t(k), _t(v)[:, :, :32])
+
+
+def _emulated_bf16_kernel(q, k, v, *, window, cap, split):
+    """The bf16 kernel's rounding of P, emulated in float32 over the whole
+    row at once: scores of the bf16 q (scaled by dh^-0.5) and k, softcap,
+    mask, p = exp(s - max) in float32 and l its float32 sum; P rounded to
+    bf16 as hi = bf16(p) and, with ``split``, lo = bf16(p - hi), each half
+    multiplied by the bf16 V (exact products, float32 sums); out = P V / l
+    rounded to bf16. q [B,H,S,dh], k, v [B,Hkv,S,dh] bf16 torch tensors."""
+    b, h, sq, dh = q.shape
+    g = h // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float() * dh ** -0.5, kf)
+    sc = cap * torch.tanh(sc / cap)
+    i = torch.arange(sq)
+    live = (i[:, None] >= i[None, :])
+    if window is not None:
+        live &= (i[:, None] - i[None, :]) < window
+    sc = torch.where(live, sc, torch.tensor(-1e30))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    hi = p.bfloat16().float()
+    pv = torch.einsum("bhqk,bhkd->bhqd", hi.double(), vf.double())
+    if split:
+        lo = (p - hi).bfloat16().float()
+        pv = pv + torch.einsum("bhqk,bhkd->bhqd", lo.double(), vf.double())
+    return (pv.float() / l).bfloat16()
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_bf16_p_split_holds_the_card_tolerance(window):
+    """gemma2's heads (16 over 8, dh 256, cap 50) at 512 tokens, q x 8 so
+    that the cap acts: the hi/lo split of P stays within one bf16 ulp
+    (+ 1e-5) of the reference model's attention; one bf16 rounding of P
+    does not (errors of up to 2^-9 of sum p|v| on outputs near zero)."""
+    q, k, v = _qkv(9, b=1, h=16, hkv=8, sq=512, skv=512, dh=256)
+    q = q * 8
+    tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+    want = np.asarray(ja.flash_attention(
+        _j(q, jnp.bfloat16), _j(k, jnp.bfloat16), _j(v, jnp.bfloat16),
+        causal=True, window=window, logit_cap=50.0).astype(jnp.float32))
+    bound = BF16_ATOL + BF16_RTOL * np.abs(want)
+    kw = dict(window=window, cap=50.0)
+    split = _emulated_bf16_kernel(tq, tk, tv, split=True, **kw).float()
+    single = _emulated_bf16_kernel(tq, tk, tv, split=False, **kw).float()
+    assert (np.abs(split.numpy() - want) <= bound).all()
+    assert (np.abs(single.numpy() - want) > bound).any()

@@ -5,7 +5,9 @@ gives the same bits on every launch, the flash kernel is within 2e-5 of
 its twin in float32 and within one bf16 ulp in bf16, the flash backward
 kernels are within 1e-5 of the twin's largest value in float32 and one
 bf16 ulp plus 1e-3 of it in bf16 and give the same bits on every launch,
-the wrappers refuse what the kernels cannot take, both serve paths on
+the set count equals its twin and searchsorted up to the convert's shape
+and gives the same bits twice, as does the bf16 flash forward, the
+wrappers refuse what the kernels cannot take, both serve paths on
 the card give the integers the CPU path gives, and the gemma2 smoke
 prefill and train step on the card give the CPU's results. Every test
 skips with a reason on a host without a card or nvcc.
@@ -13,7 +15,9 @@ skips with a reason on a host without a card or nvcc.
 Run them on a machine with an H100:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import ctypes
 import dataclasses
+import subprocess
 
 import numpy as np
 import pytest
@@ -205,6 +209,147 @@ def test_set_count_kernel_equals_twin(cuda, e, t, shuffle):
     assert torch.equal(tsc.count_fn(el, tg_), got)
 
 
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_set_count_kernel_at_convert_shape(cuda, shuffle):
+    """Reddit's pointer build: 232,966 targets over 2^24 elements (a
+    power-law sorted dst with a SENTINEL tail), then the same shuffled;
+    equal to the all-pairs twin and to searchsorted."""
+    n_nodes, e = 232_965, 1 << 24
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.arange(1, n_nodes + 1, device=cuda, dtype=torch.float64) ** -1.5
+    el = torch.full((e,), SEN, dtype=torch.int32, device=cuda)
+    live = e - e // 8
+    el[:live] = torch.sort(torch.multinomial(
+        w, live, replacement=True, generator=g).to(torch.int32)).values
+    want = torch.searchsorted(el, torch.arange(
+        n_nodes + 1, dtype=torch.int32, device=cuda), out_int32=True)
+    if shuffle:
+        el = el[torch.randperm(e, generator=g, device=cuda)]
+    tg_ = torch.arange(n_nodes + 1, dtype=torch.int32, device=cuda)
+    got = tsc.set_count_less(el, tg_)
+    twin = tsc.count_less_than(el, tg_)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, twin)
+
+
+
+def test_set_count_counts_both_launches_and_its_work(cuda):
+    """One call launches the tile sort and the count and counts both; the
+    C entries refuse a scratch one tile short; the work the kernels count
+    is the sort network's and one bisection per (target, tile) pair whose
+    (min, max] holds the target, and counting it changes no count."""
+    rng = np.random.default_rng(3)
+    n, t = 3 * tsc.SORT_TILE + 5, 3000
+    el = torch.from_numpy(rng.integers(-5000, 5000, n).astype(np.int32)
+                          ).to(cuda)
+    tg_ = torch.from_numpy(rng.integers(-6000, 6000, t).astype(np.int32)
+                           ).to(cuda)
+    reset_launch_counts()
+    want = tsc.set_count_less(el, tg_)
+    assert launch_counts()["set_count_less"] == 2
+    tsc.set_count_less(el[:0], tg_)
+    assert launch_counts()["set_count_less"] == 3  # no tile to sort
+    lib = _build.load("set_count", tsc._SIGNATURES)
+    tiles, bounds = tsc.set_count_scratch(n, cuda)
+    out = torch.zeros_like(tg_)
+    assert tsc.tile_sort_c(lib, el, tiles[:-1], bounds) != 0
+    assert tsc.count_c(lib, n, tg_, out, tiles, bounds[:-1]) != 0
+    work = torch.zeros(4, dtype=torch.int64, device=cuda)
+    assert tsc.tile_sort_c(lib, el, tiles, bounds, work) == 0
+    assert tsc.count_c(lib, n, tg_, out, tiles, bounds, work) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    lg = tsc.SORT_TILE.bit_length() - 1
+    n_tiles = -(-n // tsc.SORT_TILE)
+    sort_cmp, _, bisections, copies = work.tolist()
+    assert sort_cmp == n_tiles * tsc.SORT_TILE // 2 * lg * (lg + 1) // 2
+    tv = tiles.view(n_tiles, tsc.SORT_TILE)
+    assert torch.equal(bounds.view(n_tiles, 2),
+                       torch.stack([tv[:, 0], tv[:, -1]], 1))
+    straddle = ((tg_[:, None] > tv[None, :, 0])
+                & (tg_[:, None] <= tv[None, :, -1]))
+    assert bisections == int(straddle.sum())
+    assert 0 < copies <= n_tiles * -(-t // 512)
+
+MMA_RULE_CU = r"""
+#include <cuda_bf16.h>
+#include <stdint.h>
+// d = c + sum_i a[i] * 1 over one row of one mma.sync.m16n8k16 (bf16 in,
+// float32 accumulate); every other row and column is zero
+__global__ void k(const __nv_bfloat16* a, float c, float* d) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16 z = __float2bfloat16(0.f), one = __float2bfloat16(1.f);
+  auto pk = [](__nv_bfloat16 lo, __nv_bfloat16 hi) {
+    __nv_bfloat162 v; v.x = lo; v.y = hi;
+    return *reinterpret_cast<uint32_t*>(&v); };
+  const uint32_t a0 = g ? 0u : pk(a[2 * t], a[2 * t + 1]);
+  const uint32_t a2 = g ? 0u : pk(a[2 * t + 8], a[2 * t + 9]);
+  const uint32_t b = g ? pk(z, z) : pk(one, one);
+  float d0 = (g == 0 && t == 0) ? c : 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+               : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+               : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b), "r"(b));
+  if (lane == 0) *d = d0;
+}
+extern "C" int run(const void* a, float c, void* d) {
+  k<<<1, 32>>>((const __nv_bfloat16*)a, c, (float*)d);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_tensor_core_accumulation_rule(cuda, tmp_path):
+    """The rule the bf16 flash kernel's precision design rests on
+    (csrc/flash_attention.cu): mma.sync bf16 -> float32 aligns the
+    products and C to the largest addend with 25 fraction bits, drops the
+    rest toward zero, and truncates the sum to float32. So a float32 sum
+    must not ride an MMA chain where its low bits matter."""
+    src, lib = tmp_path / "mma_rule.cu", tmp_path / "libmma_rule.so"
+    src.write_text(MMA_RULE_CU)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    run = ctypes.CDLL(str(lib)).run
+    run.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+
+    def mma(row, c=0.0):
+        a = torch.zeros(16, dtype=torch.float64)
+        a[:len(row)] = torch.tensor(row, dtype=torch.float64)
+        a = a.bfloat16().to(cuda)
+        d = torch.zeros(1, device=cuda)
+        assert run(a.data_ptr(), c, d.data_ptr()) == 0
+        return float(d)
+
+    assert mma([1.0] + [2 ** -25] * 15) == 1 + 3 * 2 ** -23  # exact: 3.75
+    assert mma([1.0, 2 ** -24]) == 1.0                  # rounded: 1 + 2^-23
+    assert mma([1.0, -2 ** -27]) == 1.0                 # toward zero
+    assert mma([-1.0, 2 ** -30], 1.0) == 0.0            # exact: 2^-30
+    assert mma([1.5 * 2 ** -24] * 16, 1.0) == 1 + 12 * 2 ** -23  # exact
+
+
+def test_redesigned_kernels_are_bit_deterministic(cuda):
+    """Two launches of the tile-sort set count (sorted and shuffled
+    elements) and of the bf16 tensor-core flash forward (out and lse) give
+    the same bits."""
+    rng = np.random.default_rng(11)
+    el = torch.from_numpy(rng.integers(-1000, 1000, 300_000).astype(
+        np.int32)).to(cuda)
+    tg_ = torch.from_numpy(rng.integers(-1100, 1100, 70_000).astype(
+        np.int32)).to(cuda)
+    for elems in (el, torch.sort(el).values):
+        assert torch.equal(tsc.set_count_less(elems, tg_),
+                           tsc.set_count_less(elems, tg_))
+    mask = dict(causal=True, window=100, logit_cap=50.0, q_offset=0)
+    for dh in (64, 256):
+        q, k, v = (t.to(cuda) for t in _qkv(dh, 1, 4, 2, 512, 512, dh,
+                                            torch.bfloat16))
+        a = tfa._fwd_kernel(q * 8, k, v, lse=True, **mask)
+        b = tfa._fwd_kernel(q * 8, k, v, lse=True, **mask)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("e,n,d", [(512, 256, 1), (300, 77, 5),
                                    (512, 256, 130), (1 << 19, 282_624, 602),
                                    (1 << 19, 282_624, 1)])
@@ -317,6 +462,21 @@ def test_flash_kernel_q_offset_and_longer_kv(cuda, window):
     got, want = _flash_both(cuda, q, k, v, causal=True, window=window,
                             logit_cap=50.0, q_offset=128, kv_block=64)
     assert torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_kernel_q_offset_and_longer_kv_bf16(cuda, window, dh):
+    """The same chunked-prefill layout through the bf16 tensor-core
+    kernel (whose kv tile shrinks with dh): 64 queries at 128..191 over
+    256 keys, q x 8 so that the cap acts, within one bf16 ulp."""
+    q, k, v = _qkv(7, 1, 4, 1, 64, 256, dh, torch.float32)
+    q, k, v = (q * 8).bfloat16(), k.bfloat16(), v.bfloat16()
+    got, want = _flash_both(cuda, q, k, v, causal=True, window=window,
+                            logit_cap=50.0, q_offset=128, kv_block=64)
+    assert got.dtype == torch.bfloat16
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("window", [None, 4096])

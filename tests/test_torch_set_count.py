@@ -5,9 +5,18 @@ count_fn adapter against pallas_count_fn, and convert under the merge
 configuration (chunked_merge sorts through the chunk-sort and fused-merge
 kernels, the unfused set-count pointer build) bit-identical to the
 reference's convert under the same configuration and to the xla_sort
-strategy, packed and two-pass."""
+strategy, packed and two-pass. A test-local emulation of the card
+kernel's schedule (sorted tiles, the per-CTA min/max skip, lower-bound
+bisection, the INT32_MAX-padded ragged tile) is held bit for bit against
+the reference kernel under hypothesis; the wrapper's scratch is sized for
+the card kernel's tile."""
+import pathlib
+import re
+
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
@@ -25,6 +34,7 @@ from repro_torch.kernels import set_count as tsc  # noqa: E402
 from repro_torch.launch.serve import MERGE_CFG  # noqa: E402
 
 SEN = 0x7FFFFFFF
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def _t(a):
@@ -133,3 +143,95 @@ def test_explicit_count_fn_overrides_routing():
     assert calls == [101]
     np.testing.assert_array_equal(got.ptr.numpy(), want.ptr.numpy())
     np.testing.assert_array_equal(got.idx.numpy(), want.idx.numpy())
+
+
+def _lower_bound_lifting(tile, t):
+    """The kernel's bisection, vectorised over targets: binary lifting over
+    a sorted power-of-two tile, valid for min < t <= max."""
+    pos = np.zeros(t.shape, np.int64)
+    step = tile.shape[0] // 2
+    while step:
+        pos += np.where(tile[pos + step - 1] < t, step, 0)
+        step //= 2
+    return pos
+
+
+def _emulated_tile_bisect_count(elems, tgts, sort_tile, per_cta):
+    """csrc/set_count.cu in numpy: the sort pass (tiles of ``sort_tile``,
+    the ragged one padded with INT32_MAX, each tile's min and max), then
+    the count pass per CTA of ``per_cta`` targets: tiles wholly below the
+    CTA's smallest target add their live count, tiles at or above its
+    largest add nothing, and for the rest each target adds the live count
+    (t > max), nothing (t <= min) or its lower bound in the tile."""
+    n = elems.shape[0]
+    n_tiles = -(-n // sort_tile)
+    padded = np.full(n_tiles * sort_tile, I32_MAX, np.int64)
+    padded[:n] = elems
+    tiles = np.sort(padded.reshape(n_tiles, sort_tile), axis=1)
+    mins, maxs = tiles[:, 0], tiles[:, -1]
+    live = np.minimum(sort_tile, n - np.arange(n_tiles) * sort_tile)
+    out = np.zeros(tgts.shape[0], np.int64)
+    for c0 in range(0, tgts.shape[0], per_cta):
+        t = tgts[c0:c0 + per_cta].astype(np.int64)
+        tmin, tmax = t.min(), t.max()
+        c = np.full(t.shape, live[maxs < tmin].sum(), np.int64)
+        for i in np.nonzero((maxs >= tmin) & (mins < tmax))[0]:
+            inside = (t > mins[i]) & (t <= maxs[i])
+            c += np.where(t > maxs[i], live[i], 0)
+            c[inside] += _lower_bound_lifting(tiles[i], t[inside])
+        out[c0:c0 + per_cta] = c
+    return out
+
+
+def _int32_draw(rng, n, spread):
+    """int32 values in [-spread, spread) with repeats and the extremes."""
+    x = rng.integers(max(-spread, I32_MIN), min(spread, I32_MAX), n,
+                     dtype=np.int64)
+    x[rng.random(n) < 0.2] = x[0]  # ties
+    pick = rng.random(n) < 0.05
+    x[pick] = rng.choice([I32_MIN, I32_MIN + 1, I32_MAX - 1, I32_MAX],
+                         pick.sum())
+    return x.astype(np.int32)
+
+
+@settings(max_examples=25, deadline=None)
+@given(e=st.integers(1, 5000), t=st.integers(1, 700),
+       seed=st.integers(0, 2**32 - 1),
+       spread=st.sampled_from([8, 1000, 1 << 31]),
+       sort_tile=st.sampled_from([16, tsc.SORT_TILE]),
+       per_cta=st.sampled_from([8, 512]))
+def test_tile_bisect_schedule_matches_reference_kernel(e, t, seed, spread,
+                                                       sort_tile, per_cta):
+    """The card kernel's schedule, emulated, equals the reference's
+    all-pairs set_count_less (Pallas interpret mode; elements padded with
+    INT32_MAX to its element block, targets with 0 to its target block)
+    bit for bit, at the kernel's tile and at a small one that makes many
+    tiles, for ties, negatives, INT32_MIN / INT32_MAX and ragged sizes."""
+    rng = np.random.default_rng(seed)
+    elems, tgts = _int32_draw(rng, e, spread), _int32_draw(rng, t, spread)
+    e_pad, t_pad = -e % 2048, -t % 256
+    want = np.asarray(j_set_count(
+        jnp.asarray(np.concatenate([elems, np.full(e_pad, SEN, np.int32)])),
+        jnp.asarray(np.concatenate([tgts, np.zeros(t_pad, np.int32)]))))[:t]
+    got = _emulated_tile_bisect_count(elems, tgts, sort_tile, per_cta)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tsc.set_count_less(_t(elems), _t(tgts)).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [0, 1, tsc.SORT_TILE, tsc.SORT_TILE + 1,
+                               5 * tsc.SORT_TILE - 3])
+def test_set_count_scratch_fits_the_kernel_tile(n):
+    """The wrapper's SORT_TILE is csrc/set_count.cu's kSortTile, and its
+    scratch holds every tile of n elements and each tile's (min, max)."""
+    src = (pathlib.Path(tsc.__file__).parent.parent / "csrc"
+           / "set_count.cu").read_text()
+    log2 = int(re.search(r"constexpr int kSortLog2 = (\d+);", src).group(1))
+    assert "constexpr int kSortTile = 1 << kSortLog2;" in src
+    assert tsc.SORT_TILE == 1 << log2
+    tiles, bounds = tsc.set_count_scratch(n, "cpu")
+    n_tiles = -(-n // tsc.SORT_TILE)
+    assert tiles.dtype == bounds.dtype == torch.int32
+    assert tiles.shape == (n_tiles * tsc.SORT_TILE,)
+    assert bounds.shape == (2 * n_tiles,)
+    assert tiles.numel() >= n
