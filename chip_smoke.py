@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
 1. device  — the card's name and power limit (nvidia-smi) and the torch
    device name; no card → exit 2 before any result.
 2. build   — nvcc compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a,
-   one process per source, all in parallel (ptxas usage is printed); the
-   bf16 flash forward must show HMMA instructions in its SASS and no
-   spills.
+   one process per source, all in parallel (ptxas usage is printed); each
+   head width's bf16 flash forward, dq and dk/dv kernel must show one
+   tile's MMAs as HMMA instructions in its SASS and no local-memory
+   traffic (no spills).
 3. kernels — each of the eight kernels (and the keys-only, shuffled and
    D = 1 variants) against its plain-torch twin on the card at the serve
    paths' shapes, with its time (CUDA events after a warm-up), the twin's
@@ -86,6 +87,11 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    forward's lse against the twin's. Timed at 4096 tokens against their
    bounds, the twin and the backward of ``scaled_dot_product_attention``
    (a yardstick the port never calls).
+10b. ragged lengths — every flash kernel (forward with lse, dq, dk/dv;
+   float32 and bf16) at gemma2-9b's head shapes and lengths that are no
+   multiple of any tile (Sq = Skv of 1, 100, 500 and 4000, also with a
+   window of 1024; 100 queries at q_offset 128 over 228 keys, with and
+   without a window of 48) against the twins at the tolerances above.
 11. train path — launch counters set to 0; ``lm_train_cell`` builds
    gemma2-9b at full width cut to 16 layers (the ``train_4k`` cell with
    batch 256 cut to one sequence of 4096 tokens; bf16 weights from
@@ -181,6 +187,11 @@ LONG_PREFILL_BY_S = 600
 # pairs) and one sequence of 4096 tokens (reference: 42 layers, batch
 # 256), every width kept; three AdamW steps
 TRAIN_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the bf16 tensor-core kernels whose SASS the build phase reads: (library,
+# kernel); each is instantiated per head width with its tile rows
+MMA_KERNELS = (("flash_attention", "flash_fwd_mma_kernel"),
+               ("flash_attention_bwd", "flash_dq_mma_kernel"),
+               ("flash_attention_bwd", "flash_dkv_mma_kernel"))
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 16, 4096, 1, 3
 # flash backward launches per step: the forward runs twice per layer (the
 # step's forward and the remat recompute), dq and dk/dv once
@@ -205,6 +216,12 @@ BWD_F32_TOL, BWD_F32_SEQ = 1e-5, 2048
 # 0.0127 at worst (layers.0.wq); the next-kv-head and missing-head faults
 # read 1.53 and 0.84
 TRAIN_GRAD_TOL = 0.05
+# (Sq, Skv, q_offset, window) the flash kernels take at ragged lengths:
+# squares that are no multiple of any tile (4000 also with a window), and
+# a chunk of 100 queries at positions 128..227 over 228 keys
+RAGGED_CASES = ((1, 1, 0, None), (100, 100, 0, None), (500, 500, 0, None),
+                (4000, 4000, 0, None), (4000, 4000, 0, 1024),
+                (100, 228, 128, None), (100, 228, 128, 48))
 RUN_LM_STEPS, RUN_LM_FAIL_AT = 24, 13  # checkpoints at 10, 20, 24
 
 
@@ -277,6 +294,44 @@ def set_count_readings(el, targets, want, iters=20):
                   "tile_copies"), work.tolist()))
     r["compares"] = r["sort_compares"] + r["count_compares"]
     return r
+
+
+def mma_per_tile(kernel, dh, n):
+    """The MMAs of one tile of a bf16 flash kernel (``n``: its kv tile in
+    the forward and dq, its query tile in dk/dv), each m16n8k16: a product
+    over dh is (dh / 16) (n / 8), one over the tile's n rows
+    (n / 16) (columns / 8), twice with the hi / lo split. From dh 128 on
+    the backward kernels' warps work in pairs: each computes one of S, dP
+    and half of the output columns."""
+    over_dh = dh // 16 * (n // 8)
+    over_n = n // 16 * (dh // 8)
+    if kernel == "flash_fwd_mma_kernel":  # S; P V
+        return over_dh + 2 * over_n
+    pairs = dh >= 128
+    outputs = 1 if kernel == "flash_dq_mma_kernel" else 2  # dQ; dV, dK
+    return ((1 if pairs else 2) * over_dh
+            + 2 * outputs * over_n // (2 if pairs else 1))
+
+
+def ptxas_usage(name, kernel):
+    """{dh: {"registers", "spill_stores", "spill_loads"}} of each function
+    named ``kernel`` from this process's ptxas output for library
+    ``name`` (empty for a library an earlier process built)."""
+    from repro_torch.kernels import _build
+    out, dh = {}, None
+    for line in _build.BUILD_LOG.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(kernel + r"ILi(\d+)E", line)
+            dh = int(m.group(1)) if m else None
+        elif dh is not None:
+            use = out.setdefault(dh, {})
+            m = re.search(r"(\d+) registers", line)
+            if m:
+                use["registers"] = int(m.group(1))
+            for n, what in re.findall(r"(\d+) bytes spill (stores|loads)",
+                                      line):
+                use["spill_" + what] = int(n)
+    return out
 
 
 def sass_summary(lib_path, kernel):
@@ -1617,11 +1672,12 @@ def lm_bwd_kernel_phase(dev, seed):
         elt = q.element_size()
         rd = elt * seq * dh * (2 * h + 2 * hkv) + 8 * seq * h  # q, dO, k, v,
         # lse, delta read once
-        for key, ms, flops, wr, what in (
-                ("flash_attention_bwd_dq", ms_dq, 6 * dh * pairs,
-                 elt * seq * dh * h, "S, dP, dQ: 6 dh"),
-                ("flash_attention_bwd_dkv", ms_dkv, 8 * dh * pairs,
-                 2 * elt * seq * dh * hkv, "S, dP, dV, dK: 8 dh")):
+        for key, kernel, ms, flops, wr, what in (
+                ("flash_attention_bwd_dq", "flash_dq_mma_kernel", ms_dq,
+                 6 * dh * pairs, elt * seq * dh * h, "S, dP, dQ: 6 dh"),
+                ("flash_attention_bwd_dkv", "flash_dkv_mma_kernel", ms_dkv,
+                 8 * dh * pairs, 2 * elt * seq * dh * hkv,
+                 "S, dP, dV, dK: 8 dh")):
             b_ms, b_by = bound(rd + wr, flops, BF16_FLOPS_PER_S)
             rows[key] = dict(
                 name=key, route="cuda",
@@ -1631,7 +1687,8 @@ def lm_bwd_kernel_phase(dev, seed):
                 max_abs_err=extra[f"{tag}_" + ("dq" if key.endswith("dq")
                                                else "dk") + "_max_abs_err"],
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms,
+                library_ms=lib_ms, tflops=flops / (ms * 1e-3) / 1e12,
+                ptxas=ptxas_usage("flash_attention_bwd", kernel).get(dh),
                 shape=f"B 1, H {h} over Hkv {hkv}, dh {dh}, {seq} tokens, "
                       f"bf16, q x {FLASH_Q_SCALE}, causal, cap {cap}; "
                       f"{flops:.3e} FLOPs ({what} per live pair and head; "
@@ -1641,6 +1698,83 @@ def lm_bwd_kernel_phase(dev, seed):
         del args, got, want, again, q, k, v, out, lse, dout, delta, o, qs, ks
         del vs, o2
     return rows, extra
+
+
+def largest_block(n, most=512):
+    """The twins' kv_block for ``n`` keys: the largest divisor of n up to
+    ``most`` (the reference needs kv_block | Skv; the block changes only
+    the order of float sums)."""
+    return max(d for d in range(1, min(n, most) + 1) if n % d == 0)
+
+
+def ragged_phase(dev, seed):
+    """Every flash kernel at lengths that are no multiple of any tile,
+    against its twin at the unchanged tolerances, at gemma2-9b's head
+    shapes with queries x FLASH_Q_SCALE: float32 and bf16, the forward
+    (out and, in float32, lse) on random q, k, v, and the two backward
+    kernels on the forward kernel's own out and lse."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.attention import (flash_attention_bwd_plain,
+                                              flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    cfg = get_config(LM_ARCH)
+    h, hkv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.attn_logit_cap
+    out = {}
+    for sq, skv, q_offset, window in RAGGED_CASES:
+        mask = dict(causal=True, window=window, logit_cap=cap,
+                    q_offset=q_offset)
+        blk = largest_block(skv)
+        for dtype in (torch.float32, cfg.dtype):
+            tag = (f"{sq}x{skv}+{q_offset}_w{window}_"
+                   + ("f32" if dtype == torch.float32 else "bf16"))
+            q, k, v, dout = (torch.randn(shape, generator=g, device=dev)
+                             for shape in ((1, h, sq, dh), (1, hkv, skv, dh),
+                                           (1, hkv, skv, dh),
+                                           (1, h, sq, dh)))
+            q, k, v, dout = (t.to(dtype) for t in (q * FLASH_Q_SCALE, k, v,
+                                                    dout))
+            o, lse = tfa._fwd_kernel(q, k, v, lse=True, **mask)
+            want, want_lse = flash_attention_plain(
+                q, k, v, return_lse=True, kv_block=blk, **mask)
+            got_g = tfa.flash_attention_bwd(q, k, v, o, lse, dout, **mask)
+            want_g = flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                               kv_block=blk, **mask)
+            torch.cuda.synchronize()
+            # one key: p = 1, so dS = dP - delta and dq = dk = 0 but for
+            # float32 rounding on both sides, which no tolerance relative
+            # to their own largest value holds: they are held to the atol
+            # term against dv's largest value, and dv alone to the rest
+            held = (got_g, want_g) if skv > 1 else (got_g[2:], want_g[2:])
+            noise = 0.0 if skv > 1 else max(
+                float((gt.float() - w.float()).abs().max())
+                for gt, w in zip(got_g[:2], want_g[:2])) / float(
+                    want_g[2].float().abs().max())
+            if dtype == torch.float32:
+                fwd = float((o - want).abs().max())
+                lse_err = float(((lse - want_lse).abs()
+                                 / (1 + want_lse.abs())).max())
+                bwd = max(float((gt - w).abs().max() / w.abs().max())
+                          for gt, w in zip(*held))
+                out[tag] = dict(fwd_max_abs_err=fwd, lse_max_rel_err=lse_err,
+                                bwd_err_over_max=max(bwd, noise))
+                check(fwd <= FLASH_F32_TOL and lse_err <= FLASH_F32_TOL
+                      and max(bwd, noise) <= BWD_F32_TOL,
+                      f"ragged {tag}: float32 forward, lse and backward "
+                      f"within {FLASH_F32_TOL} / {BWD_F32_TOL} of the twin "
+                      f"({out[tag]})")
+            else:
+                ok, _, fwd = flash_close(o, want)
+                ok_g, _, bwd = grads_close(*held)
+                out[tag] = dict(fwd_share_of_tol=fwd, bwd_share_of_tol=bwd,
+                                single_key_noise_over_dv=noise)
+                check(ok and ok_g and noise <= BWD_ATOL,
+                      f"ragged {tag}: bf16 forward and backward within "
+                      f"their tolerances of the twin ({out[tag]})")
+            del q, k, v, dout, o, lse, want, want_lse, got_g, want_g
+    return out
 
 
 # ------------------------------------------------------------ phases 11-12
@@ -1880,27 +2014,25 @@ def main():
                 fn = line.split("'")[1] if "'" in line else line
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {fn}: {line.strip()}")
-    # the bf16 flash forward, from its SASS (cached builds too): one
-    # instantiation per head width, each with every product of a kv tile on
-    # the tensor cores, S = Q K^T ((dh / 16) (kN / 8) MMAs) and P V with P
-    # split into hi and lo (2 (kN / 16) (dh / 8)), and no local-memory
-    # traffic, so no spills
+    # the bf16 flash kernels, from their SASS (cached builds too): one
+    # instantiation per head width, each with every product of one tile on
+    # the tensor cores and no local-memory traffic, so no spills
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    sass = sass_summary(_build.library_path("flash_attention"),
-                        "flash_fwd_mma_kernel")
-    log(f"[build] flash_fwd_mma_kernel (cuobjdump -sass): {{name: (HMMA, "
-        f"LDL + STL)}} {sass}")
-    widths = []
-    for name, (hmma, local) in sass.items():
-        dh, kn = map(int, re.search(r"flash_fwd_mma_kernelILi(\d+)ELi(\d+)E",
-                                    name).groups())
-        widths.append(dh)
-        check(hmma >= 3 * dh * kn // 128 and local == 0,
-              f"flash_fwd_mma_kernel<{dh}, {kn}>: {hmma} HMMA (at least "
-              f"{3 * dh * kn // 128}) and {local} local loads and stores "
-              "(none)")
-    check(sorted(widths) == sorted(HEAD_DIMS),
-          f"the bf16 flash forward is built for every head width: {widths}")
+    for lib, kernel in MMA_KERNELS:
+        sass = sass_summary(_build.library_path(lib), kernel)
+        log(f"[build] {kernel} (cuobjdump -sass): {{name: (HMMA, "
+            f"LDL + STL)}} {sass}")
+        widths = []
+        for name, (hmma, local) in sass.items():
+            dh, n = map(int, re.search(kernel + r"ILi(\d+)ELi(\d+)E",
+                                       name).groups())
+            widths.append(dh)
+            want = mma_per_tile(kernel, dh, n)
+            check(hmma >= want and local == 0,
+                  f"{kernel}<{dh}, {n}>: {hmma} HMMA (at least {want}) and "
+                  f"{local} local loads and stores (none)")
+        check(sorted(widths) == sorted(HEAD_DIMS),
+              f"{kernel} is built for every head width: {widths}")
 
     # 3. kernels
     rows, extra = kernel_phase(dev, args.seed)
@@ -2015,6 +2147,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 10b. ragged lengths
+    extra["ragged"] = ragged_phase(dev, args.seed)
+    log(f"[ragged] every flash kernel at {len(RAGGED_CASES)} ragged "
+        f"(Sq, Skv, q_offset, window) cases, float32 and bf16, within its "
+        f"tolerance of the twin: {extra['ragged']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 11. the train path
     tout, tcell = train_path(dev, args.seed)
     log(f"[train] {LM_ARCH} at full width, {TRAIN_LAYERS} layers: "
@@ -2044,7 +2184,7 @@ def main():
 
     # 11b. one train step under the profiler
     tout["profile"] = dict(tokens=TRAIN_BATCH * TRAIN_SEQ,
-                           **profile_call(tcell.step, top=12))
+                           **profile_call(tcell.step, top=16))
     log_profile("train profile", tout["profile"])
 
     # 12. train checks

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 by its own ``nvcc`` process (all sources started together) into a shared
 library under the git-ignored ``build/`` directory at the repository root,
-then loaded with ``ctypes``. A library is named after a hash of its source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+then loaded with ``ctypes``. A library is named after a hash of its source,
+the ``csrc/*.cuh`` headers and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 Nothing here runs at import time: this module only needs ``nvcc`` and a
 card when a kernel is launched.
 """
@@ -45,6 +46,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers too: an edited header rebuilds every source
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

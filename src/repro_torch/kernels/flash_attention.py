@@ -27,7 +27,6 @@ from repro_torch.models.attention import (flash_attention_bwd_plain,
 
 from . import _build
 
-TILE = 64  # the kernels' query and kv tile; Sq and Skv must be multiples
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -57,15 +56,11 @@ def _check_shapes(q, k, v) -> None:
 def _check_kernel_inputs(q, k, v, *more) -> None:
     """Raise on what the CUDA kernels cannot take."""
     b, h, sq, dh = q.shape
-    skv = k.shape[2]
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the flash kernels take bf16 or float32 q, k, v of "
                          f"one dtype, not {q.dtype}, {k.dtype}, {v.dtype}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"the flash kernels take dh in {HEAD_DIMS}, not {dh}")
-    if sq % TILE or skv % TILE:
-        raise ValueError(f"the flash kernels take Sq and Skv that are "
-                         f"multiples of {TILE}, not {sq} and {skv}")
     if b * h > 65535:  # one grid row per (batch, head)
         raise ValueError(f"the flash kernels take B * H <= 65535, not "
                          f"{b * h}")
@@ -162,6 +157,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
         flash_dq(q, k, v, dout, lse, delta, dq, **mask)
+    if q.numel() and k.numel():
         flash_dkv(q, k, v, dout, lse, delta, dk, dv, **mask)
     return dq, dk, dv
 
@@ -203,8 +199,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q [B, H, Sq, dh]; k, v [B, Hkv, Skv, dh]; H % Hkv == 0; query row i
     sits at position ``q_offset + i``. On the card: bf16 or float32, dh in
-    ``HEAD_DIMS``, Sq and Skv multiples of ``TILE``, B * H <= 65535,
-    contiguous, 16-byte aligned. ``kv_block`` is the CPU twins' block (the
+    ``HEAD_DIMS``, any Sq and Skv, B * H <= 65535, contiguous, 16-byte
+    aligned. ``kv_block`` is the CPU twins' block (the
     kernels tile by themselves); the block size changes only the order of
     float sums. Differentiable through ``FlashAttention`` when q, k or v
     requires a gradient; otherwise the forward alone, with no lse.

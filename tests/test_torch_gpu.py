@@ -330,8 +330,10 @@ def test_tensor_core_accumulation_rule(cuda, tmp_path):
 
 def test_redesigned_kernels_are_bit_deterministic(cuda):
     """Two launches of the tile-sort set count (sorted and shuffled
-    elements) and of the bf16 tensor-core flash forward (out and lse) give
-    the same bits."""
+    elements), of the bf16 tensor-core flash forward (out and lse) and of
+    the bf16 tensor-core backward kernels (dq, dk, dv; at dh 256 the dk/dv
+    kernel's warp pairs swap their sums through shared memory) give the
+    same bits."""
     rng = np.random.default_rng(11)
     el = torch.from_numpy(rng.integers(-1000, 1000, 300_000).astype(
         np.int32)).to(cuda)
@@ -346,6 +348,13 @@ def test_redesigned_kernels_are_bit_deterministic(cuda):
                                             torch.bfloat16))
         a = tfa._fwd_kernel(q * 8, k, v, lse=True, **mask)
         b = tfa._fwd_kernel(q * 8, k, v, lse=True, **mask)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        out, lse = a
+        dout = torch.randn(out.shape, generator=torch.Generator(
+            device=cuda).manual_seed(dh), device=cuda).bfloat16()
+        a = tfa.flash_attention_bwd(q * 8, k, v, out, lse, dout, **mask)
+        b = tfa.flash_attention_bwd(q * 8, k, v, out, lse, dout, **mask)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -503,8 +512,11 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="dh"):
         odd = torch.zeros((1, 2, 64, 48), device=cuda)
         tfa.flash_attention_bhsd(odd, odd[:, :1], odd[:, :1])
-    with pytest.raises(ValueError, match="multiples of 64"):
-        tfa.flash_attention_bhsd(q[:, :, :32].contiguous(), k, v)
+    # a length that is no multiple of the tile launches (ragged tiles)
+    got = tfa.flash_attention_bhsd(q[:, :, :32].contiguous(), k, v)
+    want = tfa.flash_attention_bhsd(q[:, :, :32].cpu(), k.cpu(), v.cpu())
+    torch.cuda.synchronize()
+    assert torch.allclose(got.cpu(), want, rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="bf16 or float32"):
         tfa.flash_attention_bhsd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
@@ -579,6 +591,24 @@ def test_gemma2_smoke_prefill_on_card_equals_cpu(cuda):
     assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
 
 
+def test_gemma2_smoke_prefill_at_a_ragged_length_on_card_equals_cpu(cuda):
+    """The smoke model (float32) at 100 tokens, no multiple of any flash
+    tile, which the reference model takes (its kv_block is min(512, S)):
+    the card's logits within 1e-4 of the CPU's, equal argmax."""
+    from repro_torch.launch.steps import lm_prefill_cell
+    from repro_torch.models.transformer import lm_prefill
+    cell = lm_prefill_cell("gemma2-9b", seq_len=100, batch=2, device="cpu",
+                           seed=0, smoke=True)
+    want = cell.step()
+    model = cell.model.to(cuda)
+    reset_launch_counts()
+    got = lm_prefill(model, cell.tokens.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_fwd"] == model.cfg.n_layers
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+
+
 # ------------------------------------------------- flash backward (training)
 # dq, dk, dv of the kernels against the twin on the same (out, lse, dout):
 # float32 within BWD_F32_TOL of the twin's largest value; bf16 within one
@@ -597,7 +627,8 @@ def _bwd_inputs(seed, b, h, hkv, sq, skv, dh, dtype, q_scale=1.0, **mask):
                        generator=torch.Generator().manual_seed(seed + 1))
     q, k, v, dout = ((q * q_scale).to(dtype), k.to(dtype), v.to(dtype),
                      dout.to(dtype))
-    out, lse = flash_attention_plain(q, k, v, return_lse=True, kv_block=64,
+    out, lse = flash_attention_plain(q, k, v, return_lse=True,
+                                     kv_block=64 if skv % 64 == 0 else skv,
                                      **mask)
     return q, k, v, out, lse, dout
 
@@ -639,6 +670,48 @@ def test_flash_bwd_kernels_q_offset_and_longer_kv(cuda, window):
     got = tfa.flash_attention_bwd(*(t.to(cuda) for t in args), **mask)
     torch.cuda.synchronize()
     _assert_bwd_close(got, want)
+
+
+# (Sq, Skv, q_offset): square lengths that are no multiple of any tile,
+# and a chunk of 100 queries at positions 128..227 over 228 keys
+RAGGED = [(1, 1, 0), (100, 100, 0), (500, 500, 0), (100, 228, 128)]
+
+
+@pytest.mark.parametrize("sq,skv,q_offset", RAGGED)
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 256])
+def test_flash_kernels_take_ragged_lengths(cuda, sq, skv, q_offset, window,
+                                           dtype, dh):
+    """The forward and both backward kernels at lengths that leave the last
+    query tile and kv tile ragged (zero-filled rows, dead keys, rows not
+    stored) against the twins, at the tolerances of the other cases; q x 8
+    so that the cap acts."""
+    mask = dict(causal=True, window=window, logit_cap=50.0,
+                q_offset=q_offset)
+    q, k, v = _qkv(sq + dh, 1, 4, 2, sq, skv, dh, torch.float32)
+    q, k, v = (q * 8).to(dtype), k.to(dtype), v.to(dtype)
+    got, want = _flash_both(cuda, q, k, v, **mask)
+    rtol, atol = FLASH_TOL[dtype]
+    assert got.shape == want.shape
+    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    args = _bwd_inputs(sq + dh, 1, 4, 2, sq, skv, dh, dtype, q_scale=8.0,
+                       **mask)
+    want = tfa.flash_attention_bwd(*args, **mask)
+    got = tfa.flash_attention_bwd(*(t.to(cuda) for t in args), **mask)
+    torch.cuda.synchronize()
+    assert [g.shape for g in got] == [w.shape for w in want]
+    if skv > 1:
+        _assert_bwd_close(got, want)
+        return
+    # one key: p = 1, so dS = dP - delta and dq = dk = 0 but for float32
+    # rounding on both sides, which no tolerance relative to their own
+    # largest value holds; they are held to the atol term against dv's
+    _assert_bwd_close(got[2:], want[2:])
+    atol = (BWD_F32_TOL if dtype == torch.float32 else BWD_ATOL) * float(
+        want[2].float().abs().max())
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g.float().cpu() - w.float()).abs().max()) <= atol
 
 
 @pytest.mark.parametrize("seq,window", [(4096, None), (8192, 4096)])
@@ -694,8 +767,10 @@ def test_flash_bwd_refuses_what_it_cannot_take(cuda):
         tfa.flash_attention_bwd(q, k, v, out, lse,
                                 dout.transpose(2, 3).contiguous()
                                 .transpose(2, 3))
-    with pytest.raises(ValueError, match="multiples of 64"):
-        tfa.flash_attention_bwd(*(t[:, :, :32].contiguous() for t in args))
+    # a length that is no multiple of the tile launches (ragged tiles)
+    short = [t[:, :, :32].contiguous() for t in args]
+    want = tfa.flash_attention_bwd(*(t.cpu() for t in short))
+    _assert_bwd_close(tfa.flash_attention_bwd(*short), want)
     with pytest.raises(ValueError, match="dh"):
         big = torch.zeros((1, 2, 64, 512), device=cuda)
         tfa.flash_attention_bwd(big, big[:, :1], big[:, :1], big,
@@ -726,8 +801,10 @@ def test_flash_function_on_card_equals_cpu(cuda):
     _assert_bwd_close(grads[1], grads[0])
 
 
-def test_gemma2_smoke_train_step_on_card_equals_cpu(cuda):
-    """The smoke train cell (float32, 2 x 64 tokens, no remat): one
+@pytest.mark.parametrize("seq", [64, 100])
+def test_gemma2_smoke_train_step_on_card_equals_cpu(cuda, seq):
+    """The smoke train cell (float32, 2 x ``seq`` tokens, no remat; 100 is
+    no multiple of any flash tile): one
     forward, one dq and one dk/dv launch per layer; the loss within 1e-5
     of the CPU's; every parameter's gradient, and its first moment after
     one AdamW step (m = (1 - b1) · clip · g), within 1e-4 of the CPU's
@@ -738,7 +815,7 @@ def test_gemma2_smoke_train_step_on_card_equals_cpu(cuda):
     import copy
     from repro_torch.launch.steps import lm_train_cell, lm_train_step
     from repro_torch.models.transformer import lm_loss
-    cell = lm_train_cell("gemma2-9b", seq_len=64, batch=2, device="cpu",
+    cell = lm_train_cell("gemma2-9b", seq_len=seq, batch=2, device="cpu",
                          smoke=True)
     model = copy.deepcopy(cell.model).to(cuda)
     state = {"m": {n: t.to(cuda) for n, t in cell.opt_state["m"].items()},

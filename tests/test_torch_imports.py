@@ -113,3 +113,19 @@ def test_build_list_follows_csrc():
     assert {"digit_pass", "flash_attention", "flash_attention_bwd", "merge",
             "prefix_partition", "reindex_epilogue", "segment_agg",
             "set_count"} <= set(cu)
+
+
+def test_library_hash_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/*.cuh (the flash
+    kernels' shared flash_mma.cuh), so editing a header rebuilds each
+    source that may include it, and an unchanged tree reuses the build."""
+    from repro_torch.kernels import _build
+    for f in ("a.cu", "b.cu", "common.cuh"):
+        (tmp_path / f).write_text(f"// {f}\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = {n: _build.library_path(n) for n in ("a", "b")}
+    assert before == {n: _build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "common.cuh").write_text("// edited\n")
+    after = {n: _build.library_path(n) for n in ("a", "b")}
+    assert all(after[n] != before[n] for n in ("a", "b"))
+    assert os.path.exists(os.path.join(PORT, "csrc", "flash_mma.cuh"))
