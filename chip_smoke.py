@@ -16,11 +16,14 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    traffic (no spills).
 3. kernels — each of the eight kernels (and the keys-only, shuffled and
    D = 1 variants) against its plain-torch twin on the card at the serve
-   paths' shapes, with its time (CUDA events after a warm-up), the twin's
-   time, one PyTorch library call's time as a yardstick, and its bound.
-   Integer kernels must match element for element; the segment sum must
-   be within rtol 1e-5 / atol 1e-4 of the float64 sum and give the same
-   bits on two launches.
+   paths' shapes, with its time (CUDA events after a warm-up, the timed
+   launches queued behind a device sleep so that the device, not the
+   host's launch cost, is timed), the twin's time, one PyTorch library
+   call's time as a yardstick, and its bound. Integer kernels must match
+   element for element; the segment sum must be within rtol 1e-5 / atol
+   1e-4 of the float64 sum and give the same bits on two launches. The
+   rank epilogue on adversarial streams (long duplicate runs, a SENTINEL
+   tail, an unaligned view; sorted, almost sorted and shuffled queries).
 4. slice path — launch counters set to 0; the Reddit-scale ``convert``
    (232,965 nodes, 114,615,892 synthetic power-law edges in a 2^27 COO)
    under ``SLICE_CFG``, then ``GnnServeEngine`` serving 16 requests of
@@ -31,9 +34,15 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    slot_fn loop; the convert-scale pointer rank (232,966 queries over
    2^27) and the digit pass at 2^24 pairs against their twins, the digit
    pass also timed at 2^27; a small graph served on the card equal to the
-   CPU path. Then the largest request once more under ``torch.profiler``:
-   its wall time, its kernels' device time and the ops that take the most
-   of it.
+   CPU path; four requests' subgraphs and logits with the rank-epilogue
+   kernels equal, bit for bit, to those with the twins in their place.
+   The rank epilogue at the main path's five calls, on copies of the
+   arrays the path hands it (one convert: its pointer build over 2^27;
+   the largest request: its first-occurrence rank, prefix-sum rank, edge
+   rename and subgraph pointer build), each equal to its twin and timed
+   in turns (twin, kernel, kernel, ``torch.searchsorted``). Then the largest request once more
+   under ``torch.profiler``: its wall time, its kernels' device time, the
+   ops that take the most of it and the rank kernels' time by name.
 6. merge path — launch counters set to 0; ``convert`` under ``MERGE_CFG``
    (chunked_merge sorts, unfused set-count pointer build) of Reddit's
    114,615,892 synthetic power-law edges in a 2^27 COO, as the slice path
@@ -87,6 +96,12 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    forward's lse against the twin's. Timed at 4096 tokens against their
    bounds, the twin and the backward of ``scaled_dot_product_attention``
    (a yardstick the port never calls).
+10a. delta — at gemma2-9b's heads and 4096 tokens (bf16, queries x
+   FLASH_Q_SCALE): the forward's bf16 out with lse and the float32 out
+   equal, bit for bit, to a launch without them; the backward from the
+   float32 out within BWD_RTOL / BWD_ATOL of the twin run in float32 with
+   its own float32 out (the reference's semantics); from the bf16 out (a
+   planted fault) outside.
 10b. ragged lengths — every flash kernel (forward with lse, dq, dk/dv;
    float32 and bf16) at gemma2-9b's head shapes and lengths that are no
    multiple of any tile (Sq = Skv of 1, 100, 500 and 4000, also with a
@@ -97,7 +112,8 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    batch 256 cut to one sequence of 4096 tokens; bf16 weights from
    ``--seed``, AdamW with float32 moments) and runs three steps; counters
    read: 32 forward, 16 dq and 16 dk/dv launches a step, no other
-   kernel; finite losses, the first near ln(256000). One more step under
+   kernel; finite losses, the first near ln(256000); the peak memory
+   (the flash residual is the float32 out). One more step under
    ``torch.profiler``.
 12. train checks — on the cell's own tokens, each of the 16 backward
    launches against the twin; the step's gradients against the same step
@@ -234,15 +250,28 @@ def check(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def cuda_ms(fn, iters=20, warmup=3, queued=True):
     """Mean device time of ``fn`` in ms: CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls. The timed calls queue
+    behind a device sleep longer than their enqueueing takes the host (as
+    the last warm-up call took it), so that a kernel shorter than its
+    launch's host cost (a ctypes launch costs the host 10-25 us, a rank
+    kernel runs 5-30 us) is timed on the device, not on the host.
+    ``queued=False`` leaves the sleep out: the way earlier runs timed."""
     import torch
-    for _ in range(warmup):
+    for _ in range(warmup - 1):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at up to 2 GHz: half as long again as the enqueueing, at most
+    # 0.2 s (a call that waits for the device inside is host-bound anyway)
+    if queued:
+        torch.cuda._sleep(int(min(1.5 * iters * host_s + 1e-4, 0.2) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -352,14 +381,60 @@ def sass_summary(lib_path, kernel):
     return out
 
 
-# ---------------------------------------------------------------- phase 3
-def kernel_phase(dev, seed):
-    """Every kernel against its twin at the serve path's shapes."""
+def rank_adversarial(dev, seed):
+    """The rank kernels bit for bit against their twins on adversarial
+    non-decreasing streams: duplicate runs of 150,000 and 50,000 and a
+    SENTINEL tail of 40,000, at the request's length, one element shorter
+    and unaligned (a view from element 1) and at 400,000; queries sorted,
+    sorted with one element out of place, and shuffled, below, inside and
+    above the stream and SENTINEL; both sides and the rename. Returns the
+    cases checked."""
     import torch
     from repro_torch.core.graph import SENTINEL
+    from repro_torch.kernels import reindex_epilogue as tre
+
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    i32 = dict(dtype=torch.int32, device=dev)
+    cases = []
+    for n in (SERVE_NODES, 400_000):
+        vals = torch.randint(0, 3000, (n,), generator=g, **i32)
+        vals[:150_000] = 777
+        vals[150_000:200_000] = 2999
+        vals[-40_000:] = SENTINEL
+        arr = torch.sort(vals).values
+        q = torch.cat([torch.arange(-3, 3004, **i32).repeat(90),
+                       torch.full((500,), SENTINEL, **i32)])
+        qs = torch.sort(q).values
+        one_off = qs.clone()
+        one_off[qs.numel() // 2] = -7
+        shuffled = q[torch.randperm(q.numel(), generator=g, device=dev)]
+        for tag, a in (("", arr), ("_unaligned", arr[1:])):
+            if n != SERVE_NODES and tag:
+                continue
+            table = torch.arange(a.numel(), **i32) * 3
+            for qname, qq in (("sorted", qs), ("one_off", one_off),
+                              ("shuffled", shuffled)):
+                for side in ("left", "right"):
+                    check(torch.equal(tre.rank_search(a, qq, side),
+                                      tre._unrolled_rank(a, qq, side)),
+                          f"rank_search {side} on {n}{tag} long runs, "
+                          f"{qname} queries == twin")
+                check(torch.equal(tre.rename(a, table, qq),
+                                  tre._rename_plain(a, table, qq)),
+                      f"rename on {n}{tag} long runs, {qname} queries == "
+                      "twin")
+                cases.append(f"{a.numel()}{tag} {qname}")
+    return cases
+
+
+# ---------------------------------------------------------------- phase 3
+def kernel_phase(dev, seed):
+    """The slice path's digit-pass kernels against their twins at its
+    shapes, and the rank epilogue's on adversarial streams (its five
+    calls are timed on the path's own arrays in ``rank_phase``)."""
+    import torch
     from repro_torch.core.set_partition import rank_gather_sources
     from repro_torch.kernels import radix_sort as trs
-    from repro_torch.kernels import reindex_epilogue as tre
     from repro_torch.kernels import _build
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -446,59 +521,7 @@ def kernel_phase(dev, seed):
         lambda: (lambda o: (keys[o], vals[o]))(
             torch.sort(digit, stable=True).indices))
 
-    # rank: the subgraph pointer build (SERVE_NODES + 1 targets over the
-    # sorted subgraph dst, valid edges then a SENTINEL tail)
-    sdst = torch.full((n,), SENTINEL, dtype=torch.int32, device=dev)
-    sdst[:SERVE_EDGES] = torch.sort(torch.randint(
-        0, SERVE_NODES, (SERVE_EDGES,), generator=g, device=dev,
-        dtype=torch.int32)).values
-    targets = torch.arange(SERVE_NODES + 1, dtype=torch.int32, device=dev)
-    got = tre.rank_search(sdst, targets, "left")
-    want = tre._unrolled_rank(sdst, targets, "left")
-    torch.cuda.synchronize()
-    err = max_err([got], [want])
-    check(err == 0, "rank_search == twin")
-    rlib = tre._lib()
-    ms = cuda_ms(lambda: rlib.rank_search(
-        sdst.data_ptr(), n, targets.data_ptr(), got.data_ptr(),
-        targets.numel(), 0, _build.stream_of(got)))
-    plain_ms = cuda_ms(lambda: tre._unrolled_rank(sdst, targets, "left"),
-                       iters=5)
-    lib_ms = cuda_ms(lambda: torch.searchsorted(sdst, targets, side="left"))
-    q = targets.numel()
-    b_ms, b_by = bound(4 * (n + 2 * q), q * max(1, n.bit_length()))
-    rows["rank_search"] = dict(
-        name="rank_search", route="cuda",
-        source="src/repro_torch/csrc/reindex_epilogue.cu",
-        replaces="src/repro/kernels/reindex_epilogue.py:57", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, shape=f"{q} queries over {n}")
-
-    # rename: the edge rename, 2·edges queries over the sorted VID stream
-    sv = torch.sort(keys[:SERVE_NODES]).values
-    table = torch.arange(SERVE_NODES, dtype=torch.int32, device=dev)
-    queries = torch.randint(0, bound_vid, (2 * SERVE_EDGES,), generator=g,
-                            device=dev, dtype=torch.int32)
-    queries[::7] = SENTINEL
-    got = tre.rename(sv, table, queries)
-    want = tre._rename_plain(sv, table, queries)
-    torch.cuda.synchronize()
-    err = max_err([got], [want])
-    check(err == 0, "rename == twin")
-    ms = cuda_ms(lambda: rlib.rename_lookup(
-        sv.data_ptr(), table.data_ptr(), SERVE_NODES, queries.data_ptr(),
-        got.data_ptr(), queries.numel(), _build.stream_of(got)))
-    plain_ms = cuda_ms(lambda: tre._rename_plain(sv, table, queries), iters=5)
-    lib_ms = cuda_ms(lambda: torch.searchsorted(sv, queries, side="left"))
-    q = queries.numel()
-    b_ms, b_by = bound(4 * (2 * SERVE_NODES + 2 * q),
-                       q * (max(1, SERVE_NODES.bit_length()) + 2))
-    rows["rename"] = dict(
-        name="rename", route="cuda",
-        source="src/repro_torch/csrc/reindex_epilogue.cu",
-        replaces="src/repro/kernels/reindex_epilogue.py:93", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, shape=f"{q} queries over {SERVE_NODES}")
+    extra["rank_adversarial"] = rank_adversarial(dev, seed)
     return rows, extra
 
 
@@ -786,7 +809,7 @@ def lm_kernel_phase(dev, seed):
               f"({fault_err})")
         ms = cuda_ms(lambda: flib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), None,
-            1, h, hkv, LM_SEQ, LM_SEQ, dh, 1, 1, int(window is not None),
+            None, 1, h, hkv, LM_SEQ, LM_SEQ, dh, 1, 1, int(window is not None),
             window or 0, 1, cap, dh ** -0.5, 0,
             _build.stream_of(q)), iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -1017,11 +1040,6 @@ def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
     check(torch.equal(got, tre._unrolled_rank(sorted_dst, targets, "left")),
           "convert-scale rank_search == twin")
     check(torch.equal(got, csc.ptr), "rank of the sorted stream == ptr")
-    extra["rank_search_convert_ms"] = cuda_ms(lambda: tre._lib().rank_search(
-        sorted_dst.data_ptr(), coo.capacity, targets.data_ptr(),
-        got.data_ptr(), n + 1, 0, _build.stream_of(got)))
-    extra["torch_searchsorted_convert_ms"] = cuda_ms(
-        lambda: torch.searchsorted(sorted_dst, targets))
     del sorted_dst
 
     # (d) the digit pass at a stated smaller convert size (2^24 pairs)
@@ -1068,6 +1086,170 @@ def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
 
     # (e) a small graph served on the card equals the CPU path
     small_graph_check(dev, seed, SLICE_CFG, smoke_config(), extra, "slice")
+
+    # (f) four requests' subgraphs and logits with the rank-epilogue
+    # kernels equal, bit for bit, those with their twins in their place
+    # (the first port's search, which its kernels equalled bit for bit)
+    rank_epilogue_is_invisible(eng, reqs[:4], handles[:4])
+
+
+def rank_epilogue_is_invisible(eng, reqs, handles):
+    """The SLICE_CFG subgraph (ptr, idx, order) and GraphSAGE logits of
+    each request, sampled with the rank-epilogue kernels and again with
+    ``rank_fn`` / ``rename_fn`` running the twins on the card: equal bit
+    for bit."""
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import reindex_epilogue as tre
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.models.gnn import subgraph_batch
+
+    bundle = eng.params
+
+    def run(seeds, key):
+        with torch.inference_mode():
+            sub = pipeline.sample_subgraph(bundle["csc"], seeds, eng.fanouts,
+                                           key, SLICE_CFG)
+            return sub, bundle["gnn"](subgraph_batch(sub, bundle["features"]))
+    kernels = (tre.rank_fn, tre.rename_fn)
+    for h, seeds in zip(handles, reqs):
+        row, key = seed_row(eng, seeds), eng.request_key(h.rid)
+        before = tre.rank_search.launches + tre.rename.launches
+        sub_k, logits_k = run(row, key)
+        check(tre.rank_search.launches + tre.rename.launches > before,
+              "the kernel run launched the rank-epilogue kernels")
+        tre.rank_fn = lambda a, q, side="left": tre._unrolled_rank(
+            a.contiguous(), q.contiguous(), side)
+        tre.rename_fn = lambda a, t, q: tre._rename_plain(
+            a.contiguous(), t.contiguous(), q.contiguous())
+        try:
+            sub_t, logits_t = run(row, key)
+        finally:
+            tre.rank_fn, tre.rename_fn = kernels
+        check(all(torch.equal(a, b) for a, b in (
+            (sub_k.csc.ptr, sub_t.csc.ptr), (sub_k.csc.idx, sub_t.csc.idx),
+            (sub_k.order, sub_t.order), (logits_k, logits_t))),
+            f"request {h.rid}: subgraph and logits with the rank kernels == "
+            "with their twins, bit for bit")
+
+
+RANK_CALLS = ("a_convert_ptr", "b_first_occurrence", "c_prefix_sum",
+              "e_rename", "d_subgraph_ptr")  # in the order the path calls
+
+
+def rank_calls_of_the_path(dev, coo, eng, seeds, rid):
+    """{name: (sorted stream, queries, side, slot table or None)}: copies
+    of what the SLICE_CFG main path hands the rank-epilogue wrappers, taken
+    by wrapping ``rank_fn`` / ``rename_fn`` (as check (f) swaps them) over
+    one convert of the main path's COO, (a) its pointer build, and one
+    request of ``seeds`` through ``slot_fn``: (b) the first-occurrence
+    rank, (c) the prefix-sum rank, (e) the rename of the edges'
+    endpoints, (d) the subgraph pointer build."""
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import reindex_epilogue as tre
+    from repro_torch.launch.serve import SLICE_CFG
+
+    calls = []
+    kernels = (tre.rank_fn, tre.rename_fn)
+
+    def rank(a, q, side="left"):
+        calls.append((a.contiguous().clone(), q.contiguous().clone(), side,
+                      None))
+        return kernels[0](a, q, side)
+
+    def rename(a, t, q):
+        calls.append((a.contiguous().clone(), q.contiguous().clone(), None,
+                      t.contiguous().clone()))
+        return kernels[1](a, t, q)
+    row = seed_row(eng, seeds)
+    tre.rank_fn, tre.rename_fn = rank, rename
+    try:
+        pipeline.convert(coo, SLICE_CFG, device=dev)
+        check(len(calls) == 1, f"one rank call in a convert: {len(calls)}")
+        eng.slot_fn(eng.params, row, eng.request_key(rid))
+        torch.cuda.synchronize()
+    finally:
+        tre.rank_fn, tre.rename_fn = kernels
+    check(len(calls) == len(RANK_CALLS)
+          and [c[3] is not None for c in calls] == [
+              k == "e_rename" for k in RANK_CALLS],
+          f"a convert and a request hand the rank epilogue {RANK_CALLS}: "
+          f"{[(c[0].numel(), c[1].numel(), c[2]) for c in calls]}")
+    return dict(zip(RANK_CALLS, calls))
+
+
+def rank_phase(dev, coo, eng, seeds, rid):
+    """The rank epilogue on the arrays of the main path's five calls
+    (``rank_calls_of_the_path``), each bit for bit against its twin and
+    timed in turns: twin, kernel, kernel, ``torch.searchsorted``, then the
+    kernel and the library without the queueing sleep (the host's cost).
+    Returns the kernels' rows and the readings per call."""
+    import torch
+    from repro_torch.core.graph import SENTINEL
+    from repro_torch.kernels import reindex_epilogue as tre
+
+    timed = {}
+    for key, (arr, qs, side, table) in rank_calls_of_the_path(
+            dev, coo, eng, seeds, rid).items():
+        if table is None:
+            def kernel():
+                return tre.rank_search(arr, qs, side)
+
+            def plain():
+                return tre._unrolled_rank(arr, qs, side)
+        else:
+            def kernel():
+                return tre.rename(arr, table, qs)
+
+            def plain():
+                return tre._rename_plain(arr, table, qs)
+
+        def library():
+            return torch.searchsorted(
+                arr, qs, side="left" if table is not None else side)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_err([got], [want])
+        check(err == 0, f"{key}: the kernel == twin")
+        plain_ms = cuda_ms(plain, iters=5)
+        ms = cuda_ms(kernel)
+        ms_again = cuda_ms(kernel)
+        lib_ms = cuda_ms(library)
+        n, q = arr.numel(), qs.numel()
+        # queries read and ranks written once; of the stream (and the
+        # table), what the queries can need: a 32-byte sector each, at
+        # most the whole stream
+        need = min(4 * n, 32 * q)
+        b_ms, b_by = bound(8 * q + need * (1 if table is None else 2),
+                           q * max(1, n.bit_length()))
+        timed[key] = dict(
+            max_abs_err=err, ms=ms, ms_again=ms_again, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            unqueued_ms=cuda_ms(kernel, queued=False),
+            library_unqueued_ms=cuda_ms(library, queued=False),
+            # the queries' shape: sorted or not, how many differ from the
+            # one before (the rename's edge_dst half repeats each frontier
+            # node k times), how many are SENTINEL
+            sorted_queries=bool((qs[1:] >= qs[:-1]).all()) if q else True,
+            query_runs=1 + int((qs[1:] != qs[:-1]).sum()) if q else 0,
+            sentinel_queries=int((qs == SENTINEL).sum()),
+            shape=f"{q} queries over {n}"
+                  + (" (rename)" if table is not None else f", {side}"))
+        log(f"[rank] {key}: {timed[key]}")
+    rows = {}
+    for name, key, line in (
+            ("rank_search", "b_first_occurrence", 57),
+            ("rename", "e_rename", 93)):
+        r = timed[key]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/reindex_epilogue.cu",
+            replaces=f"src/repro/kernels/reindex_epilogue.py:{line}",
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            shape=f"{key}, the path's own arrays: {r['shape']}")
+    return rows, timed
 
 
 def seed_row(eng, seeds):
@@ -1303,13 +1485,19 @@ def profile_phase(eng, seeds, rid, top=8):
     eng.slot_fn(eng.params, row, key)
     torch.cuda.synchronize()
     return dict(seeds=len(seeds),
-                **profile_call(lambda: eng.slot_fn(eng.params, row, key), top))
+                **profile_call(lambda: eng.slot_fn(eng.params, row, key), top,
+                               kernels=RANK_KERNEL_RE))
 
 
-def profile_call(fn, top=8):
+# the rank epilogue's kernels in a trace (csrc/reindex_epilogue.cu)
+RANK_KERNEL_RE = r"\b(?:rank|rename)_kernel\b"
+
+
+def profile_call(fn, top=8, kernels=None):
     """``fn()`` once under ``torch.profiler``: the host wall time, the
     device time summed over every op's own kernels, and the ops and
-    kernels that take the most device time."""
+    kernels that take the most device time; with ``kernels`` (a regex),
+    the device time and count of each kernel whose name it matches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1326,10 +1514,21 @@ def profile_call(fn, top=8):
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
     rows.sort(key=lambda r: -r[1])
+    named = {}
+    for e in events:
+        m = (re.search(kernels, e.key) if kernels is not None
+             and e.device_type == DeviceType.CUDA else None)
+        if m:
+            ms, n = named.get(m.group(0), (0.0, 0))
+            named[m.group(0)] = (ms + e.self_device_time_total / 1e3,
+                                 n + e.count)
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
                 top=[dict(name=k[:120], device_ms=t, count=c)
-                     for k, t, c in rows[:top]])
+                     for k, t, c in rows[:top]],
+                **({} if kernels is None else dict(kernels={
+                    k: dict(device_ms=t, count=c)
+                    for k, (t, c) in sorted(named.items())})))
 
 
 # ------------------------------------------------------------- phase 9
@@ -1589,8 +1788,8 @@ def lm_bwd_kernel_phase(dev, seed):
         q, k, v, dout = (t.to(dtype) for t in (q * FLASH_Q_SCALE, k, v,
                                                 dout))
         mask = dict(causal=True, window=window, logit_cap=cap, q_offset=0)
-        out, lse = tfa._fwd_kernel(q, k, v, lse=True, **mask)
-        return (q, k, v, out, lse, dout), mask
+        _, lse, out_f32 = tfa._fwd_kernel(q, k, v, lse=True, **mask)
+        return (q, k, v, out_f32, lse, dout), mask
 
     # float32: the kernels' arithmetic against the twin's, and the
     # forward's lse against the twin's
@@ -1656,11 +1855,15 @@ def lm_bwd_kernel_phase(dev, seed):
         # the train path's shape: forward with and without lse, the twin
         # and the library's backward
         o2 = torch.empty_like(q)
-        for key, lse_ptr in (("", None), ("_lse", lse.data_ptr())):
+        o32 = torch.empty(q.shape, dtype=torch.float32, device=dev)
+        # the prefill's forward; the train path's, which also writes lse
+        # and the float32 out
+        for key, ptrs in (("", (None, None)),
+                          ("_lse", (lse.data_ptr(), o32.data_ptr()))):
             extra[f"flash_fwd{key}_{seq}_ms"] = cuda_ms(
                 lambda: flib.flash_attention_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
-                    lse_ptr, *opts), iters=5, warmup=1)
+                    *ptrs, *opts), iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(*args, **mask),
                            iters=2, warmup=1)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1696,8 +1899,64 @@ def lm_bwd_kernel_phase(dev, seed):
                       "backward of scaled_dot_product_attention, causal, "
                       "GQA, no cap, all of dq, dk, dv: a near function)")
         del args, got, want, again, q, k, v, out, lse, dout, delta, o, qs, ks
-        del vs, o2
+        del vs, o2, o32
     return rows, extra
+
+
+def delta_phase(dev, seed):
+    """The backward's delta from the forward's float32 out, at gemma2-9b's
+    head shapes, TRAIN_SEQ tokens, bf16, queries x FLASH_Q_SCALE: the
+    forward with lse writes the float32 out beside the bf16 one, whose
+    bits equal those of a launch without lse; the backward kernels on it
+    lie within BWD_RTOL / BWD_ATOL of the twin run in float32 on the same
+    values with its own float32 out and lse (the reference's semantics);
+    delta taken from the bf16 out, a planted fault, lies outside."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.attention import (flash_attention_bwd_plain,
+                                              flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(seed + 35)
+    cfg = get_config(LM_ARCH)
+    h, hkv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.attn_logit_cap
+    seq = TRAIN_SEQ
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev)
+                     for shape in ((1, h, seq, dh), (1, hkv, seq, dh),
+                                   (1, hkv, seq, dh), (1, h, seq, dh)))
+    q, k, v, dout = (t.to(cfg.dtype) for t in (q * FLASH_Q_SCALE, k, v,
+                                                dout))
+    mask = dict(causal=True, window=None, logit_cap=cap, q_offset=0)
+    out, lse, out_f32 = tfa._fwd_kernel(q, k, v, lse=True, **mask)
+    out_inf = tfa._fwd_kernel(q, k, v, lse=False, **mask)[0]
+    check(torch.equal(out, out_inf) and torch.equal(
+        out, out_f32.to(cfg.dtype)), "the forward's bf16 out with lse and "
+          "the float32 out is the bits of a launch without them, and the "
+          "rounding of its float32 out")
+    qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+    ref_out, ref_lse = flash_attention_plain(qf, kf, vf, return_lse=True,
+                                             **mask)
+    want = flash_attention_bwd_plain(qf, kf, vf, ref_out, ref_lse, df,
+                                     **mask)
+    got = tfa.flash_attention_bwd(q, k, v, out_f32, lse, dout, **mask)
+    fault = tfa.flash_attention_bwd(q, k, v, out.float(), lse, dout, **mask)
+    torch.cuda.synchronize()
+    res = {}
+    for tag, grads in (("f32_out", got), ("bf16_out_fault", fault)):
+        per = [grad_close(gt, w) for gt, w in zip(grads, want)]
+        res[tag] = dict(share_of_tol={n: sh for n, (_, _, sh)
+                                      in zip(("dq", "dk", "dv"), per)},
+                        max_abs_err=max(e for _, e, _ in per))
+    res["f32_out_vs_twin_out_max_abs_err"] = float(
+        (out_f32 - ref_out).abs().max())
+    ok, err, share = grads_close(got, want)
+    f_share = max(res["bf16_out_fault"]["share_of_tol"].values())
+    check(ok, f"delta from the float32 out: dq, dk, dv within rtol "
+          f"{BWD_RTOL} + atol {BWD_ATOL} x max of the float32 twin ({err}, "
+          f"{share:.3f} of the tolerance)")
+    check(f_share > 1.0, f"delta from the bf16 out (a planted fault) reads "
+          f"outside the tolerance ({f_share:.3f})")
+    return res
 
 
 def largest_block(n, most=512):
@@ -1736,11 +1995,11 @@ def ragged_phase(dev, seed):
                                            (1, h, sq, dh)))
             q, k, v, dout = (t.to(dtype) for t in (q * FLASH_Q_SCALE, k, v,
                                                     dout))
-            o, lse = tfa._fwd_kernel(q, k, v, lse=True, **mask)
+            o, lse, o32 = tfa._fwd_kernel(q, k, v, lse=True, **mask)
             want, want_lse = flash_attention_plain(
                 q, k, v, return_lse=True, kv_block=blk, **mask)
-            got_g = tfa.flash_attention_bwd(q, k, v, o, lse, dout, **mask)
-            want_g = flash_attention_bwd_plain(q, k, v, o, lse, dout,
+            got_g = tfa.flash_attention_bwd(q, k, v, o32, lse, dout, **mask)
+            want_g = flash_attention_bwd_plain(q, k, v, o32, lse, dout,
                                                kv_block=blk, **mask)
             torch.cuda.synchronize()
             # one key: p = 1, so dS = dP - delta and dq = dk = 0 but for
@@ -1773,7 +2032,7 @@ def ragged_phase(dev, seed):
                 check(ok and ok_g and noise <= BWD_ATOL,
                       f"ragged {tag}: bf16 forward and backward within "
                       f"their tolerances of the twin ({out[tag]})")
-            del q, k, v, dout, o, lse, want, want_lse, got_g, want_g
+            del q, k, v, dout, o, o32, lse, want, want_lse, got_g, want_g
     return out
 
 
@@ -2057,6 +2316,11 @@ def main():
     log("[checks] convert == torch.sort strategy, batched == sequential, "
         "kernels == twins at convert scale, card == CPU on a small graph: ok")
     big = max(range(len(reqs)), key=lambda i: len(reqs[i]))
+    rank_rows, extra["rank_epilogue"] = rank_phase(
+        dev, coo, eng, reqs[big], handles[big].rid)
+    for key, r in rank_rows.items():
+        log_row(key, r)
+    rows.update(rank_rows)
     out["profile"] = profile_phase(eng, reqs[big], handles[big].rid)
     log_profile("profile", out["profile"])
     del coo
@@ -2144,6 +2408,15 @@ def main():
     for key, r in bwd_rows.items():
         log_row(key, r)
     rows.update(bwd_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10a. the backward's delta from the float32 out
+    extra["delta"] = delta_phase(dev, args.seed)
+    log(f"[delta] at {TRAIN_SEQ} tokens, gemma2's heads, bf16: the "
+        "forward's bf16 out with the float32 out == without; the backward "
+        "from the float32 out against the float32 twin, and from the bf16 "
+        f"out (a planted fault), shares of the tolerance: {extra['delta']}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2258,6 +2531,9 @@ def log_profile(tag, prof):
     for r in prof["top"]:
         log(f"[{tag}]   {r['device_ms']:10.3f} ms  x{r['count']:<5d} "
             f"{r['name']}")
+    for name, r in prof.get("kernels", {}).items():
+        log(f"[{tag}] kernel {name}: {r['device_ms']:.4f} ms in "
+            f"{r['count']} launches")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@
 ``models.attention.flash_attention_plain`` (the reference's blocked
 scan), on CPU tensors. When q, k or v requires a gradient it goes through
 ``FlashAttention``, a ``torch.autograd.Function`` whose forward also
-keeps the log-sum-exp and whose backward is ``flash_attention_bwd``: the
+keeps the log-sum-exp and, as the reference's custom VJP does, the
+float32 output before its cast to q's dtype, and whose backward is
+``flash_attention_bwd``: the
 two kernels of ``csrc/flash_attention_bwd.cu`` on the card, the twin
 ``models.attention.flash_attention_bwd_plain`` (the reference's
 ``_bwd_impl``) on the CPU. The layout is the reference wrapper's: q
@@ -35,7 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _OPTS = (_I,) * 11 + (_F, _F, _I, _P)  # B .. q_offset, stream
 _SIGNATURES = {
-    "flash_attention_fwd": (ctypes.c_int, (_P,) * 5 + _OPTS),
+    "flash_attention_fwd": (ctypes.c_int, (_P,) * 6 + _OPTS),
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd_dq": (ctypes.c_int, (_P,) * 7 + _OPTS),
@@ -81,22 +83,30 @@ def _mask_args(q, causal, window, logit_cap, q_offset):
 
 
 def _fwd_kernel(q, k, v, *, lse: bool, causal, window, logit_cap, q_offset):
-    """Launch the forward kernel: out, and with ``lse`` also the float32
-    log-sum-exp [B, H, Sq] (None without)."""
+    """Launch the forward kernel: (out in q's dtype, the float32
+    log-sum-exp [B, H, Sq], the float32 output [B, H, Sq, dh] that out
+    rounds), the last two only with ``lse`` (None without). In float32
+    the float32 output is out itself; in bf16 the kernel writes it beside
+    out."""
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lse_t = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-             if lse else None)
+    lse_t = out_f32 = None
+    if lse:
+        lse_t = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        out_f32 = (out if q.dtype == torch.float32 else
+                   torch.empty(q.shape, dtype=torch.float32, device=q.device))
     if out.numel():
         flash_attention_bhsd.launches += 1
         _build.check(_build.load("flash_attention", _SIGNATURES)
                      .flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse_t is None else lse_t.data_ptr(), b, h, hkv, sq, skv,
+            None if lse_t is None else lse_t.data_ptr(),
+            None if out_f32 is None or out_f32 is out
+            else out_f32.data_ptr(), b, h, hkv, sq, skv,
             dh, *_mask_args(q, causal, window, logit_cap, q_offset)),
             "flash_attention_fwd")
-    return out, lse_t
+    return out, lse_t, out_f32
 
 
 def flash_dq(q, k, v, dout, lse, delta, dq, **mask) -> None:
@@ -132,10 +142,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int | None = None,
                         logit_cap: float | None = None, q_offset: int = 0,
                         kv_block: int = 512):
-    """(dq, dk, dv) of the flash forward, from its output ``out``
-    [B, H, Sq, dh] and float32 log-sum-exp ``lse`` [B, H, Sq] and the
-    output gradient ``dout`` [B, H, Sq, dh]; dk and dv sum each kv head's
-    group of query heads. On the card the two kernels, after one plain
+    """(dq, dk, dv) of the flash forward, from its float32 output ``out``
+    [B, H, Sq, dh] (before any cast to q's dtype, as the reference's VJP
+    keeps it) and float32 log-sum-exp ``lse`` [B, H, Sq] and the output
+    gradient ``dout`` [B, H, Sq, dh]; dk and dv sum each kv head's group
+    of query heads. On the card the two kernels, after one plain
     reduction for delta = sum(dout * out) per row; the kernels take what
     the forward takes, and lse float32. On the CPU the twin, in blocks of
     ``kv_block``."""
@@ -143,17 +154,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if out.shape != q.shape or dout.shape != q.shape or (
             lse.shape != q.shape[:3]):
         raise ValueError("out and dout take q's shape and lse [B, H, Sq]")
+    if out.dtype != torch.float32:
+        raise ValueError("the flash backward takes the forward's float32 "
+                         f"out (delta = sum(dout * out)), not {out.dtype}")
     mask = dict(causal=causal, window=window, logit_cap=logit_cap,
                 q_offset=q_offset)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          kv_block=kv_block, **mask)
     _check_kernel_inputs(q, k, v, out, dout, lse)
-    if out.dtype != q.dtype or dout.dtype != q.dtype or (
-            lse.dtype != torch.float32):
-        raise ValueError("the flash backward kernels take out and dout in "
-                         "q's dtype and lse in float32")
-    delta = torch.sum(dout.to(torch.float32) * out.to(torch.float32), dim=-1)
+    if dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError("the flash backward kernels take dout in q's dtype "
+                         "and lse in float32")
+    delta = torch.sum(dout.to(torch.float32) * out, dim=-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
         flash_dq(q, k, v, dout, lse, delta, dq, **mask)
@@ -164,7 +177,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the reference's custom VJP: the forward keeps
-    (q, k, v, out, lse), the backward recomputes the probabilities from
+    (q, k, v, out, lse) with out the float32 output, as the reference's
+    ``fwd`` does, and returns its cast to q's dtype; the backward takes
+    delta from that float32 out and recomputes the probabilities from
     lse. The kernels on the card, the twins on the CPU (O(block) memory,
     no autograd record of the scan)."""
 
@@ -174,11 +189,13 @@ class FlashAttention(torch.autograd.Function):
                     q_offset=q_offset)
         if q.is_cuda:
             _check_kernel_inputs(q, k, v)
-            out, lse = _fwd_kernel(q, k, v, lse=True, **mask)
+            out, lse, out_f32 = _fwd_kernel(q, k, v, lse=True, **mask)
         else:
-            out, lse = flash_attention_plain(q, k, v, kv_block=kv_block,
-                                             return_lse=True, **mask)
-        ctx.save_for_backward(q, k, v, out, lse)
+            out_f32, lse = flash_attention_plain(
+                q, k, v, kv_block=kv_block, return_lse=True,
+                out_dtype=torch.float32, **mask)
+            out = out_f32.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out_f32, lse)
         ctx.mask, ctx.kv_block = mask, kv_block
         return out
 

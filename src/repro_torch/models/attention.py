@@ -137,17 +137,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           logit_cap: float | None = None,
                           kv_block: int = 512, q_offset: int = 0,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          out_dtype: torch.dtype | None = None):
     """The plain twin of the flash forward kernel: the reference's blocked
     scan. q [B,H,Sq,dh]; k, v [B,Hkv,Skv,dh]; Skv % min(kv_block, Skv)
-    == 0. Returns out [B,H,Sq,dh] in q's dtype and, with ``return_lse``,
-    also the float32 log-sum-exp [B,H,Sq] of the scaled, capped scores."""
+    == 0. Returns out [B,H,Sq,dh] in ``out_dtype`` (q's dtype when None;
+    float32 is the scan's own output, the reference VJP's residual) and,
+    with ``return_lse``, also the float32 log-sum-exp [B,H,Sq] of the
+    scaled, capped scores."""
     b, h, sq, dh = q.shape
     qg, kb, vb, kv_block = _blocks(q, k, v, kv_block)
     out, lse = _flash_fwd_scan(qg, kb, vb, sq=sq, kv_block=kv_block,
                                q_offset=q_offset, causal=causal,
                                window=window, logit_cap=logit_cap)
-    out = out.reshape(b, h, sq, dh).to(q.dtype)
+    out = out.reshape(b, h, sq, dh).to(out_dtype or q.dtype)
     return (out, lse.reshape(b, h, sq)) if return_lse else out
 
 
@@ -155,7 +158,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
                               window=None, logit_cap=None, kv_block=512,
                               q_offset=0):
     """The plain twin of the flash backward kernels: (dq, dk, dv) in the
-    dtypes of q, k, v, from the forward's out [B,H,Sq,dh] and lse
+    dtypes of q, k, v, from the forward's float32 out [B,H,Sq,dh] and lse
     [B,H,Sq] and the output gradient dout [B,H,Sq,dh]. dk and dv sum
     each kv head's group of query heads."""
     b, h, sq, dh = q.shape

@@ -11,7 +11,13 @@ the reference kernel's own test allows 2e-4 against a dense oracle).
 Queries scaled by 32, where the cap saturates, are held with both
 packages against a float64 witness within 2e-5 of each gradient's
 largest magnitude.
-Inputs are numpy arrays from a seed, handed to both."""
+Inputs are numpy arrays from a seed, handed to both.
+In bf16 at gemma2's heads, the gradients of ``FlashAttention`` (whose
+residual is the float32 out, as the reference's) and an emulation of the
+backward kernels' rounding lie within the card checks' tolerance of the
+reference's."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -271,6 +277,76 @@ def _share_of_bwd_tol(got, want):
                for gt, w in zip(got, want))
 
 
+def _bf16_case(q_scale):
+    """gemma2's heads at 512 tokens: numpy inputs and their bf16 tensors."""
+    q, k, v, dout = _inputs(9, h=16, hkv=8, sq=512, skv=512, dh=256,
+                            q_scale=q_scale)
+    return (q, k, v), [torch.from_numpy(a).bfloat16()
+                       for a in (q, k, v, dout)]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_bf16_grads(window, q_scale):
+    """jax.grad of the reference model's flash_attention (its custom VJP)
+    on the bf16 inputs of ``_bf16_case``, as float32 numpy arrays."""
+    (q, k, v), (*_, tdo) = _bf16_case(q_scale)
+    kw = dict(causal=True, window=window, logit_cap=50.0)
+
+    def loss(q, k, v):
+        out = ja.flash_attention(q, k, v, **kw).astype(jnp.float32)
+        return jnp.sum(out * jnp.asarray(tdo.float().numpy()))
+    return [np.asarray(t.astype(jnp.float32)) for t in jax.grad(
+        loss, argnums=(0, 1, 2))(*(jnp.asarray(a).astype(jnp.bfloat16)
+                                   for a in (q, k, v)))]
+
+
+@pytest.mark.parametrize("q_scale", [8.0, 32.0])
+@pytest.mark.parametrize("window", [None, 64])
+def test_bf16_function_gradients_hold_the_card_tolerance(window, q_scale):
+    """``FlashAttention`` on bf16 q, k, v through the twins (gemma2's heads
+    at 512 tokens, as in the test below): its gradients lie within the
+    card's backward tolerance of the reference model's custom-VJP
+    gradients, because its residual is the forward's float32 out, as in
+    the reference, and delta = sum(dout * out) is taken from it. Read:
+    0.48-0.71 of the tolerance (the largest of dq, dk, dv in a case:
+    0.64, 0.61, 0.66, 0.71). With the residual in bf16, as the port kept
+    it before (commit e31c949), the same gradients read 3.1-6.8 on dq and
+    dk (dq 3.1-4.4, dk 3.9-6.8; dv, which takes no delta, as now)."""
+    _, (tq, tk, tv, tdo) = _bf16_case(q_scale)
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    out = tfa.FlashAttention.apply(q, k, v, True, window, 50.0, 0, 512)
+    assert out.dtype == torch.bfloat16
+    (out.float() * tdo.float()).sum().backward()
+    got = [t.grad.float().numpy() for t in (q, k, v)]
+    assert _share_of_bwd_tol(got, _reference_bf16_grads(window, q_scale)
+                             ) <= 1.0
+
+
+def test_function_keeps_the_float32_output_and_returns_its_rounding():
+    """The residual ``FlashAttention`` saves for the backward is the
+    forward's float32 out (as the reference's ``fwd`` keeps it); the
+    output it returns is that out rounded to q's dtype, bit for bit the
+    output of the forward without a gradient, whose scan and single cast
+    are those of the forward before the residual changed."""
+    q, k, v, _ = _inputs(10, h=4, hkv=2, sq=64, skv=64, dh=32, q_scale=8.0)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    kw = dict(causal=True, window=24, logit_cap=50.0, kv_block=16)
+    qg = tq.clone().requires_grad_()
+    out = tfa.flash_attention_bhsd(qg, tk, tv, **kw)
+    _, _, _, saved_out, saved_lse = out.grad_fn.saved_tensors
+    assert saved_out.dtype == torch.float32 and saved_out.shape == q.shape
+    assert saved_lse.dtype == torch.float32
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, saved_out.to(torch.bfloat16))
+    with torch.no_grad():
+        assert torch.equal(out, tfa.flash_attention_bhsd(tq, tk, tv, **kw))
+    want = ta.flash_attention_plain(tq, tk, tv, out_dtype=torch.float32,
+                                    **kw)
+    assert torch.equal(saved_out, want)
+    with pytest.raises(ValueError, match="float32 out"):
+        tfa.flash_attention_bwd(tq, tk, tv, out, saved_lse, out)
+
+
 @pytest.mark.parametrize("q_scale", [8.0, 32.0])
 @pytest.mark.parametrize("window", [None, 64])
 def test_bf16_bwd_split_holds_the_card_tolerance(window, q_scale):
@@ -283,23 +359,15 @@ def test_bf16_bwd_split_holds_the_card_tolerance(window, q_scale):
     A single bf16 rounding of dS does not hold it (1.2-2.0); a single
     rounding of P reads 0.88-1.13 on dV, above the half of the tolerance
     under which the design would drop P's split. The emulation takes
-    delta = sum(dout * out) of the reference's float32 out, as the
-    reference's backward does, so that only the kernels' rounding of P
-    and dS is compared. The port's ``FlashAttention`` takes delta from
-    its bf16 out instead (a known deviation, ROADMAP.md C): with that
-    delta the same design reads 3.9-6.9 of the tolerance on dq and dk."""
-    q, k, v, dout = _inputs(9, h=16, hkv=8, sq=512, skv=512, dh=256,
-                            q_scale=q_scale)
+    delta = sum(dout * out) of the float32 out, as the reference's
+    backward and the port's ``FlashAttention`` do (their residual is the
+    float32 out), so that only the kernels' rounding of P and dS is
+    compared. Delta taken from the bf16 out instead is a planted fault
+    here: the same design then reads 3.9-6.9 of the tolerance on dq and
+    dk."""
+    _, (tq, tk, tv, tdo) = _bf16_case(q_scale)
     kw = dict(causal=True, window=window, logit_cap=50.0)
-    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in
-                       (q, k, v, dout))
-
-    def loss(q, k, v):
-        out = ja.flash_attention(q, k, v, **kw).astype(jnp.float32)
-        return jnp.sum(out * jnp.asarray(tdo.float().numpy()))
-    want = [np.asarray(t.astype(jnp.float32)) for t in jax.grad(
-        loss, argnums=(0, 1, 2))(*(jnp.asarray(a).astype(jnp.bfloat16)
-                                   for a in (q, k, v)))]
+    want = _reference_bf16_grads(window, q_scale)
     out, lse = ta.flash_attention_plain(tq.float(), tk.float(), tv.float(),
                                         return_lse=True, **kw)
     delta = (tdo.float() * out).sum(-1)

@@ -98,13 +98,30 @@ def test_digit_pass_kernels_equal_twins(cuda, rb, with_vals, n, tile):
 
 
 @pytest.mark.parametrize("side", ["left", "right"])
-@pytest.mark.parametrize("n,nq", [(1, 4), (600, 300), (1 << 20, 100_000)])
-def test_rank_and_rename_kernels_equal_twins(cuda, side, n, nq):
-    rng = np.random.default_rng(n)
+@pytest.mark.parametrize("queries", ["shuffled", "sorted", "sorted_but_one"])
+@pytest.mark.parametrize("runs", [False, True])
+@pytest.mark.parametrize("n,nq", [(1, 4), (600, 300), (282_624, 563_200),
+                                  (400_000, 300_000), (1 << 20, 100_000)])
+def test_rank_and_rename_kernels_equal_twins(cuda, side, queries, runs, n,
+                                             nq):
+    """rank_search and rename on the card equal their twins bit for bit on
+    non-decreasing streams with a SENTINEL tail, up to a request's VID
+    stream (282,624) and past it, with shuffled, sorted and almost sorted
+    queries; ``runs`` puts duplicate runs of a fifth and a tenth of the
+    stream in it."""
+    rng = np.random.default_rng(n + nq)
     arr = np.sort(rng.integers(0, max(2, n // 3), n)).astype(np.int32)
+    if runs:
+        arr[:n // 5] = 7
+        arr[n // 5:n // 5 + n // 10] = n // 6
+        arr = np.sort(arr)
     arr[n // 2 + 1:] = SEN
     q = rng.integers(-5, n // 3 + 5, nq).astype(np.int32)
     q[rng.random(nq) < 0.2] = SEN
+    if queries != "shuffled":
+        q = np.sort(q)
+    if queries == "sorted_but_one":
+        q[nq // 2] = -9
     table = np.arange(n, dtype=np.int32) * 3
     a, qq, tb = map(torch.from_numpy, (arr, q, table))
     assert torch.equal(tre.rank_search(a.to(cuda), qq.to(cuda), side).cpu(),
@@ -112,6 +129,41 @@ def test_rank_and_rename_kernels_equal_twins(cuda, side, n, nq):
     assert torch.equal(
         tre.rename(a.to(cuda), tb.to(cuda), qq.to(cuda)).cpu(),
         tre.rename(a, tb, qq))
+
+
+def test_rank_kernels_on_an_unaligned_stream_and_no_queries(cuda):
+    """A stream that starts 4 bytes past a 16-byte boundary (a view from
+    element 1), and zero queries, which launch nothing."""
+    rng = np.random.default_rng(3)
+    arr = np.sort(rng.integers(0, 50_000, 200_001)).astype(np.int32)
+    arr[150_000:] = SEN
+    q = rng.integers(-3, 50_003, 250_000).astype(np.int32)
+    a, qq = torch.from_numpy(arr), torch.from_numpy(q)
+    view = a.to(cuda)[1:]
+    tb = torch.arange(view.numel(), dtype=torch.int32, device=cuda)
+    assert view.data_ptr() % 16 == 4
+    assert torch.equal(tre.rank_search(view, qq.to(cuda)).cpu(),
+                       tre.rank_search(a[1:], qq))
+    assert torch.equal(tre.rename(view, tb, qq.to(cuda)).cpu(),
+                       tre.rename(a[1:], tb.cpu(), qq))
+    before = launch_counts()
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert tre.rank_search(view, empty).numel() == 0
+    assert tre.rename(view, tb, empty).numel() == 0
+    assert launch_counts() == before
+
+
+def test_rank_kernels_count_each_launch(cuda):
+    """A call is one launch, counted once."""
+    for n in (1000, 400_000):
+        a = torch.arange(n, dtype=torch.int32, device=cuda)
+        q = torch.arange(0, n, 7, dtype=torch.int32, device=cuda)
+        before = launch_counts()
+        tre.rank_search(a, q)
+        tre.rename(a, a, q)
+        after = launch_counts()
+        assert after["rank_search"] - before["rank_search"] == 1
+        assert after["rename"] - before["rename"] == 1
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
@@ -350,7 +402,7 @@ def test_redesigned_kernels_are_bit_deterministic(cuda):
         b = tfa._fwd_kernel(q * 8, k, v, lse=True, **mask)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
-        out, lse = a
+        _, lse, out = a  # the float32 out, the backward's residual
         dout = torch.randn(out.shape, generator=torch.Generator(
             device=cuda).manual_seed(dh), device=cuda).bfloat16()
         a = tfa.flash_attention_bwd(q * 8, k, v, out, lse, dout, **mask)
@@ -629,7 +681,7 @@ def _bwd_inputs(seed, b, h, hkv, sq, skv, dh, dtype, q_scale=1.0, **mask):
                      dout.to(dtype))
     out, lse = flash_attention_plain(q, k, v, return_lse=True,
                                      kv_block=64 if skv % 64 == 0 else skv,
-                                     **mask)
+                                     out_dtype=torch.float32, **mask)
     return q, k, v, out, lse, dout
 
 
@@ -728,7 +780,7 @@ def test_flash_bwd_kernels_at_gemma2_head_shapes(cuda, seq, window):
                      for s in ((1, 16, seq, 256), (1, 8, seq, 256),
                                (1, 8, seq, 256), (1, 16, seq, 256)))
     q, k, v, dout = (t.bfloat16() for t in (q * 8, k, v, dout))
-    out, lse = tfa._fwd_kernel(q, k, v, lse=True, q_offset=0, **mask)
+    _, lse, out = tfa._fwd_kernel(q, k, v, lse=True, q_offset=0, **mask)
     got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, **mask)
     want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **mask)
     torch.cuda.synchronize()
@@ -751,8 +803,8 @@ def test_flash_forward_lse_equals_twin(cuda):
     mask = dict(causal=True, window=40, logit_cap=50.0, q_offset=0)
     q, k, v = _qkv(4, 2, 4, 2, 128, 128, 64, torch.float32)
     _, want = flash_attention_plain(q, k, v, return_lse=True, **mask)
-    _, got = tfa._fwd_kernel(q.to(cuda), k.to(cuda), v.to(cuda), lse=True,
-                             **mask)
+    _, got, _ = tfa._fwd_kernel(q.to(cuda), k.to(cuda), v.to(cuda),
+                                lse=True, **mask)
     torch.cuda.synchronize()
     assert torch.allclose(got.cpu(), want, rtol=2e-5, atol=2e-5)
 
@@ -776,8 +828,29 @@ def test_flash_bwd_refuses_what_it_cannot_take(cuda):
         tfa.flash_attention_bwd(big, big[:, :1], big[:, :1], big,
                                 lse, big)
     with pytest.raises(ValueError, match="bf16 or float32"):
-        h = [t.half() for t in (q, k, v, out)]
-        tfa.flash_attention_bwd(*h, lse, dout.half())
+        h = [t.half() for t in (q, k, v)]
+        tfa.flash_attention_bwd(*h, out, lse, dout.half())
+    with pytest.raises(ValueError, match="float32 out"):
+        tfa.flash_attention_bwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                out.bfloat16(), lse, dout.bfloat16())
+
+
+def test_flash_function_keeps_the_float32_out_on_card(cuda):
+    """On the card ``FlashAttention``'s residual is the forward kernel's
+    float32 out (the reference's), its output the bf16 rounding of the
+    same quotients, bit for bit a forward launch without lse."""
+    mask = dict(causal=True, window=100, logit_cap=50.0)
+    q, k, v = (t.to(cuda) for t in _qkv(12, 1, 4, 2, 300, 300, 256,
+                                        torch.bfloat16))
+    qg = (q * 8).requires_grad_()
+    out = tfa.flash_attention_bhsd(qg, k, v, **mask)
+    _, _, _, saved, lse = out.grad_fn.saved_tensors
+    assert saved.dtype == torch.float32 and lse.dtype == torch.float32
+    with torch.no_grad():
+        plain = tfa.flash_attention_bhsd(q * 8, k, v, **mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert torch.equal(out, saved.to(torch.bfloat16))
 
 
 def test_flash_function_on_card_equals_cpu(cuda):

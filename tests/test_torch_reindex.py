@@ -1,7 +1,10 @@
 """repro_torch Reindexing, the rank-epilogue kernel twins and the sampled
 subgraph against the JAX reference: rank_search / rename equal the
 reference's rank_search_tiles / reindex_rename_tiles (Pallas interpret
-mode) on SENTINEL-heavy and single-element inputs, the reindex map is
+mode) on SENTINEL-heavy and single-element inputs, long duplicate runs,
+all-SENTINEL streams, queries outside the stream, sorted queries (once
+with one element out of order) and no queries, and so does the card
+kernels' search loop, emulated here; the reindex map is
 bit-identical in packed and pair mode under both epilogue strategies, and
 sample_subgraph gives the same ptr / idx / order / n_sub_nodes under
 global_radix and xla_sort with kernel routing on and off."""
@@ -34,12 +37,43 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 
 
+KINDS = ["random", "sentinel_heavy", "single", "long_runs", "all_sentinel",
+         "outside", "sorted", "sorted_but_one", "no_queries"]
+
+
 def _stream(kind, seed):
     rng = np.random.default_rng(seed)
     if kind == "single":
         arr = np.array([int(rng.integers(0, 50))], np.int32)
         q = np.array([arr[0] - 1, arr[0], arr[0] + 1, SEN], np.int32)
         return arr, q
+    if kind == "long_runs":  # runs of 700 and 1200
+        arr = np.sort(np.concatenate([
+            rng.integers(0, 40, 300), np.full(700, 17), np.full(1200, 25),
+            np.full(100, SEN)])).astype(np.int32)
+        q = np.concatenate([np.arange(-2, 43), [17, 25, SEN] * 20,
+                            rng.integers(0, 45, 200)]).astype(np.int32)
+        return arr, q
+    if kind == "all_sentinel":
+        arr = np.full(500, SEN, np.int32)
+        return arr, np.array([SEN] * 40 + [0, -7, SEN - 1], np.int32)
+    if kind == "outside":  # below the first element, above the last valid
+        arr = np.sort(rng.integers(100, 200, 400)).astype(np.int32)
+        arr[350:] = SEN
+        q = np.concatenate([rng.integers(-(2 ** 31), 100, 60),
+                            rng.integers(200, SEN, 60), [SEN, SEN - 1,
+                                                         -(2 ** 31)]])
+        return arr, q.astype(np.int32)
+    if kind in ("sorted", "sorted_but_one"):  # a pointer build's targets
+        arr = np.sort(rng.integers(0, 300, 900)).astype(np.int32)
+        arr[800:] = SEN
+        q = np.arange(301, dtype=np.int32)
+        if kind == "sorted_but_one":
+            q[150] = 3
+        return arr, q
+    if kind == "no_queries":
+        return np.sort(rng.integers(0, 9, 50)).astype(np.int32), np.zeros(
+            0, np.int32)
     arr = np.sort(rng.integers(0, 100, 600)).astype(np.int32)
     if kind == "sentinel_heavy":
         arr[200:] = SEN  # SENTINEL tail
@@ -48,11 +82,26 @@ def _stream(kind, seed):
     return arr, q
 
 
-@pytest.mark.parametrize("kind", ["random", "sentinel_heavy", "single"])
+def _reference_rank(arr, q, side):
+    """The reference's Pallas rank; its adapter cannot take 0 queries
+    (its tile would be 0), where the answer is the empty rank."""
+    if q.size == 0:
+        return np.zeros(0, np.int32)
+    return np.asarray(pallas_rank_fn(jnp.asarray(arr), jnp.asarray(q), side))
+
+
+def _reference_rename(arr, table, q):
+    if q.size == 0:
+        return np.zeros(0, np.int32)
+    return np.asarray(pallas_rename_fn(jnp.asarray(arr), jnp.asarray(table),
+                                       jnp.asarray(q)))
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("side", ["left", "right"])
 def test_rank_search_twin_matches_reference_kernel(kind, side):
     arr, q = _stream(kind, seed=1)
-    want = pallas_rank_fn(jnp.asarray(arr), jnp.asarray(q), side)
+    want = _reference_rank(arr, q, side)
     got = tre.rank_fn(_t(arr), _t(q), side)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     for unroll in (False, True):  # the plain rank agrees too
@@ -61,14 +110,52 @@ def test_rank_search_twin_matches_reference_kernel(kind, side):
             np.asarray(want))
 
 
-@pytest.mark.parametrize("kind", ["random", "sentinel_heavy", "single"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_rename_twin_matches_reference_kernel(kind):
     arr, q = _stream(kind, seed=2)
     table = np.arange(arr.shape[0], dtype=np.int32) * 7
-    want = pallas_rename_fn(jnp.asarray(arr), jnp.asarray(table),
-                            jnp.asarray(q))
+    want = _reference_rename(arr, table, q)
     got = tre.rename_fn(_t(arr), _t(table), _t(q))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _kernel_search(arr, q, right, table=None):
+    """``csrc/reindex_epilogue.cu``'s search, one query at a time in
+    Python: rank_of's bisection (mid = (lo + hi) >> 1, until lo == hi),
+    and rename_kernel's hit test at the rank clamped to [0, n - 1]."""
+    n = arr.shape[0]
+    out = np.zeros(q.shape[0], np.int64)
+    for i, x in enumerate(q):
+        lo, hi = 0, n
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if (arr[mid] <= x) if right else (arr[mid] < x):
+                lo = mid + 1
+            else:
+                hi = mid
+        if table is None:
+            out[i] = lo
+        else:
+            r = min(max(lo, 0), n - 1)
+            out[i] = table[r] if arr[r] == x != SEN else SEN
+    return out
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("side", ["left", "right", "rename"])
+def test_kernel_search_path_emulated_matches_reference(kind, side):
+    """The card kernels' own loop (a bisection that stops when it
+    converges, where the twin runs the reference's fixed rounds with the
+    converged-lane freeze) against the reference's Pallas kernels."""
+    arr, q = _stream(kind, seed=3)
+    if side == "rename":
+        table = np.arange(arr.shape[0], dtype=np.int32) * 7
+        got = _kernel_search(arr, q, False, table=table)
+        want = _reference_rename(arr, table, q)
+    else:
+        got = _kernel_search(arr, q, side == "right")
+        want = _reference_rank(arr, q, side)
+    np.testing.assert_array_equal(got, want)
 
 
 def _vids(n, bound, seed, sentinel_frac=0.3):

@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Compare trees of this repository on one card, in turns, on the port's
+SLICE_CFG serve path: what a request costs end to end and what the rank
+epilogue's five calls cost on the arrays the path hands them.
+
+  python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
+      --order parent,change,change,parent
+
+A tree is the root of a checkout (unpack an earlier commit with
+``git archive`` into a directory that ``.gitignore`` lists). Each turn is
+one process with that tree's ``src`` first on ``sys.path``: it builds the
+tree's slice-path kernels (into the tree's own ``build/``), makes
+``chip_smoke.py``'s Reddit-scale graph, features and GraphSAGE from
+``--seed``, converts under SLICE_CFG and builds a ``GnnServeEngine``, then
+
+- times ``--reps`` rounds of ``slot_fn`` over chip_smoke's request seeds
+  (host clock, a synchronise before and after each request: the request's
+  wall time, host launches included), and one request of the largest
+  under ``torch.profiler`` (the rank kernels' device time by name);
+- captures the five rank-epilogue calls of one convert and of the largest
+  request (``chip_smoke.rank_calls_of_the_path``) and times the tree's
+  ``rank_search`` / ``rename`` wrapper and ``torch.searchsorted`` on them,
+  queued behind a device sleep (device time) and not (the host's cost),
+  checking the wrapper's result against ``torch.searchsorted``.
+
+Each turn prints one JSON line; the whole run also goes to
+``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
+comparable only within one run.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# kernels of the rank epilogue (and the digit pass's rank_gather_kernel)
+# in a trace, by the names of this tree's and earlier trees' kernels
+RANK_KERNELS = r"(?:rank|rename)\w*_kernel(?:<\w+>)?"
+
+
+def turn(tree: str, seed: int, n_requests: int, reps: int) -> dict:
+    """One tree's readings, in this process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs  # its helpers; it puts ROOT/src on sys.path
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs.graphsage_reddit import config
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import reindex_epilogue as tre
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.models.gnn import GraphSAGE
+    from repro_torch.serve import GnnServeEngine
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(("digit_pass", "reindex_epilogue"))
+    coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
+                        cs.CONVERT_CAP, seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    feats = torch.randn((cs.REDDIT["nodes"], cs.REDDIT["feats"]),
+                        generator=g, device=dev)
+    model = GraphSAGE(config(), d_in=cs.REDDIT["feats"],
+                      n_classes=cs.REDDIT["classes"],
+                      generator=torch.Generator().manual_seed(seed + 2),
+                      device=dev)
+    csc = pipeline.convert(coo, SLICE_CFG, device=dev)
+    eng = GnnServeEngine(model, csc, feats, n_slots=cs.N_SLOTS,
+                         seed_cap=cs.SEED_CAP, cfg=SLICE_CFG, device=dev)
+    # chip_smoke's draws: one warm-up request of 16 seeds, then the timed
+    rng = np.random.default_rng(seed)
+    rng.choice(cs.REDDIT["nodes"], 16, replace=False)
+    reqs = [rng.choice(cs.REDDIT["nodes"], int(k), replace=False).tolist()
+            for k in rng.integers(1, cs.SEED_CAP + 1, n_requests)]
+    rows = [cs.seed_row(eng, s) for s in reqs]
+    keys = [eng.request_key(i) for i in range(n_requests)]
+    for row, key in zip(rows, keys):  # warm-up: cuBLAS, allocator pools
+        eng.slot_fn(eng.params, row, key)
+    torch.cuda.synchronize()
+    request_ms = []
+    for _ in range(reps):
+        for row, key in zip(rows, keys):
+            t0 = time.perf_counter()
+            eng.slot_fn(eng.params, row, key)
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+    big = max(range(n_requests), key=lambda i: len(reqs[i]))
+    prof = cs.profile_call(lambda: eng.slot_fn(eng.params, rows[big],
+                                               keys[big]),
+                           kernels=RANK_KERNELS)
+
+    calls = {}
+    for name, (arr, qs, side, table) in cs.rank_calls_of_the_path(
+            dev, coo, eng, reqs[big], big).items():
+        if table is None:
+            def kernel():
+                return tre.rank_search(arr, qs, side)
+        else:
+            def kernel():
+                return tre.rename(arr, table, qs)
+
+        def library():
+            return torch.searchsorted(arr, qs, side=side or "left",
+                                      out_int32=True)
+        rank = library()
+        want = rank if table is None else torch.where(
+            (rank < arr.numel()) & (qs != 0x7FFFFFFF)
+            & (arr[rank.clamp(max=arr.numel() - 1)] == qs),
+            table[rank.clamp(max=arr.numel() - 1)],
+            torch.full_like(rank, 0x7FFFFFFF))
+        cs.check(torch.equal(kernel(), want),
+                 f"{tree} {name}: the wrapper == torch.searchsorted")
+        calls[name] = dict(
+            queries=qs.numel(), stream=arr.numel(),
+            ms=cs.cuda_ms(kernel), library_ms=cs.cuda_ms(library),
+            unqueued_ms=cs.cuda_ms(kernel, queued=False),
+            library_unqueued_ms=cs.cuda_ms(library, queued=False))
+    srt = sorted(request_ms)
+    return dict(tree=tree, requests=n_requests, reps=reps,
+                request_ms_median=srt[len(srt) // 2],
+                request_ms_mean=sum(srt) / len(srt),
+                round_ms=[sum(request_ms[i:i + n_requests])
+                          for i in range(0, len(request_ms), n_requests)],
+                profile=dict(wall_ms=prof["wall_ms"],
+                             device_ms=prof["device_ms"],
+                             kernels=prof["kernels"]),
+                rank_calls=calls)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="NAME=DIR, a checkout's root (repeatable)")
+    ap.add_argument("--order", help="tree names in turn order, by commas")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
+    args = ap.parse_args()
+
+    if args.turn:
+        name, tree = args.turn.split("=", 1)
+        out = turn(tree, args.seed, args.requests, args.reps)
+        print(json.dumps(dict(name=name, **out)), flush=True)
+        return 0
+    trees = dict(t.split("=", 1) for t in args.tree)
+    order = args.order.split(",") if args.order else list(trees)
+    if not trees or any(n not in trees for n in order):
+        ap.error(f"--order {order} names a tree not given by --tree")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].strip()
+    print(smi, flush=True)
+    results = []
+    for name in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--turn",
+             f"{name}={trees[name]}", "--seed", str(args.seed),
+             "--requests", str(args.requests), "--reps", str(args.reps)],
+            capture_output=True, text=True)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            print(f"turn {name} failed ({proc.returncode})", flush=True)
+            return 1
+        results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(results[-1]), flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "slice_ab.json"), "w") as f:
+        json.dump(dict(card=smi, order=order, trees=trees, turns=results), f,
+                  indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
