@@ -24,6 +24,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    1e-4 of the float64 sum and give the same bits on two launches. The
    rank epilogue on adversarial streams (long duplicate runs, a SENTINEL
    tail, an unaligned view; sorted, almost sorted and shuffled queries).
+   The chunk sort also at the MERGE_CFG convert's 2^27 pairs and keys
+   (the twin in slices of 2^24), with ptxas registers and spills of its
+   instantiations.
 4. slice path — launch counters set to 0; the Reddit-scale ``convert``
    (232,965 nodes, 114,615,892 synthetic power-law edges in a 2^27 COO)
    under ``SLICE_CFG``, then ``GnnServeEngine`` serving 16 requests of
@@ -57,7 +60,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    slice path's forward (argmax equal wherever the top-two margin
    exceeds it); a small graph under
    ``MERGE_CFG`` on the card equal to the CPU path; the profile of one
-   request.
+   request; one more MERGE_CFG convert under ``torch.profiler``: the
+   hand-written kernels by name, the rest, and the device spans of the
+   plain-torch merge rungs above the fused merge's block.
 8. LM kernels — the GNN paths' memory freed; the flash-attention forward
    (bf16 on tensor cores, float32 on scalar FMAs) against its twin at
    gemma2-9b's head shapes (16 heads over 8 kv heads,
@@ -68,10 +73,13 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    to the same tolerance; in float32 at 2048 tokens within
    2e-5; ``prefix_partition`` and ``filter_tree_lookup``
    (no path runs them) equal to their twins at the reference tests'
-   shapes and at one timed size each (2^24 values in blocks of 1024;
-   65,536 keys × 65,536 targets). Yardsticks the port never calls:
+   shapes and at their timed sizes (2^24 values in blocks of 1024;
+   65,536 keys × 65,536 targets and a request's reindex, 282,624 keys ×
+   563,200 targets, where the all-pairs twin runs once). Yardsticks the
+   port never calls:
    ``scaled_dot_product_attention`` (causal, no cap: a near function), a
-   per-block stable ``torch.sort`` + gather, ``torch.searchsorted``.
+   per-block stable ``torch.sort`` + gather, ``torch.searchsorted`` (on
+   presorted keys, and after a ``torch.sort`` of the keys).
 9. LM path — launch counters set to 0; ``lm_prefill_cell`` builds
    gemma2-9b at full width (42 layers, d 3584, vocab 256,000, bf16,
    random weights from ``--seed``) and prefills one sequence of 8192
@@ -158,6 +166,10 @@ CONVERT_CAP = 1 << 27  # pow2 COO capacity of the Reddit edge list
 SEED_CAP, N_SLOTS = 1024, 4  # the batch Workload.b prices; engine slots
 # digit-pass sizes checked (2^24: compared with the twin) and timed (2^27)
 DIGIT_SIZES = ((1 << 24, True), (1 << 27, False))
+# the chunk sort at the MERGE_CFG convert's shape, checked against the
+# twin in slices of 2^24 elements (its one-hot partition: 64 bytes an
+# element a pass)
+CHUNK_SORT_BIG, CHUNK_SORT_TWIN_SLICE = 1 << 27, 1 << 24
 MERGE_CONVERT_CAP = CONVERT_CAP  # the merge path converts Reddit too
 CONVERT_TWIN_STRIDE = 256  # targets the all-pairs twin checks at 2^27
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-4  # segment sum against the float64 sum
@@ -186,7 +198,11 @@ FLASH_SWEEP = 4  # more bf16 draws checked (global and local), untimed
 PARTITION_SHAPES = ((128, 128), (512, 128), (2048, 512))  # test_kernels.py
 PARTITION_TIMED = (1 << 24, 1024)
 FILTER_SHAPES = ((2048, 256), (4096, 128))  # test_kernels.py
-FILTER_TIMED = (65536, 65536)
+# (keys, targets) timed: the earlier size, and a request's reindex
+# (282,624 VIDs, 563,200 edge endpoints); the all-pairs twin is timed in a
+# loop up to FILTER_TWIN_TIMED compares and once beyond
+FILTER_TIMED = ((65536, 65536), (282_624, 563_200))
+FILTER_TWIN_TIMED = 1 << 33
 # the full-width prefill with the kernel against the same prefill with the
 # flash twin in every layer (bf16 activations round after every op, so
 # one flipped ulp in one layer travels through the rest): about twice the
@@ -525,10 +541,93 @@ def kernel_phase(dev, seed):
     return rows, extra
 
 
+def resource_usage(name, kernel):
+    """{function[<template arguments>]: {"registers", "stack", "local"}}
+    of each function whose name matches the regex ``kernel`` in built
+    library ``name``, from ``cuobjdump --dump-resource-usage`` (cached
+    builds too); LOCAL is where ptxas spills registers."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    text = subprocess.run([cuobjdump, "--dump-resource-usage",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for m in re.finditer(r"(" + kernel + r")(?:I(\w+?)E(?:Ev|v))?\S*:\s*\n"
+                         r"\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+                         text):
+        key = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        out[key] = dict(registers=int(m.group(3)), stack=int(m.group(4)),
+                        local=int(m.group(5)))
+    return out
+
+
+def chunk_sort_reading(keys, with_vals, key_bits, twin_slice=None):
+    """The chunk sort of ``keys`` (and arange values) in chunks of TILE
+    against its twin (run on ``twin_slice`` elements at a time when given:
+    the twin's one-hot partition takes 64 bytes an element a pass), timed
+    through its C entry with the twin, ``torch.sort`` + gather and the
+    bound. Returns (row, the kernel's output)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import radix_sort as trs
+    n = keys.numel()
+    v = torch.arange(n, dtype=torch.int32, device=keys.device) \
+        if with_vals else None
+    got = trs.chunk_sort(keys, v, TILE, key_bits, RADIX_BITS)
+    step = twin_slice or n
+    want = [trs._chunk_sort(keys[i:i + step], None if v is None
+                            else v[i:i + step], TILE, key_bits, RADIX_BITS)
+            for i in range(0, n, step)]
+    want = [torch.cat([w[0] for w in want])] + (
+        [] if v is None else [torch.cat([w[1] for w in want])])
+    torch.cuda.synchronize()
+    err = max_err([x for x in got if x is not None], want)
+    check(err == 0, f"chunk_sort ({n} {'pairs' if with_vals else 'keys'}) "
+          "== twin")
+    del want
+    ok, ov = (x.clone() if x is not None else None for x in got)
+    n_bits = trs.chunk_sort_bits(key_bits, RADIX_BITS)
+    sched = trs.chunk_digit_schedule(n_bits)
+    lib = trs._lib()
+    ms = cuda_ms(lambda: _build.check(lib.chunk_sort(
+        keys.data_ptr(), None if v is None else v.data_ptr(),
+        ok.data_ptr(), None if ov is None else ov.data_ptr(), n // TILE,
+        TILE, n_bits, _build.stream_of(keys)), "chunk_sort"))
+    if twin_slice:  # one twin call on one slice, scaled to the whole
+        plain_ms = cuda_ms(lambda: trs._chunk_sort(
+            keys[:step], None if v is None else v[:step], TILE, key_bits,
+            RADIX_BITS), iters=1, warmup=1) * n / step
+    else:
+        plain_ms = cuda_ms(lambda: trs._chunk_sort(
+            keys, v, TILE, key_bits, RADIX_BITS), iters=3, warmup=1)
+
+    def library():
+        st = torch.sort(keys.view(-1, TILE), dim=1, stable=True)
+        return st.values, (None if v is None else
+                           v.view(-1, TILE).gather(1, st.indices))
+    streams = 2 if with_vals else 1
+    b_ms, b_by = bound(2 * 4 * n * streams, n * len(sched))
+    row = dict(
+        name="chunk_sort", route="cuda",
+        source="src/repro_torch/csrc/digit_pass.cu",
+        replaces="src/repro/kernels/radix_sort.py:"
+                 + ("65" if with_vals else "98"),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=cuda_ms(library, iters=5),
+        shape=f"{n} {'pairs' if with_vals else 'keys'}, chunk {TILE}, "
+              f"{key_bits}-bit keys sorted by bits [0, {n_bits}) in "
+              f"{len(sched)} passes of {[w for _, w in sched]} bits"
+              + (f" (twin: one {step}-element slice, scaled)"
+                 if twin_slice else ""))
+    return row, got
+
+
 def merge_kernel_phase(dev, seed):
     """The merge path's four kernels against their twins at its shapes:
-    the sub-convert's 2^19-pair sort (chunk 4096, a 19-bit bound: 5
-    passes), the subgraph pointer build's set count (282,625 targets over
+    the sub-convert's 2^19-pair sort (chunk 4096, a 19-bit bound: key bits
+    [0, 20) in 3 passes) and the chunk sort at the MERGE_CFG convert's
+    2^27, the subgraph pointer build's set count (282,625 targets over
     the 524,288-long sorted dst), and the two layers' segment sums."""
     import torch
     from repro_torch.core.graph import SENTINEL
@@ -543,45 +642,26 @@ def merge_kernel_phase(dev, seed):
     n = SERVE_CAP
     rows, runs, extra = {}, {}, {}
     key_bits = SERVE_NODES.bit_length()
-    passes = -(-key_bits // RADIX_BITS)
     keys = torch.full((n,), SERVE_NODES, dtype=torch.int32, device=dev)
     keys[:SERVE_EDGES] = torch.randint(0, SERVE_NODES, (SERVE_EDGES,),
                                        generator=g, device=dev,
                                        dtype=torch.int32)
-    vals = torch.arange(n, dtype=torch.int32, device=dev)
-    lib = trs._lib()
     for with_vals in (True, False):
-        v = vals if with_vals else None
-        got = trs.chunk_sort(keys, v, TILE, key_bits, RADIX_BITS)
-        want = trs._chunk_sort(keys, v, TILE, key_bits, RADIX_BITS)
-        torch.cuda.synchronize()
-        err = max_err([x for x in got if x is not None],
-                      [x for x in want if x is not None])
-        check(err == 0, f"chunk_sort (vals={with_vals}) == twin")
-        runs[with_vals] = got
-        ok, ov = (x.clone() if x is not None else None for x in got)
-        ms = cuda_ms(lambda: lib.chunk_sort(
-            keys.data_ptr(), None if v is None else v.data_ptr(),
-            ok.data_ptr(), None if ov is None else ov.data_ptr(), n // TILE,
-            TILE, passes, RADIX_BITS, _build.stream_of(keys)))
-        plain_ms = cuda_ms(lambda: trs._chunk_sort(
-            keys, v, TILE, key_bits, RADIX_BITS), iters=3, warmup=1)
-
-        def library():
-            st = torch.sort(keys.view(-1, TILE), dim=1, stable=True)
-            return st.values, (None if v is None else
-                               v.view(-1, TILE).gather(1, st.indices))
-        streams = 2 if with_vals else 1
-        b_ms, b_by = bound(2 * 4 * n * streams, n * passes)
-        rows["chunk_sort" + ("" if with_vals else "/keys_only")] = dict(
-            name="chunk_sort", route="cuda",
-            source="src/repro_torch/csrc/digit_pass.cu",
-            replaces="src/repro/kernels/radix_sort.py:"
-                     + ("65" if with_vals else "98"),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=cuda_ms(library, iters=5),
-            shape=f"{n} {'pairs' if with_vals else 'keys'}, chunk {TILE}, "
-                  f"{passes} passes of {RADIX_BITS} bits")
+        r, runs[with_vals] = chunk_sort_reading(keys, with_vals, key_bits)
+        rows["chunk_sort" + ("" if with_vals else "/keys_only")] = r
+    # the MERGE_CFG convert's shape: 2^27 pairs of keys below Reddit's
+    # node count (the two-pass Ordering's clipped src / dst, 18 bits)
+    big = torch.randint(0, REDDIT["nodes"], (CHUNK_SORT_BIG,), generator=g,
+                        device=dev, dtype=torch.int32)
+    for with_vals in (True, False):
+        r, _ = chunk_sort_reading(big, with_vals,
+                                  REDDIT["nodes"].bit_length(),
+                                  twin_slice=CHUNK_SORT_TWIN_SLICE)
+        extra["chunk_sort" + ("" if with_vals else "/keys_only")
+              + f"_{CHUNK_SORT_BIG}"] = r
+    del big
+    extra["chunk_sort_resources"] = resource_usage("digit_pass",
+                                                   "chunk_sort_kernel")
 
     fans = tm._round_fan_ins(n, TILE, tm.DEFAULT_MAX_BLOCK, 2)
     mlib = _build.load("merge", tm._SIGNATURES)
@@ -891,8 +971,8 @@ def lm_kernel_phase(dev, seed):
                   f"checked at {list(PARTITION_SHAPES)}; library: per-block "
                   "stable torch.sort of the condition + gather)")
 
-    # filter_tree_lookup: the reference test shapes, then the timed size
-    for e, t in FILTER_SHAPES + (FILTER_TIMED,):
+    # filter_tree_lookup: the reference test shapes, then the timed sizes
+    for e, t in FILTER_SHAPES + FILTER_TIMED:
         keys = torch.randperm(10 * e, generator=g, device=dev)[:e].to(
             torch.int32)
         pays = torch.arange(e, dtype=torch.int32, device=dev)
@@ -901,37 +981,73 @@ def lm_kernel_phase(dev, seed):
         tgts[:t // 4] = keys[torch.randint(0, e, (t // 4,), generator=g,
                                            device=dev)]
         got = tsc.filter_tree_lookup(keys, pays, tgts)
-        want = filter_lookup(keys, pays, tgts)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = filter_lookup(keys, pays, tgts)  # all pairs, on the card
+        end.record()
         torch.cuda.synchronize()
         err = max_err(got, want)
         check(err == 0 and 0 < int(got[1].sum()) < t,
               f"filter_tree_lookup ({e} keys, {t} targets) == twin")
-        if (e, t) != FILTER_TIMED:
+        if (e, t) not in FILTER_TIMED:
             continue
         out, hit = got
+        table = tsc.filter_scratch(e, dev)
         flt = _build.load("set_count", tsc._SIGNATURES)
-        ms = cuda_ms(lambda: flt.filter_tree_lookup(
-            keys.data_ptr(), pays.data_ptr(), e, tgts.data_ptr(), t,
-            out.data_ptr(), hit.data_ptr(), _build.stream_of(tgts)))
-        plain_ms = cuda_ms(lambda: filter_lookup(keys, pays, tgts), iters=3,
-                           warmup=1)
+
+        def build():
+            _build.check(tsc.build_c(flt, keys, pays, table),
+                         "filter_tree_lookup (build)")
+
+        def probe():
+            _build.check(tsc.probe_c(flt, e, table, tgts, out, hit),
+                         "filter_tree_lookup (probe)")
+        ms = cuda_ms(lambda: (build(), probe()))
+        torch.cuda.synchronize()
+        check(torch.equal(out, want[0]) and torch.equal(hit, want[1]),
+              f"filter_tree_lookup ({e} keys, {t} targets): the timed "
+              "launches give the twin's bits")
+        if e * t <= FILTER_TWIN_TIMED:
+            plain_ms = cuda_ms(lambda: filter_lookup(keys, pays, tgts),
+                               iters=3, warmup=1)
+        else:  # the check's one call above, timed by its events
+            plain_ms = start.elapsed_time(end)
         sk, order = torch.sort(keys)
         sp = pays[order]
 
-        def library():
+        def lookup(sk, sp):
             i = torch.clamp(torch.searchsorted(sk, tgts), max=e - 1)
             hit_ = sk[i] == tgts
             return torch.where(hit_, sp[i], -1), hit_
-        b_ms, b_by = bound(4 * (2 * e + 2 * t) + t, e * t)
-        rows["filter_tree_lookup"] = dict(
+
+        def from_unsorted():
+            sk, order = torch.sort(keys)
+            return lookup(sk, pays[order])
+        # bytes: keys and payloads read once, targets read once, out and
+        # hit written once; the table's traffic stays in L2
+        b_ms, b_by = bound(4 * 2 * e + (4 + 4 + 1) * t, e + t)
+        r = dict(
             name="filter_tree_lookup", route="cuda",
             source="src/repro_torch/csrc/set_count.cu",
             replaces="src/repro/kernels/set_count.py:73", max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=cuda_ms(library),
+            library_ms=cuda_ms(lambda: lookup(sk, sp)),
+            library_from_unsorted_ms=cuda_ms(from_unsorted),
+            build_ms=cuda_ms(build), probe_ms=cuda_ms(probe),
+            resources=resource_usage("set_count",
+                                     r"filter_(?:build|probe)_kernel"),
             shape=f"{t} targets over {e} unique keys, a quarter hit (also "
-                  f"checked at {list(FILTER_SHAPES)}; library: "
-                  "torch.searchsorted on the sorted keys, another algorithm)")
+                  f"checked at {list(FILTER_SHAPES)}); ms: the table's fill "
+                  "and both launches (build, probe) through the C entries; "
+                  "library: torch.searchsorted on keys sorted outside the "
+                  "timed call + gathers; library_from_unsorted: "
+                  "torch.sort of the keys + the same")
+        if (e, t) == FILTER_TIMED[0]:
+            rows["filter_tree_lookup"] = r
+        else:
+            extra[f"filter_tree_lookup_{e}x{t}"] = r
+        del want
     return rows, extra
 
 
@@ -1487,6 +1603,47 @@ def profile_phase(eng, seeds, rid, top=8):
     return dict(seeds=len(seeds),
                 **profile_call(lambda: eng.slot_fn(eng.params, row, key), top,
                                kernels=RANK_KERNEL_RE))
+
+
+# the hand-written kernels of a MERGE_CFG convert in a trace: the chunk
+# sort, the fused merge's first rungs, the set count's two
+CONVERT_KERNEL_RE = (r"\b(?:chunk_sort_kernel|merge_rank_kernel|"
+                     r"tile_sort_kernel|set_count_kernel)\b")
+
+
+def convert_profile(dev, coo):
+    """One MERGE_CFG convert of ``coo`` under ``torch.profiler``: its wall
+    and device time, split into the hand-written kernels by name and the
+    rest, and the device span of the plain-torch merge rungs above the
+    fused merge's block (``core/ordering.py`` ``merge_ladder``), timed by
+    CUDA events around each call."""
+    import torch
+    from repro_torch.core import ordering, pipeline
+    from repro_torch.launch.serve import MERGE_CFG
+
+    spans = []
+    ladder = ordering.merge_ladder
+
+    def timed_ladder(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = ladder(*a, **kw)
+        ev[1].record()
+        spans.append((ev, len(a[3])))
+        return out
+    ordering.merge_ladder = timed_ladder
+    try:
+        prof = profile_call(lambda: pipeline.convert(coo, MERGE_CFG,
+                                                     device=dev),
+                            top=12, kernels=CONVERT_KERNEL_RE)
+    finally:
+        ordering.merge_ladder = ladder
+    named = sum(r["device_ms"] for r in prof["kernels"].values())
+    prof["other_device_ms"] = prof["device_ms"] - named
+    prof["merge_ladder_spans_ms"] = [ev[0].elapsed_time(ev[1])
+                                     for ev, _ in spans]
+    prof["merge_ladder_rungs"] = [k for _, k in spans]
+    return prof
 
 
 # the rank epilogue's kernels in a trace (csrc/reindex_epilogue.cu)
@@ -2344,6 +2501,13 @@ def main():
         f"{LOGIT_TOL} of the slice path's, card == CPU on a small graph: ok")
     mout["profile"] = profile_phase(meng, mreqs[big], mhandles[big].rid)
     log_profile("merge profile", mout["profile"])
+    mout["convert_profile"] = convert_profile(dev, mcoo)
+    log_profile("merge convert profile", mout["convert_profile"])
+    log(f"[merge convert profile] kernels other than the hand-written "
+        f"ones {mout['convert_profile']['other_device_ms']:.3f} ms; the "
+        "plain-torch merge rungs' device spans "
+        f"{mout['convert_profile']['merge_ladder_spans_ms']} ms over "
+        f"{mout['convert_profile']['merge_ladder_rungs']} rungs")
     del mcoo, mcsc, meng, csc, eng, feats, handles, mhandles
     gc.collect()
     torch.cuda.empty_cache()
@@ -2523,6 +2687,7 @@ def log_serve(tag, out):
 
 def log_profile(tag, prof):
     what = (f"one request of {prof['seeds']} seeds" if "seeds" in prof
+            else "one convert" if "convert" in tag
             else f"one {'train step' if 'train' in tag else 'prefill'} of "
                  f"{prof['tokens']} tokens")
     log(f"[{tag}] {what}: wall "

@@ -1,6 +1,6 @@
 // One stable LSD digit pass of the global_radix Ordering, as two kernels,
-// and the UPE chunk sort of the chunked_merge Ordering, which reuses the
-// digit pass's in-tile partition for every pass.
+// and the UPE chunk sort of the chunked_merge Ordering, which keeps each
+// chunk in registers for all its digit passes.
 //
 // Replaces the two pallas_call kernels of repro/kernels/radix_sort.py
 // global_digit_pass: the tiled partition + histogram (keys-only and pair
@@ -28,16 +28,27 @@
 // Bound: the int32 store of the output; the table reads hit L2.
 //
 // chunk_sort: replaces repro/kernels/radix_sort.py radix_sort_chunks and
-// radix_sort_chunks_keys (the UPE "splitting" stage): a stable LSD radix
-// sort of every chunk of (key, value) pairs, ceil(key_bits / radix_bits)
-// passes. The TPU kernel holds its chunk in VMEM for all passes; here one
-// CTA holds its chunk in dynamic shared memory, ping-ponging between two
-// buffers (4096 pairs in and out: 64 KiB), and runs partition_tile once
-// per digit, so device memory sees each key and value read once and
-// written once whatever the pass count. Bound: those bytes; the passes
-// themselves are shared-memory traffic and warp votes, so the kernel sits
-// well above the byte bound (one CTA per chunk, about one CTA per SM at
-// 2^19 pairs).
+// radix_sort_chunks_keys (the UPE "splitting" stage): a stable sort of
+// every chunk of (key, value) pairs by the unsigned value of key bits
+// [0, n_bits), n_bits = min(32, ceil(key_bits / radix_bits) * radix_bits):
+// the bits the TPU kernel's ceil(key_bits / radix_bits) LSD passes cover.
+// Any schedule of stable digit passes over exactly those bits gives the
+// same permutation, so this kernel takes its own: ceil(n_bits / 8) passes,
+// widths as even as they can be (7, 7, 6 over 20 bits). One CTA a chunk,
+// kWarps warps of 32 lanes, kItems items a lane, held in registers for
+// every pass: item j of lane l of warp w is item w * 32 * kItems + j * 32
+// + l of the chunk (warp-blocked, lane-striped), so loads, read-backs and
+// stores are coalesced and conflict-free. A pass ranks each item among
+// its warp's items of the same digit by one __ballot_sync per digit bit
+// (the lanes that share the digit), item rounds in order, so a lower
+// index ranks first; per-warp bucket counters in shared memory, one
+// block-wide exclusive scan of them in (bucket, warp) order, one scatter
+// into shared memory and a read-back in the arrangement's order. Items
+// past a chunk that is not a multiple of 32 * kWarps * kItems take the
+// last digit in every pass: they rank after every real item and are never
+// stored. Device memory sees each key and value read once and written
+// once; shared memory holds the scatter buffer and the counters only.
+// Bound: those bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -168,40 +179,145 @@ partition_hist_kernel(const int32_t* __restrict__ keys,
   }
 }
 
-// The UPE chunk sort: one CTA sorts one chunk, resident in shared memory
-// for all n_passes LSD digit passes (ping-pong between two buffers).
-template <bool kHasVals>
-__global__ void __launch_bounds__(kPartThreads)
+// The chunk sort's digit schedule: ceil(n_bits / 8) passes whose widths
+// differ by at most one bit, the wider first (kernels/radix_sort.py
+// chunk_digit_schedule mirrors it).
+__host__ __device__ __forceinline__ int sort_passes(int n_bits) {
+  return n_bits > 8 ? (n_bits + 7) / 8 : 1;
+}
+__host__ __device__ __forceinline__ int pass_width(int n_bits, int passes,
+                                                  int p) {
+  return n_bits / passes + (p < n_bits % passes ? 1 : 0);
+}
+
+// Exclusive scan, in place, of the per-warp bucket counters cnt[w * stride
+// + d] in (bucket d, warp w) order over nb buckets: each bucket's warps in
+// warp order, after every lower bucket. s_wsum [kWarps] is scratch. Has
+// one barrier inside; the caller puts one before and after.
+template <int kWarps>
+__device__ __forceinline__ void scan_counters(int32_t* cnt, int stride, int nb,
+                                              int32_t* s_wsum) {
+  constexpr int kThreads = kWarps * 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = nb * kWarps;
+  const int per = (m + kThreads - 1) / kThreads;
+  const int f0 = threadIdx.x * per;
+  int sum = 0;
+  for (int q = 0; q < per; ++q) {
+    const int f = f0 + q;
+    if (f < m) sum += cnt[(f % kWarps) * stride + f / kWarps];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  if (lane == 31) s_wsum[warp] = incl;
+  __syncthreads();
+  int run = incl - sum;
+  for (int w = 0; w < warp; ++w) run += s_wsum[w];
+  for (int q = 0; q < per; ++q) {
+    const int f = f0 + q;
+    if (f < m) {
+      int32_t* c = &cnt[(f % kWarps) * stride + f / kWarps];
+      const int x = *c;
+      *c = run;
+      run += x;
+    }
+  }
+}
+
+// The UPE chunk sort: one CTA sorts one chunk of at most 32 * kWarps *
+// kItems items, its keys (and values) in registers for every pass.
+template <int kWarps, int kItems, bool kHasVals>
+__global__ void __launch_bounds__(kWarps * 32)
 chunk_sort_kernel(const int32_t* __restrict__ keys,
                   const int32_t* __restrict__ vals,
                   int32_t* __restrict__ out_keys,
-                  int32_t* __restrict__ out_vals, int chunk, int n_passes,
-                  int radix_bits) {
+                  int32_t* __restrict__ out_vals, int chunk, int n_bits) {
+  constexpr int kThreads = kWarps * 32;
   extern __shared__ int32_t smem[];
-  const int n_buckets = 1 << radix_bits;
-  int32_t* k0 = smem;                                     // [chunk]
-  int32_t* k1 = smem + chunk;                             // [chunk]
-  int32_t* v0 = smem + 2 * chunk;                         // [chunk] (pairs)
-  int32_t* v1 = smem + 3 * chunk;                         // [chunk] (pairs)
-  int32_t* cnt = smem + (kHasVals ? 4 : 2) * chunk;       // [warps][B]
-  int32_t* total = cnt + kPartWarps * n_buckets;          // [B]
-  int32_t* base = total + n_buckets;                      // [B]
+  const int passes = sort_passes(n_bits);
+  const int stride = (1 << pass_width(n_bits, passes, 0)) + 1;  // padded
+  int32_t* cnt = smem;                                    // [kWarps][stride]
+  int32_t* s_wsum = cnt + kWarps * stride;                // [kWarps]
+  int32_t* s_k = s_wsum + kWarps;                         // [chunk]
+  int32_t* s_v = s_k + chunk;                             // [chunk] (pairs)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
   const size_t off = (size_t)blockIdx.x * (size_t)chunk;
+  const int i0 = warp * 32 * kItems + lane;  // item j is i0 + 32 j
+  int32_t* my = cnt + warp * stride;
 
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-    k0[i] = keys[off + i];
-    if (kHasVals) v0[i] = vals[off + i];
+  int32_t k[kItems], v[kItems];
+  int rank[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = i0 + 32 * j;
+    k[j] = i < chunk ? keys[off + i] : 0;
+    if (kHasVals) v[j] = i < chunk ? vals[off + i] : 0;
   }
-  __syncthreads();
-  for (int p = 0; p < n_passes; ++p) {
-    partition_tile<kHasVals>(k0, v0, k1, v1, cnt, total, base, chunk,
-                             p * radix_bits, n_buckets);
-    int32_t* t = k0; k0 = k1; k1 = t;
-    t = v0; v0 = v1; v1 = t;
+  int shift = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int width = pass_width(n_bits, passes, p);
+    const unsigned dmask = (1u << width) - 1u;
+    const int nb = 1 << width;
+    for (int b = lane; b < nb; b += 32) my[b] = 0;
+    // the lanes that share each item's digit: one ballot a digit bit, all
+    // items' ballots of a bit together
+    unsigned d[kItems], peers[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      d[j] = i0 + 32 * j < chunk ? ((uint32_t)k[j] >> shift) & dmask : dmask;
+      peers[j] = 0xffffffffu;
+    }
+    for (int b = 0; b < width; ++b) {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const unsigned bit = (d[j] >> b) & 1u;
+        const unsigned bal = __ballot_sync(0xffffffffu, bit);
+        peers[j] &= bit ? bal : ~bal;
+      }
+    }
+    __syncwarp();
+    // rank among the warp's items of the same digit, in index order
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const unsigned lower = peers[j] & lanes_below;
+      const int before = my[d[j]];
+      rank[j] = before + __popc(lower);
+      __syncwarp();
+      if (!lower) my[d[j]] = before + __popc(peers[j]);
+      __syncwarp();
+    }
+    __syncthreads();
+    scan_counters<kWarps>(cnt, stride, nb, s_wsum);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if (i0 + 32 * j < chunk) {
+        const int pos = my[d[j]] + rank[j];
+        s_k[pos] = k[j];
+        if (kHasVals) s_v[pos] = v[j];
+      }
+    }
+    __syncthreads();
+    if (p + 1 < passes) {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int i = i0 + 32 * j;
+        if (i < chunk) {
+          k[j] = s_k[i];
+          if (kHasVals) v[j] = s_v[i];
+        }
+      }
+    }
+    shift += width;
   }
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-    out_keys[off + i] = k0[i];
-    if (kHasVals) out_vals[off + i] = v0[i];
+  for (int i = threadIdx.x; i < chunk; i += kThreads) {
+    out_keys[off + i] = s_k[i];
+    if (kHasVals) out_vals[off + i] = s_v[i];
   }
 }
 
@@ -274,36 +390,93 @@ extern "C" int digit_partition_hist(const void* keys, const void* vals,
   return (int)cudaGetLastError();
 }
 
-extern "C" size_t chunk_sort_smem_bytes(int chunk, int n_buckets,
+// The chunk sort's instantiations, by the chunks they hold: (warps,
+// items a lane), the smallest that holds the chunk is launched
+// (kernels/radix_sort.py CHUNK_SORT_SHAPES mirrors it; pairs up to 16384).
+constexpr int kSortShapes[][2] = {{1, 4},  {4, 4},  {8, 8},  {16, 8},
+                                  {32, 8}, {32, 16}, {32, 32}};
+constexpr int kNumSortShapes = sizeof(kSortShapes) / sizeof(kSortShapes[0]);
+constexpr int kMaxPairChunk = 32 * 32 * 16;
+
+// the instantiation that sorts chunks of ``chunk``, or -1
+static int sort_shape(int chunk, bool has_vals) {
+  for (int s = 0; s < kNumSortShapes; ++s) {
+    const int cap = 32 * kSortShapes[s][0] * kSortShapes[s][1];
+    if (chunk <= cap) return has_vals && cap > kMaxPairChunk ? -1 : s;
+  }
+  return -1;
+}
+
+extern "C" size_t chunk_sort_smem_bytes(int chunk, int n_bits,
                                         int has_vals) {
-  return sizeof(int32_t) * ((size_t)(has_vals ? 4 : 2) * chunk +
-                            (size_t)(kPartWarps + 2) * n_buckets);
+  const int s = sort_shape(chunk, has_vals);
+  if (s < 0 || n_bits < 1 || n_bits > 32) return 0;
+  const int nb = 1 << pass_width(n_bits, sort_passes(n_bits), 0);
+  return sizeof(int32_t) * ((size_t)kSortShapes[s][0] * (nb + 2) +
+                            (size_t)(has_vals ? 2 : 1) * chunk);
+}
+
+template <int kWarps, int kItems, bool kHasVals>
+static int launch_chunk_sort(const void* keys, const void* vals,
+                             void* out_keys, void* out_vals, int n_chunks,
+                             int chunk, int n_bits, size_t smem,
+                             cudaStream_t s) {
+  auto* kernel = chunk_sort_kernel<kWarps, kItems, kHasVals>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  kernel<<<n_chunks, kWarps * 32, smem, s>>>(
+      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(vals),
+      static_cast<int32_t*>(out_keys), static_cast<int32_t*>(out_vals),
+      chunk, n_bits);
+  return (int)cudaGetLastError();
+}
+
+template <bool kHasVals>
+static int chunk_sort_by_shape(int shape, const void* keys, const void* vals,
+                               void* out_keys, void* out_vals, int n_chunks,
+                               int chunk, int n_bits, size_t smem,
+                               cudaStream_t s) {
+#define CHUNK_SORT_CASE(i, w, it)                                         \
+  case i:                                                                 \
+    return launch_chunk_sort<w, it, kHasVals>(keys, vals, out_keys,       \
+                                              out_vals, n_chunks, chunk,  \
+                                              n_bits, smem, s);
+  switch (shape) {
+    CHUNK_SORT_CASE(0, 1, 4)
+    CHUNK_SORT_CASE(1, 4, 4)
+    CHUNK_SORT_CASE(2, 8, 8)
+    CHUNK_SORT_CASE(3, 16, 8)
+    CHUNK_SORT_CASE(4, 32, 8)
+    CHUNK_SORT_CASE(5, 32, 16)
+  }
+  if constexpr (!kHasVals) {
+    if (shape == 6)
+      return launch_chunk_sort<32, 32, false>(keys, vals, out_keys, out_vals,
+                                              n_chunks, chunk, n_bits, smem,
+                                              s);
+  }
+#undef CHUNK_SORT_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int chunk_sort(const void* keys, const void* vals, void* out_keys,
                           void* out_vals, int n_chunks, int chunk,
-                          int n_passes, int radix_bits, void* stream) {
-  const size_t smem = chunk_sort_smem_bytes(chunk, 1 << radix_bits,
-                                            vals != nullptr);
+                          int n_bits, void* stream) {
+  const bool has_vals = vals != nullptr;
+  const size_t smem = chunk_sort_smem_bytes(chunk, n_bits, has_vals);
+  if (!smem || n_chunks < 0 || chunk < 1) return (int)cudaErrorInvalidValue;
+  if (!n_chunks) return (int)cudaSuccess;
+  const int shape = sort_shape(chunk, has_vals);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vals != nullptr) {
-    cudaFuncSetAttribute(chunk_sort_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    chunk_sort_kernel<true><<<n_chunks, kPartThreads, smem, s>>>(
-        static_cast<const int32_t*>(keys), static_cast<const int32_t*>(vals),
-        static_cast<int32_t*>(out_keys), static_cast<int32_t*>(out_vals),
-        chunk, n_passes, radix_bits);
-  } else {
-    cudaFuncSetAttribute(chunk_sort_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    chunk_sort_kernel<false><<<n_chunks, kPartThreads, smem, s>>>(
-        static_cast<const int32_t*>(keys), nullptr,
-        static_cast<int32_t*>(out_keys), nullptr, chunk, n_passes,
-        radix_bits);
-  }
-  return (int)cudaGetLastError();
+  return has_vals ? chunk_sort_by_shape<true>(shape, keys, vals, out_keys,
+                                              out_vals, n_chunks, chunk,
+                                              n_bits, smem, s)
+                  : chunk_sort_by_shape<false>(shape, keys, nullptr, out_keys,
+                                               nullptr, n_chunks, chunk,
+                                               n_bits, smem, s);
 }
 
 extern "C" int digit_rank_gather(const void* gbase, const void* incl,

@@ -46,16 +46,35 @@
 // kSortLog2 lookups against T * E compares all-pairs.
 //
 // filter_tree_lookup replaces repro/kernels/set_count.py filter_tree_lookup
-// (the Reindexer's equality comparators + OR tree): for each target, the
-// payload of the unique key equal to it, or -1, and a hit flag. All
-// pairs: one CTA owns kThreads * kPerThread targets, a thread keeps its
-// targets and their encoded results in registers while the CTA streams
-// every (key, payload + 1) tile of kTile through shared memory; a hit
-// encodes payload + 1, reduced by max (at most one key matches, so max is
-// the OR), and 0 means a miss, as in the TPU kernel. The ragged last tile
-// is padded as the twin (core/set_count.py filter_lookup, blocks of kTile)
-// pads it: INT32_MIN keys with payload 0. Bound: operations, T * E
-// compares.
+// (the Reindexer's equality comparators + OR tree): for each target,
+// enc = the max over keys equal to it of payload + 1 (int32 wrap-around),
+// 0 where none is; out = enc - 1 and hit where enc > 0, else -1. The TPU
+// kernel compares all pairs; here a hash build and probe, two launches in
+// the order of the wrapper's one call, O(E + T) work:
+//
+// filter_build_kernel (C entry filter_hash_build, which first fills the
+// caller's table with bytes 0xFF): one thread a key; an open-addressing
+// table of 2^bits int2 slots (key, enc), 2^bits >= 2 E, whose empty slot
+// is all ones (the key -1, the enc -1, a miss). A multiplicative hash
+// picks a group of kGroup slots (one 32-byte sector); a thread reads the
+// group from L2 in one go and claims the first empty slot by a 64-bit
+// atomicCAS of (key, payload + 1), or raises the enc of its key's slot by
+// atomicMax, then goes on group by group (linear probing over groups). A
+// set key never changes, so a key read as another's is final; a slot read
+// as empty is only tried. A key equal to the empty key -1 goes to the one
+// slot after the table. Integer max is order-independent, so the
+// encodings are the same bits on every launch (the layout is not), and
+// duplicate keys keep their largest payload + 1, as the max of the TPU
+// kernel's OR tree does.
+//
+// filter_probe_kernel (C entry filter_hash_probe): one thread a target,
+// reading its groups from its hash until its key or an empty slot. The
+// TPU kernel and the twin (core/set_count.py filter_lookup) pad a ragged
+// last block of keys (E % kTile != 0) with INT32_MIN keys of payload 0,
+// so there a target INT32_MIN takes at least enc 1. Bound: bytes, keys
+// and payloads read once, targets read once, out and hit written once;
+// the table (8 bytes a slot, 2-4 slots a key: 1 MiB at 65,536 keys,
+// 8 MiB at 282,624) stays in L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,7 +82,12 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kPerThread = 4;
-constexpr int kTile = 2048;  // filter_kernel's key tile
+constexpr int kTile = 2048;  // the key block the TPU kernel and twin pad to
+constexpr int kFilterThreads = 256;
+constexpr int32_t kFilterEmpty = -1;  // a key slot of bytes 0xFF
+constexpr unsigned long long kEmptySlot = ~0ull;  // (key -1, enc -1)
+constexpr int kGroupLog2 = 2;  // a probe reads 2^kGroupLog2 slots at once
+constexpr int kGroup = 1 << kGroupLog2;
 constexpr int kSortLog2 = 12;
 constexpr int kSortTile = 1 << kSortLog2;  // kernels/set_count.py SORT_TILE
 constexpr int kSortThreads = 512;
@@ -242,54 +266,83 @@ set_count_kernel(const int32_t* __restrict__ sorted,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-filter_kernel(const int32_t* __restrict__ keys,
-              const int32_t* __restrict__ payloads, int n_keys,
-              const int32_t* __restrict__ targets, int n_targets,
-              int32_t* __restrict__ out, uint8_t* __restrict__ hit) {
-  __shared__ __align__(16) int32_t s_k[kTile];
-  __shared__ __align__(16) int32_t s_p[kTile];
-  const int t0 = blockIdx.x * kThreads * kPerThread + threadIdx.x;
-  int32_t t[kPerThread];
-  int32_t enc[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int ti = t0 + j * kThreads;
-    t[j] = ti < n_targets ? targets[ti] : 0;
-    enc[j] = 0;
+// the group of key k in a table of 2^bits groups (Fibonacci hashing;
+// kernels/set_count.py filter_hash mirrors it)
+__device__ __forceinline__ unsigned filter_hash(int32_t k, int bits) {
+  return ((uint32_t)k * 0x9E3779B1u) >> (32 - bits);
+}
+
+__global__ void __launch_bounds__(kFilterThreads)
+filter_build_kernel(const int32_t* __restrict__ keys,
+                    const int32_t* __restrict__ payloads, int n_keys,
+                    int2* __restrict__ table, int bits) {
+  const int i = blockIdx.x * kFilterThreads + threadIdx.x;
+  if (i >= n_keys) return;
+  const int32_t k = keys[i];
+  // payload + 1 wraps in int32 as the reference's does
+  const int32_t enc = (int32_t)((uint32_t)payloads[i] + 1u);
+  if (k == kFilterEmpty) {
+    atomicMax(&table[1u << bits].y, enc);
+    return;
   }
-  for (int e0 = 0; e0 < n_keys; e0 += kTile) {
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool live = e0 + i < n_keys;
-      s_k[i] = live ? keys[e0 + i] : kInt32Min;
-      // payload + 1 wraps in int32 as the reference's does
-      s_p[i] = live ? (int32_t)((uint32_t)payloads[e0 + i] + 1u) : 1;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < kTile; i += 4) {
-      const int4 k = *reinterpret_cast<const int4*>(&s_k[i]);
-      const int4 p = *reinterpret_cast<const int4*>(&s_p[i]);
+  const unsigned long long mine =
+      (unsigned long long)(uint32_t)enc << 32 | (uint32_t)k;
+  const unsigned gmask = (1u << (bits - kGroupLog2)) - 1u;
+  for (unsigned g = filter_hash(k, bits - kGroupLog2);;
+       g = (g + 1u) & gmask) {
+    int2* grp = table + (size_t)g * kGroup;
+    const int4 a = __ldcg(reinterpret_cast<const int4*>(grp));
+    const int4 b = __ldcg(reinterpret_cast<const int4*>(grp) + 1);
+    const int32_t seen[kGroup] = {a.x, a.z, b.x, b.z};
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        int32_t a = enc[j];
-        a = max(a, k.x == t[j] ? p.x : 0);
-        a = max(a, k.y == t[j] ? p.y : 0);
-        a = max(a, k.z == t[j] ? p.z : 0);
-        a = max(a, k.w == t[j] ? p.w : 0);
-        enc[j] = a;
+    for (int q = 0; q < kGroup; ++q) {
+      int32_t key = seen[q];
+      if (key == kFilterEmpty) {
+        const unsigned long long prev = atomicCAS(
+            reinterpret_cast<unsigned long long*>(&grp[q]), kEmptySlot, mine);
+        if (prev == kEmptySlot) return;
+        key = (int32_t)(uint32_t)prev;  // taken meanwhile
+      }
+      if (key == k) {
+        atomicMax(&grp[q].y, enc);
+        return;
       }
     }
-    __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(kFilterThreads)
+filter_probe_kernel(const int2* __restrict__ table, int bits, bool ragged,
+                    const int32_t* __restrict__ targets, int n_targets,
+                    int32_t* __restrict__ out, uint8_t* __restrict__ hit) {
+  const int i = blockIdx.x * kFilterThreads + threadIdx.x;
+  if (i >= n_targets) return;
+  const int32_t t = targets[i];
+  int32_t enc = -1;
+  if (t == kFilterEmpty) {
+    enc = table[1u << bits].y;
+  } else {
+    const unsigned gmask = (1u << (bits - kGroupLog2)) - 1u;
+    for (unsigned g = filter_hash(t, bits - kGroupLog2);;
+         g = (g + 1u) & gmask) {
+      const int4* grp =
+          reinterpret_cast<const int4*>(table + (size_t)g * kGroup);
+      const int4 a = grp[0], b = grp[1];
+      const int32_t key[kGroup] = {a.x, a.z, b.x, b.z};
+      const int32_t val[kGroup] = {a.y, a.w, b.y, b.w};
+      bool done = false;  // the first slot holding t or empty ends it
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int ti = t0 + j * kThreads;
-    if (ti < n_targets) {
-      out[ti] = enc[j] > 0 ? enc[j] - 1 : -1;
-      hit[ti] = enc[j] > 0;
+      for (int q = kGroup - 1; q >= 0; --q)
+        if (key[q] == t || key[q] == kFilterEmpty) {
+          done = true;
+          enc = key[q] == t ? val[q] : -1;
+        }
+      if (done) break;
     }
   }
+  if (ragged && t == kInt32Min) enc = max(enc, 1);  // the padding's key
+  out[i] = enc > 0 ? enc - 1 : -1;
+  hit[i] = enc > 0;
 }
 
 }  // namespace
@@ -339,15 +392,47 @@ extern "C" int set_count_count(const void* sorted, long long sorted_len,
   return (int)cudaGetLastError();
 }
 
-extern "C" int filter_tree_lookup(const void* keys, const void* payloads,
-                                  int n_keys, const void* targets,
-                                  int n_targets, void* out, void* hit,
-                                  void* stream) {
-  const int per_cta = kThreads * kPerThread;
-  filter_kernel<<<(n_targets + per_cta - 1) / per_cta, kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+// log2 of the filter table's slots for n_keys keys: 2^bits >= 2 n_keys,
+// at least two groups (kernels/set_count.py filter_table_bits mirrors it)
+static int filter_bits(int n_keys) {
+  int bits = kGroupLog2 + 1;
+  while ((1LL << bits) < 2LL * n_keys) ++bits;
+  return bits;
+}
+
+// the table (``table_len`` int2 slots) holds 2^bits + 1 slots for n_keys
+static bool filter_table_fits(int n_keys, long long table_len) {
+  return n_keys >= 0 && table_len >= (1LL << filter_bits(n_keys)) + 1;
+}
+
+extern "C" int filter_hash_build(const void* keys, const void* payloads,
+                                 int n_keys, void* table, long long table_len,
+                                 void* stream) {
+  if (!filter_table_fits(n_keys, table_len)) return (int)cudaErrorInvalidValue;
+  const int bits = filter_bits(n_keys);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = cudaMemsetAsync(
+      table, 0xFF, sizeof(int2) * ((size_t(1) << bits) + 1), s);
+  if (rc != cudaSuccess) return (int)rc;
+  if (!n_keys) return (int)cudaSuccess;
+  filter_build_kernel<<<(n_keys + kFilterThreads - 1) / kFilterThreads,
+                        kFilterThreads, 0, s>>>(
       static_cast<const int32_t*>(keys), static_cast<const int32_t*>(payloads),
-      n_keys, static_cast<const int32_t*>(targets), n_targets,
+      n_keys, static_cast<int2*>(table), bits);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int filter_hash_probe(const void* table, long long table_len,
+                                 int n_keys, const void* targets,
+                                 int n_targets, void* out, void* hit,
+                                 void* stream) {
+  if (!filter_table_fits(n_keys, table_len) || n_targets < 0)
+    return (int)cudaErrorInvalidValue;
+  if (!n_targets) return (int)cudaSuccess;
+  filter_probe_kernel<<<(n_targets + kFilterThreads - 1) / kFilterThreads,
+                        kFilterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int2*>(table), filter_bits(n_keys),
+      n_keys % kTile != 0, static_cast<const int32_t*>(targets), n_targets,
       static_cast<int32_t*>(out), static_cast<uint8_t*>(hit));
   return (int)cudaGetLastError();
 }

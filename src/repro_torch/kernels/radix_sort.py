@@ -35,9 +35,15 @@ _SIGNATURES = {
     "digit_rank_gather": (ctypes.c_int, (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P)),
     "digit_partition_smem_bytes": (ctypes.c_size_t, (_I, _I, _I)),
-    "chunk_sort": (ctypes.c_int, (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "chunk_sort": (ctypes.c_int, (_P, _P, _P, _P, _I, _I, _I, _P)),
     "chunk_sort_smem_bytes": (ctypes.c_size_t, (_I, _I, _I)),
 }
+# the chunk-sort kernel's instantiations, (warps, items a lane), by the
+# chunks they hold (csrc/digit_pass.cu kSortShapes): the smallest that
+# holds a chunk sorts it; pairs take at most MAX_PAIR_CHUNK a chunk
+CHUNK_SORT_SHAPES = ((1, 4), (4, 4), (8, 8), (16, 8), (32, 8), (32, 16),
+                     (32, 32))
+MAX_PAIR_CHUNK = 32 * 32 * 16
 
 
 def _lib():
@@ -57,10 +63,46 @@ def partition_smem_bytes(tile: int, n_buckets: int, has_vals: bool) -> int:
     return 4 * ((2 if has_vals else 1) * tile + (8 + 2) * n_buckets)
 
 
-def chunk_sort_smem_bytes(chunk: int, n_buckets: int, has_vals: bool) -> int:
-    """Dynamic shared memory of one chunk-sort CTA: the chunk in and out,
-    plus the partition's counters (mirrors the C side)."""
-    return 4 * ((4 if has_vals else 2) * chunk + (8 + 2) * n_buckets)
+def chunk_sort_bits(key_bits: int, radix_bits: int) -> int:
+    """The key bits [0, B) a chunk sort orders by: those that the
+    reference's ``ceil(key_bits / radix_bits)`` LSD passes of
+    ``radix_bits`` cover, at most 32."""
+    return min(32, max(1, -(-key_bits // radix_bits)) * radix_bits)
+
+
+def chunk_digit_schedule(n_bits: int) -> list[tuple[int, int]]:
+    """The chunk-sort kernel's own digit passes over key bits [0, n_bits),
+    (shift, width) each: ceil(n_bits / 8) passes whose widths differ by at
+    most one bit, the wider first (csrc/digit_pass.cu pass_width)."""
+    passes = max(1, -(-n_bits // 8))
+    out, shift = [], 0
+    for p in range(passes):
+        width = n_bits // passes + (p < n_bits % passes)
+        out.append((shift, width))
+        shift += width
+    return out
+
+
+def chunk_sort_shape(chunk: int, has_vals: bool) -> tuple[int, int] | None:
+    """The (warps, items a lane) instantiation that sorts chunks of
+    ``chunk``, or None when one CTA cannot hold it."""
+    for warps, items in CHUNK_SORT_SHAPES:
+        cap = 32 * warps * items
+        if chunk <= cap:
+            return None if has_vals and cap > MAX_PAIR_CHUNK else (warps,
+                                                                   items)
+    return None
+
+
+def chunk_sort_smem_bytes(chunk: int, n_bits: int, has_vals: bool) -> int:
+    """Dynamic shared memory of one chunk-sort CTA: each warp's digit
+    counters and the scatter buffer of the chunk (mirrors the C side); 0
+    when no instantiation holds the chunk."""
+    shape = chunk_sort_shape(chunk, has_vals)
+    if shape is None:
+        return 0
+    nb = 1 << chunk_digit_schedule(n_bits)[0][1]
+    return 4 * (shape[0] * (nb + 2) + (2 if has_vals else 1) * chunk)
 
 
 def chunk_sort(keys: torch.Tensor, vals: torch.Tensor | None, chunk: int,
@@ -68,33 +110,36 @@ def chunk_sort(keys: torch.Tensor, vals: torch.Tensor | None, chunk: int,
     """Stable LSD radix sort of every ``chunk`` block of (keys, vals):
     ``ceil(key_bits / radix_bits)`` digit passes. keys (vals) [N] int32,
     N % chunk == 0; ``vals=None`` sorts keys alone. Returns (keys, vals or
-    None)."""
+    None). On the card one launch sorts every chunk by the same key bits
+    [0, ``chunk_sort_bits``) in the kernel's own digit passes
+    (``chunk_digit_schedule``), the chunk in registers throughout."""
     n = keys.shape[0]
     if chunk <= 0 or n % chunk:
         raise ValueError(f"size {n} is not a multiple of chunk {chunk}")
     if not keys.is_cuda:
         return _chunk_sort(keys, vals, chunk, key_bits, radix_bits)
     _check_cuda_i32(keys, *(() if vals is None else (vals,)))
-    if not 1 <= radix_bits <= MAX_RADIX_BITS:
-        raise ValueError(f"radix_bits {radix_bits} not in [1, "
-                         f"{MAX_RADIX_BITS}]: the kernel takes at most 256 "
-                         "buckets")
-    nb = 1 << radix_bits
-    smem = chunk_sort_smem_bytes(chunk, nb, vals is not None)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"chunk {chunk} needs {smem} bytes of shared "
-                         f"memory; one CTA has {MAX_SMEM_BYTES}")
+    if radix_bits < 1:
+        raise ValueError(f"radix_bits {radix_bits} < 1")
+    n_bits = chunk_sort_bits(key_bits, radix_bits)
+    smem = chunk_sort_smem_bytes(chunk, n_bits, vals is not None)
+    if not smem:
+        most = MAX_PAIR_CHUNK if vals is not None else 32 * max(
+            w * i for w, i in CHUNK_SORT_SHAPES)
+        raise ValueError(f"chunk {chunk} does not fit one CTA's registers "
+                         f"and shared memory: it holds at most {most} "
+                         f"{'pairs' if vals is not None else 'keys'}")
     out_k = torch.empty_like(keys)
     out_v = None if vals is None else torch.empty_like(vals)
     if n:
         lib = _lib()
-        assert lib.chunk_sort_smem_bytes(chunk, nb, vals is not None) == smem
+        assert lib.chunk_sort_smem_bytes(chunk, n_bits,
+                                         vals is not None) == smem
         chunk_sort.launches += 1
         _build.check(lib.chunk_sort(
             keys.data_ptr(), None if vals is None else vals.data_ptr(),
             out_k.data_ptr(), None if out_v is None else out_v.data_ptr(),
-            n // chunk, chunk, max(1, -(-key_bits // radix_bits)), radix_bits,
-            _build.stream_of(keys)), "chunk_sort")
+            n // chunk, chunk, n_bits, _build.stream_of(keys)), "chunk_sort")
     return out_k, out_v
 
 

@@ -8,8 +8,9 @@ blocked compare-reduces ``core.set_count.count_less_than`` and
 ``core.set_count.filter_lookup``, on CPU tensors. On the card the count
 sorts tiles of ``SORT_TILE`` elements into the scratch of
 ``set_count_scratch`` and bisects only the tiles that straddle a target,
-for any element order. ``count_fn`` is the adapter
-``build_pointer_array(count_fn=...)`` takes.
+for any element order; the filter builds a hash table of the keys in the
+scratch of ``filter_scratch`` and probes it once a target. ``count_fn``
+is the adapter ``build_pointer_array(count_fn=...)`` takes.
 """
 from __future__ import annotations
 
@@ -31,8 +32,12 @@ _SIGNATURES = {
     "set_count_tile_sort": (ctypes.c_int, (_P, _I, _P, _L, _P, _L, _P, _P)),
     "set_count_count": (ctypes.c_int, (_P, _L, _P, _L, _I, _P, _I, _P, _P,
                                        _P)),
-    "filter_tree_lookup": (ctypes.c_int, (_P, _P, _I, _P, _I, _P, _P, _P)),
+    "filter_hash_build": (ctypes.c_int, (_P, _P, _I, _P, _L, _P)),
+    "filter_hash_probe": (ctypes.c_int, (_P, _L, _I, _P, _I, _P, _P, _P)),
 }
+FILTER_HASH_MUL = 0x9E3779B1  # csrc/set_count.cu filter_hash
+FILTER_EMPTY = -1  # the key of an empty slot: bytes 0xFF
+FILTER_GROUP_LOG2 = 2  # a probe reads 2^2 slots (csrc/set_count.cu kGroup)
 
 
 def set_count_scratch(n_elems: int, device) -> tuple[torch.Tensor,
@@ -97,14 +102,56 @@ def set_count_less(elements: torch.Tensor, targets: torch.Tensor
 set_count_less.launches = 0
 
 
+def filter_table_bits(n_keys: int) -> int:
+    """log2 of the filter table's slots for ``n_keys`` keys: 2^bits >=
+    2 n_keys, at least two groups (csrc/set_count.cu filter_bits)."""
+    return max(FILTER_GROUP_LOG2 + 1, (2 * n_keys - 1).bit_length())
+
+
+def filter_hash(keys: torch.Tensor, bits: int) -> torch.Tensor:
+    """The group of each key in a table of 2^bits groups (int64), as
+    csrc/set_count.cu filter_hash computes it; its first slot is the group
+    times 2^FILTER_GROUP_LOG2."""
+    u = keys.to(torch.int64) & 0xFFFFFFFF
+    return ((u * FILTER_HASH_MUL) & 0xFFFFFFFF) >> (32 - bits)
+
+
+def filter_scratch(n_keys: int, device) -> torch.Tensor:
+    """The scratch of one ``filter_tree_lookup`` call on ``n_keys`` keys:
+    2^bits (key, enc) slots and the empty key's slot after them, int32
+    [2 * (2^bits + 1)]."""
+    return torch.empty(2 * ((1 << filter_table_bits(n_keys)) + 1),
+                       dtype=torch.int32, device=device)
+
+
+def build_c(lib, keys, payloads, table):
+    """``csrc/set_count.cu``'s build entry (fill, then insert every key)
+    on these tensors (the return code)."""
+    return lib.filter_hash_build(
+        keys.data_ptr(), payloads.data_ptr(), keys.shape[0],
+        table.data_ptr(), table.shape[0] // 2, _build.stream_of(table))
+
+
+def probe_c(lib, n_keys, table, targets, out, hit):
+    """``csrc/set_count.cu``'s probe entry on a table built from
+    ``n_keys`` keys (the return code)."""
+    return lib.filter_hash_probe(
+        table.data_ptr(), table.shape[0] // 2, n_keys, targets.data_ptr(),
+        targets.shape[0], out.data_ptr(), hit.data_ptr(),
+        _build.stream_of(out))
+
+
 def filter_tree_lookup(keys: torch.Tensor, payloads: torch.Tensor,
                        targets: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """SCR Reindexer mode: (payload of the key equal to each target, or -1;
     hit flag). keys and payloads [E] int32 with unique keys, targets [T]
-    int32; any E and T. The kernel pads its ragged last tile of keys with
-    INT32_MIN keys of payload 0, as the twin and the reference pad to
-    their blocks."""
+    int32; any E and T. Duplicate keys give their largest payload + 1,
+    minus 1, as the twin's max does; a ragged key count (E % 2048 != 0)
+    counts as padded with INT32_MIN keys of payload 0, as the twin and the
+    reference pad to their blocks. On the card two kernels, each counted
+    in ``launches``: the first builds a hash table of the keys in the
+    scratch, the second probes it once a target."""
     if keys.shape != payloads.shape:
         raise ValueError("filter_tree_lookup takes keys and payloads of one "
                          "shape")
@@ -118,11 +165,15 @@ def filter_tree_lookup(keys: torch.Tensor, payloads: torch.Tensor,
     out = torch.empty_like(targets)
     hit = torch.empty(targets.shape, dtype=torch.bool, device=targets.device)
     if targets.shape[0]:
+        lib = _build.load("set_count", _SIGNATURES)
+        table = filter_scratch(keys.shape[0], keys.device)
+        if keys.shape[0]:
+            filter_tree_lookup.launches += 1
+        _build.check(build_c(lib, keys, payloads, table),
+                     "filter_tree_lookup (build)")
         filter_tree_lookup.launches += 1
-        _build.check(_build.load("set_count", _SIGNATURES).filter_tree_lookup(
-            keys.data_ptr(), payloads.data_ptr(), keys.shape[0],
-            targets.data_ptr(), targets.shape[0], out.data_ptr(),
-            hit.data_ptr(), _build.stream_of(targets)), "filter_tree_lookup")
+        _build.check(probe_c(lib, keys.shape[0], table, targets, out, hit),
+                     "filter_tree_lookup (probe)")
     return out, hit
 
 

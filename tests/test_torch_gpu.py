@@ -28,6 +28,7 @@ from repro_torch.core import costmodel as tcm  # noqa: E402
 from repro_torch.core import graph as tg  # noqa: E402
 from repro_torch.core import pipeline as tp  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.core.set_count import filter_lookup  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import prefix_partition as tpp  # noqa: E402
@@ -198,14 +199,34 @@ def test_serve_path_on_card_equals_cpu(cuda):
     assert all(counts[k] > 0 for k in SLICE_KERNELS), counts
 
 
+def _chunk_sort_keys(kind, n, key_bits, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "equal":  # one digit everywhere: only stability orders
+        return torch.full((n,), 77, dtype=torch.int32)
+    if kind == "negative":
+        return torch.from_numpy(rng.integers(-2**31, 2**31, n,
+                                             dtype=np.int64).astype(np.int32))
+    keys = rng.integers(0, 1 << key_bits, n).astype(np.int32)
+    if kind == "high_bits":  # bits above key_bits, which the sort ignores
+        keys |= (rng.integers(0, 1 << (31 - key_bits), n) << key_bits
+                 ).astype(np.int32)
+    return torch.from_numpy(keys)
+
+
 @pytest.mark.parametrize("rb", [2, 4, 8])
 @pytest.mark.parametrize("with_vals", [False, True])
 @pytest.mark.parametrize("n,chunk,key_bits", [(512, 128, 12), (4096, 64, 7),
-                                              (1 << 19, 4096, 19)])
+                                              (1 << 19, 4096, 19),
+                                              (9000, 3000, 19),
+                                              (300, 100, 12)])
+@pytest.mark.parametrize("kind", ["uniform", "high_bits", "negative",
+                                  "equal"])
 def test_chunk_sort_kernel_equals_twin(cuda, rb, with_vals, n, chunk,
-                                       key_bits):
-    keys = torch.from_numpy(np.random.default_rng(n + rb).integers(
-        0, 1 << key_bits, n).astype(np.int32))
+                                       key_bits, kind):
+    """Every chunk's kernel sort equals the twin's, keys with bits above
+    key_bits, negative keys, all-equal keys and chunks that are no multiple
+    of the kernel's 32 x warps x items (3000, 100) included."""
+    keys = _chunk_sort_keys(kind, n, key_bits, seed=n + rb)
     vals = torch.arange(n, dtype=torch.int32) if with_vals else None
     want = trs.chunk_sort(keys, vals, chunk, key_bits, rb)
     got = trs.chunk_sort(keys.to(cuda), None if vals is None
@@ -594,21 +615,55 @@ def test_prefix_partition_kernel_equals_twin(cuda, n, block, p):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("e,t", [(2048, 256), (4096, 128), (3000, 300),
-                                 (65536, 4096)])
-def test_filter_tree_lookup_kernel_equals_twin(cuda, e, t):
-    rng = np.random.default_rng(e + t)
-    keys = rng.permutation(10 * e)[:e].astype(np.int32)
+def _filter_inputs(kind, e, t, seed):
+    """(keys, payloads, targets): a quarter of the targets hit, the last is
+    INT32_MIN (it hits the padding of a ragged key count)."""
+    rng = np.random.default_rng(seed)
+    if kind == "duplicates":
+        keys = rng.integers(0, max(1, e // 4), e).astype(np.int32)
+    elif kind == "collide":  # every key starts at group 0 of the table
+        bits = tsc.filter_table_bits(e) - tsc.FILTER_GROUP_LOG2
+        cand = torch.arange(1, 1 << (bits + 12), dtype=torch.int64)
+        keys = cand[tsc.filter_hash(cand, bits) == 0][:e].numpy().astype(
+            np.int32)
+        keys = rng.permutation(keys)
+    else:
+        keys = rng.permutation(10 * e)[:e].astype(np.int32)
+    if kind == "int32_min" and e:
+        keys[rng.permutation(e)[:2]] = [-2**31, -1][:min(2, e)]
     pays = rng.integers(-5, 1 << 30, e).astype(np.int32)
-    tgts = rng.integers(0, 10 * e, t).astype(np.int32)
-    tgts[: t // 4] = keys[rng.integers(0, e, t // 4)]
-    tgts[-1] = -2**31  # hits the INT32_MIN padding of a ragged key count
-    args = [torch.from_numpy(a) for a in (keys, pays, tgts)]
-    want = tsc.filter_tree_lookup(*args)
+    if kind == "payload_max" and e:
+        pays[rng.integers(0, e, e // 4 + 1)] = 2**31 - 1  # wraps: a miss
+        pays[rng.integers(0, e, e // 8 + 1)] = -5
+    tgts = rng.integers(-10, 10 * e + 20, t).astype(np.int32)
+    if e:
+        tgts[: t // 4] = keys[rng.integers(0, e, t // 4)]
+    tgts[-3:] = [2**31 - 1, -1, -2**31]
+    return [torch.from_numpy(a) for a in (keys, pays, tgts)]
+
+
+@pytest.mark.parametrize("kind,e,t", [
+    ("unique", 2048, 256), ("unique", 4096, 128), ("unique", 3000, 300),
+    ("unique", 65536, 4096), ("duplicates", 3000, 300),
+    ("duplicates", 65536, 4096), ("collide", 256, 300),
+    ("collide", 2048, 300), ("int32_min", 3000, 300),
+    ("int32_min", 2048, 256), ("payload_max", 65536, 4096),
+    ("unique", 0, 300), ("unique", 1, 5), ("unique", 282_624, 563_200)])
+def test_filter_tree_lookup_kernel_equals_twin(cuda, kind, e, t):
+    """The hash build and probe equal the twin bit for bit: duplicate keys
+    (the largest payload), keys that all start at one slot, INT32_MIN and
+    -1 keys, payloads INT32_MAX (a miss) and -5, E = 0 and 1, and a
+    request's reindex shape (the twin runs on the card there); two launches
+    a call."""
+    args = _filter_inputs(kind, e, t, seed=e + t + len(kind))
+    big = e * t > 1 << 28  # 1.6e11 compares: the twin runs on the card
+    want = filter_lookup(*(a.to(cuda) if big else a for a in args))
+    before = tsc.filter_tree_lookup.launches
     got = tsc.filter_tree_lookup(*(a.to(cuda) for a in args))
     torch.cuda.synchronize()
+    assert tsc.filter_tree_lookup.launches - before == (2 if e else 1)
     for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+        assert torch.equal(g.cpu(), w.cpu())
 
 
 def test_partition_and_filter_refuse_what_they_cannot_take(cuda):

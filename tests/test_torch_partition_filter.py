@@ -4,7 +4,9 @@ the reference's Pallas kernel (interpret mode, through ``ops``) and its
 numpy oracle (``kernels/ref.py``) bit for bit, at the shapes of
 ``tests/test_kernels.py`` and at a few ragged and edge cases; the port's
 ``core.set_count.filter_lookup`` equals the reference's plain
-``filter_lookup``; and ``gather_sources_from_counts`` takes a leading
+``filter_lookup``; a plain emulation of the card's hash build and probe
+(``csrc/set_count.cu``) equals both on duplicate, colliding and extreme
+keys and payloads; and ``gather_sources_from_counts`` takes a leading
 batch axis as a stack of independent partitions."""
 import numpy as np
 import pytest
@@ -108,3 +110,147 @@ def test_batched_router_equals_per_partition_router():
     for i in range(5):
         assert torch.equal(got[i], gather_sources_from_counts(incl[i],
                                                               base[i]))
+
+
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def _wrap(x):
+    """int32 wrap-around of a Python int."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _hash_filter_emulated(keys, pays, tgts):
+    """The card's filter, one key and one target at a time: a table of
+    2^bits (key, enc) slots filled with -1, keys inserted by linear probing
+    from the first slot of their ``filter_hash`` group with a max of
+    payload + 1 (the empty key -1 in the slot after the table), targets
+    probed until their key or an empty slot, a target INT32_MIN raised to
+    enc 1 when the key count is ragged (the twin's INT32_MIN padding)."""
+    e = len(keys)
+    bits = tsc.filter_table_bits(e)
+    n = 1 << bits
+    g = tsc.FILTER_GROUP_LOG2
+    assert tsc.filter_scratch(e, "cpu").numel() == 2 * (n + 1)
+    slot_key, slot_enc = [-1] * n, [-1] * (n + 1)
+    first = (tsc.filter_hash(torch.from_numpy(np.asarray(keys, np.int32)),
+                             bits - g) << g).tolist()
+    for k, p, s in zip(keys.tolist(), pays.tolist(), first):
+        if k == tsc.FILTER_EMPTY:
+            s = n
+        else:
+            while slot_key[s] not in (tsc.FILTER_EMPTY, k):
+                s = (s + 1) % n
+            slot_key[s] = k
+        slot_enc[s] = max(slot_enc[s], _wrap(p + 1))
+    out, hit = [], []
+    first = (tsc.filter_hash(torch.from_numpy(np.asarray(tgts, np.int32)),
+                             bits - g) << g).tolist()
+    for t, s in zip(tgts.tolist(), first):
+        if t == tsc.FILTER_EMPTY:
+            enc = slot_enc[n]
+        else:
+            while slot_key[s] not in (tsc.FILTER_EMPTY, t):
+                s = (s + 1) % n
+            enc = slot_enc[s] if slot_key[s] == t else -1
+        if e % 2048 and t == INT32_MIN:
+            enc = max(enc, 1)
+        out.append(enc - 1 if enc > 0 else -1)
+        hit.append(enc > 0)
+    return np.array(out, np.int32), np.array(hit)
+
+
+def _colliding_keys(e, seed):
+    """``e`` distinct keys whose group is 0 in the table for ``e`` keys:
+    every insert and probe walks the same run."""
+    bits = tsc.filter_table_bits(e) - tsc.FILTER_GROUP_LOG2
+    cand = torch.arange(1, 1 << (bits + 12), dtype=torch.int64)
+    same = cand[tsc.filter_hash(cand, bits) == 0][:e]
+    assert same.numel() == e
+    return np.random.default_rng(seed).permutation(same.numpy()).astype(
+        np.int32)
+
+
+def _filter_case(kind, e, seed):
+    """(keys, payloads, targets) of one emulation case: a quarter of the
+    targets hit, and INT32_MIN, -1 and INT32_MAX are among the targets."""
+    rng = np.random.default_rng(seed)
+    if kind == "collide":
+        keys = _colliding_keys(e, seed)
+    elif kind == "duplicates":
+        keys = rng.integers(0, max(1, e // 4), e).astype(np.int32)
+    else:
+        keys = rng.permutation(10 * e + 10)[:e].astype(np.int32)
+    if kind == "extreme_keys" and e:
+        keys[rng.permutation(e)[:3]] = [INT32_MIN, -1, INT32_MAX][:min(3, e)]
+    pays = rng.integers(-5, 1 << 30, e).astype(np.int32)
+    if e:
+        pays[rng.integers(0, e, max(1, e // 8))] = INT32_MAX  # wraps: a miss
+        pays[rng.integers(0, e, max(1, e // 8))] = -5
+    t = 300
+    tgts = rng.integers(-10, 10 * e + 20, t).astype(np.int32)
+    if e:
+        tgts[: t // 4] = keys[rng.integers(0, e, t // 4)]
+    tgts[-3:] = [INT32_MIN, -1, INT32_MAX]
+    return keys, pays, tgts
+
+
+def _reference_kernel(keys, pays, tgts):
+    """The reference's Pallas filter (interpret mode) on the keys padded
+    to its 2048 block (INT32_MIN, payload 0) and the targets to its 256."""
+    e, t = len(keys), len(tgts)
+    size, tsize = e + (-e) % 2048, t + (-t) % 256
+    k = np.full(size, INT32_MIN, np.int32)
+    p = np.zeros(size, np.int32)
+    k[:e], p[:e] = keys, pays
+    tg = np.zeros(tsize, np.int32)
+    tg[:t] = tgts
+    jp, jh = ops.filter_tree_lookup(jnp.asarray(k), jnp.asarray(p),
+                                    jnp.asarray(tg))
+    return np.asarray(jp)[:t], np.asarray(jh)[:t]
+
+
+@pytest.mark.parametrize("kind,e", [
+    ("unique", 1), ("unique", 2048), ("unique", 3000), ("unique", 0),
+    ("duplicates", 3000), ("duplicates", 2048), ("collide", 64),
+    ("collide", 2048), ("extreme_keys", 3000), ("extreme_keys", 2048),
+    ("extreme_keys", 1)])
+def test_filter_hash_emulation_matches_reference_and_twin(kind, e):
+    """The card's algorithm, emulated one key and one target at a time,
+    equals the twin and the reference's kernel (its plain ``filter_lookup``
+    where E = 0 gives the kernel no block) bit for bit: duplicate keys (max
+    payload), keys that all start at one slot, INT32_MIN / -1 / INT32_MAX
+    keys and targets, payloads INT32_MAX (a miss) and -5, ragged and whole
+    key blocks."""
+    keys, pays, tgts = _filter_case(kind, e, seed=e + len(kind))
+    got = _hash_filter_emulated(keys, pays, tgts)
+    twin = tsc.filter_tree_lookup(*map(torch.from_numpy, (keys, pays, tgts)))
+    if e:
+        want = _reference_kernel(keys, pays, tgts)
+    else:
+        want = j_filter_lookup(jnp.asarray(keys), jnp.asarray(pays),
+                               jnp.asarray(tgts))
+    for g, tw, w in zip(got, twin, want):
+        np.testing.assert_array_equal(g, tw.numpy())
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert (int(got[1].sum()) > 0) == (e > 0)
+
+
+def test_filter_mirrors_the_kernel_source():
+    """The Python mirrors of the hash, the table size and the empty key
+    are the ones csrc/set_count.cu uses."""
+    import pathlib
+    src = (pathlib.Path(tsc.__file__).parents[1] / "csrc" / "set_count.cu"
+           ).read_text()
+    assert f"0x{tsc.FILTER_HASH_MUL:X}u" in src
+    assert f"kFilterEmpty = {tsc.FILTER_EMPTY};" in src
+    assert "(1LL << bits) < 2LL * n_keys" in src
+    assert f"kGroupLog2 = {tsc.FILTER_GROUP_LOG2};" in src
+    for e in (0, 1, 2, 3, 4, 5, 1000, 2048, 282_624):
+        bits = tsc.filter_table_bits(e)
+        assert bits >= 3 and (1 << bits) >= 2 * e
+        assert bits == 3 or (1 << (bits - 1)) < 2 * e
+    # the top bits of key * 0x9E3779B1 mod 2^32
+    k = torch.tensor([0, 1, -1, INT32_MIN, INT32_MAX], dtype=torch.int32)
+    want = [((x % 2**32) * 0x9E3779B1 % 2**32) >> 20 for x in k.tolist()]
+    assert tsc.filter_hash(k, 12).tolist() == want

@@ -17,11 +17,14 @@ from repro.core import costmodel as jcm  # noqa: E402
 from repro.core.set_partition import (digit_relocation_sources,  # noqa: E402
                                       rank_gather_sources)
 from repro.kernels import common as jcommon  # noqa: E402
-from repro.kernels.radix_sort import global_digit_pass  # noqa: E402
+from repro.kernels.radix_sort import (global_digit_pass,  # noqa: E402
+                                      radix_sort_chunks,
+                                      radix_sort_chunks_keys)
 from repro_torch.core import costmodel as tcm  # noqa: E402
 from repro_torch.core import graph as tg  # noqa: E402
 from repro_torch.core import pipeline as tp  # noqa: E402
 from repro_torch.core.ordering import stable_sort_by_key  # noqa: E402
+from repro_torch.core.set_partition import partition_tiles  # noqa: E402
 from repro_torch.kernels import common as tcommon  # noqa: E402
 from repro_torch.kernels import radix_sort as trs  # noqa: E402
 
@@ -102,6 +105,125 @@ def test_rank_gather_twin_matches_reference(rb):
     want = rank_gather_sources(*(jnp.asarray(x.numpy()) for x in
                                  (gbase, incl, excl, lbase)), tile)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _sort_by_schedule(keys, vals, chunk, schedule):
+    """Stable LSD sort of every chunk in the given (shift, width) digit
+    passes: the twin's building block (``partition_tiles`` and one gather
+    a pass) on the card kernel's schedule."""
+    k = keys.reshape(-1, chunk)
+    v = None if vals is None else vals.reshape(-1, chunk)
+    for shift, width in schedule:
+        digit = (k >> shift) & ((1 << width) - 1)
+        src = partition_tiles(digit, 1 << width)[0].to(torch.int64)
+        k = k.gather(1, src)
+        v = None if v is None else v.gather(1, src)
+    return k.reshape(-1), None if v is None else v.reshape(-1)
+
+
+def _chunk_keys(kind, n, key_bits, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return np.full(n, 77, np.int32)  # one digit everywhere: stability
+    if kind == "negative":
+        return rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    k = rng.integers(0, 1 << key_bits, n).astype(np.int32)
+    k[rng.random(n) < 0.3] = 5  # ties inside every chunk
+    if kind == "high_bits":  # bits above key_bits that the sort ignores
+        k |= (rng.integers(0, 1 << (31 - key_bits), n) << key_bits).astype(
+            np.int32)
+    return k
+
+
+SCHEDULE_CASES = [(kind, rb, pairs) for kind in
+                  ("uniform", "high_bits", "negative", "equal")
+                  for rb in (2, 4, 8) for pairs in (True, False)]
+
+
+@pytest.mark.parametrize("kind,rb,pairs", SCHEDULE_CASES)
+def test_chunk_sort_in_kernel_schedule_matches_reference_kernel(kind, rb,
+                                                                pairs):
+    """The card's chunk sort orders by key bits [0, B), B = min(32,
+    ceil(key_bits / rb) * rb), in its own passes (7, 7, 6 bits over B =
+    20; 8, 8, 8 over 24): the twin's partition run on that schedule equals
+    the reference's radix_sort_chunks / radix_sort_chunks_keys (interpret
+    mode, rb-bit passes) and the twin, bit for bit, on keys with bits above
+    key_bits, negative keys and all-equal keys."""
+    n, chunk, key_bits = 384, 128, 19
+    keys = _chunk_keys(kind, n, key_bits, seed=rb + len(kind))
+    vals = np.arange(n, dtype=np.int32) * 7 + 1
+    n_bits = trs.chunk_sort_bits(key_bits, rb)
+    schedule = trs.chunk_digit_schedule(n_bits)
+    assert n_bits == (20 if rb < 8 else 24) and len(schedule) == 3
+    assert max(w for _, w in schedule) <= 8
+    got = _sort_by_schedule(_t(keys), _t(vals) if pairs else None, chunk,
+                            schedule)
+    twin = trs.chunk_sort(_t(keys), _t(vals) if pairs else None, chunk,
+                          key_bits, rb)
+    if pairs:
+        jk, jv = radix_sort_chunks(jnp.asarray(keys), jnp.asarray(vals),
+                                   chunk=chunk, key_bits=key_bits,
+                                   radix_bits=rb)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(got[1].numpy(), twin[1].numpy())
+    else:
+        jk = radix_sort_chunks_keys(jnp.asarray(keys), chunk=chunk,
+                                    key_bits=key_bits, radix_bits=rb)
+        assert got[1] is None and twin[1] is None
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(got[0].numpy(), twin[0].numpy())
+
+
+@pytest.mark.parametrize("key_bits,rb", [(1, 4), (7, 7), (12, 4), (19, 4),
+                                         (18, 2), (19, 8), (32, 3), (32, 8),
+                                         (40, 4)])
+def test_chunk_digit_schedule_covers_the_reference_bits(key_bits, rb):
+    """B is the span of the reference's passes (at most 32 bits); the
+    kernel's passes tile [0, B) exactly in at most 8-bit digits, widths
+    within one bit of each other, the wider first."""
+    n_bits = trs.chunk_sort_bits(key_bits, rb)
+    assert n_bits == min(32, -(-key_bits // rb) * rb)
+    sched = trs.chunk_digit_schedule(n_bits)
+    assert len(sched) == max(1, -(-n_bits // 8))
+    assert [s for s, _ in sched] == list(np.cumsum([0] + [w for _, w in
+                                                          sched])[:-1])
+    widths = [w for _, w in sched]
+    assert sum(widths) == n_bits and max(widths) <= 8
+    assert widths == sorted(widths, reverse=True)
+    assert widths[0] - widths[-1] <= 1
+
+
+def test_chunk_sort_shapes_mirror_the_kernel_source():
+    """The Python mirrors of the chunk sort's instantiations are the ones
+    csrc/digit_pass.cu launches, each fits one CTA's shared memory, and
+    the chunks the path and the tests use pick the expected one."""
+    import pathlib
+    import re
+    src = (pathlib.Path(trs.__file__).parents[1] / "csrc" / "digit_pass.cu"
+           ).read_text()
+    table = re.search(r"kSortShapes\[\]\[2\] = \{(.*?)\};", src, re.S).group(1)
+    shapes = tuple(tuple(map(int, m)) for m in
+                   re.findall(r"\{(\d+),\s*(\d+)\}", table))
+    assert shapes == trs.CHUNK_SORT_SHAPES
+    for i, (w, it) in enumerate(shapes):
+        assert f"CHUNK_SORT_CASE({i}, {w}, {it})" in src or i == len(
+            shapes) - 1
+    assert "kMaxPairChunk = 32 * 32 * 16" in src
+    assert trs.MAX_PAIR_CHUNK == 32 * 32 * 16
+    assert trs.chunk_sort_shape(4096, True) == (16, 8)
+    assert trs.chunk_sort_shape(3000, False) == (16, 8)
+    assert trs.chunk_sort_shape(64, True) == (1, 4)
+    assert trs.chunk_sort_shape(1 << 15, True) is None
+    assert trs.chunk_sort_shape(1 << 15, False) == (32, 32)
+    assert trs.chunk_sort_shape((1 << 15) + 1, False) is None
+    for w, it in shapes:
+        for pairs in (True, False):
+            chunk = 32 * w * it
+            smem = trs.chunk_sort_smem_bytes(chunk, 32, pairs)
+            assert smem <= trs.MAX_SMEM_BYTES
+            assert (smem == 0) == (pairs and chunk > trs.MAX_PAIR_CHUNK)
+    # 4096 pairs over 20 bits: 16 warps x (128 counters + 2) + 2 x 4096
+    assert trs.chunk_sort_smem_bytes(4096, 20, True) == 4 * (16 * 130 + 8192)
 
 
 @pytest.mark.parametrize("n", [1, 5, 64, 1000])

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Compare trees of this repository on one card, in turns, on the port's
 SLICE_CFG serve path: what a request costs end to end and what the rank
-epilogue's five calls cost on the arrays the path hands them.
+epilogue's five calls cost on the arrays the path hands them; or, with
+``--what kernels``, what the chunk sort and the filter cost.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
-      --order parent,change,change,parent
+      --order parent,change,change,parent [--what kernels]
 
 A tree is the root of a checkout (unpack an earlier commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Each turn is
@@ -22,6 +23,16 @@ tree's slice-path kernels (into the tree's own ``build/``), makes
   ``rank_search`` / ``rename`` wrapper and ``torch.searchsorted`` on them,
   queued behind a device sleep (device time) and not (the host's cost),
   checking the wrapper's result against ``torch.searchsorted``.
+
+``--what kernels`` instead times, queued behind a device sleep, the
+tree's ``chunk_sort`` wrapper (pairs and keys, chunk 4096) at a request's
+2^19 elements (19-bit keys) and at the MERGE_CFG convert's 2^27 (18-bit
+keys), each checked against a per-chunk stable ``torch.sort``; its
+``filter_tree_lookup`` wrapper at ``chip_smoke.FILTER_TIMED`` (unique
+keys, a quarter of the targets hit), checked against
+``torch.searchsorted`` on the sorted keys; and the host-clock seconds of
+a MERGE_CFG convert of chip_smoke's Reddit-scale COO (the median of
+three after a warm-up).
 
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
@@ -136,6 +147,83 @@ def turn(tree: str, seed: int, n_requests: int, reps: int) -> dict:
                 rank_calls=calls)
 
 
+def turn_kernels(tree: str, seed: int) -> dict:
+    """One tree's chunk-sort, filter and MERGE_CFG convert readings, in
+    this process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import radix_sort as trs
+    from repro_torch.kernels import set_count as tsc
+    from repro_torch.launch.serve import MERGE_CFG
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    _build.build(("digit_pass", "set_count", "merge"))
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    out = dict(chunk_sort={}, filter={})
+    for n, bound in ((cs.SERVE_CAP, cs.SERVE_NODES),
+                     (cs.CHUNK_SORT_BIG, cs.REDDIT["nodes"])):
+        keys = torch.randint(0, bound, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        st = torch.sort(keys.view(-1, cs.TILE), dim=1, stable=True)
+        for v in (vals, None):
+            def kernel():
+                return trs.chunk_sort(keys, v, cs.TILE, bound.bit_length(),
+                                      cs.RADIX_BITS)
+            got = kernel()
+            cs.check(torch.equal(got[0], st.values.view(-1)) and (
+                v is None or torch.equal(got[1], st.indices.view(-1).int()
+                                         + torch.arange(
+                                             0, n, cs.TILE, device=dev,
+                                             dtype=torch.int32
+                                         ).repeat_interleave(cs.TILE))),
+                     f"{tree} chunk_sort {n}: == per-chunk torch.sort")
+            del got
+            out["chunk_sort"][f"{n} {'pairs' if v is not None else 'keys'}"
+                              ] = cs.cuda_ms(kernel)
+        del keys, vals, st
+    for e, t in cs.FILTER_TIMED:
+        keys = torch.randperm(10 * e, generator=g, device=dev)[:e].to(
+            torch.int32)
+        pays = torch.arange(e, dtype=torch.int32, device=dev)
+        tgts = torch.randint(0, 10 * e, (t,), generator=g, device=dev,
+                             dtype=torch.int32)
+        tgts[:t // 4] = keys[torch.randint(0, e, (t // 4,), generator=g,
+                                           device=dev)]
+        sk, order = torch.sort(keys)
+        i = torch.clamp(torch.searchsorted(sk, tgts), max=e - 1)
+        hit = sk[i] == tgts
+        want = torch.where(hit, pays[order][i], -1)
+
+        def kernel():
+            return tsc.filter_tree_lookup(keys, pays, tgts)
+        got = kernel()
+        cs.check(torch.equal(got[0], want) and torch.equal(got[1], hit),
+                 f"{tree} filter_tree_lookup {e} x {t}: == searchsorted")
+        out["filter"][f"{e} keys x {t} targets"] = cs.cuda_ms(
+            kernel, iters=20 if e * t <= cs.FILTER_TWIN_TIMED else 5)
+    coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
+                        cs.MERGE_CONVERT_CAP, seed + 5, device=dev)
+    secs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.convert(coo, MERGE_CFG, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["merge_convert_s"] = sorted(secs[1:])[1]
+    out["merge_convert_all_s"] = secs
+    return dict(tree=tree, **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[],
@@ -144,12 +232,16 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--what", choices=("slice", "kernels"), default="slice",
+                    help="the SLICE_CFG request and rank calls, or the "
+                    "chunk sort, the filter and the MERGE_CFG convert")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
     if args.turn:
         name, tree = args.turn.split("=", 1)
-        out = turn(tree, args.seed, args.requests, args.reps)
+        out = (turn_kernels(tree, args.seed) if args.what == "kernels" else
+               turn(tree, args.seed, args.requests, args.reps))
         print(json.dumps(dict(name=name, **out)), flush=True)
         return 0
     trees = dict(t.split("=", 1) for t in args.tree)
@@ -166,7 +258,8 @@ def main():
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn",
              f"{name}={trees[name]}", "--seed", str(args.seed),
-             "--requests", str(args.requests), "--reps", str(args.reps)],
+             "--requests", str(args.requests), "--reps", str(args.reps),
+             "--what", args.what],
             capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:
@@ -176,8 +269,8 @@ def main():
         print(json.dumps(results[-1]), flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "slice_ab.json"), "w") as f:
-        json.dump(dict(card=smi, order=order, trees=trees, turns=results), f,
-                  indent=1)
+        json.dump(dict(card=smi, what=args.what, order=order, trees=trees,
+                       turns=results), f, indent=1)
     return 0
 
 
