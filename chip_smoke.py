@@ -14,7 +14,7 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    head width's bf16 flash forward, dq and dk/dv kernel must show one
    tile's MMAs as HMMA instructions in its SASS and no local-memory
    traffic (no spills).
-3. kernels — each of the eight kernels (and the keys-only, shuffled and
+3. kernels — each of the nine kernels (and the keys-only, shuffled and
    D = 1 variants) against its plain-torch twin on the card at the serve
    paths' shapes, with its time (CUDA events after a warm-up, the timed
    launches queued behind a device sleep so that the device, not the
@@ -26,7 +26,11 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    tail, an unaligned view; sorted, almost sorted and shuffled queries).
    The chunk sort also at the MERGE_CFG convert's 2^27 pairs and keys
    (the twin in slices of 2^24), with ptxas registers and spills of its
-   instantiations.
+   instantiations. The merge kernels (``csrc/merge.cu``: the fused
+   merge's rungs 4096 → 65,536 and one rung above, 65,536 → 131,072, each
+   as merge-path passes) at a request's 2^19 and the convert's 2^27,
+   pairs and keys (the twin on one 2^24 slice at 2^27), beside a per-block
+   stable ``torch.sort`` + gather.
 4. slice path — launch counters set to 0; the Reddit-scale ``convert``
    (232,965 nodes, 114,615,892 synthetic power-law edges in a 2^27 COO)
    under ``SLICE_CFG``, then ``GnnServeEngine`` serving 16 requests of
@@ -50,7 +54,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    (chunked_merge sorts, unfused set-count pointer build) of Reddit's
    114,615,892 synthetic power-law edges in a 2^27 COO, as the slice path
    converts them, then the same 16 requests served under ``MERGE_CFG``
-   with ``use_pallas_agg`` on the slice path's CSC; counters read.
+   with ``use_pallas_agg`` on the slice path's CSC; counters read: every
+   rung of the convert's two sorts above the fused merge's 65,536 went
+   through one ``merge_rung`` launch (2 × 11).
 7. merge checks — that convert bit-identical to the torch.sort strategy;
    ``set_count_less`` at the convert's shape (232,966 targets over the
    2^27 sorted dst, then shuffled) equal to ``torch.searchsorted`` and to
@@ -61,8 +67,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    exceeds it); a small graph under
    ``MERGE_CFG`` on the card equal to the CPU path; the profile of one
    request; one more MERGE_CFG convert under ``torch.profiler``: the
-   hand-written kernels by name, the rest, and the device spans of the
-   plain-torch merge rungs above the fused merge's block.
+   hand-written kernels by name, the rest, the device spans of the merge
+   rungs above the fused merge's block, and no ``searchsorted`` or
+   ``scatter`` op (the plain ladder's) in the trace.
 8. LM kernels — the GNN paths' memory freed; the flash-attention forward
    (bf16 on tensor cores, float32 on scalar FMAs) against its twin at
    gemma2-9b's head shapes (16 heads over 8 kv heads,
@@ -131,7 +138,7 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    the card, crashed at a step and resumed from its checkpoint, against
    an uninterrupted run.
 13. report — every kernel of each path launched in its run; the kernels
-   JSON line (all thirteen; prefix_partition and filter_tree_lookup with
+   JSON line (all fourteen; prefix_partition and filter_tree_lookup with
    0 launches), then the last line ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
@@ -181,8 +188,8 @@ SEG_RTOL, SEG_ATOL = 1e-5, 1e-4  # segment sum against the float64 sum
 LOGIT_TOL = 7.5e-4
 SLICE_KERNELS = ("digit_partition_hist", "digit_rank_gather", "rank_search",
                  "rename")
-MERGE_KERNELS = ("chunk_sort", "fused_merge", "set_count_less",
-                 "segment_sum_sorted")
+MERGE_KERNELS = ("chunk_sort", "fused_merge", "merge_rung",
+                 "set_count_less", "segment_sum_sorted")
 LM_KERNELS = ("flash_attention_fwd",)
 OFF_PATH_KERNELS = ("prefix_partition", "filter_tree_lookup")
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
@@ -623,11 +630,70 @@ def chunk_sort_reading(keys, with_vals, key_bits, twin_slice=None):
     return row, got
 
 
+def merge_reading(ks, vs, run, fan_ins, rung, twin_slice=None):
+    """``fused_merge_rounds`` (the rungs ``fan_ins`` over sorted runs of
+    ``run``) or, with ``rung``, ``merge_rung`` (the one rung ``fan_ins``)
+    against the twin (``merge_ladder`` on ``twin_slice`` elements at a
+    time when given: whole super-blocks, which merge apart), timed through
+    the C entry with the twin (one slice, scaled), a per-block stable
+    ``torch.sort`` + gather and the bound. Returns (row, the kernel's
+    output)."""
+    import torch
+    from repro_torch.kernels import merge as tm
+    n = ks.numel()
+    block = run * math.prod(fan_ins)
+    if rung:
+        got = tm.merge_rung(ks, vs, run, fan_ins[0])
+    else:
+        *got, new_run = tm.fused_merge_rounds(ks, vs, run)
+        check(new_run == block == min(n, tm.DEFAULT_MAX_BLOCK),
+              f"merged run {new_run}")
+    step = twin_slice or n
+    want = [tm.merge_ladder(ks[i:i + step], None if vs is None
+                            else vs[i:i + step], run, fan_ins)
+            for i in range(0, n, step)]
+    want = [torch.cat([w[0] for w in want])] + (
+        [] if vs is None else [torch.cat([w[1] for w in want])])
+    torch.cuda.synchronize()
+    name = "merge_rung" if rung else "fused_merge"
+    err = max_err([x for x in got if x is not None], want)
+    check(err == 0, f"{name} ({n} {'keys' if vs is None else 'pairs'}, "
+          f"runs {run} → {block}) == twin")
+    del want
+    ms = cuda_ms(lambda: tm.merge_passes_c(ks, vs, run, fan_ins))
+    plain_ms = cuda_ms(lambda: tm.merge_ladder(
+        ks[:step], None if vs is None else vs[:step], run, fan_ins),
+        iters=3 if step == n else 1, warmup=1) * n / step
+
+    def library():
+        st = torch.sort(ks.view(-1, block), dim=1, stable=True)
+        return st.values, (None if vs is None else
+                           vs.view(-1, block).gather(1, st.indices))
+    passes = tm.merge_passes(run, fan_ins)
+    b_ms, b_by = bound(2 * 4 * n * (1 if vs is None else 2),
+                       n * len(passes))
+    row = dict(
+        name=name, route="cuda", source="src/repro_torch/csrc/merge.cu",
+        # the reference's fused kernel (pairs, keys), or its jnp rungs
+        replaces=("src/repro/core/ordering.py:236" if rung else
+                  "src/repro/kernels/merge.py:"
+                  + ("109" if vs is None else "118")),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=cuda_ms(library, iters=5),
+        shape=f"{n} {'keys' if vs is None else 'pairs'}, runs {run} → "
+              f"{block} (fan-ins {fan_ins}: {len(passes)} merge-path "
+              "passes; library: per-block torch.sort + gather)"
+              + (f" (twin: one {step}-element slice, scaled)"
+                 if step < n else ""))
+    return row, got
+
+
 def merge_kernel_phase(dev, seed):
-    """The merge path's four kernels against their twins at its shapes:
+    """The merge path's five kernels against their twins at its shapes:
     the sub-convert's 2^19-pair sort (chunk 4096, a 19-bit bound: key bits
     [0, 20) in 3 passes) and the chunk sort at the MERGE_CFG convert's
-    2^27, the subgraph pointer build's set count (282,625 targets over
+    2^27, the fused merge and one rung above it on those chunk sorts'
+    runs, the subgraph pointer build's set count (282,625 targets over
     the 524,288-long sorted dst), and the two layers' segment sums."""
     import torch
     from repro_torch.core.graph import SENTINEL
@@ -653,49 +719,39 @@ def merge_kernel_phase(dev, seed):
     # node count (the two-pass Ordering's clipped src / dst, 18 bits)
     big = torch.randint(0, REDDIT["nodes"], (CHUNK_SORT_BIG,), generator=g,
                         device=dev, dtype=torch.int32)
+    big_runs = {}
     for with_vals in (True, False):
-        r, _ = chunk_sort_reading(big, with_vals,
-                                  REDDIT["nodes"].bit_length(),
-                                  twin_slice=CHUNK_SORT_TWIN_SLICE)
+        r, big_runs[with_vals] = chunk_sort_reading(
+            big, with_vals, REDDIT["nodes"].bit_length(),
+            twin_slice=CHUNK_SORT_TWIN_SLICE)
         extra["chunk_sort" + ("" if with_vals else "/keys_only")
               + f"_{CHUNK_SORT_BIG}"] = r
     del big
     extra["chunk_sort_resources"] = resource_usage("digit_pass",
                                                    "chunk_sort_kernel")
 
-    fans = tm._round_fan_ins(n, TILE, tm.DEFAULT_MAX_BLOCK, 2)
-    mlib = _build.load("merge", tm._SIGNATURES)
-    for with_vals in (True, False):
-        ks, vs = runs[with_vals]
-        ok, ov, block = tm.fused_merge_rounds(ks, vs, TILE)
-        want = tm.merge_ladder(ks, vs, TILE, fans)
-        torch.cuda.synchronize()
-        check(block == min(n, tm.DEFAULT_MAX_BLOCK), f"merged run {block}")
-        err = max_err([x for x in (ok, ov) if x is not None],
-                      [x for x in want if x is not None])
-        check(err == 0, f"fused_merge (vals={with_vals}) == twin")
-        ms = cuda_ms(lambda: mlib.fused_merge(
-            ks.data_ptr(), None if vs is None else vs.data_ptr(),
-            ok.data_ptr(), None if ov is None else ov.data_ptr(), n, TILE,
-            block, _build.stream_of(ks)))
-        plain_ms = cuda_ms(lambda: tm.merge_ladder(ks, vs, TILE, fans),
-                           iters=3, warmup=1)
-
-        def library():
-            st = torch.sort(ks.view(-1, block), dim=1, stable=True)
-            return st.values, (None if vs is None else
-                               vs.view(-1, block).gather(1, st.indices))
-        streams = 2 if with_vals else 1
-        b_ms, b_by = bound(2 * 4 * n * streams, n * len(fans))
-        rows["fused_merge" + ("" if with_vals else "/keys_only")] = dict(
-            name="fused_merge", route="cuda",
-            source="src/repro_torch/csrc/merge.cu",
-            replaces="src/repro/kernels/merge.py:"
-                     + ("118" if with_vals else "109"),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=cuda_ms(library, iters=5),
-            shape=f"{n} {'pairs' if with_vals else 'keys'}, runs {TILE} → "
-                  f"{block} ({len(fans)} rungs of fan-in 2)")
+    # the merge kernels on the chunk sorts' runs of 4096: the fused merge's
+    # rungs to 65,536, then one rung above them (65,536 → 131,072)
+    for size, sorted_runs in ((n, runs), (CHUNK_SORT_BIG, big_runs)):
+        tag = "" if size == n else f"/{size}"
+        for with_vals in (True, False):
+            kind = "" if with_vals else "/keys_only"
+            ks, vs = sorted_runs[with_vals]
+            sorted_runs[with_vals] = None
+            fans = tm._round_fan_ins(size, TILE, tm.DEFAULT_MAX_BLOCK, 2)
+            r, (fk, fv) = merge_reading(ks, vs, TILE, fans, rung=False,
+                                        twin_slice=None if size == n
+                                        else CHUNK_SORT_TWIN_SLICE)
+            rows["fused_merge" + kind + tag] = r
+            del ks, vs
+            r, _ = merge_reading(fk, fv, tm.DEFAULT_MAX_BLOCK, [2],
+                                 rung=True, twin_slice=None if size == n
+                                 else CHUNK_SORT_TWIN_SLICE)
+            rows["merge_rung" + kind + tag] = r
+            del fk, fv
+    del big_runs
+    extra["merge_resources"] = resource_usage(
+        "merge", "merge_(?:tile|partition)_kernel")
 
     # set count: the subgraph pointer build, the sorted dst with its
     # SENTINEL tail, then the same elements shuffled
@@ -1590,7 +1646,9 @@ def merge_checks(dev, seed, coo, csc_m, eng, reqs, handles, eng_s, extra):
 
 
 def profile_phase(eng, seeds, rid, top=8):
-    """One full-width request (``slot_fn``) under ``torch.profiler``."""
+    """One full-width request (``slot_fn``) under ``torch.profiler``, with
+    the count of the plain merge ladder's ops (a MERGE_CFG request runs
+    them only outside the ladder)."""
     import torch
     from repro_torch.core.graph import SENTINEL
 
@@ -1602,47 +1660,57 @@ def profile_phase(eng, seeds, rid, top=8):
     torch.cuda.synchronize()
     return dict(seeds=len(seeds),
                 **profile_call(lambda: eng.slot_fn(eng.params, row, key), top,
-                               kernels=RANK_KERNEL_RE))
+                               kernels=RANK_KERNEL_RE, ops=LADDER_OP_RE))
 
 
 # the hand-written kernels of a MERGE_CFG convert in a trace: the chunk
-# sort, the fused merge's first rungs, the set count's two
-CONVERT_KERNEL_RE = (r"\b(?:chunk_sort_kernel|merge_rank_kernel|"
-                     r"tile_sort_kernel|set_count_kernel)\b")
+# sort, the merge-path partition and tile kernels (the fused merge's and
+# the rungs' passes), the set count's two
+CONVERT_KERNEL_RE = (r"\b(?:chunk_sort_kernel|merge_partition_kernel|"
+                     r"merge_tile_kernel|tile_sort_kernel|set_count_kernel)\b")
+# the plain merge ladder's ops (``core/ordering.py`` ``merge_sorted_k``),
+# which a MERGE_CFG convert on the card must not run
+LADDER_OP_RE = r"^aten::(?:searchsorted|scatter_?)$"
 
 
 def convert_profile(dev, coo):
     """One MERGE_CFG convert of ``coo`` under ``torch.profiler``: its wall
     and device time, split into the hand-written kernels by name and the
-    rest, and the device span of the plain-torch merge rungs above the
-    fused merge's block (``core/ordering.py`` ``merge_ladder``), timed by
-    CUDA events around each call."""
+    rest, the device span of each merge rung above the fused merge's block
+    (``kernels/merge.py`` ``merge_rung``, timed by CUDA events around each
+    call), and the count of the plain ladder's ops in the trace."""
     import torch
-    from repro_torch.core import ordering, pipeline
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import merge as tm
     from repro_torch.launch.serve import MERGE_CFG
 
     spans = []
-    ladder = ordering.merge_ladder
+    rung = tm.merge_rung
 
-    def timed_ladder(*a, **kw):
+    def timed_rung(ks, vs, run, k):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        out = ladder(*a, **kw)
+        out = rung(ks, vs, run, k)
         ev[1].record()
-        spans.append((ev, len(a[3])))
+        spans.append((ev, k))
         return out
-    ordering.merge_ladder = timed_ladder
+    # kernel_fns imports merge_rung at each call; the wrapper counts its
+    # launch on the module's name, so the stand-in carries the count
+    timed_rung.launches = rung.launches
+    tm.merge_rung = timed_rung
     try:
         prof = profile_call(lambda: pipeline.convert(coo, MERGE_CFG,
                                                      device=dev),
-                            top=12, kernels=CONVERT_KERNEL_RE)
+                            top=12, kernels=CONVERT_KERNEL_RE,
+                            ops=LADDER_OP_RE)
     finally:
-        ordering.merge_ladder = ladder
+        tm.merge_rung = rung
+        rung.launches = timed_rung.launches
     named = sum(r["device_ms"] for r in prof["kernels"].values())
     prof["other_device_ms"] = prof["device_ms"] - named
-    prof["merge_ladder_spans_ms"] = [ev[0].elapsed_time(ev[1])
-                                     for ev, _ in spans]
-    prof["merge_ladder_rungs"] = [k for _, k in spans]
+    prof["merge_rung_spans_ms"] = [ev[0].elapsed_time(ev[1])
+                                   for ev, _ in spans]
+    prof["merge_rung_fan_ins"] = [k for _, k in spans]
     return prof
 
 
@@ -1650,11 +1718,12 @@ def convert_profile(dev, coo):
 RANK_KERNEL_RE = r"\b(?:rank|rename)_kernel\b"
 
 
-def profile_call(fn, top=8, kernels=None):
+def profile_call(fn, top=8, kernels=None, ops=None):
     """``fn()`` once under ``torch.profiler``: the host wall time, the
     device time summed over every op's own kernels, and the ops and
     kernels that take the most device time; with ``kernels`` (a regex),
-    the device time and count of each kernel whose name it matches."""
+    the device time and count of each kernel whose name it matches; with
+    ``ops`` (a regex), the count of each host op whose name it matches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1685,7 +1754,11 @@ def profile_call(fn, top=8, kernels=None):
                      for k, t, c in rows[:top]],
                 **({} if kernels is None else dict(kernels={
                     k: dict(device_ms=t, count=c)
-                    for k, (t, c) in sorted(named.items())})))
+                    for k, (t, c) in sorted(named.items())})),
+                **({} if ops is None else dict(ops={
+                    e.key: e.count for e in events
+                    if e.device_type == DeviceType.CPU
+                    and re.search(ops, e.key)})))
 
 
 # ------------------------------------------------------------- phase 9
@@ -2492,6 +2565,17 @@ def main():
     log_serve("merge serve", mout)
     check(all(mout["launches"][k] > 0 for k in MERGE_KERNELS),
           f"every kernel of the merge path launched: {mout['launches']}")
+    # two sorts (the two-pass Ordering), each: the fused merge to 65,536,
+    # then one merge_rung launch a rung
+    from repro_torch.core.ordering import merge_round_fan_ins
+    from repro_torch.kernels.merge import DEFAULT_MAX_BLOCK
+    from repro_torch.launch.serve import MERGE_CFG
+    rungs = 2 * len(merge_round_fan_ins(MERGE_CONVERT_CAP, DEFAULT_MAX_BLOCK,
+                                        MERGE_CFG.merge_fan_in))
+    check(mout["convert_launches"]["merge_rung"] == rungs
+          and mout["convert_launches"]["fused_merge"] == 2,
+          f"the merge convert ran its {rungs} upper rungs as merge_rung "
+          f"launches and 2 fused merges: {mout['convert_launches']}")
 
     # 7. merge checks and profile
     merge_checks(dev, args.seed, mcoo, mcsc, meng, mreqs, mhandles, eng,
@@ -2501,13 +2585,17 @@ def main():
         f"{LOGIT_TOL} of the slice path's, card == CPU on a small graph: ok")
     mout["profile"] = profile_phase(meng, mreqs[big], mhandles[big].rid)
     log_profile("merge profile", mout["profile"])
-    mout["convert_profile"] = convert_profile(dev, mcoo)
-    log_profile("merge convert profile", mout["convert_profile"])
+    mout["convert_profile"] = cprof = convert_profile(dev, mcoo)
+    log_profile("merge convert profile", cprof)
     log(f"[merge convert profile] kernels other than the hand-written "
-        f"ones {mout['convert_profile']['other_device_ms']:.3f} ms; the "
-        "plain-torch merge rungs' device spans "
-        f"{mout['convert_profile']['merge_ladder_spans_ms']} ms over "
-        f"{mout['convert_profile']['merge_ladder_rungs']} rungs")
+        f"ones {cprof['other_device_ms']:.3f} ms; the merge rungs' device "
+        f"spans {cprof['merge_rung_spans_ms']} ms (sum "
+        f"{sum(cprof['merge_rung_spans_ms']):.3f}) over rungs of fan-in "
+        f"{cprof['merge_rung_fan_ins']}; plain ladder ops: convert "
+        f"{cprof['ops']}, request {mout['profile']['ops']}")
+    check(not cprof["ops"] and len(cprof["merge_rung_spans_ms"]) == rungs,
+          f"the profiled convert ran no plain ladder op ({cprof['ops']}) "
+          f"and {rungs} merge_rung calls")
     del mcoo, mcsc, meng, csc, eng, feats, handles, mhandles
     gc.collect()
     torch.cuda.empty_cache()
@@ -2642,7 +2730,7 @@ def main():
     launches = {k: out["launches"][k] + mout["launches"][k]
                 for k in SLICE_KERNELS + MERGE_KERNELS}
     check(all(v > 0 for v in launches.values()),
-          f"all eight GNN kernels launched across the two paths: {launches}")
+          f"all nine GNN kernels launched across the two paths: {launches}")
     launches.update({k: lout["launches"][k] + tout["launches"][k]
                      for k in LM_KERNELS + TRAIN_KERNELS + OFF_PATH_KERNELS})
     kernels = []

@@ -9,8 +9,9 @@ runs under a strategy:
   sort of every ``chunk`` block (``_chunk_sort``, or the chunk-sort kernel
   through ``chunk_sort_fn``), then a ladder of k-ary stable merge rungs
   (``merge_rounds``; the fused-merge kernel takes the first rungs through
-  ``merge_fn``). An element's slot in a merged run is its own index plus
-  its rank in every sibling run, earlier runs winning ties.
+  ``merge_fn``, the merge-rung kernel the rest through ``rung_fn``). An
+  element's slot in a merged run is its own index plus its rank in every
+  sibling run, earlier runs winning ties.
 * ``"global_radix"`` — merge-free LSD radix sort: each digit pass
   stable-partitions the whole array through the tiled two-level router
   (``set_partition.tiled_digit_sources``), or through the digit-pass
@@ -142,16 +143,22 @@ def merge_ladder(ks: torch.Tensor, vs: torch.Tensor | None, run: int,
 
 
 def merge_rounds(ks: torch.Tensor, vs: torch.Tensor | None, run: int,
-                 merge_fn=None, fan_in: int = 2):
+                 merge_fn=None, fan_in: int = 2, rung_fn=None):
     """k-ary merge ladder: sorted runs of ``run`` → one sorted array, on
     the rungs ``merge_round_fan_ins`` prescribes. ``merge_fn(ks, vs, run)
     -> (ks, vs, new_run)`` takes the first rungs (the fused-merge kernel);
-    the rest run as ``merge_sorted_k`` here. ``vs=None`` merges keys
-    alone."""
+    ``rung_fn(ks, vs, run, k) -> (ks, vs)`` each rung after them (the
+    merge-rung kernel), else ``merge_sorted_k`` here. ``vs=None`` merges
+    keys alone."""
     if merge_fn is not None and run < ks.shape[0]:
         ks, vs, run = merge_fn(ks, vs, run)
-    return merge_ladder(ks, vs, run, merge_round_fan_ins(ks.shape[0], run,
-                                                         fan_in))
+    fan_ins = merge_round_fan_ins(ks.shape[0], run, fan_in)
+    if rung_fn is None:
+        return merge_ladder(ks, vs, run, fan_ins)
+    for k in fan_ins:
+        ks, vs = rung_fn(ks, vs, run, k)
+        run *= k
+    return ks, vs
 
 
 def _global_radix_passes(keys, vals, key_bits: int, tile: int,
@@ -205,12 +212,14 @@ def xla_stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
 def stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
                        key_bound: int, chunk: int | None = None,
                        radix_bits: int = 4, strategy: str = "global_radix",
-                       digit_pass_fn=None, chunk_sort_fn=None, merge_fn=None, fan_in: int = 2):
+                       digit_pass_fn=None, chunk_sort_fn=None, merge_fn=None,
+                       fan_in: int = 2, rung_fn=None):
     """Global stable sort under a ``strategy``; ``key_bound`` is the
     exclusive bound of valid keys, ``chunk`` the UPE chunk (chunked_merge)
     or the histogram tile (global_radix). ``chunk_sort_fn(keys, vals,
-    chunk, key_bits)`` and ``merge_fn`` swap in the chunk-sort and
-    fused-merge kernels, ``digit_pass_fn`` the digit-pass kernels."""
+    chunk, key_bits)``, ``merge_fn`` and ``rung_fn`` swap in the
+    chunk-sort, fused-merge and merge-rung kernels, ``digit_pass_fn`` the
+    digit-pass kernels."""
     n = keys.shape[0]
     chunk = min(DEFAULT_CHUNK if chunk is None else chunk, n)
     if strategy == "global_radix":
@@ -227,14 +236,16 @@ def stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
         ks, vs = _chunk_sort(clipped, vals, chunk, key_bits, radix_bits)
     else:
         ks, vs = chunk_sort_fn(clipped, vals, chunk, key_bits)
-    ks, vs = merge_rounds(ks, vs, chunk, merge_fn=merge_fn, fan_in=fan_in)
+    ks, vs = merge_rounds(ks, vs, chunk, merge_fn=merge_fn, fan_in=fan_in,
+                          rung_fn=rung_fn)
     return _restore_sentinels(ks, key_bound), vs
 
 
 def edge_ordering(coo: COO, chunk: int | None = None, radix_bits: int = 4,
                   sort_fn=None, mode: str = "auto", keys_only: bool = True,
                   strategy: str = "global_radix", digit_pass_fn=None,
-                  chunk_sort_fn=None, merge_fn=None, fan_in: int = 2) -> COO:
+                  chunk_sort_fn=None, merge_fn=None, fan_in: int = 2,
+                  rung_fn=None) -> COO:
     """Sort edges by (dst, src) — packed single pass or two-pass LSD.
 
     ``sort_fn(keys, vals, key_bound) -> (keys, vals)`` overrides the global
@@ -249,7 +260,8 @@ def edge_ordering(coo: COO, chunk: int | None = None, radix_bits: int = 4,
                                       strategy=strategy,
                                       digit_pass_fn=digit_pass_fn,
                                       chunk_sort_fn=chunk_sort_fn,
-                                      merge_fn=merge_fn, fan_in=fan_in)
+                                      merge_fn=merge_fn, fan_in=fan_in,
+                                      rung_fn=rung_fn)
     bound = coo.n_nodes
     if mode == "auto":
         mode = "packed" if supports_packed_keys(bound) else "two_pass"

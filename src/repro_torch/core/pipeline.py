@@ -29,18 +29,20 @@ class KernelFns(NamedTuple):
     digit_pass_fn: object
     rank_fn: object
     rename_fn: object
+    rung_fn: object
 
 
 def kernel_fns(cfg: EngineConfig) -> KernelFns:
     """The kernel routing rule: ``use_pallas`` swaps in the chunk-sort
     kernel (digit width ``cfg.radix_bits``), the set-count kernel, the
     fused-merge kernel (ladder fan-in ``cfg.merge_fan_in``), the digit-pass
-    kernels (histogram tile ``cfg.w_upe``) and the rank-epilogue kernels.
-    Each wrapper launches its kernel on a CUDA tensor and runs its plain
-    twin on a CPU tensor."""
+    kernels (histogram tile ``cfg.w_upe``), the rank-epilogue kernels and
+    the merge-rung kernel (the ladder's rungs above the fused merge, which
+    the reference runs in jnp). Each wrapper launches its kernel on a CUDA
+    tensor and runs its plain twin on a CPU tensor."""
     if not cfg.use_pallas:
-        return KernelFns(None, None, None, None, None, None)
-    from repro_torch.kernels.merge import make_merge_fn
+        return KernelFns(None, None, None, None, None, None, None)
+    from repro_torch.kernels.merge import make_merge_fn, merge_rung
     from repro_torch.kernels.radix_sort import (make_chunk_sort_fn,
                                                 make_digit_pass_fn)
     from repro_torch.kernels.reindex_epilogue import rank_fn, rename_fn
@@ -48,12 +50,13 @@ def kernel_fns(cfg: EngineConfig) -> KernelFns:
     return KernelFns(make_chunk_sort_fn(cfg.radix_bits), count_fn,
                      make_merge_fn(cfg.merge_fan_in),
                      make_digit_pass_fn(cfg.radix_bits, cfg.w_upe),
-                     rank_fn, rename_fn)
+                     rank_fn, rename_fn, merge_rung)
 
 
 def _sort_kwargs(cfg: EngineConfig, kf: KernelFns, chunk_sort_fn) -> dict:
     """The sort knobs every global sort of a config shares."""
-    return dict(radix_bits=cfg.radix_bits, chunk_sort_fn=chunk_sort_fn, merge_fn=kf.merge_fn,
+    return dict(radix_bits=cfg.radix_bits, chunk_sort_fn=chunk_sort_fn,
+                merge_fn=kf.merge_fn, rung_fn=kf.rung_fn,
                 fan_in=cfg.merge_fan_in, digit_pass_fn=kf.digit_pass_fn)
 
 

@@ -8,12 +8,12 @@ from __future__ import annotations
 
 
 def kernel_wrappers():
-    """Every kernel wrapper, by name: the eight of the GNN serve paths,
+    """Every kernel wrapper, by name: the nine of the GNN serve paths,
     the flash attention forward of the LM prefill and training paths, its
     two backward kernels (training), and the two kernels no path runs
     (prefix_partition, filter_tree_lookup)."""
     from .flash_attention import flash_attention_bhsd, flash_dkv, flash_dq
-    from .merge import fused_merge_rounds
+    from .merge import fused_merge_rounds, merge_rung
     from .prefix_partition import prefix_partition
     from .radix_sort import chunk_sort, digit_partition_hist, digit_rank_gather
     from .reindex_epilogue import rank_search, rename
@@ -23,6 +23,7 @@ def kernel_wrappers():
             "digit_rank_gather": digit_rank_gather,
             "rank_search": rank_search, "rename": rename,
             "chunk_sort": chunk_sort, "fused_merge": fused_merge_rounds,
+            "merge_rung": merge_rung,
             "set_count_less": set_count_less,
             "segment_sum_sorted": segment_sum_sorted,
             "flash_attention_fwd": flash_attention_bhsd,

@@ -28,6 +28,7 @@ from repro_torch.core import costmodel as tcm  # noqa: E402
 from repro_torch.core import graph as tg  # noqa: E402
 from repro_torch.core import pipeline as tp  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.core.ordering import merge_round_fan_ins  # noqa: E402
 from repro_torch.core.set_count import filter_lookup  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -48,7 +49,7 @@ MERGE_CFG = tcm.EngineConfig(use_pallas=True, sort_strategy="chunked_merge",
                              reindex_strategy="unfused")
 SLICE_KERNELS = ("digit_partition_hist", "digit_rank_gather", "rank_search",
                  "rename")
-NEW_KERNELS = ("chunk_sort", "fused_merge", "set_count_less",
+NEW_KERNELS = ("chunk_sort", "fused_merge", "merge_rung", "set_count_less",
                "segment_sum_sorted")
 
 
@@ -237,18 +238,42 @@ def test_chunk_sort_kernel_equals_twin(cuda, rb, with_vals, n, chunk,
                                                              want[1])
 
 
-def _sorted_runs(n, run, seed):
+def _merge_input(n, run, kind, seed):
+    """Sorted runs of ``run``: many ties, one repeated key (stability),
+    a SENTINEL tail on half the slots, or an array already sorted."""
     rng = np.random.default_rng(seed)
-    keys = rng.integers(0, max(2, n // 8), n).astype(np.int32)
-    return torch.from_numpy(np.sort(keys.reshape(-1, run), 1).reshape(-1))
+    if kind == "ties":
+        keys = rng.integers(0, max(2, n // 8), n)
+    elif kind == "equal":
+        keys = np.full(n, 7)
+    elif kind == "sentinel":
+        keys = rng.integers(0, 1000, n)
+        keys[rng.random(n) < 0.5] = SEN
+    else:
+        keys = np.arange(n)
+    keys = np.sort(keys.reshape(-1, run), 1).reshape(-1).astype(np.int32)
+    return torch.from_numpy(keys)
 
 
+MERGE_KINDS = ["ties", "equal", "sentinel", "sorted"]
+
+
+@pytest.mark.parametrize("kind", MERGE_KINDS)
 @pytest.mark.parametrize("fan", [2, 4])
 @pytest.mark.parametrize("with_vals", [False, True])
 @pytest.mark.parametrize("n,run,mb", [(1024, 64, 65536), (1024, 64, 256),
-                                      (512, 128, 128), (1 << 19, 4096, 65536)])
-def test_fused_merge_kernel_equals_twin(cuda, fan, with_vals, n, run, mb):
-    keys = _sorted_runs(n, run, seed=n + run)
+                                      (512, 128, 128), (1 << 19, 4096, 65536),
+                                      (3 * 4096, 4096, 65536),
+                                      (5 * 1024, 1024, 65536),
+                                      (12 * 1024, 1024, 65536),
+                                      (3 * 1000, 1000, 4000)])
+def test_fused_merge_kernel_equals_twin(cuda, kind, fan, with_vals, n, run,
+                                        mb):
+    """Fully fused, partly fused and no rung that fits; run counts of 3, 5
+    and 12 (rungs of 3 and 5 runs: passes of unequal runs), runs that are
+    no multiple of a tile; many ties, one repeated key, a SENTINEL tail
+    and sorted input: the kernel equals the twin."""
+    keys = _merge_input(n, run, kind, seed=n + run)
     vals = torch.arange(n, dtype=torch.int32) if with_vals else None
     want = tm.fused_merge_rounds(keys, vals, run, max_block=mb, fan_in=fan)
     got = tm.fused_merge_rounds(keys.to(cuda), None if vals is None
@@ -259,6 +284,31 @@ def test_fused_merge_kernel_equals_twin(cuda, fan, with_vals, n, run, mb):
     assert torch.equal(got[0].cpu(), want[0])
     assert (got[1] is None) if vals is None else torch.equal(got[1].cpu(),
                                                              want[1])
+
+
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+@pytest.mark.parametrize("with_vals", [False, True])
+@pytest.mark.parametrize("n,run,k", [(1 << 19, 65536, 2), (1 << 19, 1 << 18, 2),
+                                     (1 << 17, 64, 2), (3 * 4096, 4096, 3),
+                                     (5 * 1024, 1024, 5), (12 * 1024, 1024, 4),
+                                     (3000, 1000, 3), (1 << 16, 8192, 8)])
+def test_merge_rung_kernel_equals_twin(cuda, kind, with_vals, n, run, k):
+    """One rung on the card (ceil(log2 k) merge-path passes) equals the
+    plain rung ``merge_sorted_k``, bit for bit, and leaves its input as it
+    was; one launch a call."""
+    keys = _merge_input(n, run, kind, seed=n + run + k)
+    vals = torch.arange(n, dtype=torch.int32) * 3 if with_vals else None
+    want = tm.merge_rung(keys, vals, run, k)
+    kc = keys.to(cuda)
+    vc = None if vals is None else vals.to(cuda)
+    before = tm.merge_rung.launches
+    got = tm.merge_rung(kc, vc, run, k)
+    torch.cuda.synchronize()
+    assert tm.merge_rung.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert (got[1] is None) if vals is None else torch.equal(got[1].cpu(),
+                                                             want[1])
+    assert torch.equal(kc.cpu(), keys)
 
 
 @pytest.mark.parametrize("e,t,shuffle", [(2048, 256, True), (1000, 300, True),
@@ -460,6 +510,18 @@ def test_new_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         tm.fused_merge_rounds(k, k.cpu(), 64)
     with pytest.raises(ValueError, match="int32"):
+        tm.fused_merge_rounds(k.float(), None, 64)
+    with pytest.raises(ValueError, match="int32"):
+        tm.fused_merge_rounds(k.view(-1, 2).t()[0], None, 64)
+    with pytest.raises(ValueError, match="int32"):
+        tm.merge_rung(k.float(), None, 64, 2)
+    with pytest.raises(ValueError, match="int32"):
+        tm.merge_rung(k[::2], None, 64, 2)
+    with pytest.raises(ValueError, match="int32"):
+        tm.merge_rung(k, k.cpu(), 64, 2)
+    with pytest.raises(ValueError, match="does not tile"):
+        tm.merge_rung(k, None, 3000, 2)
+    with pytest.raises(ValueError, match="int32"):
         tsc.set_count_less(k, k.cpu())
     with pytest.raises(ValueError, match="int32"):
         tsc.set_count_less(k.to(torch.int64), k)
@@ -479,6 +541,11 @@ def test_merge_serve_path_on_card_equals_cpu(cuda):
     reset_launch_counts()
     ref = tp.convert(coo, MERGE_CFG, device="cpu")
     csc = tp.convert(coo, MERGE_CFG, device=cuda)
+    # two sorts (two-pass keys), each: runs of 4096 fused to 65,536, then
+    # one rung launch a rung up to the capacity
+    rungs = len(merge_round_fan_ins(1 << 18, tm.DEFAULT_MAX_BLOCK, 2))
+    assert launch_counts()["merge_rung"] == 2 * rungs == 4
+    assert launch_counts()["fused_merge"] == 2
     assert torch.equal(csc.ptr.cpu(), ref.ptr)
     assert torch.equal(csc.idx.cpu(), ref.idx)
     seeds = torch.tensor([5, 17, 3, 250, 69999, SEN, SEN, SEN],

@@ -228,3 +228,148 @@ def test_edge_ordering_chunked_merge_matches_reference(j_orderings, n, e, cap,
         g = getattr(got, col).numpy()
         np.testing.assert_array_equal(g, np.asarray(getattr(ref, col)))
         np.testing.assert_array_equal(g, getattr(xla, col).numpy())
+
+
+# ------------------------------------------------ the merge-rung hook
+def _ladder_input(n, run, kind, seed):
+    """``n`` keys in sorted runs of ``run``: many ties (``ties``), one
+    repeated key (``equal``), or a SENTINEL-clipped tail (``sentinel``:
+    the clipped bound, 5000, on half the slots, as the sorter sees it)."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        keys = rng.integers(0, 40, n)
+    elif kind == "equal":
+        keys = np.full(n, 7)
+    else:
+        keys = rng.integers(0, 1000, n)
+        keys[rng.random(n) < 0.5] = 5000
+    keys = np.sort(keys.reshape(-1, run), axis=1).reshape(-1)
+    return keys.astype(np.int32), np.arange(n, dtype=np.int32) * 3 + 1
+
+
+# (n, run, max_block): run counts that are no power of two. 3 x 4096 and
+# 5 x 1024 fit no fused rung (one rung of 3 or 5 runs, all through the
+# hook); 12 x 1024 fuses the rungs up to 4096 and hooks the rest
+LADDER_CASES = [(3 * 4096, 4096, 4096), (5 * 1024, 1024, 2048),
+                (12 * 1024, 1024, 4096)]
+LADDER_KINDS = ["ties", "equal", "sentinel"]
+
+
+@pytest.fixture(scope="module")
+def j_ladders():
+    """The reference's ladder with its fused kernel (Pallas interpret
+    mode) taking the rungs that fit ``max_block`` and jnp rungs the rest,
+    one jit per (case, fan-in, pairs), run on each kind of input."""
+    out = {}
+    for n, run, mb in LADDER_CASES:
+        for fan in (2, 3, 4):
+            for pairs in (True, False):
+                fn = jax.jit(lambda k, v, run=run, mb=mb, fan=fan:
+                             jo.merge_rounds(k, v, run, fan_in=fan,
+                                             merge_fn=lambda k, v, r: j_fused(
+                                                 k, v, r, max_block=mb,
+                                                 fan_in=fan)))
+                for kind in LADDER_KINDS:
+                    keys, vals = _ladder_input(n, run, kind, seed=n + run)
+                    out[n, run, fan, kind, pairs] = fn(
+                        jnp.asarray(keys),
+                        jnp.asarray(vals) if pairs else None)
+    return out
+
+
+@pytest.mark.parametrize("n,run,mb", LADDER_CASES)
+@pytest.mark.parametrize("fan", [2, 3, 4])
+@pytest.mark.parametrize("kind", LADDER_KINDS)
+@pytest.mark.parametrize("pairs", [True, False])
+def test_merge_rounds_rung_hook_matches_reference(j_ladders, n, run, mb, fan,
+                                                  kind, pairs):
+    """``merge_rounds`` with the fused merge taking the rungs that fit and
+    ``merge_rung`` (its CPU route, the plain rung) every rung above them
+    equals the reference's ladder (its fused kernel, then jnp rungs) and
+    the stable sort."""
+    keys, vals = _ladder_input(n, run, kind, seed=n + run)
+    tk, tv = to.merge_rounds(
+        _t(keys), _t(vals) if pairs else None, run, fan_in=fan,
+        merge_fn=lambda k, v, r: tm.fused_merge_rounds(k, v, r, max_block=mb,
+                                                       fan_in=fan),
+        rung_fn=tm.merge_rung)
+    jk, jv = j_ladders[n, run, fan, kind, pairs]
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    if pairs:
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(tk.numpy(), keys[order])
+    if pairs:
+        np.testing.assert_array_equal(tv.numpy(), vals[order])
+    else:
+        assert tv is None
+
+
+def _passes_emulated(keys, vals, run, fan_ins):
+    """The kernel's schedule (``merge_passes``) run with the plain pairwise
+    merge: each pass merges consecutive pairs of sub-runs inside every
+    group and copies a last sub-run with no partner."""
+    for group, r in tm.merge_passes(run, fan_ins):
+        ok, ov = [], []
+        for g0 in range(0, keys.shape[0], group):
+            for p0 in range(g0, g0 + group, 2 * r):
+                mid, end = min(p0 + r, g0 + group), min(p0 + 2 * r, g0 + group)
+                k, v = to.merge_sorted(keys[p0:mid], None if vals is None
+                                       else vals[p0:mid], keys[mid:end],
+                                       None if vals is None else vals[mid:end])
+                ok.append(k)
+                ov.append(v)
+        keys = torch.cat(ok)
+        vals = None if vals is None else torch.cat(ov)
+    return keys, vals
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("kind", LADDER_KINDS)
+@pytest.mark.parametrize("pairs", [True, False])
+def test_kernel_pass_schedule_is_the_reference_rung(k, kind, pairs):
+    """A fan-in-k rung run as the kernel runs it, ceil(log2 k) passes of
+    pairwise merges (a rung of 3: runs 0 and 1, then run 2), equals the
+    reference's k-way rung ``merge_sorted_k``, bit for bit."""
+    run, groups = 96, 3
+    keys, vals = _ladder_input(groups * k * run, run, kind, seed=k)
+    assert len(tm.merge_passes(run, [k])) == (k - 1).bit_length()
+    tk, tv = _passes_emulated(_t(keys), _t(vals) if pairs else None, run, [k])
+    jk, jv = jax.jit(jax.vmap(jo.merge_sorted_k))(
+        jnp.asarray(keys).reshape(groups, k, run),
+        jnp.asarray(vals).reshape(groups, k, run))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk).reshape(-1))
+    if pairs:
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv).reshape(-1))
+    pk, pv = tm.merge_rung(_t(keys), _t(vals) if pairs else None, run, k)
+    np.testing.assert_array_equal(pk.numpy(), tk.numpy())
+    assert (pv is None) if not pairs else torch.equal(pv, tv)
+
+
+@pytest.mark.parametrize("fan", [2, 3, 4])
+@pytest.mark.parametrize("n,chunk", [(3 * 1024, 256), (5 * 1024, 1024)])
+@pytest.mark.parametrize("pairs", [True, False])
+def test_stable_sort_rung_hook_matches_reference(fan, n, chunk, pairs):
+    """``stable_sort_by_key`` under chunked_merge with the chunk-sort and
+    merge-rung hooks and no fused merge (every rung through ``rung_fn``),
+    at run counts of 12 and 5, equals the reference's jitted sort and the
+    xla_sort strategy."""
+    rng = np.random.default_rng(n + fan)
+    keys = rng.integers(0, 3000, n).astype(np.int32)
+    keys[rng.random(n) < 0.3] = SEN
+    vals = np.arange(n, dtype=np.int32)
+    kw = dict(chunk=chunk, radix_bits=4, fan_in=fan, strategy="chunked_merge")
+    jk, jv = jax.jit(lambda k, v: jo.stable_sort_by_key(k, v, 3000, **kw))(
+        jnp.asarray(keys), jnp.asarray(vals) if pairs else None)
+    tk, tv = to.stable_sort_by_key(
+        _t(keys), _t(vals) if pairs else None, 3000, **kw,
+        chunk_sort_fn=trs.make_chunk_sort_fn(4), rung_fn=tm.merge_rung)
+    xk, xv = to.stable_sort_by_key(_t(keys), _t(vals) if pairs else None,
+                                   3000, strategy="xla_sort")
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tk.numpy(), xk.numpy())
+    if pairs:
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(tv.numpy(), xv.numpy())
+    else:
+        assert tv is None

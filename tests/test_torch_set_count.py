@@ -30,6 +30,7 @@ from repro_torch.core import costmodel as tcm  # noqa: E402
 from repro_torch.core import graph as tg  # noqa: E402
 from repro_torch.core import pipeline as tp  # noqa: E402
 from repro_torch.core.set_count import count_less_than  # noqa: E402
+from repro_torch.kernels import merge as tm  # noqa: E402
 from repro_torch.kernels import set_count as tsc  # noqa: E402
 from repro_torch.launch.serve import MERGE_CFG  # noqa: E402
 
@@ -116,11 +117,14 @@ def test_convert_merge_cfg_matches_reference(j_converts, n, e, cap):
 
 def test_merge_cfg_routes_all_six_kernel_fns():
     """MERGE_CFG resolves to the path it names, and ``kernel_fns`` gives
-    the reference's six routes under use_pallas (none without)."""
+    the reference's six routes under use_pallas (none without), and the
+    port's seventh, the merge-rung kernel for the rungs the reference runs
+    in jnp."""
     kf = tp.kernel_fns(MERGE_CFG)
-    assert len(kf) == 6 and all(fn is not None for fn in kf)
+    assert len(kf) == 7 and all(fn is not None for fn in kf)
     assert kf.count_fn is tsc.count_fn
-    assert tp.kernel_fns(tcm.EngineConfig()) == (None,) * 6
+    assert kf.rung_fn is tm.merge_rung
+    assert tp.kernel_fns(tcm.EngineConfig()) == (None,) * 7
     w = tcm.Workload(n=282_624, e=1 << 19)
     assert tcm.resolve_sort_strategy(MERGE_CFG, w) == "chunked_merge"
     assert tcm.pointer_reindex_strategy(MERGE_CFG, w) == "unfused"

@@ -2,7 +2,8 @@
 """Compare trees of this repository on one card, in turns, on the port's
 SLICE_CFG serve path: what a request costs end to end and what the rank
 epilogue's five calls cost on the arrays the path hands them; or, with
-``--what kernels``, what the chunk sort and the filter cost.
+``--what kernels``, what the chunk sort, the filter, the merge ladder's
+kernels and a MERGE_CFG convert cost.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
       --order parent,change,change,parent [--what kernels]
@@ -30,9 +31,13 @@ tree's ``chunk_sort`` wrapper (pairs and keys, chunk 4096) at a request's
 keys), each checked against a per-chunk stable ``torch.sort``; its
 ``filter_tree_lookup`` wrapper at ``chip_smoke.FILTER_TIMED`` (unique
 keys, a quarter of the targets hit), checked against
-``torch.searchsorted`` on the sorted keys; and the host-clock seconds of
-a MERGE_CFG convert of chip_smoke's Reddit-scale COO (the median of
-three after a warm-up).
+``torch.searchsorted`` on the sorted keys; its ``fused_merge_rounds``
+wrapper (runs 4096 → 65,536, pairs and keys) at 2^19 and 2^27 and one
+rung above it (65,536 → 131,072, pairs: the tree's ``merge_rung``, or
+the plain rung ``ordering.merge_ladder`` where the tree has none), each
+checked against a per-block stable ``torch.sort``; and the host-clock
+seconds of a MERGE_CFG convert of chip_smoke's Reddit-scale COO (the
+median of three after a warm-up).
 
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
@@ -148,15 +153,16 @@ def turn(tree: str, seed: int, n_requests: int, reps: int) -> dict:
 
 
 def turn_kernels(tree: str, seed: int) -> dict:
-    """One tree's chunk-sort, filter and MERGE_CFG convert readings, in
-    this process."""
+    """One tree's chunk-sort, filter, merge and MERGE_CFG convert
+    readings, in this process."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
-    from repro_torch.core import pipeline
+    from repro_torch.core import ordering, pipeline
     from repro_torch.core.graph import synthetic_coo
     from repro_torch.kernels import _build
+    from repro_torch.kernels import merge as tm
     from repro_torch.kernels import radix_sort as trs
     from repro_torch.kernels import set_count as tsc
     from repro_torch.launch.serve import MERGE_CFG
@@ -167,7 +173,7 @@ def turn_kernels(tree: str, seed: int) -> dict:
     dev = torch.device("cuda", 0)
     _build.build(("digit_pass", "set_count", "merge"))
     g = torch.Generator(device=dev).manual_seed(seed + 10)
-    out = dict(chunk_sort={}, filter={})
+    out = dict(chunk_sort={}, filter={}, merge={})
     for n, bound in ((cs.SERVE_CAP, cs.SERVE_NODES),
                      (cs.CHUNK_SORT_BIG, cs.REDDIT["nodes"])):
         keys = torch.randint(0, bound, (n,), generator=g, device=dev,
@@ -210,6 +216,41 @@ def turn_kernels(tree: str, seed: int) -> dict:
                  f"{tree} filter_tree_lookup {e} x {t}: == searchsorted")
         out["filter"][f"{e} keys x {t} targets"] = cs.cuda_ms(
             kernel, iters=20 if e * t <= cs.FILTER_TWIN_TIMED else 5)
+    block = tm.DEFAULT_MAX_BLOCK
+    for n, bound in ((cs.SERVE_CAP, cs.SERVE_NODES),
+                     (cs.CHUNK_SORT_BIG, cs.REDDIT["nodes"])):
+        keys = torch.sort(torch.randint(
+            0, bound, (n,), generator=g, device=dev, dtype=torch.int32
+        ).view(-1, cs.TILE), dim=1).values.view(-1)
+        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        for v in (vals, None):
+            def fused():
+                return tm.fused_merge_rounds(keys, v, cs.TILE)
+            st = torch.sort(keys.view(-1, block), dim=1, stable=True)
+            got = fused()
+            cs.check(torch.equal(got[0], st.values.view(-1)) and (
+                v is None or torch.equal(got[1], v.view(-1, block).gather(
+                    1, st.indices).view(-1))),
+                f"{tree} fused_merge_rounds {n}: == per-block torch.sort")
+            out["merge"][f"fused {n} {'pairs' if v is not None else 'keys'}"
+                         ] = cs.cuda_ms(fused)
+            del got, st
+        rk = tm.fused_merge_rounds(keys, vals, cs.TILE)[:2]
+        rung = getattr(tm, "merge_rung", None)
+        label = "rung" if rung is not None else "plain rung"
+
+        def upper():
+            if rung is not None:
+                return rung(rk[0], rk[1], block, 2)
+            return ordering.merge_ladder(rk[0], rk[1], block, [2])
+        st = torch.sort(rk[0].view(-1, 2 * block), dim=1, stable=True)
+        got = upper()
+        cs.check(torch.equal(got[0], st.values.view(-1)) and torch.equal(
+            got[1], rk[1].view(-1, 2 * block).gather(1, st.indices).view(-1)),
+            f"{tree} {label} {n}: == per-block torch.sort")
+        out["merge"][f"{label} {n} pairs"] = cs.cuda_ms(
+            upper, iters=20 if rung is not None else 3)
+        del keys, vals, rk, st, got
     coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
                         cs.MERGE_CONVERT_CAP, seed + 5, device=dev)
     secs = []
@@ -234,7 +275,8 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--what", choices=("slice", "kernels"), default="slice",
                     help="the SLICE_CFG request and rank calls, or the "
-                    "chunk sort, the filter and the MERGE_CFG convert")
+                    "chunk sort, the filter, the merge kernels and the "
+                    "MERGE_CFG convert")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
