@@ -14,9 +14,12 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    head width's bf16 flash forward, dq and dk/dv kernel must show one
    tile's MMAs as HMMA instructions in its SASS and no local-memory
    traffic (no spills).
-3. kernels — each of the nine kernels (and the keys-only, shuffled and
+3. kernels — each of the nine kernels of the GNN paths and the
+   reference design's digit-pass pair (and the keys-only, shuffled and
    D = 1 variants) against its plain-torch twin on the card at the serve
-   paths' shapes, with its time (CUDA events after a warm-up, the timed
+   paths' shapes (the card's digit pass, ``digit_hist`` and
+   ``digit_scatter``, at a request's 2^19 pairs and its widest digit, 7
+   bits), with its time (CUDA events after a warm-up, the timed
    launches queued behind a device sleep so that the device, not the
    host's launch cost, is timed), the twin's time, one PyTorch library
    call's time as a yardstick, and its bound. Integer kernels must match
@@ -35,13 +38,22 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    (232,965 nodes, 114,615,892 synthetic power-law edges in a 2^27 COO)
    under ``SLICE_CFG``, then ``GnnServeEngine`` serving 16 requests of
    1..1024 seeds at full graphsage-reddit width (602 features, 2 × 128
-   hidden, fanouts 25-10, 41 classes, 4 slots); counters read.
+   hidden, fanouts 25-10, 41 classes, 4 slots); counters read: the
+   convert's two sorts ran 3 ``digit_hist`` and 3 ``digit_scatter``
+   launches each (digits of 7, 7 and 6 bits), and the path no
+   ``digit_partition_hist`` or ``digit_rank_gather``.
 5. slice checks — convert bit-identical to the torch.sort strategy on the
    same COO; every request bit-identical to a sequential per-request
    slot_fn loop; the convert-scale pointer rank (232,966 queries over
-   2^27) and the digit pass at 2^24 pairs against their twins, the digit
-   pass also timed at 2^27; a small graph served on the card equal to the
-   CPU path; four requests' subgraphs and logits with the rank-epilogue
+   2^27) against its twin; the digit pass (``digit_phase``): the card's
+   pair against its twins bit for bit at 2^19 and 2^24, pairs and keys,
+   4- and 7-bit digits, timed at 2^19 and 2^27 beside its bounds, the
+   reference design's pair (against its twins at 2^24) and its whole
+   pass (against a stable ``torch.sort`` by the digit at 2^24), and
+   ``torch.sort``; at 2^27 one key everywhere, the card tile
+   swept (2048 to 16384) and the whole 18-bit sort on the own schedule and on 4-bit
+   passes against ``torch.sort(stable=True)`` + a gather; a small graph
+   served on the card equal to the CPU path; four requests' subgraphs and logits with the rank-epilogue
    kernels equal, bit for bit, to those with the twins in their place.
    The rank epilogue at the main path's five calls, on copies of the
    arrays the path hands it (one convert: its pointer build over 2^27;
@@ -49,7 +61,10 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    rename and subgraph pointer build), each equal to its twin and timed
    in turns (twin, kernel, kernel, ``torch.searchsorted``). Then the largest request once more
    under ``torch.profiler``: its wall time, its kernels' device time, the
-   ops that take the most of it and the rank kernels' time by name.
+   ops that take the most of it and the rank kernels' time by name; and
+   one more ``SLICE_CFG`` convert under ``torch.profiler``: the
+   hand-written kernels by name (6 ``digit_scatter_kernel`` launches, no
+   ``rank_gather_kernel``) and the rest.
 6. merge path — launch counters set to 0; ``convert`` under ``MERGE_CFG``
    (chunked_merge sorts, unfused set-count pointer build) of Reddit's
    114,615,892 synthetic power-law edges in a 2^27 COO, as the slice path
@@ -138,8 +153,8 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    the card, crashed at a step and resumed from its checkpoint, against
    an uninterrupted run.
 13. report — every kernel of each path launched in its run; the kernels
-   JSON line (all fourteen; prefix_partition and filter_tree_lookup with
-   0 launches), then the last line ``{"ok": true, "device": {...}}``.
+   JSON line (all sixteen; digit_partition_hist, digit_rank_gather,
+   prefix_partition and filter_tree_lookup with 0 launches), then the last line ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
 ``chiprun_out/chip_smoke.json``. Float32 matmuls run in full precision
@@ -171,8 +186,15 @@ REDDIT = dict(nodes=232_965, edges=114_615_892, feats=602, classes=41)
 TILE, RADIX_BITS = 4096, 4
 CONVERT_CAP = 1 << 27  # pow2 COO capacity of the Reddit edge list
 SEED_CAP, N_SLOTS = 1024, 4  # the batch Workload.b prices; engine slots
-# digit-pass sizes checked (2^24: compared with the twin) and timed (2^27)
-DIGIT_SIZES = ((1 << 24, True), (1 << 27, False))
+# the digit pass's pairs: the card's (digit_hist, digit_scatter) against
+# their twins at DIGIT_CHECKED and timed at DIGIT_TIMED, at digit widths
+# DIGIT_WIDTHS (the reference's 4; 7, the own schedule's widest), pairs and
+# keys; the reference's one-to-one pair checked at 2^24, timed at both;
+# the scatter's card tile timed at SCATTER_TILES (2^27, 7 bits, pairs)
+DIGIT_CHECKED = (1 << 19, 1 << 24)
+DIGIT_TIMED = (1 << 19, 1 << 27)
+DIGIT_WIDTHS = (4, 7)
+SCATTER_TILES = (2048, 4096, 8192, 16384)
 # the chunk sort at the MERGE_CFG convert's shape, checked against the
 # twin in slices of 2^24 elements (its one-hot partition: 64 bytes an
 # element a pass)
@@ -186,12 +208,15 @@ SEG_RTOL, SEG_ATOL = 1e-5, 1e-4  # segment sum against the float64 sum
 # times the largest error read on the card: 7.3e-5 (NVIDIA H100 80GB HBM3,
 # 700 W, every run of this script so far)
 LOGIT_TOL = 7.5e-4
-SLICE_KERNELS = ("digit_partition_hist", "digit_rank_gather", "rank_search",
-                 "rename")
+SLICE_KERNELS = ("digit_hist", "digit_scatter", "rank_search", "rename")
 MERGE_KERNELS = ("chunk_sort", "fused_merge", "merge_rung",
                  "set_count_less", "segment_sum_sorted")
 LM_KERNELS = ("flash_attention_fwd",)
-OFF_PATH_KERNELS = ("prefix_partition", "filter_tree_lookup")
+# no path runs these: the reference's digit pass one to one (the slice
+# path's sorts run digit_hist and digit_scatter), and two kernels only the
+# reference's tests call
+OFF_PATH_KERNELS = ("digit_partition_hist", "digit_rank_gather",
+                    "prefix_partition", "filter_tree_lookup")
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 LM_ARCH, LM_SEQ, LM_BATCH, LM_LONG_SEQ = "gemma2-9b", 8192, 1, 32768
 # flash kernel against its twin in bf16: both work in float32 and round
@@ -529,12 +554,25 @@ def kernel_phase(dev, seed):
                                                    TILE), iters=5)
     b_ms, b_by = bound(4 * (3 * n_tiles * nb + nb + n),
                        n * (RADIX_BITS + max(1, n_tiles.bit_length())))
+    # the same sources: a stable sort of the partitioned layout's digits
+    part_digit = pk & (nb - 1)
+    lib_ms = cuda_ms(lambda: torch.sort(part_digit, stable=True).indices,
+                     iters=5)
     rows["digit_rank_gather"] = dict(
         name="digit_rank_gather", route="cuda",
         source="src/repro_torch/csrc/digit_pass.cu",
         replaces="src/repro/kernels/radix_sort.py:208", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=f"{n} slots, [{n_tiles}, {nb}] tables")
+        library_ms=lib_ms, shape=f"{n} slots, [{n_tiles}, {nb}] tables; "
+        "library: torch.sort(digit of the partitioned keys, stable=True)"
+        ".indices")
+
+    # the card's pass at the request's shape and the main path's widest
+    # digit (7 bits: every request sort runs 7, 7, 6)
+    width, shift = 7, 7
+    rows.update(card_digit_rows(keys, vals, width, shift))
+    extra["digit_pass_resources"] = resource_usage(
+        "digit_pass", "digit_hist_kernel|digit_scatter_kernel")
 
     # the whole digit pass against one library sort + gather
     digit = keys & (nb - 1)
@@ -546,6 +584,55 @@ def kernel_phase(dev, seed):
 
     extra["rank_adversarial"] = rank_adversarial(dev, seed)
     return rows, extra
+
+
+def card_digit_rows(keys, vals, width, shift):
+    """The ``digit_hist`` and ``digit_scatter`` rows (pairs) at these
+    inputs: each against its twin, bit for bit, and timed beside its
+    bound and twin; the scatter beside a stable ``torch.sort`` of the
+    digits + gathers (the same permutation, a yardstick)."""
+    import torch
+    from repro_torch.kernels import radix_sort as trs
+
+    n, tile, nb = keys.numel(), trs.SCATTER_TILE, 1 << width
+    n_tiles = trs.n_card_tiles(n, tile)
+    counts = trs.digit_hist(keys, shift, tile, width)
+    want = trs._digit_hist_plain(keys, shift, tile, width)
+    offs = trs.digit_offsets(counts)
+    got = trs.digit_scatter(keys, vals, offs, shift, tile, width)
+    want_s = trs._digit_scatter_plain(keys, vals, offs, shift, tile, width)
+    torch.cuda.synchronize()
+    err_h = max_err([counts], [want])
+    err_s = max_err(got, want_s)
+    check(err_h == 0 and err_s == 0,
+          f"digit_hist / digit_scatter == twins at {n} pairs, {width} bits")
+    shape = f"{n} pairs, card tile {tile}, {nb} buckets"
+    h_ms, h_by = bound(4 * n + 4 * nb * n_tiles, n)
+    s_ms, s_by = bound(4 * (4 * n + nb * n_tiles), 4 * n)
+    digit = (keys >> shift) & (nb - 1)
+    common = dict(route="cuda", source="src/repro_torch/csrc/digit_pass.cu")
+    return {
+        "digit_hist": dict(
+            name="digit_hist", replaces="src/repro/kernels/radix_sort.py:195",
+            max_abs_err=err_h,
+            ms=cuda_ms(lambda: trs.digit_hist(keys, shift, tile, width)),
+            plain_ms=cuda_ms(lambda: trs._digit_hist_plain(
+                keys, shift, tile, width), iters=5),
+            bound_ms=h_ms, bound_by=h_by, library_ms=None, shape=shape,
+            **common),
+        "digit_scatter": dict(
+            name="digit_scatter",
+            replaces="src/repro/kernels/radix_sort.py:208",
+            max_abs_err=err_s,
+            ms=cuda_ms(lambda: trs.digit_scatter(keys, vals, offs, shift,
+                                                 tile, width)),
+            plain_ms=cuda_ms(lambda: trs._digit_scatter_plain(
+                keys, vals, offs, shift, tile, width), iters=3),
+            bound_ms=s_ms, bound_by=s_by,
+            library_ms=cuda_ms(lambda: (lambda o: (keys[o], vals[o]))(
+                torch.sort(digit, stable=True).indices)),
+            shape=shape + "; library: torch.sort(digit, stable=True) + "
+            "two gathers", **common)}
 
 
 def resource_usage(name, kernel):
@@ -1214,47 +1301,9 @@ def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
     check(torch.equal(got, csc.ptr), "rank of the sorted stream == ptr")
     del sorted_dst
 
-    # (d) the digit pass at a stated smaller convert size (2^24 pairs)
-    # against its twin, and the kernels alone at the full 2^27
-    g = torch.Generator(device=dev).manual_seed(seed + 3)
-    for n_pairs, compare in DIGIT_SIZES:
-        keys = torch.randint(0, n + 1, (n_pairs,), generator=g, device=dev,
-                             dtype=torch.int32)
-        vals = torch.arange(n_pairs, dtype=torch.int32, device=dev)
-        got = trs.digit_partition_hist(keys, vals, 4, TILE, RADIX_BITS)
-        if compare:
-            want = trs._partition_hist_plain(keys, vals, 4, TILE, RADIX_BITS)
-            check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                  f"digit_partition_hist == twin at {n_pairs}")
-            del want
-        pk, pv, lbase, hist = got
-        nt, nb = n_pairs // TILE, 1 << RADIX_BITS
-        extra[f"digit_partition_hist_{n_pairs}_ms"] = cuda_ms(
-            lambda: trs._lib().digit_partition_hist(
-                keys.data_ptr(), vals.data_ptr(), pk.data_ptr(),
-                pv.data_ptr(), lbase.data_ptr(), hist.data_ptr(), nt, TILE,
-                4, nb, _build.stream_of(keys)), iters=5)
-        incl = torch.cumsum(hist, 0, dtype=torch.int32)
-        excl = incl - hist
-        gbase = (torch.cumsum(incl[-1], 0, dtype=torch.int32)
-                 - incl[-1]).contiguous()
-        src = trs.digit_rank_gather(gbase, incl, excl, lbase, TILE)
-        if compare:
-            from repro_torch.core.set_partition import rank_gather_sources
-            check(torch.equal(src, rank_gather_sources(gbase, incl, excl,
-                                                       lbase, TILE)),
-                  f"digit_rank_gather == twin at {n_pairs}")
-        extra[f"digit_rank_gather_{n_pairs}_ms"] = cuda_ms(
-            lambda: trs._lib().digit_rank_gather(
-                gbase.data_ptr(), incl.data_ptr(), excl.data_ptr(),
-                lbase.data_ptr(), src.data_ptr(), n_pairs, nt, TILE, nb,
-                _build.stream_of(src)), iters=5)
-        extra[f"digit_pass_{n_pairs}_ms"] = cuda_ms(
-            lambda: trs.global_digit_pass(keys, vals, 4, TILE, RADIX_BITS),
-            iters=3, warmup=1)
-        extra[f"torch_sort_pairs_{n_pairs}_ms"] = cuda_ms(
-            lambda: torch.sort(keys, stable=True), iters=3, warmup=1)
-        del keys, vals, got, pk, pv, src
+    # (d) the digit pass: both designs against their twins and timed, up
+    # to the convert's 2^27 pairs
+    extra["digit_pass"] = digit_phase(dev, seed)
 
     # (e) a small graph served on the card equals the CPU path
     small_graph_check(dev, seed, SLICE_CFG, smoke_config(), extra, "slice")
@@ -1263,6 +1312,168 @@ def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
     # kernels equal, bit for bit, those with their twins in their place
     # (the first port's search, which its kernels equalled bit for bit)
     rank_epilogue_is_invisible(eng, reqs[:4], handles[:4])
+
+
+def digit_phase(dev, seed):
+    """The global_radix digit pass on Reddit-like keys (uniform in [0,
+    232,965], the convert's clipped dst / src): the card's pair against
+    its twins bit for bit at DIGIT_CHECKED, pairs and keys, DIGIT_WIDTHS,
+    and timed at DIGIT_TIMED beside its bounds, the reference's
+    one-to-one pair and its whole pass (both checked at 2^24), and
+    ``torch.sort``; at 2^27 the card tile swept, the whole 18-bit sort on
+    the own schedule and on the reference's 4-bit passes against
+    ``torch.sort(stable=True)`` + a gather."""
+    import torch
+    from repro_torch.core.set_partition import rank_gather_sources
+    from repro_torch.kernels import radix_sort as trs
+    from repro_torch.kernels import _build
+
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    out = {}
+    for n_pairs in sorted(set(DIGIT_CHECKED + DIGIT_TIMED)):
+        keys = torch.randint(0, REDDIT["nodes"] + 1, (n_pairs,), generator=g,
+                             device=dev, dtype=torch.int32)
+        vals = torch.arange(n_pairs, dtype=torch.int32, device=dev)
+        r = out[n_pairs] = {}
+        timed = n_pairs in DIGIT_TIMED
+        for width in DIGIT_WIDTHS:
+            shift = width  # the second digit
+            for with_vals in (True, False):
+                v = vals if with_vals else None
+                tag = f"{width}bit_{'pairs' if with_vals else 'keys'}"
+                counts = trs.digit_hist(keys, shift, trs.SCATTER_TILE, width)
+                offs = trs.digit_offsets(counts)
+                got = trs.digit_scatter(keys, v, offs, shift,
+                                        trs.SCATTER_TILE, width)
+                if n_pairs in DIGIT_CHECKED:
+                    want_c = trs._digit_hist_plain(keys, shift,
+                                                   trs.SCATTER_TILE, width)
+                    check(torch.equal(counts, want_c),
+                          f"digit_hist == twin at {n_pairs}, {tag}")
+                    want = trs._digit_scatter_plain(keys, v, offs, shift,
+                                                    trs.SCATTER_TILE, width)
+                    check(torch.equal(got[0], want[0])
+                          and (v is None or torch.equal(got[1], want[1])),
+                          f"digit_scatter == twin at {n_pairs}, {tag}")
+                    del want, want_c
+                if not timed:
+                    continue
+                nb, nt = 1 << width, trs.n_card_tiles(n_pairs,
+                                                      trs.SCATTER_TILE)
+                streams = 2 if with_vals else 1
+                if with_vals:
+                    r[f"digit_hist_{width}bit_ms"] = cuda_ms(
+                        lambda: trs.digit_hist(keys, shift, trs.SCATTER_TILE,
+                                               width), iters=5)
+                    r[f"digit_hist_{width}bit_bound_ms"] = bound(
+                        4 * n_pairs + 4 * nb * nt, n_pairs)[0]
+                r[f"digit_scatter_{tag}_ms"] = cuda_ms(
+                    lambda: trs.digit_scatter(keys, v, offs, shift,
+                                              trs.SCATTER_TILE, width),
+                    iters=5)
+                r[f"digit_scatter_{tag}_bound_ms"] = bound(
+                    4 * (2 * streams * n_pairs + nb * nt), n_pairs)[0]
+                r[f"digit_pass_{tag}_ms"] = cuda_ms(
+                    lambda: trs.digit_pass(keys, v, shift, width), iters=5)
+                r[f"digit_pass_{tag}_bound_ms"] = bound(
+                    4 * (2 * streams * n_pairs + n_pairs), n_pairs)[0]
+            del got, counts, offs
+        # the reference's one-to-one pair (4 bits, its tile), as before
+        if n_pairs == 1 << 24 or timed:
+            pk, pv, lbase, hist = trs.digit_partition_hist(
+                keys, vals, 4, TILE, RADIX_BITS)
+            if n_pairs == 1 << 24:
+                want = trs._partition_hist_plain(keys, vals, 4, TILE,
+                                                 RADIX_BITS)
+                check(all(torch.equal(a, b) for a, b in
+                          zip((pk, pv, lbase, hist), want)),
+                      f"digit_partition_hist == twin at {n_pairs}")
+                del want
+            nt, nb = n_pairs // TILE, 1 << RADIX_BITS
+            incl = torch.cumsum(hist, 0, dtype=torch.int32)
+            excl = incl - hist
+            gbase = (torch.cumsum(incl[-1], 0, dtype=torch.int32)
+                     - incl[-1]).contiguous()
+            src = trs.digit_rank_gather(gbase, incl, excl, lbase, TILE)
+            if n_pairs == 1 << 24:
+                check(torch.equal(src, rank_gather_sources(
+                    gbase, incl, excl, lbase, TILE)),
+                    f"digit_rank_gather == twin at {n_pairs}")
+                # the whole old pass: a stable sort by the digit
+                rk, rv = reference_design_pass(keys, vals)
+                order = torch.sort((keys >> 4) & ((1 << RADIX_BITS) - 1),
+                                   stable=True).indices
+                check(torch.equal(rk, keys[order])
+                      and torch.equal(rv, vals[order]),
+                      f"the reference design's pass == a stable torch.sort "
+                      f"by the digit at {n_pairs}")
+                del rk, rv, order
+        if timed:
+            r["digit_partition_hist_ms"] = cuda_ms(
+                lambda: trs._lib().digit_partition_hist(
+                    keys.data_ptr(), vals.data_ptr(), pk.data_ptr(),
+                    pv.data_ptr(), lbase.data_ptr(), hist.data_ptr(), nt,
+                    TILE, 4, nb, _build.stream_of(keys)), iters=5)
+            r["digit_rank_gather_ms"] = cuda_ms(
+                lambda: trs._lib().digit_rank_gather(
+                    gbase.data_ptr(), incl.data_ptr(), excl.data_ptr(),
+                    lbase.data_ptr(), src.data_ptr(), n_pairs, nt, TILE, nb,
+                    _build.stream_of(src)), iters=5)
+            # the reference's pass: partition, table scan, rank-gather and
+            # two takes (the pass every earlier run of this script timed)
+            r["reference_design_pass_4bit_pairs_ms"] = cuda_ms(
+                lambda: reference_design_pass(keys, vals), iters=3)
+            r["torch_sort_pairs_ms"] = cuda_ms(
+                lambda: torch.sort(keys, stable=True), iters=3, warmup=1)
+        if n_pairs == max(DIGIT_TIMED):
+            # one key everywhere (a SENTINEL-clipped stream): every item
+            # of a warp adds to one counter
+            same = torch.full_like(keys, REDDIT["nodes"])
+            r["digit_hist_7bit_one_key_ms"] = cuda_ms(
+                lambda: trs.digit_hist(same, 7, trs.SCATTER_TILE, 7), iters=5)
+            r["digit_pass_7bit_pairs_one_key_ms"] = cuda_ms(
+                lambda: trs.digit_pass(same, vals, 7, 7), iters=5)
+            del same
+            # the card tile, swept on the widest digit
+            for tile in SCATTER_TILES:
+                r[f"digit_pass_7bit_pairs_tile{tile}_ms"] = cuda_ms(
+                    lambda: trs.digit_pass(keys, vals, 7, 7, tile), iters=5)
+            # the whole sort of 18-bit keys: own schedule (7, 7, 6), the
+            # reference's five 4-bit passes on the new kernels, torch.sort
+            own = trs.make_radix_sort_fn(RADIX_BITS)
+            key_bits = REDDIT["nodes"].bit_length()
+            sk, sv = own(keys, vals, key_bits)
+            ts, order = torch.sort(keys, stable=True)
+            check(torch.equal(sk, ts) and torch.equal(sv, vals[order]),
+                  f"the own-schedule sort == torch.sort at {n_pairs}")
+            del sk, sv, ts, order
+
+            def four_bit_passes():
+                k, v = keys, vals
+                for p in range(-(-key_bits // RADIX_BITS)):
+                    k, v = trs.digit_pass(k, v, p * RADIX_BITS, RADIX_BITS)
+                return k, v
+            r["sort_own_schedule_ms"] = cuda_ms(
+                lambda: own(keys, vals, key_bits), iters=3)
+            r["sort_4bit_passes_ms"] = cuda_ms(four_bit_passes, iters=3)
+            r["torch_sort_stable_plus_gather_ms"] = cuda_ms(
+                lambda: (lambda s: (s.values, vals[s.indices]))(
+                    torch.sort(keys, stable=True)), iters=3)
+            r["own_schedule"] = trs.global_radix_schedule(key_bits,
+                                                          RADIX_BITS)
+        del keys, vals
+        if timed or n_pairs == 1 << 24:
+            del pk, pv, lbase, hist, incl, excl, gbase, src
+        log(f"[digit pass] {n_pairs} pairs: {r}")
+    return {str(k): v for k, v in out.items()}
+
+
+def reference_design_pass(keys, vals):
+    """The reference's digit pass on its one-to-one kernels (4 bits, tile
+    TILE): ``radix_sort.reference_digit_pass``; no path runs it."""
+    from repro_torch.kernels import radix_sort as trs
+
+    return trs.reference_digit_pass(keys, vals, 4, TILE, RADIX_BITS)
 
 
 def rank_epilogue_is_invisible(eng, reqs, handles):
@@ -1663,27 +1874,42 @@ def profile_phase(eng, seeds, rid, top=8):
                                kernels=RANK_KERNEL_RE, ops=LADDER_OP_RE))
 
 
-# the hand-written kernels of a MERGE_CFG convert in a trace: the chunk
-# sort, the merge-path partition and tile kernels (the fused merge's and
-# the rungs' passes), the set count's two
-CONVERT_KERNEL_RE = (r"\b(?:chunk_sort_kernel|merge_partition_kernel|"
-                     r"merge_tile_kernel|tile_sort_kernel|set_count_kernel)\b")
+# the hand-written kernels of a convert in a trace, by path. MERGE_CFG: the
+# chunk sort, the merge-path partition and tile kernels (the fused merge's
+# and the rungs' passes), the set count's two. SLICE_CFG: the card's digit
+# pass, the reference design's pair (which must be absent) and the rank
+# kernel of the pointer build
+CONVERT_KERNEL_RE = {
+    "merge": (r"\b(?:chunk_sort_kernel|merge_partition_kernel|"
+              r"merge_tile_kernel|tile_sort_kernel|set_count_kernel)\b"),
+    "slice": (r"\b(?:digit_hist_kernel|digit_scatter_kernel|"
+              r"partition_hist_kernel|rank_gather_kernel|rank_kernel)\b")}
 # the plain merge ladder's ops (``core/ordering.py`` ``merge_sorted_k``),
 # which a MERGE_CFG convert on the card must not run
 LADDER_OP_RE = r"^aten::(?:searchsorted|scatter_?)$"
 
 
-def convert_profile(dev, coo):
-    """One MERGE_CFG convert of ``coo`` under ``torch.profiler``: its wall
-    and device time, split into the hand-written kernels by name and the
-    rest, the device span of each merge rung above the fused merge's block
+def convert_profile(dev, coo, path="merge"):
+    """One convert of ``coo`` under ``torch.profiler``, on the ``path``'s
+    config (``ENGINE_CFGS``: "merge" or "slice"): its wall and device time,
+    split into the hand-written kernels by name and the rest, and the
+    count of the plain ladder's ops in the trace; on the merge path the
+    device span of each merge rung above the fused merge's block
     (``kernels/merge.py`` ``merge_rung``, timed by CUDA events around each
-    call), and the count of the plain ladder's ops in the trace."""
+    call)."""
     import torch
     from repro_torch.core import pipeline
     from repro_torch.kernels import merge as tm
-    from repro_torch.launch.serve import MERGE_CFG
+    from repro_torch.launch.serve import ENGINE_CFGS
 
+    cfg = ENGINE_CFGS[path][0]
+    if path != "merge":
+        prof = profile_call(lambda: pipeline.convert(coo, cfg, device=dev),
+                            top=12, kernels=CONVERT_KERNEL_RE[path],
+                            ops=LADDER_OP_RE)
+        named = sum(r["device_ms"] for r in prof["kernels"].values())
+        prof["other_device_ms"] = prof["device_ms"] - named
+        return prof
     spans = []
     rung = tm.merge_rung
 
@@ -1699,9 +1925,8 @@ def convert_profile(dev, coo):
     timed_rung.launches = rung.launches
     tm.merge_rung = timed_rung
     try:
-        prof = profile_call(lambda: pipeline.convert(coo, MERGE_CFG,
-                                                     device=dev),
-                            top=12, kernels=CONVERT_KERNEL_RE,
+        prof = profile_call(lambda: pipeline.convert(coo, cfg, device=dev),
+                            top=12, kernels=CONVERT_KERNEL_RE[path],
                             ops=LADDER_OP_RE)
     finally:
         tm.merge_rung = rung
@@ -2540,6 +2765,18 @@ def main():
     log_serve("serve", out)
     check(all(out["launches"][k] > 0 for k in SLICE_KERNELS),
           f"every kernel of the slice path launched: {out['launches']}")
+    # the two-pass Ordering's two sorts, each on the card's own schedule;
+    # the reference design's pair held off the path
+    from repro_torch.kernels.radix_sort import global_radix_schedule
+    passes = 2 * len(global_radix_schedule(REDDIT["nodes"].bit_length(),
+                                           RADIX_BITS))
+    cl = out["convert_launches"]
+    check(cl["digit_hist"] == cl["digit_scatter"] == passes
+          and out["launches"]["digit_partition_hist"] == 0
+          and out["launches"]["digit_rank_gather"] == 0,
+          f"the convert ran {passes} digit_hist and digit_scatter launches "
+          f"and the path no digit_partition_hist or digit_rank_gather: "
+          f"{cl}; {out['launches']}")
 
     # 5. slice checks and profile
     checks(dev, args.seed, coo, csc, eng, reqs, handles, extra)
@@ -2553,6 +2790,15 @@ def main():
     rows.update(rank_rows)
     out["profile"] = profile_phase(eng, reqs[big], handles[big].rid)
     log_profile("profile", out["profile"])
+    out["convert_profile"] = sprof = convert_profile(dev, coo, "slice")
+    log_profile("slice convert profile", sprof)
+    log(f"[slice convert profile] kernels other than the hand-written "
+        f"ones {sprof['other_device_ms']:.3f} ms")
+    check(sprof["kernels"].get("digit_scatter_kernel", {}).get("count")
+          == passes and "rank_gather_kernel" not in sprof["kernels"]
+          and "partition_hist_kernel" not in sprof["kernels"],
+          f"the profiled slice convert ran {passes} digit_scatter_kernel "
+          f"launches and no rank_gather_kernel: {sprof['kernels']}")
     del coo
 
     # 6. the merge path
@@ -2585,7 +2831,7 @@ def main():
         f"{LOGIT_TOL} of the slice path's, card == CPU on a small graph: ok")
     mout["profile"] = profile_phase(meng, mreqs[big], mhandles[big].rid)
     log_profile("merge profile", mout["profile"])
-    mout["convert_profile"] = cprof = convert_profile(dev, mcoo)
+    mout["convert_profile"] = cprof = convert_profile(dev, mcoo, "merge")
     log_profile("merge convert profile", cprof)
     log(f"[merge convert profile] kernels other than the hand-written "
         f"ones {cprof['other_device_ms']:.3f} ms; the merge rungs' device "
@@ -2732,7 +2978,9 @@ def main():
     check(all(v > 0 for v in launches.values()),
           f"all nine GNN kernels launched across the two paths: {launches}")
     launches.update({k: lout["launches"][k] + tout["launches"][k]
-                     for k in LM_KERNELS + TRAIN_KERNELS + OFF_PATH_KERNELS})
+                     for k in LM_KERNELS + TRAIN_KERNELS})
+    launches.update({k: sum(p["launches"][k] for p in (out, mout, lout, tout))
+                     for k in OFF_PATH_KERNELS})
     kernels = []
     for key in (SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + TRAIN_KERNELS
                 + OFF_PATH_KERNELS):

@@ -14,8 +14,9 @@ runs under a strategy:
   sibling run, earlier runs winning ties.
 * ``"global_radix"`` — merge-free LSD radix sort: each digit pass
   stable-partitions the whole array through the tiled two-level router
-  (``set_partition.tiled_digit_sources``), or through the digit-pass
-  kernels when ``digit_pass_fn`` is given (``EngineConfig.use_pallas``).
+  (``set_partition.tiled_digit_sources``); ``radix_sort_fn`` takes the
+  whole sort instead (``EngineConfig.use_pallas``: the card's histogram and
+  scatter kernels on their own digit schedule).
 * ``"xla_sort"`` — the platform's native sort, here ``torch.sort``.
 
 All three give the same output. Sentinel handling: keys are clipped to
@@ -162,16 +163,12 @@ def merge_rounds(ks: torch.Tensor, vs: torch.Tensor | None, run: int,
 
 
 def _global_radix_passes(keys, vals, key_bits: int, tile: int,
-                         radix_bits: int, digit_pass_fn=None):
-    """The merge-free digit-pass loop; ``digit_pass_fn(keys, vals, shift)``
-    swaps in the digit-pass kernels."""
+                         radix_bits: int):
+    """The merge-free digit-pass loop."""
     n_buckets = 1 << radix_bits
     n_passes = max(1, -(-key_bits // radix_bits))
     for p in range(n_passes):
         shift = p * radix_bits
-        if digit_pass_fn is not None:
-            keys, vals = digit_pass_fn(keys, vals, shift)
-            continue
         src = tiled_digit_sources((keys >> shift) & (n_buckets - 1),
                                   n_buckets, tile)
         keys = take(keys, src)
@@ -186,13 +183,18 @@ def _restore_sentinels(ks: torch.Tensor, key_bound: int) -> torch.Tensor:
 
 def global_radix_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
                              key_bound: int, tile: int | None = None,
-                             radix_bits: int = 4, digit_pass_fn=None):
-    """Global stable LSD radix sort with zero merge rounds."""
+                             radix_bits: int = 4, radix_sort_fn=None):
+    """Global stable LSD radix sort with zero merge rounds;
+    ``radix_sort_fn(keys, vals, key_bits) -> (keys, vals)`` runs the whole
+    digit-pass loop in place of ``_global_radix_passes``."""
     n = keys.shape[0]
     tile = min(DEFAULT_CHUNK if tile is None else tile, n)
     clipped = torch.clamp(keys, max=key_bound)
-    ks, vs = _global_radix_passes(clipped, vals, _bits_for(key_bound), tile,
-                                  radix_bits, digit_pass_fn=digit_pass_fn)
+    if radix_sort_fn is not None:
+        ks, vs = radix_sort_fn(clipped, vals, _bits_for(key_bound))
+    else:
+        ks, vs = _global_radix_passes(clipped, vals, _bits_for(key_bound),
+                                      tile, radix_bits)
     return _restore_sentinels(ks, key_bound), vs
 
 
@@ -212,20 +214,20 @@ def xla_stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
 def stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
                        key_bound: int, chunk: int | None = None,
                        radix_bits: int = 4, strategy: str = "global_radix",
-                       digit_pass_fn=None, chunk_sort_fn=None, merge_fn=None,
-                       fan_in: int = 2, rung_fn=None):
+                       chunk_sort_fn=None, merge_fn=None,
+                       fan_in: int = 2, rung_fn=None, radix_sort_fn=None):
     """Global stable sort under a ``strategy``; ``key_bound`` is the
     exclusive bound of valid keys, ``chunk`` the UPE chunk (chunked_merge)
     or the histogram tile (global_radix). ``chunk_sort_fn(keys, vals,
     chunk, key_bits)``, ``merge_fn`` and ``rung_fn`` swap in the
-    chunk-sort, fused-merge and merge-rung kernels, ``digit_pass_fn`` the
-    digit-pass kernels."""
+    chunk-sort, fused-merge and merge-rung kernels, ``radix_sort_fn`` the
+    whole global_radix sort."""
     n = keys.shape[0]
     chunk = min(DEFAULT_CHUNK if chunk is None else chunk, n)
     if strategy == "global_radix":
         return global_radix_sort_by_key(keys, vals, key_bound, tile=chunk,
                                         radix_bits=radix_bits,
-                                        digit_pass_fn=digit_pass_fn)
+                                        radix_sort_fn=radix_sort_fn)
     if strategy == "xla_sort":
         return xla_stable_sort_by_key(keys, vals, key_bound)
     if strategy != "chunked_merge":
@@ -243,9 +245,9 @@ def stable_sort_by_key(keys: torch.Tensor, vals: torch.Tensor | None,
 
 def edge_ordering(coo: COO, chunk: int | None = None, radix_bits: int = 4,
                   sort_fn=None, mode: str = "auto", keys_only: bool = True,
-                  strategy: str = "global_radix", digit_pass_fn=None,
+                  strategy: str = "global_radix",
                   chunk_sort_fn=None, merge_fn=None, fan_in: int = 2,
-                  rung_fn=None) -> COO:
+                  rung_fn=None, radix_sort_fn=None) -> COO:
     """Sort edges by (dst, src) — packed single pass or two-pass LSD.
 
     ``sort_fn(keys, vals, key_bound) -> (keys, vals)`` overrides the global
@@ -258,10 +260,10 @@ def edge_ordering(coo: COO, chunk: int | None = None, radix_bits: int = 4,
             return stable_sort_by_key(k, v, bound, chunk=chunk,
                                       radix_bits=radix_bits,
                                       strategy=strategy,
-                                      digit_pass_fn=digit_pass_fn,
                                       chunk_sort_fn=chunk_sort_fn,
                                       merge_fn=merge_fn, fan_in=fan_in,
-                                      rung_fn=rung_fn)
+                                      rung_fn=rung_fn,
+                                      radix_sort_fn=radix_sort_fn)
     bound = coo.n_nodes
     if mode == "auto":
         mode = "packed" if supports_packed_keys(bound) else "two_pass"

@@ -26,38 +26,40 @@ class KernelFns(NamedTuple):
     chunk_sort_fn: object
     count_fn: object
     merge_fn: object
-    digit_pass_fn: object
     rank_fn: object
     rename_fn: object
     rung_fn: object
+    radix_sort_fn: object
 
 
 def kernel_fns(cfg: EngineConfig) -> KernelFns:
     """The kernel routing rule: ``use_pallas`` swaps in the chunk-sort
     kernel (digit width ``cfg.radix_bits``), the set-count kernel, the
-    fused-merge kernel (ladder fan-in ``cfg.merge_fan_in``), the digit-pass
-    kernels (histogram tile ``cfg.w_upe``), the rank-epilogue kernels and
-    the merge-rung kernel (the ladder's rungs above the fused merge, which
-    the reference runs in jnp). Each wrapper launches its kernel on a CUDA
-    tensor and runs its plain twin on a CPU tensor."""
+    fused-merge kernel (ladder fan-in ``cfg.merge_fan_in``), the
+    rank-epilogue kernels, the merge-rung kernel (the ladder's rungs above
+    the fused merge, which the reference runs in jnp) and the whole
+    global_radix sort (the card's histogram and scatter kernels on their
+    own digit schedule, where the reference routes each digit pass). Each
+    wrapper launches its kernel on a CUDA tensor and runs its plain twin on
+    a CPU tensor."""
     if not cfg.use_pallas:
         return KernelFns(None, None, None, None, None, None, None)
     from repro_torch.kernels.merge import make_merge_fn, merge_rung
     from repro_torch.kernels.radix_sort import (make_chunk_sort_fn,
-                                                make_digit_pass_fn)
+                                                make_radix_sort_fn)
     from repro_torch.kernels.reindex_epilogue import rank_fn, rename_fn
     from repro_torch.kernels.set_count import count_fn
     return KernelFns(make_chunk_sort_fn(cfg.radix_bits), count_fn,
                      make_merge_fn(cfg.merge_fan_in),
-                     make_digit_pass_fn(cfg.radix_bits, cfg.w_upe),
-                     rank_fn, rename_fn, merge_rung)
+                     rank_fn, rename_fn, merge_rung,
+                     make_radix_sort_fn(cfg.radix_bits, cfg.w_upe))
 
 
 def _sort_kwargs(cfg: EngineConfig, kf: KernelFns, chunk_sort_fn) -> dict:
     """The sort knobs every global sort of a config shares."""
     return dict(radix_bits=cfg.radix_bits, chunk_sort_fn=chunk_sort_fn,
                 merge_fn=kf.merge_fn, rung_fn=kf.rung_fn,
-                fan_in=cfg.merge_fan_in, digit_pass_fn=kf.digit_pass_fn)
+                fan_in=cfg.merge_fan_in, radix_sort_fn=kf.radix_sort_fn)
 
 
 def convert(coo: COO, cfg: EngineConfig | None = None, device="cuda",

@@ -27,6 +27,34 @@
 // rank arithmetic of repro/core/set_partition.py rank_gather_sources.
 // Bound: the int32 store of the output; the table reads hit L2.
 //
+// digit_hist + digit_scatter: the card's own design of the same stable
+// pass, the textbook GPU LSD pass (a histogram, a scan, a scatter) in
+// place of the TPU's partition, bisection and gather. No path launches the
+// two kernels above any more; they stay as the reference's one-to-one
+// counterparts. Both hold a card tile in registers as the chunk sort
+// does (kWarps warps of 32 lanes, kItems items a lane, item j of lane l of
+// warp w at w * 32 * kItems + j * 32 + l). digit_hist_kernel: each item
+// adds one to its warp's counter of its digit by a shared-memory atomic
+// (the order of counting is free; one ballot a digit bit, as the scatter
+// ranks, took twice as long at 7 bits), and the CTA writes its counts
+// bucket-major, counts[b * T + t], so that one exclusive
+// cumsum of the flat [B * T] array (plain torch, as the reference's table
+// math is jnp) gives every (bucket, tile) its global output offset.
+// digit_scatter_kernel: finds the lanes that share a digit by one
+// __ballot_sync a digit bit, ranks each item among its warp's items of the
+// same digit in index order, scans the per-warp counters in (bucket, warp)
+// order, stages the tile bucket-major in shared memory and writes staged
+// slot s of bucket b to offset[b * T + t] + s - base[b]: consecutive
+// threads write consecutive addresses of a bucket's run. The order inside
+// a bucket is the in-tile order, so the pass is stable. The card's tile is
+// its own choice (the stable partition of the whole array does not depend
+// on it; the instantiation is the chunk sort's smallest shape that holds
+// it); the last tile may be shorter: the histogram skips its missing
+// items, the scatter gives them the last digit, so that they rank after
+// every real item, and never stores them. Device memory sees keys read
+// twice (the histogram and the scatter), values read once, both written
+// once: 20 bytes a pair, 12 a key. Bound: those bytes.
+//
 // chunk_sort: replaces repro/kernels/radix_sort.py radix_sort_chunks and
 // radix_sort_chunks_keys (the UPE "splitting" stage): a stable sort of
 // every chunk of (key, value) pairs by the unsigned value of key bits
@@ -352,6 +380,134 @@ __global__ void rank_gather_kernel(const int32_t* __restrict__ gbase,
   out[j] = lo * tile + lbase[e] + r - excl[e];
 }
 
+// The lanes of the warp whose item j has the same digit as this lane's:
+// one ballot a digit bit, all items' ballots of a bit together.
+template <int kItems>
+__device__ __forceinline__ void ballot_peers(const unsigned (&d)[kItems],
+                                             unsigned (&peers)[kItems],
+                                             int width) {
+  for (int b = 0; b < width; ++b) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const unsigned bit = (d[j] >> b) & 1u;
+      const unsigned bal = __ballot_sync(0xffffffffu, bit);
+      peers[j] &= bit ? bal : ~bal;
+    }
+  }
+}
+
+// The digit counts of one card tile, written bucket-major:
+// counts[b * n_tiles + t].
+template <int kWarps, int kItems>
+__global__ void __launch_bounds__(kWarps * 32)
+digit_hist_kernel(const int32_t* __restrict__ keys,
+                  int32_t* __restrict__ counts, int n, int tile, int shift,
+                  int width) {
+  constexpr int kThreads = kWarps * 32;
+  extern __shared__ int32_t cnt[];  // [kWarps][stride]
+  const int nb = 1 << width;
+  const int stride = nb + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t off = (size_t)blockIdx.x * (size_t)tile;
+  const int len = min(tile, n - (int)(blockIdx.x * tile));
+  const int i0 = warp * 32 * kItems + lane;
+  int32_t* my = cnt + warp * stride;
+  for (int b = lane; b < nb; b += 32) my[b] = 0;
+  int d[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = i0 + 32 * j;
+    d[j] = i < len ? ((keys[off + i] >> shift) & (nb - 1)) : -1;
+  }
+  __syncwarp();
+  // the order of counting is free: one shared atomic an item
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+    if (d[j] >= 0) atomicAdd(&my[d[j]], 1);
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += kThreads) {
+    int h = 0;
+    for (int w = 0; w < kWarps; ++w) h += cnt[w * stride + b];
+    counts[(size_t)b * gridDim.x + blockIdx.x] = h;
+  }
+}
+
+// The stable scatter of one card tile to its global slots: offsets[b * T
+// + t] is where the tile's run of bucket b starts in the output.
+template <int kWarps, int kItems, bool kHasVals>
+__global__ void __launch_bounds__(kWarps * 32)
+digit_scatter_kernel(const int32_t* __restrict__ keys,
+                     const int32_t* __restrict__ vals,
+                     const int32_t* __restrict__ offsets,
+                     int32_t* __restrict__ out_keys,
+                     int32_t* __restrict__ out_vals, int n, int tile,
+                     int shift, int width) {
+  constexpr int kThreads = kWarps * 32;
+  extern __shared__ int32_t smem[];
+  const int nb = 1 << width;
+  const int stride = nb + 1;  // padded
+  const unsigned dmask = (unsigned)nb - 1u;
+  int32_t* cnt = smem;                      // [kWarps][stride]
+  int32_t* s_wsum = cnt + kWarps * stride;  // [kWarps]
+  int32_t* s_dst = s_wsum + kWarps;         // [nb]
+  int32_t* s_k = s_dst + nb;                // [tile]
+  int32_t* s_v = s_k + tile;                // [tile] (pairs)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const size_t off = (size_t)blockIdx.x * (size_t)tile;
+  const int len = min(tile, n - (int)(blockIdx.x * tile));
+  const int i0 = warp * 32 * kItems + lane;
+  int32_t* my = cnt + warp * stride;
+  for (int b = lane; b < nb; b += 32) my[b] = 0;
+
+  int32_t k[kItems], v[kItems];
+  unsigned d[kItems], peers[kItems];
+  int rank[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = i0 + 32 * j;
+    k[j] = i < len ? keys[off + i] : 0;
+    if (kHasVals) v[j] = i < len ? vals[off + i] : 0;
+    // an item past the tile takes the last digit: it ranks after every
+    // real item and is never stored
+    d[j] = i < len ? (unsigned)(k[j] >> shift) & dmask : dmask;
+    peers[j] = 0xffffffffu;
+  }
+  ballot_peers<kItems>(d, peers, width);
+  __syncwarp();
+  // rank among the warp's items of the same digit, in index order
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const unsigned lower = peers[j] & lanes_below;
+    const int before = my[d[j]];
+    rank[j] = before + __popc(lower);
+    __syncwarp();
+    if (!lower) my[d[j]] = before + __popc(peers[j]);
+    __syncwarp();
+  }
+  __syncthreads();
+  scan_counters<kWarps>(cnt, stride, nb, s_wsum);
+  __syncthreads();
+  // warp 0's start of bucket b is the bucket's base in the tile
+  for (int b = threadIdx.x; b < nb; b += kThreads)
+    s_dst[b] = offsets[(size_t)b * gridDim.x + blockIdx.x] - cnt[b];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (i0 + 32 * j < len) {
+      const int pos = my[d[j]] + rank[j];
+      s_k[pos] = k[j];
+      if (kHasVals) s_v[pos] = v[j];
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < len; s += kThreads) {
+    const int32_t key = s_k[s];
+    const int dst = s_dst[(unsigned)(key >> shift) & dmask] + s;
+    out_keys[dst] = key;
+    if (kHasVals) out_vals[dst] = s_v[s];
+  }
+}
+
 }  // namespace
 
 extern "C" size_t digit_partition_smem_bytes(int tile, int n_buckets,
@@ -491,4 +647,125 @@ extern "C" int digit_rank_gather(const void* gbase, const void* incl,
       static_cast<const int32_t*>(excl), static_cast<const int32_t*>(lbase),
       static_cast<int32_t*>(out), n, n_tiles, tile, n_buckets);
   return (int)cudaGetLastError();
+}
+
+// The digit pass's tile: at most kMaxDigitTile, held by the chunk sort's
+// smallest shape from (4, 4) on that holds it (kernels/radix_sort.py
+// digit_pass_shape mirrors it).
+constexpr int kMaxDigitTile = 16384;
+
+static int digit_shape(int tile) {
+  if (tile < 1 || tile > kMaxDigitTile) return -1;
+  const int s = sort_shape(tile, false);
+  return s < 1 ? 1 : s;
+}
+
+static bool digit_args_ok(int n, int tile, int width) {
+  return n >= 0 && digit_shape(tile) >= 0 && width >= 1 && width <= 8;
+}
+
+extern "C" size_t digit_hist_smem_bytes(int tile, int width) {
+  const int s = digit_shape(tile);
+  if (s < 0 || width < 1 || width > 8) return 0;
+  return sizeof(int32_t) * (size_t)kSortShapes[s][0] * ((1 << width) + 1);
+}
+
+extern "C" size_t digit_scatter_smem_bytes(int tile, int width,
+                                           int has_vals) {
+  const int s = digit_shape(tile);
+  if (s < 0 || width < 1 || width > 8) return 0;
+  const size_t warps = kSortShapes[s][0], nb = (size_t)1 << width;
+  return sizeof(int32_t) * (warps * (nb + 1) + warps + nb +
+                            (size_t)(has_vals ? 2 : 1) * tile);
+}
+
+template <int kWarps, int kItems>
+static int launch_digit_hist(const void* keys, void* counts, int n,
+                             int tile, int shift, int width, size_t smem,
+                             cudaStream_t s) {
+  const int n_tiles = (int)(((size_t)n + tile - 1) / tile);
+  digit_hist_kernel<kWarps, kItems><<<n_tiles, kWarps * 32, smem, s>>>(
+      static_cast<const int32_t*>(keys), static_cast<int32_t*>(counts), n,
+      tile, shift, width);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int digit_hist(const void* keys, void* counts, int n, int tile,
+                          int shift, int width, void* stream) {
+  if (!digit_args_ok(n, tile, width)) return (int)cudaErrorInvalidValue;
+  if (!n) return (int)cudaSuccess;
+  const size_t smem = digit_hist_smem_bytes(tile, width);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DIGIT_HIST_CASE(i, w, it) \
+  case i:                         \
+    return launch_digit_hist<w, it>(keys, counts, n, tile, shift, width, \
+                                    smem, s);
+  switch (digit_shape(tile)) {
+    DIGIT_HIST_CASE(1, 4, 4)
+    DIGIT_HIST_CASE(2, 8, 8)
+    DIGIT_HIST_CASE(3, 16, 8)
+    DIGIT_HIST_CASE(4, 32, 8)
+    DIGIT_HIST_CASE(5, 32, 16)
+  }
+#undef DIGIT_HIST_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kWarps, int kItems, bool kHasVals>
+static int launch_digit_scatter(const void* keys, const void* vals,
+                                const void* offsets, void* out_keys,
+                                void* out_vals, int n, int tile, int shift,
+                                int width, size_t smem, cudaStream_t s) {
+  auto* kernel = digit_scatter_kernel<kWarps, kItems, kHasVals>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const int n_tiles = (int)(((size_t)n + tile - 1) / tile);
+  kernel<<<n_tiles, kWarps * 32, smem, s>>>(
+      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(vals),
+      static_cast<const int32_t*>(offsets), static_cast<int32_t*>(out_keys),
+      static_cast<int32_t*>(out_vals), n, tile, shift, width);
+  return (int)cudaGetLastError();
+}
+
+template <bool kHasVals>
+static int digit_scatter_by_shape(const void* keys, const void* vals,
+                                  const void* offsets, void* out_keys,
+                                  void* out_vals, int n, int tile, int shift,
+                                  int width, size_t smem, cudaStream_t s) {
+#define DIGIT_SCATTER_CASE(i, w, it)                                       \
+  case i:                                                                  \
+    return launch_digit_scatter<w, it, kHasVals>(keys, vals, offsets,      \
+                                                 out_keys, out_vals, n,    \
+                                                 tile, shift, width, smem, \
+                                                 s);
+  switch (digit_shape(tile)) {
+    DIGIT_SCATTER_CASE(1, 4, 4)
+    DIGIT_SCATTER_CASE(2, 8, 8)
+    DIGIT_SCATTER_CASE(3, 16, 8)
+    DIGIT_SCATTER_CASE(4, 32, 8)
+    DIGIT_SCATTER_CASE(5, 32, 16)
+  }
+#undef DIGIT_SCATTER_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int digit_scatter(const void* keys, const void* vals,
+                             const void* offsets, void* out_keys,
+                             void* out_vals, int n, int tile, int shift,
+                             int width, void* stream) {
+  if (!digit_args_ok(n, tile, width)) return (int)cudaErrorInvalidValue;
+  if (!n) return (int)cudaSuccess;
+  const bool has_vals = vals != nullptr;
+  const size_t smem = digit_scatter_smem_bytes(tile, width, has_vals);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return has_vals
+             ? digit_scatter_by_shape<true>(keys, vals, offsets, out_keys,
+                                            out_vals, n, tile, shift, width,
+                                            smem, s)
+             : digit_scatter_by_shape<false>(keys, nullptr, offsets,
+                                             out_keys, nullptr, n, tile,
+                                             shift, width, smem, s);
 }

@@ -8,18 +8,22 @@ from __future__ import annotations
 
 
 def kernel_wrappers():
-    """Every kernel wrapper, by name: the nine of the GNN serve paths,
-    the flash attention forward of the LM prefill and training paths, its
-    two backward kernels (training), and the two kernels no path runs
-    (prefix_partition, filter_tree_lookup)."""
+    """Every kernel wrapper, by name: the nine of the GNN serve paths
+    (the SLICE_CFG sorts run digit_hist and digit_scatter), the flash
+    attention forward of the LM prefill and training paths, its two
+    backward kernels (training), and the four kernels no path runs
+    (digit_partition_hist and digit_rank_gather, the reference's digit
+    pass one to one; prefix_partition, filter_tree_lookup)."""
     from .flash_attention import flash_attention_bhsd, flash_dkv, flash_dq
     from .merge import fused_merge_rounds, merge_rung
     from .prefix_partition import prefix_partition
-    from .radix_sort import chunk_sort, digit_partition_hist, digit_rank_gather
+    from .radix_sort import (chunk_sort, digit_hist, digit_partition_hist,
+                             digit_rank_gather, digit_scatter)
     from .reindex_epilogue import rank_search, rename
     from .segment_agg import segment_sum_sorted
     from .set_count import filter_tree_lookup, set_count_less
-    return {"digit_partition_hist": digit_partition_hist,
+    return {"digit_hist": digit_hist, "digit_scatter": digit_scatter,
+            "digit_partition_hist": digit_partition_hist,
             "digit_rank_gather": digit_rank_gather,
             "rank_search": rank_search, "rename": rename,
             "chunk_sort": chunk_sort, "fused_merge": fused_merge_rounds,

@@ -14,11 +14,28 @@ later slice.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .common import softcap as _softcap
 
 NEG_INF = -1e30
+
+
+@functools.cache
+def _init_cpu_math() -> None:
+    """One single-threaded ``torch.exp`` per process, before the float32
+    twins' first parallel transcendental op. Works around a fault of
+    torch's CPU build (MKL's vector math under OpenMP): the first
+    multi-threaded ``exp``, ``log`` or ``tanh`` of a process can compute
+    one thread's chunk with errors up to 1.5e-4 relative, so the twins'
+    first call did not give the bits of later ones. What that call races
+    on is set up once for all of MKL's vector-math functions: a 4-element
+    call of any of them (it runs on one thread, under the parallel grain)
+    removes the fault from all three ops, and starting the thread pool
+    alone does not (``tools/cpu_first_call_probe.py``)."""
+    torch.exp(torch.zeros(4))
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
@@ -63,6 +80,7 @@ def _flash_fwd_scan(qg, kb, vb, *, sq, kv_block, q_offset, causal, window,
     corr = 0, as in the reference."""
     b, hkv, g, _, dh = qg.shape
     dev = qg.device
+    _init_cpu_math()
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, sq, dh), dtype=torch.float32, device=dev)
@@ -91,6 +109,7 @@ def _flash_bwd_scan(qg, kb, vb, out, lse, dout, *, sq, kv_block, q_offset,
     kv_block, dh] in kb's and vb's dtypes. out and dout [B,Hkv,G,Sq,dh],
     lse [B,Hkv,G,Sq] float32. P is recomputed per block from lse, so no
     [Sq, Skv] tile outlives its block."""
+    _init_cpu_math()
     dout = dout.to(torch.float32)
     delta = torch.sum(dout * out.to(torch.float32), dim=-1)  # [B,K,G,Sq]
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=qg.device)

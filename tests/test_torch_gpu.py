@@ -47,8 +47,7 @@ SLICE_CFG = tcm.EngineConfig(use_pallas=True, sort_strategy="global_radix",
                              reindex_strategy="fused")
 MERGE_CFG = tcm.EngineConfig(use_pallas=True, sort_strategy="chunked_merge",
                              reindex_strategy="unfused")
-SLICE_KERNELS = ("digit_partition_hist", "digit_rank_gather", "rank_search",
-                 "rename")
+SLICE_KERNELS = ("digit_hist", "digit_scatter", "rank_search", "rename")
 NEW_KERNELS = ("chunk_sort", "fused_merge", "merge_rung", "set_count_less",
                "segment_sum_sorted")
 
@@ -198,6 +197,75 @@ def test_serve_path_on_card_equals_cpu(cuda):
         assert torch.equal(a.cpu(), b)
     counts = launch_counts()
     assert all(counts[k] > 0 for k in SLICE_KERNELS), counts
+    # the reference's one-to-one pair is held off the path
+    assert counts["digit_partition_hist"] == counts["digit_rank_gather"] == 0
+
+
+@pytest.mark.parametrize("rb", range(1, 9))
+@pytest.mark.parametrize("with_vals", [False, True])
+@pytest.mark.parametrize("n,tile", [(1, 8192), (3000, 1000), (3000, 8192),
+                                    (1 << 16, 8192), (100_003, 4096),
+                                    (1 << 18, 16384)])
+def test_digit_hist_and_scatter_equal_twins(cuda, rb, with_vals, n, tile):
+    """The card's digit pass, kernel by kernel, against the twins at every
+    digit width: bucket-major counts, then the scatter by the same
+    offsets, on ragged last tiles and a SENTINEL tail."""
+    keys = _keys(n, rb, seed=rb + n, sentinel_frac=0.3)
+    keys[-(n // 3):] = SEN
+    vals = torch.arange(n, dtype=torch.int32) if with_vals else None
+    for shift in (0, rb, 31 - rb):
+        want_c = trs.digit_hist(keys, shift, tile, rb)
+        got_c = trs.digit_hist(keys.to(cuda), shift, tile, rb)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c.cpu(), want_c)
+        offsets = trs.digit_offsets(want_c)
+        want = trs.digit_scatter(keys, vals, offsets, shift, tile, rb)
+        got = trs.digit_scatter(keys.to(cuda), None if vals is None
+                                else vals.to(cuda), offsets.to(cuda), shift,
+                                tile, rb)
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            if w is None:
+                assert g is None
+            else:
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("with_vals", [False, True])
+@pytest.mark.parametrize("n", [1 << 20, 1 << 24])
+def test_card_global_radix_sort_equals_torch_sort(cuda, n, with_vals):
+    """The card's global_radix sort (``radix_sort_fn``: 3 passes of 7, 7
+    and 6 bits for Reddit's 232,965 key bound) against one stable
+    ``torch.sort``, and one launch of each kernel a pass."""
+    from repro_torch.core.ordering import (global_radix_sort_by_key,
+                                           xla_stable_sort_by_key)
+    bound = 232_965
+    g = torch.Generator(device=cuda).manual_seed(n)
+    keys = torch.randint(0, bound + 1, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    keys[n // 2:n // 2 + n // 8] = SEN
+    vals = (torch.arange(n, dtype=torch.int32, device=cuda) if with_vals
+            else None)
+    reset_launch_counts()
+    got = global_radix_sort_by_key(keys, vals, bound, radix_bits=4,
+                                   radix_sort_fn=trs.make_radix_sort_fn(4))
+    counts = launch_counts()
+    want = xla_stable_sort_by_key(keys, vals, bound)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    if with_vals:
+        assert torch.equal(got[1], want[1])
+    else:
+        assert got[1] is None
+    assert counts["digit_hist"] == counts["digit_scatter"] == 3, counts
+    assert counts["digit_rank_gather"] == 0, counts
+
+
+def test_digit_scatter_refuses_a_tile_past_shared_memory(cuda):
+    k = torch.zeros(1 << 16, dtype=torch.int32, device=cuda)
+    off = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        trs.digit_scatter(k, k, off, 0, 1 << 16, 4)
 
 
 def _chunk_sort_keys(kind, n, key_bits, seed):

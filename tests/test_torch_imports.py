@@ -90,7 +90,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.transformer, repro_torch.launch.steps\n"
         "import repro_torch.launch.train, repro_torch.train.loop\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
-        "assert len(kernel_wrappers()) == 14\n"
+        "assert len(kernel_wrappers()) == 16\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

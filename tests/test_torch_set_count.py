@@ -117,9 +117,10 @@ def test_convert_merge_cfg_matches_reference(j_converts, n, e, cap):
 
 def test_merge_cfg_routes_all_six_kernel_fns():
     """MERGE_CFG resolves to the path it names, and ``kernel_fns`` gives
-    the reference's six routes under use_pallas (none without), and the
-    port's seventh, the merge-rung kernel for the rungs the reference runs
-    in jnp."""
+    the reference's six routes under use_pallas (none without), the
+    reference's per-pass digit route taken by the whole global_radix sort
+    on the card's own digit schedule, and the port's seventh: the
+    merge-rung kernel for the rungs the reference runs in jnp."""
     kf = tp.kernel_fns(MERGE_CFG)
     assert len(kf) == 7 and all(fn is not None for fn in kf)
     assert kf.count_fn is tsc.count_fn

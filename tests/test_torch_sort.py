@@ -1,7 +1,9 @@
-"""repro_torch Ordering + Reshaping against the JAX reference: the plain
-twins of the digit-pass kernels (partition + histogram, rank-gather)
-against the reference's global_digit_pass run in Pallas interpret mode and
-its in-kernel math, `convert` bit-identical under global_radix and
+"""repro_torch Ordering + Reshaping against the JAX reference: both
+designs of the digit pass on their plain twins (the reference's partition
++ histogram and rank-gather; the card's bucket-major histogram and
+scatter, on the reference's tile and on card tiles) against the
+reference's global_digit_pass run in Pallas interpret mode and its
+in-kernel math, `convert` bit-identical under global_radix and
 xla_sort with kernel routing on and off (across the 32767/32768
 packed/two-pass boundary), and the cost model resolving the same
 strategies. Integer outputs must be bit-identical."""
@@ -39,22 +41,32 @@ def _keys(kind, n, rb, seed):
     rng = np.random.default_rng(seed)
     if kind == "single":
         return np.array([rng.integers(0, 1 << 12)], np.int32)
+    if kind == "all_equal":  # one digit everywhere: only stability orders
+        return np.full(n, 0x5A5, np.int32)
     k = rng.integers(0, 1 << (3 * rb), n).astype(np.int32)
     if kind == "sentinel_heavy":
         k[rng.random(n) < 0.6] = SEN
     return k
 
 
-CASES = [(kind, rb, vals) for kind in ("random", "sentinel_heavy", "single")
+CASES = [(kind, rb, vals)
+         for kind in ("random", "sentinel_heavy", "all_equal", "single")
          for rb in (2, 4, 8) for vals in (False, True)]
+# card tiles of the new design: one that leaves a ragged last tile, one
+# that divides the size, and the card's own (one ragged tile here)
+CARD_TILES = (96, 512, trs.SCATTER_TILE)
 
 
 @pytest.mark.parametrize("kind,rb,with_vals", CASES)
 def test_global_digit_pass_twin_matches_reference_kernel(kind, rb, with_vals):
-    """The port's digit pass (both kernel twins + the table scan + the
-    gather) equals the reference's Pallas pair in interpret mode, for both
-    key variants, radix_bits 2/4/8, SENTINEL-heavy and single-element
-    inputs."""
+    """The port's digit pass equals the reference's Pallas pair in
+    interpret mode, for both key variants, radix_bits 2/4/8, random,
+    SENTINEL-heavy, all-equal and single-element inputs, in both designs:
+    the reference's on its one-to-one kernels' twins (partition +
+    histogram, the [T, B] table scan, the rank-gather, the gathers:
+    ``reference_digit_pass``), and the card's (bucket-major histogram, one
+    cumsum, scatter) as ``global_digit_pass`` runs it and on every card
+    tile (``digit_pass``)."""
     n, tile = (1, 1) if kind == "single" else (512, 128)
     keys = _keys(kind, n, rb, seed=rb)
     vals = np.arange(n, dtype=np.int32) * 3 + 1
@@ -62,13 +74,19 @@ def test_global_digit_pass_twin_matches_reference_kernel(kind, rb, with_vals):
     jk, jv = global_digit_pass(jnp.asarray(keys),
                                jnp.asarray(vals) if with_vals else None,
                                shift, tile=tile, radix_bits=rb)
-    tk, tv = trs.global_digit_pass(_t(keys), _t(vals) if with_vals else None,
-                                   shift, tile=tile, radix_bits=rb)
-    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
-    if with_vals:
-        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    else:
-        assert tv is None and jv is None
+    tv = _t(vals) if with_vals else None
+    runs = {"reference_design": trs.reference_digit_pass(
+                _t(keys), tv, shift, tile=tile, radix_bits=rb),
+            "global_digit_pass": trs.global_digit_pass(
+                _t(keys), tv, shift, tile=tile, radix_bits=rb)}
+    runs.update((f"card tile {c}", trs.digit_pass(_t(keys), tv, shift, rb, c))
+                for c in CARD_TILES)
+    for route, (gk, gv) in runs.items():
+        np.testing.assert_array_equal(gk.numpy(), np.asarray(jk), route)
+        if with_vals:
+            np.testing.assert_array_equal(gv.numpy(), np.asarray(jv), route)
+        else:
+            assert gv is None and jv is None, route
 
 
 @pytest.mark.parametrize("rb", [2, 4, 8])

@@ -3,10 +3,11 @@
 SLICE_CFG serve path: what a request costs end to end and what the rank
 epilogue's five calls cost on the arrays the path hands them; or, with
 ``--what kernels``, what the chunk sort, the filter, the merge ladder's
-kernels and a MERGE_CFG convert cost.
+kernels and a MERGE_CFG convert cost; or, with ``--what digit``, what the
+global_radix digit pass, its whole sort and a SLICE_CFG convert cost.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
-      --order parent,change,change,parent [--what kernels]
+      --order parent,change,change,parent [--what kernels|digit]
 
 A tree is the root of a checkout (unpack an earlier commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Each turn is
@@ -38,6 +39,17 @@ the plain rung ``ordering.merge_ladder`` where the tree has none), each
 checked against a per-block stable ``torch.sort``; and the host-clock
 seconds of a MERGE_CFG convert of chip_smoke's Reddit-scale COO (the
 median of three after a warm-up).
+
+``--what digit`` times, queued behind a device sleep, the tree's
+global_radix digit pass at the SLICE_CFG convert's 2^27 pairs (keys
+uniform in [0, 232,965]): one 4-bit and one 7-bit pass (``digit_pass``,
+the histogram + scan + scatter, where the tree has it, else its
+``global_digit_pass``) and the tree's ``digit_hist`` alone where it has
+one, each checked against a stable ``torch.sort`` by
+the digit; the whole 18-bit sort as SLICE_CFG routes it
+(``ordering.stable_sort_by_key`` with the tree's ``kernel_fns``), checked
+against the torch.sort strategy; and the host-clock seconds of a SLICE_CFG convert
+of chip_smoke's Reddit-scale COO (the median of three after a warm-up).
 
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
@@ -265,6 +277,74 @@ def turn_kernels(tree: str, seed: int) -> dict:
     return dict(tree=tree, **out)
 
 
+def turn_digit(tree: str, seed: int) -> dict:
+    """One tree's digit-pass, sort and SLICE_CFG convert readings, in this
+    process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    from repro_torch.core import ordering, pipeline
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import radix_sort as trs
+    from repro_torch.launch.serve import SLICE_CFG
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    _build.build(("digit_pass", "reindex_epilogue"))
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    n, bound = cs.CONVERT_CAP, cs.REDDIT["nodes"]
+    keys = torch.randint(0, bound + 1, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    out = {}
+    for width in (4, 7):
+        def one_pass():
+            if hasattr(trs, "digit_pass"):
+                return trs.digit_pass(keys, vals, width, width)
+            return trs.global_digit_pass(keys, vals, width, cs.TILE, width)
+        got = one_pass()
+        order = torch.sort((keys >> width) & ((1 << width) - 1),
+                           stable=True).indices
+        cs.check(torch.equal(got[0], keys[order])
+                 and torch.equal(got[1], vals[order]),
+                 f"{tree} {width}-bit pass: == a stable torch.sort")
+        del got, order
+        out[f"pass_{width}bit_pairs_ms"] = cs.cuda_ms(one_pass, iters=5)
+        if hasattr(trs, "digit_hist"):
+            out[f"hist_{width}bit_ms"] = cs.cuda_ms(
+                lambda: trs.digit_hist(keys, width, trs.SCATTER_TILE, width),
+                iters=5)
+    kf = pipeline.kernel_fns(SLICE_CFG)
+
+    def sort():
+        return ordering.stable_sort_by_key(
+            keys, vals, bound, chunk=SLICE_CFG.w_upe, strategy="global_radix",
+            **pipeline._sort_kwargs(SLICE_CFG, kf, kf.chunk_sort_fn))
+    got = sort()
+    want = ordering.xla_stable_sort_by_key(keys, vals, bound)
+    cs.check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+             f"{tree} global_radix sort: == the torch.sort strategy")
+    del got, want
+    out["sort_18bit_pairs_ms"] = cs.cuda_ms(sort, iters=3)
+    del keys, vals
+    coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
+                        cs.CONVERT_CAP, seed + 5, device=dev)
+    secs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.convert(coo, SLICE_CFG, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["slice_convert_s"] = sorted(secs[1:])[1]
+    out["slice_convert_all_s"] = secs
+    return dict(tree=tree, **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[],
@@ -273,16 +353,19 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--what", choices=("slice", "kernels"), default="slice",
-                    help="the SLICE_CFG request and rank calls, or the "
-                    "chunk sort, the filter, the merge kernels and the "
-                    "MERGE_CFG convert")
+    ap.add_argument("--what", choices=("slice", "kernels", "digit"),
+                    default="slice",
+                    help="the SLICE_CFG request and rank calls; the chunk "
+                    "sort, the filter, the merge kernels and the MERGE_CFG "
+                    "convert; or the global_radix digit pass, sort and "
+                    "SLICE_CFG convert")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
     if args.turn:
         name, tree = args.turn.split("=", 1)
         out = (turn_kernels(tree, args.seed) if args.what == "kernels" else
+               turn_digit(tree, args.seed) if args.what == "digit" else
                turn(tree, args.seed, args.requests, args.reps))
         print(json.dumps(dict(name=name, **out)), flush=True)
         return 0
