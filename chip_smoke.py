@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    head width's bf16 flash forward, dq and dk/dv kernel must show one
    tile's MMAs as HMMA instructions in its SASS and no local-memory
    traffic (no spills).
-3. kernels — each of the nine kernels of the GNN paths and the
-   reference design's digit-pass pair (and the keys-only, shuffled and
+3. kernels — each of the nine kernels of the GNN paths (the tenth, the
+   column scan, in phase 5) and the reference design's digit-pass pair
+   (and the keys-only, shuffled and
    D = 1 variants) against its plain-torch twin on the card at the serve
    paths' shapes (the card's digit pass, ``digit_hist`` and
    ``digit_scatter``, at a request's 2^19 pairs and its widest digit, 7
@@ -41,7 +42,18 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    hidden, fanouts 25-10, 41 classes, 4 slots); counters read: the
    convert's two sorts ran 3 ``digit_hist`` and 3 ``digit_scatter``
    launches each (digits of 7, 7 and 6 bits), and the path no
-   ``digit_partition_hist`` or ``digit_rank_gather``.
+   ``digit_partition_hist`` or ``digit_rank_gather``. The engine runs
+   every step as one step over all 4 slots, a ``slot_fn`` lane each: the
+   warm-up request's step eagerly (host syncs made errors), then captured
+   once as a CUDA graph that every later step replays. The counted run
+   is traced (``torch.profiler``); the same 16 requests once more,
+   untraced, give the timings and the peak memory. Checked: one step
+   program after the warm-up and after the 16 requests; one eager
+   ``slot_fn``'s counted launches are the hand-written kernels its trace
+   shows (9 + 9 digit-pass launches and 4 ``ptr_seg_sum``, the column
+   scan); a capture counted 4 lanes of them; the counted run counted
+   that for every step, and its trace shows every step's 4 lanes of the
+   eager lane's kernels, so the replays' counted launches happened.
 5. slice checks — convert bit-identical to the torch.sort strategy on the
    same COO; every request bit-identical to a sequential per-request
    slot_fn loop; the convert-scale pointer rank (232,966 queries over
@@ -59,9 +71,23 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    arrays the path hands it (one convert: its pointer build over 2^27;
    the largest request: its first-occurrence rank, prefix-sum rank, edge
    rename and subgraph pointer build), each equal to its twin and timed
-   in turns (twin, kernel, kernel, ``torch.searchsorted``). Then the largest request once more
-   under ``torch.profiler``: its wall time, its kernels' device time, the
-   ops that take the most of it and the rank kernels' time by name; and
+   in turns (twin, kernel, kernel, ``torch.searchsorted``). The column
+   scan (``csrc/ptr_scan.cu``) on copies of the four calls of the largest
+   request's forward (per layer the messages and the degrees' ones
+   column), on a request's layer-1 shape with every row in a segment,
+   and on a ragged E and D: within ``twin_tolerance`` (derived from
+   float32 rounding) of the twin, the same bits twice, timed beside its
+   bound for the data, the twin and the transposed ``cumsum`` the port
+   ran before, with each version's distance from a float64 prefix. Then
+   the largest request once more (eager ``slot_fn``) under
+   ``torch.profiler``: its wall time, its kernels' device time, the ops
+   that take the most of it, the rank and scan kernels' time by name and
+   the copy kernels' (less than one [524288, 602] copy could take: no
+   transposing copy); one replayed step with the 4 largest requests
+   seated (its rows equal to what they were served): wall and device
+   span (CUDA events), and under ``torch.profiler`` (its hand-written
+   kernels 4 lanes of the eager lane's, its counted launches the
+   capture's); and
    one more ``SLICE_CFG`` convert under ``torch.profiler``: the
    hand-written kernels by name (6 ``digit_scatter_kernel`` launches, no
    ``rank_gather_kernel``) and the rest.
@@ -69,9 +95,11 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    (chunked_merge sorts, unfused set-count pointer build) of Reddit's
    114,615,892 synthetic power-law edges in a 2^27 COO, as the slice path
    converts them, then the same 16 requests served under ``MERGE_CFG``
-   with ``use_pallas_agg`` on the slice path's CSC; counters read: every
-   rung of the convert's two sorts above the fused merge's 65,536 went
-   through one ``merge_rung`` launch (2 × 11).
+   with ``use_pallas_agg`` on the slice path's CSC through its captured
+   step; counters read: every rung of the convert's two sorts above the
+   fused merge's 65,536 went through one ``merge_rung`` launch (2 × 11);
+   the step checks of phase 4 (a lane aggregates on 4
+   ``segment_sum_sorted`` launches, no column scan).
 7. merge checks — that convert bit-identical to the torch.sort strategy;
    ``set_count_less`` at the convert's shape (232,966 targets over the
    2^27 sorted dst, then shuffled) equal to ``torch.searchsorted`` and to
@@ -81,7 +109,8 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    slice path's forward (argmax equal wherever the top-two margin
    exceeds it); a small graph under
    ``MERGE_CFG`` on the card equal to the CPU path; the profile of one
-   request; one more MERGE_CFG convert under ``torch.profiler``: the
+   request and of one replayed step; one more MERGE_CFG convert under
+   ``torch.profiler``: the
    hand-written kernels by name, the rest, the device spans of the merge
    rungs above the fused merge's block, and no ``searchsorted`` or
    ``scatter`` op (the plain ladder's) in the trace.
@@ -153,7 +182,7 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    the card, crashed at a step and resumed from its checkpoint, against
    an uninterrupted run.
 13. report — every kernel of each path launched in its run; the kernels
-   JSON line (all sixteen; digit_partition_hist, digit_rank_gather,
+   JSON line (all seventeen; digit_partition_hist, digit_rank_gather,
    prefix_partition and filter_tree_lookup with 0 launches), then the last line ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
@@ -208,7 +237,15 @@ SEG_RTOL, SEG_ATOL = 1e-5, 1e-4  # segment sum against the float64 sum
 # times the largest error read on the card: 7.3e-5 (NVIDIA H100 80GB HBM3,
 # 700 W, every run of this script so far)
 LOGIT_TOL = 7.5e-4
-SLICE_KERNELS = ("digit_hist", "digit_scatter", "rank_search", "rename")
+SLICE_KERNELS = ("digit_hist", "digit_scatter", "rank_search", "rename",
+                 "ptr_seg_sum")
+# digit-pass launches of one SLICE_CFG request: its three sorts (the
+# reindex sort, the subgraph convert's two) on 3 passes each (7, 7 and
+# 6 bits, ``global_radix_schedule``)
+REQUEST_DIGIT_PASSES = 9
+# one [524288, 602] float32 copy (a request's layer-1 messages, read and
+# written once) cannot take less: 2.53 GB at 3.35 TB/s
+COPY_BOUND_MS = 0.75
 MERGE_KERNELS = ("chunk_sort", "fused_merge", "merge_rung",
                  "set_count_less", "segment_sum_sorted")
 LM_KERNELS = ("flash_attention_fwd",)
@@ -589,8 +626,9 @@ def kernel_phase(dev, seed):
 def card_digit_rows(keys, vals, width, shift):
     """The ``digit_hist`` and ``digit_scatter`` rows (pairs) at these
     inputs: each against its twin, bit for bit, and timed beside its
-    bound and twin; the scatter beside a stable ``torch.sort`` of the
-    digits + gathers (the same permutation, a yardstick)."""
+    bound and twin; the histogram beside one ``torch.bincount`` of the
+    bucket-major index (the same counts), the scatter beside a stable
+    ``torch.sort`` of the digits + gathers (the same permutation)."""
     import torch
     from repro_torch.kernels import radix_sort as trs
 
@@ -610,6 +648,12 @@ def card_digit_rows(keys, vals, width, shift):
     h_ms, h_by = bound(4 * n + 4 * nb * n_tiles, n)
     s_ms, s_by = bound(4 * (4 * n + nb * n_tiles), 4 * n)
     digit = (keys >> shift) & (nb - 1)
+    # the histogram's library call: one bincount of digit * T + tile gives
+    # the same bucket-major counts
+    bucket = (digit.to(torch.int64) * n_tiles
+              + torch.arange(n, device=keys.device) // tile)
+    check(torch.equal(torch.bincount(bucket, minlength=nb * n_tiles).to(
+        torch.int32), counts), f"torch.bincount == digit_hist at {n} pairs")
     common = dict(route="cuda", source="src/repro_torch/csrc/digit_pass.cu")
     return {
         "digit_hist": dict(
@@ -618,7 +662,10 @@ def card_digit_rows(keys, vals, width, shift):
             ms=cuda_ms(lambda: trs.digit_hist(keys, shift, tile, width)),
             plain_ms=cuda_ms(lambda: trs._digit_hist_plain(
                 keys, shift, tile, width), iters=5),
-            bound_ms=h_ms, bound_by=h_by, library_ms=None, shape=shape,
+            bound_ms=h_ms, bound_by=h_by,
+            library_ms=cuda_ms(lambda: torch.bincount(
+                bucket, minlength=nb * n_tiles)),
+            shape=shape + "; library: torch.bincount(digit * T + tile)",
             **common),
         "digit_scatter": dict(
             name="digit_scatter",
@@ -1204,7 +1251,7 @@ def main_path(dev, seed, n_requests):
     from repro_torch.core import pipeline
     from repro_torch.core.graph import synthetic_coo
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import SLICE_CFG, percentile
+    from repro_torch.launch.serve import SLICE_CFG
     from repro_torch.models.gnn import GraphSAGE
     from repro_torch.serve import GnnServeEngine
 
@@ -1235,29 +1282,71 @@ def main_path(dev, seed, n_requests):
     rng = np.random.default_rng(seed)
     eng.submit(rng.choice(REDDIT["nodes"], 16, replace=False).tolist())
     eng.close_submissions()
-    eng.run()  # warm-up request: cuBLAS handles, allocator pools
+    eng.run()  # warm-up request: the step's eager first run, its capture
     torch.cuda.synchronize()
+    out["step_programs_after_warmup"] = eng.step_cache_size()
     eng.reopen()
     reqs = [rng.choice(REDDIT["nodes"], int(k), replace=False).tolist()
             for k in rng.integers(1, SEED_CAP + 1, n_requests)]
-    before = launch_counts()
-    t0 = time.perf_counter()
-    handles = [eng.submit(s) for s in reqs]
-    eng.close_submissions()
-    completed = eng.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = launch_counts()
-    out["serve_launches"] = {k: launches[k] - before[k] for k in launches}
-    out["launches"] = launches
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    check(len(completed) == n_requests, "every request retired")
+    counted, handles = serve_run(eng, reqs, traced=True)
+    out.update(counted)
+    out.update(serve_run(eng, reqs)[0])
+    out["peak_mem_gib"] = max(out["peak_mem_gib"], out["serve_peak_mem_gib"])
+    return out, coo, csc, eng, reqs, handles, feats
+
+
+def serve_run(eng, reqs, traced=False):
+    """A serve run of ``reqs`` on a warmed engine (its step captured): the
+    requests submitted, served and read. ``traced``, the main path's
+    counted run: the launches the counters took over it (every step a
+    replay, counted as the captured step's launches), the steps, and the
+    hand-written kernels a ``torch.profiler`` trace of the same run shows
+    (``serve_launch_checks`` holds the one against the other); else the
+    timed run: predictions/s, latencies, the peak memory allocated over
+    it and the peak reserved (the graph's pool included). Returns the
+    readings and the requests' handles."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import percentile
+
+    def serve():
+        handles = [eng.submit(s) for s in reqs]
+        eng.close_submissions()
+        completed = eng.run()
+        torch.cuda.synchronize()
+        eng.reopen()
+        check(len(completed) == len(reqs), "every request retired")
+        return handles, completed
+
+    steps = eng.stats.steps
+    if traced:
+        before = launch_counts()
+        got = {}
+        prof = profile_call(lambda: got.update(run=serve()), 0,
+                            kernels=SERVE_KERNEL_RE)
+        launches = launch_counts()
+        return dict(
+            serve_launches={k: launches[k] - before[k] for k in launches},
+            launches=launches, serve_steps=eng.stats.steps - steps,
+            serve_trace={k: v["count"] for k, v in prof["kernels"].items()}
+        ), got["run"][0]
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    handles, completed = serve()
+    dt = time.perf_counter() - t0
+    out["serve_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the captured step's intermediates live in its graph's pool, which
+    # the allocator counts as reserved, not allocated
+    out["serve_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     lat = [r.total_latency_s for r in completed]
     out["serve"] = dict(
-        requests=n_requests, seeds=sum(map(len, reqs)), steps=eng.stats.steps,
+        requests=len(reqs), seeds=sum(map(len, reqs)),
+        steps=eng.stats.steps - steps, step_programs=eng.step_cache_size(),
         wall_s=dt, preds_per_s=sum(map(len, reqs)) / dt,
         p50_ms=percentile(lat, 0.5) * 1e3, p99_ms=percentile(lat, 0.99) * 1e3)
-    return out, coo, csc, eng, reqs, handles, feats
+    return out, handles
 
 
 def checks(dev, seed, coo, csc, eng, reqs, handles, extra):
@@ -1336,6 +1425,8 @@ def digit_phase(dev, seed):
         vals = torch.arange(n_pairs, dtype=torch.int32, device=dev)
         r = out[n_pairs] = {}
         timed = n_pairs in DIGIT_TIMED
+        tile_of = (torch.arange(n_pairs, device=dev) // trs.SCATTER_TILE
+                   if timed else None)
         for width in DIGIT_WIDTHS:
             shift = width  # the second digit
             for with_vals in (True, False):
@@ -1367,6 +1458,28 @@ def digit_phase(dev, seed):
                                                width), iters=5)
                     r[f"digit_hist_{width}bit_bound_ms"] = bound(
                         4 * n_pairs + 4 * nb * nt, n_pairs)[0]
+                    # the histogram's library call: one bincount of
+                    # digit * T + tile gives the same bucket-major counts
+                    def bucket():
+                        return (((keys >> shift) & (nb - 1)).to(torch.int64)
+                                * nt + tile_of)
+                    index = bucket()
+                    lib = torch.bincount(index, minlength=nb * nt)
+                    check(torch.equal(lib.to(torch.int32), counts),
+                          f"torch.bincount == digit_hist at {n_pairs}, {tag}")
+                    r[f"library_hist_{width}bit_bincount_ms"] = cuda_ms(
+                        lambda: torch.bincount(index, minlength=nb * nt),
+                        iters=5)
+                    r[f"library_hist_{width}bit_with_index_ms"] = cuda_ms(
+                        lambda: torch.bincount(bucket(), minlength=nb * nt),
+                        iters=5)
+                    del index, lib
+                    # the scatter's: a stable sort by the digit + gathers
+                    digit = (keys >> shift) & (nb - 1)
+                    r[f"library_scatter_{width}bit_pairs_ms"] = cuda_ms(
+                        lambda: (lambda o: (keys[o], vals[o]))(
+                            torch.sort(digit, stable=True).indices), iters=3)
+                    del digit
                 r[f"digit_scatter_{tag}_ms"] = cuda_ms(
                     lambda: trs.digit_scatter(keys, v, offs, shift,
                                               trs.SCATTER_TILE, width),
@@ -1461,7 +1574,7 @@ def digit_phase(dev, seed):
                     torch.sort(keys, stable=True)), iters=3)
             r["own_schedule"] = trs.global_radix_schedule(key_bits,
                                                           RADIX_BITS)
-        del keys, vals
+        del keys, vals, tile_of
         if timed or n_pairs == 1 << 24:
             del pk, pv, lbase, hist, incl, excl, gbase, src
         log(f"[digit pass] {n_pairs} pairs: {r}")
@@ -1635,6 +1748,281 @@ def rank_phase(dev, coo, eng, seeds, rid):
     return rows, timed
 
 
+SCAN_CALLS = ("layer1_msgs", "layer1_deg", "layer2_msgs", "layer2_deg")
+# (E, D, N, every row in a segment) of the column scan's synthetic cases:
+# a request's layer-1 shape with the whole stream read, a ragged E and D,
+# and a ragged E at the feature width
+SCAN_CASES = {"full_stream": (SERVE_CAP, REDDIT["feats"], SERVE_NODES, True),
+              "ragged": (100_003, 37, 20_011, False),
+              "ragged_wide": (300_001, REDDIT["feats"], 150_007, False)}
+
+
+def scan_calls_of_the_path(eng, seeds, rid):
+    """{name: (ptr, msgs)}: copies of what one SLICE_CFG request (``slot_fn``
+    on ``seeds``) hands the column scan, taken by wrapping
+    ``models.gnn.ptr_seg_sum``: per layer the masked messages and the
+    ones column of the degrees, in the order the forward calls them."""
+    import torch
+    from repro_torch.models import gnn as tgnn
+
+    calls = []
+    kernel = tgnn.ptr_seg_sum
+
+    def recording(ptr, msgs):
+        calls.append((ptr.clone(), msgs.clone()))
+        return kernel(ptr, msgs)
+    tgnn.ptr_seg_sum = recording
+    try:
+        eng.slot_fn(eng.params, seed_row(eng, seeds), eng.request_key(rid))
+        torch.cuda.synchronize()
+    finally:
+        tgnn.ptr_seg_sum = kernel
+    check(len(calls) == len(SCAN_CALLS)
+          and [m.shape[1] for _, m in calls] == [REDDIT["feats"], 1, 128, 1],
+          f"a request hands the column scan {SCAN_CALLS}: "
+          f"{[tuple(m.shape) for _, m in calls]}")
+    return dict(zip(SCAN_CALLS, calls))
+
+
+def scan_case(dev, seed, e, d, n, full):
+    """Sorted pointers [n + 1] in [0, e] (``full``: from 0 to e, every
+    message row inside a segment; else a first pointer past 0 and a last
+    short of e, with empty segments) over N(0, 1) messages [e, d]."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    msgs = torch.randn((e, d), generator=g, device=dev)
+    ptr = torch.sort(torch.randint(0, e + 1, (n + 1,), generator=g,
+                                   device=dev, dtype=torch.int32)).values
+    ptr[n // 4:n // 4 + 50] = ptr[n // 4].clone()
+    if full:
+        ptr[0], ptr[-1] = 0, e
+    return ptr, msgs
+
+
+def scan_reading(ptr, msgs, twin=True):
+    """The column scan on (ptr, msgs) against its twin within
+    ``twin_tolerance``, the same bits on two launches, and timed: the
+    kernel, the twin (``torch.cumsum`` along dim 0 and two
+    ``index_select``s), the transposed form the port ran before (a
+    contiguous copy of msgs.T, ``cumsum`` along its last axis, two
+    ``index_select``s, the transpose back: the library yardstick), and
+    the bound for this data: the rows below ptr[N] read, the output
+    written. ``twin=False``: the bound and the kernel alone (a check
+    elsewhere holds it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ptr_scan
+
+    e, d = msgs.shape
+    n = ptr.shape[0] - 1
+    got = ptr_scan.ptr_seg_sum(ptr, msgs)
+    again = ptr_scan.ptr_seg_sum(ptr, msgs)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"ptr_seg_sum [{e}, {d}]: the same bits "
+          "on two launches")
+    lim = min(e, int(ptr[-1]))
+    b_ms, b_by = bound(4 * (lim * d + n * d + n + 1), lim * d + n * d)
+    r = dict(ms=cuda_ms(lambda: ptr_scan.ptr_seg_sum(ptr, msgs)),
+             bound_ms=b_ms, bound_by=b_by, rows_read=lim,
+             shape=f"[{e}, {d}] -> {n} rows, ptr[N] = {lim}")
+    if not twin:
+        return r
+
+    def plain():
+        return ptr_scan._ptr_seg_sum_plain(ptr, msgs)
+    p = ptr.to(torch.int64)
+
+    def library():
+        cs = F.pad(torch.cumsum(msgs.T.contiguous(), dim=1), (1, 0))
+        return (cs.index_select(1, p[1:]) - cs.index_select(1, p[:-1])).T
+    want = plain()
+    tol = ptr_scan.twin_tolerance(ptr, msgs)
+    err = (got.double() - want.double()).abs()
+    share = float((err / tol.clamp_min(1e-300)).max()) if err.numel() else 0.0
+    check(bool((err <= tol).all()),
+          f"ptr_seg_sum [{e}, {d}] within twin_tolerance of the twin "
+          f"(worst {share:.3f} of it)")
+    cs64 = F.pad(torch.cumsum(msgs.double(), 0), (0, 0, 1, 0))
+    exact = cs64.index_select(0, p[1:]) - cs64.index_select(0, p[:-1])
+    lib_out = library()
+    r.update(max_abs_err=float(err.max()) if err.numel() else 0.0,
+             share_of_tolerance=share,
+             kernel_vs_float64=float((got.double() - exact).abs().max()),
+             twin_vs_float64=float((want.double() - exact).abs().max()),
+             library_vs_float64=float((lib_out.double() - exact).abs().max()),
+             plain_ms=cuda_ms(plain, iters=2, warmup=1),
+             library_ms=cuda_ms(library, iters=5))
+    del want, tol, err, cs64, exact, lib_out
+    return r
+
+
+def scan_phase(dev, seed, eng, seeds, rid):
+    """The column scan (``ptr_seg_sum``) on the four calls of one
+    full-width SLICE_CFG request (``scan_calls_of_the_path``), on every
+    message row valid at a request's layer-1 shape (ptr from 0 to E: the
+    whole stream read), and on a ragged E and D; each against its twin
+    within the derived tolerance and timed. Returns the kernel's row (the
+    request's layer 1) and every reading."""
+    import torch
+    from repro_torch.kernels import ptr_scan
+
+    readings = {}
+    for key, (ptr, msgs) in scan_calls_of_the_path(eng, seeds, rid).items():
+        readings[key] = scan_reading(ptr, msgs)
+        log(f"[scan] {key}: {readings[key]}")
+        del ptr, msgs
+    for key, (e, d, n, full) in SCAN_CASES.items():
+        ptr, msgs = scan_case(dev, seed + e, e, d, n, full)
+        readings[key] = scan_reading(ptr, msgs)
+        log(f"[scan] {key}: {readings[key]}")
+        del ptr, msgs
+    torch.cuda.empty_cache()
+    readings["resources"] = resource_usage(
+        "ptr_scan", r"\w+_kernel")
+    r = readings["layer1_msgs"]
+    row = dict(name="ptr_seg_sum", route="cuda",
+               source="src/repro_torch/csrc/ptr_scan.cu",
+               replaces="src/repro/models/gnn.py:80 (_ptr_seg_sum in jnp, no "
+                        "Pallas call)",
+               **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+               shape="a request's layer-1 call, the path's own arrays: "
+                     + r["shape"] + f"; launches a lane: {len(SCAN_CALLS)}")
+    check(ptr_scan.ptr_seg_sum.launches > 0, "the column scan launched")
+    return {"ptr_seg_sum": row}, readings
+
+
+def lane_launches(eng, seeds, rid):
+    """The kernel launches of one request through ``slot_fn`` (eager),
+    what one lane of the captured step launches: as the counters took
+    them, and the hand-written kernels of a trace of the same call."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    prof = profile_call(lambda: eng.slot_fn(eng.params, seed_row(eng, seeds),
+                                            eng.request_key(rid)), 0,
+                        kernels=SERVE_KERNEL_RE)
+    after = launch_counts()
+    return ({k: after[k] - before[k] for k in after if after[k] != before[k]},
+            {k: v["count"] for k, v in prof["kernels"].items()})
+
+
+def counters_match_trace(what, counts, trace):
+    """The launches the wrappers counted against the kernels a trace of
+    the same run shows: one kernel a counted launch for the 1:1 wrappers
+    and ptr_seg_sum (its difference kernel, one a call; its other four
+    once a call each), the set count's two counted launches its two
+    kernels, and one partition and one tile kernel a pass of the merge
+    pair's calls (one pass or more a call)."""
+    def n(kernel):
+        return trace.get(kernel, 0)
+    merges = counts.get("fused_merge", 0) + counts.get("merge_rung", 0)
+    scan = counts.get("ptr_seg_sum", 0)
+    ok = (all(counts.get(w, 0) == n(k) for w, k in TRACE_OF_WRAPPER.items())
+          and all(n(k) <= scan for k in SCAN_SETUP_KERNELS)
+          and counts.get("set_count_less", 0)
+          == n("tile_sort_kernel") + n("set_count_kernel")
+          and n("merge_tile_kernel") == n("merge_partition_kernel")
+          and merges <= n("merge_tile_kernel") and (merges > 0)
+          == (n("merge_tile_kernel") > 0))
+    check(ok, f"{what}: the counted launches {counts} are the kernels its "
+          f"trace shows {trace}")
+
+
+def serve_launch_checks(tag, eng, out, reqs, handles):
+    """The captured step after the 16 requests: one step program. One
+    eager slot_fn's counted launches match its trace; a capture counted
+    n_slots lanes of them; and the main path's counted serve run (every
+    step a replay) counted steps x the capture's launches and its trace
+    shows steps x n_slots lanes of the eager lane's kernels, so every
+    launch the counters took in it happened on the card."""
+    check(out["step_programs_after_warmup"] == eng.step_cache_size() == 1,
+          f"{tag}: one captured step program after warm-up "
+          f"({out['step_programs_after_warmup']}) and after the "
+          f"{len(reqs)} requests ({eng.step_cache_size()})")
+    lane, lane_trace = lane_launches(eng, reqs[0], handles[0].rid)
+    counters_match_trace(f"{tag}: an eager slot_fn", lane, lane_trace)
+    step = eng.captured_launches()
+    check(step == {k: eng.n_slots * v for k, v in lane.items()},
+          f"{tag}: a replay launches {eng.n_slots} lanes of slot_fn's "
+          f"kernels: {step} against {lane} a lane")
+    steps = out["serve_steps"]
+    served = {k: v for k, v in out["serve_launches"].items() if v}
+    check(steps > 0 and served == {k: steps * v for k, v in step.items()},
+          f"{tag}: {steps} replays counted {steps} x {step}: {served}")
+    want = {k: steps * eng.n_slots * v for k, v in lane_trace.items()}
+    check(out["serve_trace"] == want,
+          f"{tag}: the counted serve run's trace shows {steps} replays of "
+          f"{eng.n_slots} lanes' kernels: {out['serve_trace']} against "
+          f"{want}")
+    counters_match_trace(f"{tag}: the counted serve run", served,
+                         out["serve_trace"])
+    out["lane_launches"], out["step_launches"] = lane, step
+    out["lane_trace"] = lane_trace
+    return lane
+
+
+def step_profile(eng, reqs, handles, lane_trace, top=10):
+    """One replayed step with every slot seated (the n_slots largest
+    requests, under their own request ids): its emission equals what
+    those requests were served; its host wall time (replay + the emission
+    read back, median of 5), its device span (CUDA events around the
+    replay, median of 5), and once more under ``torch.profiler``: wall,
+    kernel time, busy share, the top ops and the hand-written kernels by
+    name, which must be ``n_slots`` times ``lane_trace`` (an eager
+    slot_fn's), while the counters advance by the captured launches."""
+    import statistics
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve.feeder import PreparedAdmission
+    from repro_torch.serve.request import Request
+
+    big = sorted(range(len(reqs)), key=lambda i: -len(reqs[i]))[:eng.n_slots]
+
+    def seat():
+        wave = []
+        for slot, i in enumerate(big):
+            row = seed_row(eng, reqs[i]).cpu().numpy()
+            wave.append((slot, PreparedAdmission(
+                Request(rid=handles[i].rid, prompt=reqs[i]), row)))
+        eng._admit_many(wave)
+        torch.cuda.synchronize()
+    seat()
+    em = eng._step()
+    for slot, i in enumerate(big):
+        check(em[slot, 0] == 1 and em[slot, 1:1 + len(reqs[i])].tolist()
+              == handles[i].tokens_out,
+              f"the profiled step's slot {slot} == request "
+              f"{handles[i].rid} as served")
+    walls, spans = [], []
+    for _ in range(5):
+        seat()
+        t0 = time.perf_counter()
+        eng._step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        seat()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        eng._graph.replay()
+        ev[1].record()
+        ev[1].synchronize()
+        spans.append(ev[0].elapsed_time(ev[1]))
+    seat()
+    before = launch_counts()
+    prof = profile_call(eng._step, top, kernels=PATH_KERNEL_RE)
+    after = launch_counts()
+    counted = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    traced = {k: v["count"] for k, v in prof["kernels"].items()
+              if re.fullmatch(SERVE_KERNEL_RE, k)}
+    check(counted == eng.captured_launches() and traced == {
+        k: eng.n_slots * v for k, v in lane_trace.items()},
+          f"the profiled replay counted {counted} and its trace shows "
+          f"{traced}: {eng.n_slots} lanes of an eager slot_fn's {lane_trace}")
+    return dict(seeds=sum(len(reqs[i]) for i in big), slots=eng.n_slots,
+                step_wall_ms=statistics.median(walls),
+                step_device_span_ms=statistics.median(spans),
+                step_walls_ms=walls, step_spans_ms=spans, **prof)
+
+
 def seed_row(eng, seeds):
     """A request's SENTINEL-padded seed row on the engine's device."""
     import torch
@@ -1711,7 +2099,7 @@ def merge_path(dev, seed, n_requests, csc, feats):
     from repro_torch.core import pipeline
     from repro_torch.core.graph import synthetic_coo
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import MERGE_CFG, percentile
+    from repro_torch.launch.serve import MERGE_CFG
     from repro_torch.models.gnn import GraphSAGE
     from repro_torch.serve import GnnServeEngine
 
@@ -1725,6 +2113,7 @@ def merge_path(dev, seed, n_requests, csc, feats):
     torch.cuda.synchronize()
 
     reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     csc_m = pipeline.convert(coo, MERGE_CFG, device=dev)
     torch.cuda.synchronize()
@@ -1736,27 +2125,17 @@ def merge_path(dev, seed, n_requests, csc, feats):
     rng = np.random.default_rng(seed)  # the slice path's requests and ids
     eng.submit(rng.choice(REDDIT["nodes"], 16, replace=False).tolist())
     eng.close_submissions()
-    eng.run()  # warm-up request
+    eng.run()  # warm-up request: the step's eager first run, its capture
     torch.cuda.synchronize()
+    out["step_programs_after_warmup"] = eng.step_cache_size()
     eng.reopen()
     reqs = [rng.choice(REDDIT["nodes"], int(k), replace=False).tolist()
             for k in rng.integers(1, SEED_CAP + 1, n_requests)]
-    before = launch_counts()
-    t0 = time.perf_counter()
-    handles = [eng.submit(s) for s in reqs]
-    eng.close_submissions()
-    completed = eng.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = launch_counts()
-    out["serve_launches"] = {k: launches[k] - before[k] for k in launches}
-    out["launches"] = launches
-    check(len(completed) == n_requests, "merge: every request retired")
-    lat = [r.total_latency_s for r in completed]
-    out["serve"] = dict(
-        requests=n_requests, seeds=sum(map(len, reqs)), steps=eng.stats.steps,
-        wall_s=dt, preds_per_s=sum(map(len, reqs)) / dt,
-        p50_ms=percentile(lat, 0.5) * 1e3, p99_ms=percentile(lat, 0.99) * 1e3)
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    counted, handles = serve_run(eng, reqs, traced=True)
+    out.update(counted)
+    out.update(serve_run(eng, reqs)[0])
+    out["peak_mem_gib"] = max(out["peak_mem_gib"], out["serve_peak_mem_gib"])
     return out, coo, csc_m, eng, reqs, handles
 
 
@@ -1871,7 +2250,7 @@ def profile_phase(eng, seeds, rid, top=8):
     torch.cuda.synchronize()
     return dict(seeds=len(seeds),
                 **profile_call(lambda: eng.slot_fn(eng.params, row, key), top,
-                               kernels=RANK_KERNEL_RE, ops=LADDER_OP_RE))
+                               kernels=PATH_KERNEL_RE, ops=LADDER_OP_RE))
 
 
 # the hand-written kernels of a convert in a trace, by path. MERGE_CFG: the
@@ -1939,8 +2318,26 @@ def convert_profile(dev, coo, path="merge"):
     return prof
 
 
-# the rank epilogue's kernels in a trace (csrc/reindex_epilogue.cu)
-RANK_KERNEL_RE = r"\b(?:rank|rename)_kernel\b"
+# the hand-written kernels of the GNN serve step in a trace, and the one
+# a counted launch of each 1:1 wrapper runs (ptr_seg_sum: its difference
+# kernel, once a call; SCAN_SETUP_KERNELS once a call or, on an empty
+# stream, not at all)
+SERVE_KERNEL_RE = (r"\b(?:digit_hist|digit_scatter|chunk_sort|rank|rename|"
+                   r"mark|chunk_total|chunk_carry|chunk_rescan|difference|"
+                   r"merge_partition|merge_tile|tile_sort|set_count|"
+                   r"segment_sum)_kernel\b")
+TRACE_OF_WRAPPER = {"digit_hist": "digit_hist_kernel",
+                    "digit_scatter": "digit_scatter_kernel",
+                    "rank_search": "rank_kernel", "rename": "rename_kernel",
+                    "ptr_seg_sum": "difference_kernel",
+                    "chunk_sort": "chunk_sort_kernel",
+                    "segment_sum_sorted": "segment_sum_kernel"}
+SCAN_SETUP_KERNELS = ("mark_kernel", "chunk_total_kernel",
+                      "chunk_carry_kernel", "chunk_rescan_kernel")
+# a request's or a step's trace: those kernels by name, and every copy
+# kernel as one ("copy": the transposing copies of the port's earlier
+# pointer segment sum were ones)
+PATH_KERNEL_RE = SERVE_KERNEL_RE + "|copy"
 
 
 def profile_call(fn, top=8, kernels=None, ops=None):
@@ -2765,6 +3162,14 @@ def main():
     log_serve("serve", out)
     check(all(out["launches"][k] > 0 for k in SLICE_KERNELS),
           f"every kernel of the slice path launched: {out['launches']}")
+    lane = serve_launch_checks("slice", eng, out, reqs, handles)
+    check(lane["digit_hist"] == lane["digit_scatter"] == REQUEST_DIGIT_PASSES
+          and lane["ptr_seg_sum"] == len(SCAN_CALLS),
+          f"a slice request (lane) runs {REQUEST_DIGIT_PASSES} digit_hist "
+          f"and digit_scatter launches and {len(SCAN_CALLS)} ptr_seg_sum: "
+          f"{lane}")
+    log(f"[serve] captured step: {out['serve']['steps']} replays, "
+        f"{out['step_launches']} launches a replay, {lane} a lane")
     # the two-pass Ordering's two sorts, each on the card's own schedule;
     # the reference design's pair held off the path
     from repro_torch.kernels.radix_sort import global_radix_schedule
@@ -2788,8 +3193,24 @@ def main():
     for key, r in rank_rows.items():
         log_row(key, r)
     rows.update(rank_rows)
+    scan_rows, extra["ptr_scan"] = scan_phase(dev, args.seed, eng, reqs[big],
+                                              handles[big].rid)
+    for key, r in scan_rows.items():
+        log_row(key, r)
+    rows.update(scan_rows)
     out["profile"] = profile_phase(eng, reqs[big], handles[big].rid)
     log_profile("profile", out["profile"])
+    copy = out["profile"]["kernels"].get("copy", {}).get("device_ms", 0.0)
+    scans = out["profile"]["kernels"].get("difference_kernel", {})
+    check(copy < COPY_BOUND_MS and scans.get("count") == len(SCAN_CALLS),
+          f"the profiled slice request ran {len(SCAN_CALLS)} column scans "
+          f"({scans}) and copies of {copy:.3f} ms, less than one transposing"
+          f" copy of its layer-1 messages could take ({COPY_BOUND_MS} ms)")
+    out["step_profile"] = step_profile(eng, reqs, handles, out["lane_trace"])
+    log_profile("step profile", out["step_profile"])
+    log(f"[step profile] a replayed step: wall {out['step_profile']['step_wall_ms']:.2f} "
+        f"ms, device span {out['step_profile']['step_device_span_ms']:.2f} ms "
+        "(medians of 5, unprofiled)")
     out["convert_profile"] = sprof = convert_profile(dev, coo, "slice")
     log_profile("slice convert profile", sprof)
     log(f"[slice convert profile] kernels other than the hand-written "
@@ -2811,6 +3232,13 @@ def main():
     log_serve("merge serve", mout)
     check(all(mout["launches"][k] > 0 for k in MERGE_KERNELS),
           f"every kernel of the merge path launched: {mout['launches']}")
+    mlane = serve_launch_checks("merge", meng, mout, mreqs, mhandles)
+    check(mlane.get("ptr_seg_sum", 0) == 0
+          and mlane["segment_sum_sorted"] == len(SCAN_CALLS),
+          f"a merge request (lane) aggregates on segment_sum_sorted, not "
+          f"the column scan: {mlane}")
+    log(f"[merge serve] captured step: {mout['serve']['steps']} replays, "
+        f"{mout['step_launches']} launches a replay, {mlane} a lane")
     # two sorts (the two-pass Ordering), each: the fused merge to 65,536,
     # then one merge_rung launch a rung
     from repro_torch.core.ordering import merge_round_fan_ins
@@ -2831,6 +3259,13 @@ def main():
         f"{LOGIT_TOL} of the slice path's, card == CPU on a small graph: ok")
     mout["profile"] = profile_phase(meng, mreqs[big], mhandles[big].rid)
     log_profile("merge profile", mout["profile"])
+    mout["step_profile"] = step_profile(meng, mreqs, mhandles,
+                                        mout["lane_trace"])
+    log_profile("merge step profile", mout["step_profile"])
+    log(f"[merge step profile] a replayed step: wall "
+        f"{mout['step_profile']['step_wall_ms']:.2f} ms, device span "
+        f"{mout['step_profile']['step_device_span_ms']:.2f} ms (medians of "
+        "5, unprofiled)")
     mout["convert_profile"] = cprof = convert_profile(dev, mcoo, "merge")
     log_profile("merge convert profile", cprof)
     log(f"[merge convert profile] kernels other than the hand-written "
@@ -2976,7 +3411,7 @@ def main():
     launches = {k: out["launches"][k] + mout["launches"][k]
                 for k in SLICE_KERNELS + MERGE_KERNELS}
     check(all(v > 0 for v in launches.values()),
-          f"all nine GNN kernels launched across the two paths: {launches}")
+          f"all ten GNN kernels launched across the two paths: {launches}")
     launches.update({k: lout["launches"][k] + tout["launches"][k]
                      for k in LM_KERNELS + TRAIN_KERNELS})
     launches.update({k: sum(p["launches"][k] for p in (out, mout, lout, tout))
@@ -3018,11 +3453,15 @@ def log_serve(tag, out):
         f"latency p50 {sv['p50_ms']:.1f} ms p99 {sv['p99_ms']:.1f} ms, "
         f"{sv['steps']} steps; launches {out['serve_launches']}"
         + (f"; peak {out['peak_mem_gib']:.2f} GiB" if "peak_mem_gib" in out
-           else ""))
+           else "")
+        + (f" allocated, {out['serve_peak_reserved_gib']:.2f} GiB reserved "
+           "over the run" if "serve_peak_reserved_gib" in out else ""))
 
 
 def log_profile(tag, prof):
-    what = (f"one request of {prof['seeds']} seeds" if "seeds" in prof
+    what = (f"one replayed step of {prof['slots']} slots, {prof['seeds']} "
+            "seeds" if "slots" in prof
+            else f"one request of {prof['seeds']} seeds" if "seeds" in prof
             else "one convert" if "convert" in tag
             else f"one {'train step' if 'train' in tag else 'prefill'} of "
                  f"{prof['tokens']} tokens")

@@ -86,8 +86,9 @@ def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,
                     cfg: EngineConfig | None = None, count_fn=None,
                     chunk_sort_fn=None) -> Subgraph:
     """Selecting + Reindexing + subgraph conversion → sampled CSC subgraph,
-    on the device that holds ``csc``. Explicit ``count_fn`` /
-    ``chunk_sort_fn`` override the config's routing."""
+    on the device that holds ``csc``. ``key`` is the request key or its
+    [sum(fanouts), 2] schedule (``prng.key_schedule``). Explicit
+    ``count_fn`` / ``chunk_sort_fn`` override the config's routing."""
     cfg = cfg or EngineConfig()
     kf = kernel_fns(cfg)
     count_fn = count_fn or kf.count_fn
@@ -125,6 +126,28 @@ def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,
     return Subgraph(csc=sub_csc, order=rmap.order, n_sub_nodes=rmap.n_unique)
 
 
+def sample_subgraph_batched(csc: CSC, batch_nodes: torch.Tensor,
+                            fanouts: tuple[int, ...], schedules: torch.Tensor,
+                            cfg: EngineConfig | None = None) -> Subgraph:
+    """Slot-batched sampling, the reference's stacked form: one
+    ``sample_subgraph`` lane per row of ``batch_nodes`` [S, B] with its
+    schedule ``schedules[i]`` ([S, K, 2]); every leaf of the result
+    carries a leading [S] axis. Lane i runs the single-request program on
+    its own row and keys, so it equals ``sample_subgraph(csc,
+    batch_nodes[i], fanouts, schedules[i], cfg)`` bit for bit, whatever
+    the other lanes hold. (The serve step runs its lanes one by one and
+    stacks nothing.)"""
+    lanes = [sample_subgraph(csc, batch_nodes[i], fanouts, schedules[i], cfg)
+             for i in range(batch_nodes.shape[0])]
+    return Subgraph(
+        csc=CSC(ptr=torch.stack([s.csc.ptr for s in lanes]),
+                idx=torch.stack([s.csc.idx for s in lanes]),
+                n_edges=torch.stack([s.csc.n_edges for s in lanes]),
+                n_nodes=lanes[0].csc.n_nodes),
+        order=torch.stack([s.order for s in lanes]),
+        n_sub_nodes=torch.stack([s.n_sub_nodes for s in lanes]))
+
+
 def preprocess(coo: COO, batch_nodes, fanouts: tuple[int, ...], key,
                cfg: EngineConfig | None = None, device="cuda") -> Subgraph:
     """The full workflow: convert, then sample one subgraph."""
@@ -137,6 +160,4 @@ def preprocess(coo: COO, batch_nodes, fanouts: tuple[int, ...], key,
 def gather_features(sub: Subgraph, features: torch.Tensor) -> torch.Tensor:
     """Feature rows of the sampled subgraph's nodes (zero on padding)."""
     rows = take(features, sub.order)
-    valid = (sub.order != SENTINEL)[:, None]
-    return torch.where(valid, rows, torch.zeros((), dtype=rows.dtype,
-                                                device=rows.device))
+    return rows.masked_fill_((sub.order == SENTINEL)[:, None], 0)

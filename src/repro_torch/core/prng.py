@@ -8,6 +8,10 @@ if every draw matches. This module re-implements that generator:
   key derivation (``PRNGKey``, ``fold_in``, ``split``) is scalar integer
   math on the host, exactly like JAX's ``threefry_seed`` / ``fold_in`` /
   ``_threefry_split_foldlike``;
+* ``key_schedule`` lays out every sub-key a request's sampler draws with
+  as one [K, 2] int64 table, so a captured serve step reads its keys from
+  a device tensor that admission overwrites, with no host-to-device copy
+  of its own;
 * ``uniform`` hashes the flat element index (high word 0, low word the
   index) on the tensor's device and maps the xor of the two output words
   to [0, 1) through the mantissa trick of ``jax.random.uniform``.
@@ -61,13 +65,31 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
-def random_bits(keys: list[Key], n: int, device) -> torch.Tensor:
+def key_schedule(key: Key, fanouts) -> torch.Tensor:
+    """The sub-keys Floyd selection draws with, as a [sum(fanouts), 2]
+    int64 CPU table: layer l's k_l rows are the second halves of k_l
+    successive ``split``s of ``fold_in(key, l)`` (``core/sampling.py``)."""
+    rows = []
+    for layer, k in enumerate(fanouts):
+        lk = fold_in(key, layer)
+        for _ in range(k):
+            lk, sub = split(lk)
+            rows.append(sub)
+    return torch.tensor(rows, dtype=torch.int64).reshape(len(rows), 2)
+
+
+def random_bits(keys, n: int, device) -> torch.Tensor:
     """32 random bits per element as int64 in [0, 2^32): one row of ``n``
-    per key, [len(keys), n]."""
+    per key, [len(keys), n]. ``keys`` is a list of keys or a [K, 2] int64
+    table; a table is read where it lies (``device`` is then ignored)."""
+    if isinstance(keys, torch.Tensor):
+        table, device = keys, keys.device
+    else:
+        table = torch.tensor([list(k) for k in keys], dtype=torch.int64,
+                             device=device).reshape(len(keys), 2)
     idx = torch.arange(n, dtype=torch.int64, device=device)[None, :]
-    k0, k1 = (torch.tensor([k[i] for k in keys], dtype=torch.int64,
-                           device=device)[:, None] for i in (0, 1))
-    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(idx), idx)
+    b0, b1 = threefry2x32(table[:, :1], table[:, 1:], torch.zeros_like(idx),
+                          idx)
     return b0 ^ b1
 
 
@@ -85,7 +107,8 @@ def uniform(key: Key, shape, device) -> torch.Tensor:
     return uniform_rows([key], n, device).reshape(shape)
 
 
-def uniform_rows(keys: list[Key], n: int, device) -> torch.Tensor:
+def uniform_rows(keys, n: int, device) -> torch.Tensor:
     """[len(keys), n]: row i equals ``uniform(keys[i], (n,))`` — several
-    draws in one batch of hash ops."""
-    return _bits_to_unit_float(random_bits(list(keys), n, device))
+    draws in one batch of hash ops. ``keys`` is a list of keys or a [K, 2]
+    int64 table (``key_schedule``) on the device that draws."""
+    return _bits_to_unit_float(random_bits(keys, n, device))

@@ -2,14 +2,16 @@
 
 Every wrapper takes its plain twin only for a tensor that lies on the CPU;
 on a CUDA tensor it launches the kernel or raises. Each wrapper carries a
-``launches`` counter that only the kernel branch bumps.
+``launches`` counter that only the kernel branch bumps; a replayed CUDA
+graph adds the launches captured in it (``add_launch_counts``).
 """
 from __future__ import annotations
 
 
 def kernel_wrappers():
-    """Every kernel wrapper, by name: the nine of the GNN serve paths
-    (the SLICE_CFG sorts run digit_hist and digit_scatter), the flash
+    """Every kernel wrapper, by name: the ten of the GNN serve paths
+    (the SLICE_CFG sorts run digit_hist and digit_scatter, its forward the
+    pointer segment sum ptr_seg_sum), the flash
     attention forward of the LM prefill and training paths, its two
     backward kernels (training), and the four kernels no path runs
     (digit_partition_hist and digit_rank_gather, the reference's digit
@@ -17,6 +19,7 @@ def kernel_wrappers():
     from .flash_attention import flash_attention_bhsd, flash_dkv, flash_dq
     from .merge import fused_merge_rounds, merge_rung
     from .prefix_partition import prefix_partition
+    from .ptr_scan import ptr_seg_sum
     from .radix_sort import (chunk_sort, digit_hist, digit_partition_hist,
                              digit_rank_gather, digit_scatter)
     from .reindex_epilogue import rank_search, rename
@@ -30,6 +33,7 @@ def kernel_wrappers():
             "merge_rung": merge_rung,
             "set_count_less": set_count_less,
             "segment_sum_sorted": segment_sum_sorted,
+            "ptr_seg_sum": ptr_seg_sum,
             "flash_attention_fwd": flash_attention_bhsd,
             "flash_attention_bwd_dq": flash_dq,
             "flash_attention_bwd_dkv": flash_dkv,
@@ -39,6 +43,14 @@ def kernel_wrappers():
 
 def launch_counts() -> dict[str, int]:
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the counters: a replayed CUDA graph launches the
+    kernels captured in it, but no wrapper runs on the host to count them."""
+    wrappers = kernel_wrappers()
+    for k, n in counts.items():
+        wrappers[k].launches += n
 
 
 def reset_launch_counts() -> None:

@@ -4,9 +4,11 @@
 Message passing is edge gather → segment reduce. The serve path attaches
 the subgraph's CSC pointers to the batch, so every reduction is the
 scatter-free pointer form: one cumulative sum of the masked message stream
-and a difference of prefix sums at each node's pointer span; under
+and a difference of prefix sums at each node's pointer span, on the
+column-scan kernel (``kernels/ptr_scan.py``); under
 ``GNNConfig.use_pallas_agg`` it is the segment-sum kernel over the
-dst-sorted edges instead (``kernels/segment_agg.py``). Weights keep
+dst-sorted edges instead (``kernels/segment_agg.py``).
+``gnn_apply_batched`` stacks one forward per slot. Weights keep
 the reference's layout, ``h @ W`` with ``W`` shaped [d_in, d_out], so a
 parameter tree from the reference's ``gnn_init`` loads without transposes
 (``load_reference_params``).
@@ -18,12 +20,12 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.graph import SENTINEL, resolve_device, take
 from repro_torch.core.pipeline import gather_features
 from repro_torch.core.set_count import rank_in_sorted
+from repro_torch.kernels.ptr_scan import ptr_seg_sum
 
 
 @dataclasses.dataclass
@@ -60,18 +62,13 @@ def _valid(batch: GraphBatch) -> torch.Tensor:
 
 def _ptr_seg_sum(ptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
     """Scatter-free segment sum over CSC pointers: prefix-sum the masked
-    message stream once, then difference it at each node's span.
-
-    The scan runs along the last axis of the transposed ``[D, E]`` stream:
-    PyTorch's CUDA ``cumsum`` along a leading axis walks the E rows one
-    after another, one thread per column (about 190 ms for E = 2^19 on an
-    H100), while along the last axis it scans each row in parallel.
-    """
-    flat = msgs.to(torch.float32).reshape(msgs.shape[0], -1)
-    cs = F.pad(torch.cumsum(flat.T.contiguous(), dim=1), (1, 0))  # [D, E+1]
-    p = torch.clamp(ptr, 0, msgs.shape[0]).to(torch.int64)
-    seg = cs.index_select(1, p[1:]) - cs.index_select(1, p[:-1])  # [D, N]
-    return seg.T.reshape((p.shape[0] - 1,) + msgs.shape[1:]).to(msgs.dtype)
+    message stream once, then difference it at each node's span — the
+    column-scan kernel on the card, its twin (``torch.cumsum`` and two
+    ``index_select``) on the CPU."""
+    flat = msgs.to(torch.float32).reshape(msgs.shape[0], -1).contiguous()
+    p = torch.clamp(ptr, 0, msgs.shape[0]).to(torch.int32)
+    seg = ptr_seg_sum(p, flat)
+    return seg.reshape((p.shape[0] - 1,) + msgs.shape[1:]).to(msgs.dtype)
 
 
 def seg_sum(batch: GraphBatch, msgs: torch.Tensor,
@@ -199,3 +196,10 @@ def subgraph_batch(sub, features: torch.Tensor) -> GraphBatch:
                       torch.full_like(dst, SENTINEL))
     return GraphBatch(edge_dst=dst, edge_src=sub.csc.idx, node_feat=feats,
                       ptr=ptr)
+
+
+def gnn_apply_batched(model: GraphSAGE, batches: list[GraphBatch]
+                      ) -> torch.Tensor:
+    """The forward over one batch per slot → [S, N, out]: lane i computes
+    exactly what ``model(batches[i])`` computes on its own batch."""
+    return torch.stack([model(b) for b in batches])

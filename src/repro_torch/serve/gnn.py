@@ -1,24 +1,38 @@
 """GnnServeEngine — batched GNN inference over the slot core (port of
 ``repro/serve/gnn.py``).
 
-Every occupied slot runs the whole request-to-prediction dataflow on the
-card: neighbour sampling → reindex + subgraph re-conversion
+Every slot runs the whole request-to-prediction dataflow on the card:
+neighbour sampling → reindex + subgraph re-conversion
 (``pipeline.sample_subgraph``) → feature gather → GraphSAGE forward →
-argmax. The step runs the slots as a Python loop over ``slot_fn``, every
-slot at the same padded ``seed_cap`` shapes, so a request's predictions
-equal a sequential per-request ``slot_fn`` loop bit for bit:
+argmax. One step function runs every slot as a lane, one after another
+through the single-request ``slot_fn``, idle slots on their stale or
+SENTINEL seeds, at the same padded ``seed_cap`` shapes, so a request's
+predictions equal a sequential per-request ``slot_fn`` loop bit for bit:
 
 * each slot samples its own subgraph (no cross-request dedup);
 * the per-request key is folded from the request id, never the slot or
-  the step;
+  the step, and laid out on the host as its key schedule
+  (``prng.key_schedule``);
 * the forward uses one deterministic segment sum on both legs.
+
+The state is static device tensors (seeds, key schedules, active flags,
+the emission rows). Admission seats a wave with one stacked
+host-to-device copy into them. On the card the first step runs eagerly
+(the warm-up, with host syncs made errors) and is captured once as a CUDA
+graph on a memory pool of the engine's own, where a lane's intermediates
+are freed before the next lane allocates; every later step replays it.
+On the CPU the same step function runs eagerly. ``step_cache_size()`` (the
+slot core's zero-recapture guard) counts the step programs built; a
+program is bound to the tensors it was built on, and a step raises if a
+state, graph, feature or weight tensor was rebound since (a replay would
+read the old buffers): new values are written into them in place.
 
 ``cfg`` pins the preprocessing dispatch. ``launch/serve.py`` names the two
 configurations the port serves: ``SLICE_CFG`` (global_radix sorts through
-the digit-pass kernels, the fused rank epilogue, the pointer-based segment
-sum) and ``MERGE_CFG`` (chunked_merge sorts through the chunk-sort and
-fused-merge kernels, the unfused set-count pointer build, and, with the
-model's ``use_pallas_agg``, the segment-sum kernel).
+the digit-pass kernels, the fused rank epilogue, the pointer segment sum on
+the column-scan kernel) and ``MERGE_CFG`` (chunked_merge sorts through the
+chunk-sort and fused-merge kernels, the unfused set-count pointer build,
+and, with the model's ``use_pallas_agg``, the segment-sum kernel).
 
 Streamed graph updates (``submit_update``) are not ported yet.
 """
@@ -30,7 +44,7 @@ import torch
 from repro_torch.core import pipeline, prng
 from repro_torch.core.costmodel import EngineConfig
 from repro_torch.core.graph import CSC, SENTINEL, next_pow2, resolve_device
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import add_launch_counts, launch_counts
 from repro_torch.models.gnn import GraphSAGE, subgraph_batch
 
 from .request import Request
@@ -55,6 +69,29 @@ def build_slot_fn(fanouts: tuple[int, ...], seed_cap: int,
             return torch.argmax(out[:seed_cap], dim=-1).to(torch.int32)
 
     return slot_fn
+
+
+def build_step(fanouts: tuple[int, ...], seed_cap: int, cfg: EngineConfig):
+    """The one step program: every slot's ``slot_fn`` as a lane, then the
+    emission rows. ``state`` holds seeds [S, seed_cap] int32, key
+    schedules [S, K, 2] int64, active [S] int32 and the emission
+    [S, 1 + seed_cap] int32, all written in place: the flag column is the
+    active flags, an inactive row's predictions are 0, and the step clears
+    every flag (one-shot retirement)."""
+    slot_fn = build_slot_fn(fanouts, seed_cap, cfg)
+
+    def step(params, state) -> None:
+        with torch.inference_mode():
+            flag, emission = state["active"], state["emission"]
+            emission[:, 0] = flag
+            for i in range(flag.shape[0]):
+                preds = slot_fn(params, state["seeds"][i],
+                                state["schedules"][i])
+                emission[i, 1:] = torch.where(flag[i] != 0, preds,
+                                              torch.zeros_like(preds))
+            flag.zero_()
+
+    return step
 
 
 def gnn_route(req: Request, emission) -> bool | None:
@@ -102,12 +139,21 @@ class GnnServeEngine(SlotEngineBase):
             "csc": csc.to(self.device),
             "features": torch.as_tensor(features, dtype=torch.float32
                                         ).to(self.device)}
+        key_rows = sum(fanouts)
         self.state = {
             "seeds": torch.full((n_slots, seed_cap), SENTINEL,
                                 dtype=torch.int32, device=self.device),
-            "key": [self.base_key] * n_slots,
-            "active": [False] * n_slots}
+            "schedules": torch.zeros((n_slots, key_rows, 2),
+                                     dtype=torch.int64, device=self.device),
+            "active": torch.zeros((n_slots,), dtype=torch.int32,
+                                  device=self.device),
+            "emission": torch.zeros((n_slots, 1 + seed_cap),
+                                    dtype=torch.int32, device=self.device)}
         self.slot_fn = build_slot_fn(fanouts, seed_cap, self.engine_cfg)
+        self.step_fn = build_step(fanouts, seed_cap, self.engine_cfg)
+        self._graph = None  # the captured step (card only)
+        self._graph_launches: dict[str, int] = {}
+        self._bound: dict[str, int] | None = None  # the program's tensors
 
     def submit(self, seeds) -> Request:
         """Enqueue one inference request for ``seeds`` (node ids)."""
@@ -136,22 +182,97 @@ class GnnServeEngine(SlotEngineBase):
         return launch_counts()
 
     def _admit_many(self, wave: list) -> None:
-        slots = torch.tensor([slot for slot, _ in wave], device=self.device)
-        rows = torch.from_numpy(np.stack([p.row for _, p in wave]))
-        self.state["seeds"][slots] = rows.to(self.device)
-        for slot, prep in wave:
-            self.state["key"][slot] = self.request_key(prep.request.rid)
-            self.state["active"][slot] = True
+        """Seat a wave: [slot, seed row, key schedule] per request, stacked
+        on the host into one int64 block and copied to the device once,
+        then scattered into the state rows (outside any captured step)."""
+        cap = self.seed_cap
+        block = np.empty((len(wave), 1 + cap + 2 * sum(self.fanouts)),
+                         np.int64)
+        for i, (slot, prep) in enumerate(wave):
+            block[i, 0] = slot
+            block[i, 1:1 + cap] = prep.row
+            block[i, 1 + cap:] = prng.key_schedule(
+                self.request_key(prep.request.rid), self.fanouts
+            ).reshape(-1).numpy()
+        dev = torch.from_numpy(block).to(self.device)
+        slots = dev[:, 0]
+        st = self.state
+        st["seeds"][slots] = dev[:, 1:1 + cap].to(torch.int32)
+        st["schedules"][slots] = dev[:, 1 + cap:].reshape(
+            len(wave), -1, 2)
+        st["active"][slots] = 1
+
+    def _bindings(self) -> dict[str, int]:
+        """{name: data_ptr} of every tensor the step reads or writes: the
+        state, the graph, the features and the model's weights."""
+        csc = self.params["csc"]
+        named = {"csc.ptr": csc.ptr, "csc.idx": csc.idx,
+                 "csc.n_edges": csc.n_edges,
+                 "features": self.params["features"]}
+        named.update((f"gnn.{k}", t) for k, t in
+                     self.params["gnn"].state_dict(keep_vars=True).items())
+        named.update((f"state.{k}", t) for k, t in self.state.items())
+        return {k: t.data_ptr() for k, t in named.items()}
+
+    def _capture(self) -> None:
+        """The first step on the card: run eagerly on a side stream (the
+        warm-up: kernel builds, cuBLAS handles, allocator pools) with
+        ``torch.cuda.set_sync_debug_mode("error")``, so a host read that
+        would break the capture raises here; then capture the step once
+        into a CUDA graph on the engine's own pool. Capturing launches
+        nothing, so the kernel launches the wrappers counted meanwhile are
+        taken off the counters and kept as the graph's per-replay
+        counts."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self.step_fn(self.params, self.state)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
+                              stream=side, capture_error_mode="thread_local"):
+            self.step_fn(self.params, self.state)
+        after = launch_counts()
+        self._graph_launches = {k: after[k] - before[k] for k in after
+                                if after[k] != before[k]}
+        add_launch_counts({k: -n for k, n in self._graph_launches.items()})
+        self._graph = graph
+
+    def captured_launches(self) -> dict[str, int]:
+        """Kernel launches of one replay of the captured step (empty before
+        the capture and on the CPU)."""
+        return dict(self._graph_launches)
 
     def _step(self) -> np.ndarray:
-        """Run every active slot's request; returns the [S, 1 + seed_cap]
-        emission rows (flag, predictions) and clears the active flags."""
-        emitted = np.zeros((self.n_slots, 1 + self.seed_cap), np.int32)
-        active = [s for s, a in enumerate(self.state["active"]) if a]
-        preds = [self.slot_fn(self.params, self.state["seeds"][s],
-                              self.state["key"][s]) for s in active]
-        if preds:
-            emitted[active, 0] = 1
-            emitted[active, 1:] = torch.stack(preds).cpu().numpy()
-        self.state["active"] = [False] * self.n_slots
-        return emitted
+        """Run every slot; returns the [S, 1 + seed_cap] emission rows
+        (flag, predictions). The step clears the active flags itself. The
+        first step builds the step program (on the card its capture);
+        every later one runs it on the same tensors, or raises."""
+        if self._bound is None:
+            self._bound = self._bindings()
+            self._step_programs += 1
+            if self.device.type == "cuda":
+                self._capture()
+                return self.state["emission"].cpu().numpy()
+        else:
+            now = self._bindings()
+            moved = sorted(k for k in self._bound.keys() | now.keys()
+                           if self._bound.get(k) != now.get(k))
+            if moved:
+                raise RuntimeError(
+                    f"the step program reads {moved} at the addresses it "
+                    "was built on, and they were rebound since; write new "
+                    "values into those tensors in place")
+        if self._graph is None:
+            self.step_fn(self.params, self.state)
+        else:
+            self._graph.replay()
+            add_launch_counts(self._graph_launches)
+        return self.state["emission"].cpu().numpy()

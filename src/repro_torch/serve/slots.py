@@ -6,8 +6,9 @@ client. A client provides:
 
 * ``_admit_many(wave)`` — seat a wave of ``[(slot, PreparedAdmission)]``
   into its slot state;
-* ``_step()`` — run every occupied slot once and return the [S, ...]
-  emissions as a numpy array, routed per slot by ``route``.
+* ``_step()`` — run every slot once and return the [S, ...] emissions as
+  a numpy array, routed per slot by ``route``; the client counts the step
+  programs it builds in ``_step_programs`` (``step_cache_size``).
 
 Requests retire after one step (one-shot inference), so the loop runs
 synchronously: emissions route right after each step and retired slots are
@@ -48,6 +49,13 @@ class SlotEngineBase:
         self._admit_window = admit_window
         self._rid = 0
         self._rid_lock = threading.Lock()
+        self._step_programs = 0
+
+    # ----------------------------------------------------- cache discipline
+    def step_cache_size(self) -> int:
+        """Step programs built behind ``_step`` (the zero-recapture guard
+        reads this): 1 after warm-up, whatever the seed counts since."""
+        return self._step_programs
 
     # ------------------------------------------------------------ admission
     def _enqueue(self, prompt: list[int]) -> Request:

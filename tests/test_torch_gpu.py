@@ -9,7 +9,10 @@ the set count equals its twin and searchsorted up to the convert's shape
 and gives the same bits twice, as does the bf16 flash forward, the
 wrappers refuse what the kernels cannot take, both serve paths on
 the card give the integers the CPU path gives, and the gemma2 smoke
-prefill and train step on the card give the CPU's results. Every test
+prefill and train step on the card give the CPU's results. The column
+scan is within its derived tolerance of its twin; the serve engine's
+captured step, replayed for new waves, equals the eager step bit for bit
+and advances the launch counters by its captured launches. Every test
 skips with a reason on a host without a card or nvcc.
 
 Run them on a machine with an H100:
@@ -1112,3 +1115,184 @@ def test_gemma2_smoke_train_step_on_card_equals_cpu(cuda, seq):
         assert close(state["m"][name], cell.opt_state["m"][name]), name
         assert float((p.detach().cpu() - q.detach()).abs().max()) <= (
             2 * want["lr"] + 1e-6), name
+
+
+# ---------------------------------------- the column scan, the captured step
+def _scan_case(e, d, n, seed, full=False):
+    """msgs [e, d] (N(0, 1) + 3, so that the prefix drifts) and sorted
+    pointers [n + 1] in [0, e], with empty segments and, unless ``full``,
+    a first pointer past 0 and a last one short of e."""
+    rng = np.random.default_rng(seed)
+    msgs = torch.from_numpy((rng.normal(size=(e, d)) + 3).astype(np.float32))
+    p = np.sort(rng.integers(0, e + 1, n + 1)).astype(np.int32)
+    if n > 8:
+        p[n // 4:n // 4 + 5] = p[n // 4]
+    if full:
+        p[0], p[-1] = 0, e
+    return torch.from_numpy(p), msgs
+
+
+@pytest.mark.parametrize("e,d,n,full", [
+    (1, 1, 1, True), (3000, 7, 400, False), (100_003, 37, 20_000, False),
+    (1 << 19, 1, 282_624, True), (1 << 19, 128, 282_624, True),
+    (70_001, 602, 50_000, False)])
+def test_ptr_scan_kernel_within_its_tolerance_of_the_twin(cuda, e, d, n,
+                                                          full):
+    """The column-scan kernel against its twin within ``twin_tolerance``
+    (derived from float32 rounding), on ragged E and D, empty segments
+    and pointers that start past 0 or end short of E; two launches give
+    the same bits, and one launch counts one."""
+    from repro_torch.kernels import ptr_scan
+    ptr, msgs = _scan_case(e, d, n, seed=e + d, full=full)
+    want = ptr_scan.ptr_seg_sum(ptr, msgs)
+    tol = ptr_scan.twin_tolerance(ptr, msgs)
+    before = ptr_scan.ptr_seg_sum.launches
+    got = ptr_scan.ptr_seg_sum(ptr.to(cuda), msgs.to(cuda))
+    again = ptr_scan.ptr_seg_sum(ptr.to(cuda), msgs.to(cuda))
+    torch.cuda.synchronize()
+    assert ptr_scan.ptr_seg_sum.launches == before + 2
+    assert torch.equal(got, again)
+    err = (got.cpu().double() - want.double()).abs()
+    assert bool((err <= tol).all()), float((err / tol.clamp_min(1e-30)).max())
+
+
+def test_ptr_scan_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    from repro_torch.kernels import ptr_scan
+    ptr = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ptr_scan.ptr_seg_sum(ptr.long(), torch.zeros((4, 2), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        ptr_scan.ptr_seg_sum(ptr, torch.zeros((4, 2), device=cuda,
+                                              dtype=torch.float64))
+
+
+def _serve_engine(cuda, cfg, n_slots=2):
+    from repro_torch.configs.graphsage_reddit import smoke_config
+    from repro_torch.models.gnn import GraphSAGE
+    from repro_torch.serve import GnnServeEngine
+    dst, src = tg.random_coo(np.random.default_rng(0), 3000, 20_000)
+    coo = tg.COO.from_arrays(dst, src, 3000, capacity=1 << 15, device=cuda)
+    gcfg = dataclasses.replace(smoke_config(),
+                               use_pallas_agg=cfg is MERGE_CFG)
+    model = GraphSAGE(gcfg, d_in=24, n_classes=5,
+                      generator=torch.Generator().manual_seed(0), device=cuda)
+    feats = torch.randn((3000, 24), generator=torch.Generator().manual_seed(1))
+    return GnnServeEngine(model, tp.convert(coo, cfg, device=cuda), feats,
+                          fanouts=(25, 10), n_slots=n_slots, seed_cap=64,
+                          cfg=cfg, device=cuda)
+
+
+def _wave(eng, rng, rid0):
+    from repro_torch.serve.feeder import PreparedAdmission
+    from repro_torch.serve.request import Request
+    wave = []
+    for slot in range(eng.n_slots):
+        seeds = rng.choice(3000, int(rng.integers(1, eng.seed_cap + 1)),
+                           replace=False).tolist()
+        row = np.full((eng.seed_cap,), SEN, np.int32)
+        row[:len(seeds)] = seeds
+        wave.append((slot, PreparedAdmission(
+            Request(rid=rid0 + slot, prompt=seeds), row)))
+    return wave
+
+
+@pytest.mark.parametrize("cfg", [SLICE_CFG, MERGE_CFG],
+                         ids=["slice", "merge"])
+def test_replayed_step_equals_the_eager_step(cuda, cfg):
+    """The captured step, replayed for two new waves (new seeds and key
+    schedules in the same state tensors), gives the eager step's emission
+    bit for bit, and every served row equals the sequential slot_fn; the
+    step is captured once."""
+    eng = _serve_engine(cuda, cfg)
+    rng = np.random.default_rng(5)
+    eng._admit_many(_wave(eng, rng, 0))
+    eng._step()  # warm-up, then the capture
+    assert eng.step_cache_size() == 1
+    for w in (1, 2):
+        wave = _wave(eng, rng, 10 * w)
+        eng._admit_many(wave)
+        saved = {k: v.clone() for k, v in eng.state.items()}
+        replayed = torch.from_numpy(eng._step())
+        for k, v in saved.items():
+            eng.state[k].copy_(v)
+        eng.step_fn(eng.params, eng.state)
+        assert torch.equal(replayed, eng.state["emission"].cpu()), w
+        for slot, prep in wave:
+            seeds = prep.request.prompt
+            seq = eng.slot_fn(eng.params, torch.from_numpy(prep.row).to(cuda),
+                              eng.request_key(prep.request.rid))
+            assert replayed[slot, 0] == 1
+            assert torch.equal(replayed[slot, 1:1 + len(seeds)],
+                               seq[:len(seeds)].cpu()), (w, slot)
+    assert eng.step_cache_size() == 1
+
+
+# the hand-written kernels of the GNN serve step, by name in a trace
+_SERVE_KERNEL_RE = (r"\b(?:digit_hist|digit_scatter|chunk_sort|rank|rename|"
+                    r"mark|chunk_total|chunk_carry|chunk_rescan|difference|"
+                    r"merge_partition|merge_tile|tile_sort|set_count|"
+                    r"segment_sum)_kernel\b")
+
+
+def _traced_kernels(fn):
+    """{kernel name: launches} of the serve step's hand-written kernels
+    in a ``torch.profiler`` trace of ``fn()``."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        m = re.search(_SERVE_KERNEL_RE, e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            counts[m.group(0)] = counts.get(m.group(0), 0) + e.count
+    return counts
+
+
+def test_replays_advance_the_launch_counters(cuda):
+    """A replay adds the captured graph's launches to the counters: per
+    lane, what one eager slot_fn counts (4 ptr_seg_sum launches: two
+    layers, messages and degrees); and a trace of one replay shows n_slots
+    times the hand-written kernels a trace of one eager slot_fn shows, so
+    the counted launches happened."""
+    eng = _serve_engine(cuda, SLICE_CFG)
+    rng = np.random.default_rng(6)
+    eng._admit_many(_wave(eng, rng, 0))
+    eng._step()
+    per_step = eng.captured_launches()
+    reset_launch_counts()
+    lane = _traced_kernels(lambda: eng.slot_fn(
+        eng.params, eng.state["seeds"][0], eng.request_key(0)))
+    one = {k: v for k, v in launch_counts().items() if v}
+    assert one["ptr_seg_sum"] == 4 == lane["difference_kernel"]
+    assert one["digit_hist"] == lane["digit_hist_kernel"]
+    assert per_step == {k: eng.n_slots * v for k, v in one.items()}
+    eng._admit_many(_wave(eng, rng, 0))
+    replay = _traced_kernels(eng._step)
+    assert replay == {k: eng.n_slots * v for k, v in lane.items()}
+    before = launch_counts()
+    for _ in range(3):
+        eng._admit_many(_wave(eng, rng, 0))
+        eng._step()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {k: 3 * v
+                                          for k, v in per_step.items()}
+
+
+def test_replay_refuses_a_rebound_state_tensor(cuda):
+    """The captured step replays on the addresses it was captured on:
+    new seeds written in place are served, a seed tensor rebound since
+    makes the next step raise before any replay."""
+    eng = _serve_engine(cuda, SLICE_CFG)
+    rng = np.random.default_rng(7)
+    eng._admit_many(_wave(eng, rng, 0))
+    eng._step()
+    eng._admit_many(_wave(eng, rng, 10))
+    assert eng._step()[:, 0].tolist() == [1] * eng.n_slots
+    eng.state["seeds"] = eng.state["seeds"].clone()
+    with pytest.raises(RuntimeError, match=r"state\.seeds"):
+        eng._step()
+    assert eng.step_cache_size() == 1

@@ -45,6 +45,7 @@ def test_port_file_inventory():
                  "src/repro_torch/kernels/merge.py",
                  "src/repro_torch/kernels/set_count.py",
                  "src/repro_torch/kernels/segment_agg.py",
+                 "src/repro_torch/kernels/ptr_scan.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/kernels/prefix_partition.py",
                  "src/repro_torch/models/common.py",
@@ -84,13 +85,14 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.reindex_epilogue\n"
         "import repro_torch.kernels.merge, repro_torch.kernels.set_count\n"
         "import repro_torch.kernels.segment_agg\n"
+        "import repro_torch.kernels.ptr_scan\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.prefix_partition\n"
         "import repro_torch.models.transformer, repro_torch.launch.steps\n"
         "import repro_torch.launch.train, repro_torch.train.loop\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
-        "assert len(kernel_wrappers()) == 16\n"
+        "assert len(kernel_wrappers()) == 17\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -75,3 +75,35 @@ def test_floyd_key_schedule_matches_reference_draws():
             np.testing.assert_array_equal(
                 prng.uniform(sub, (50,), "cpu").numpy(),
                 np.asarray(jax.random.uniform(jsub, (50,))))
+
+
+@pytest.mark.parametrize("fanouts", [(3, 2), (4,), (25, 10)])
+def test_key_schedule_matches_reference_chain(fanouts):
+    """key_schedule's rows are the sub-keys of the reference sampler's
+    chain, bit for bit: fold_in(key, layer), then one split per step."""
+    key = prng.fold_in(prng.PRNGKey(2), 41)
+    jk = jax.random.fold_in(jax.random.PRNGKey(2), 41)
+    want = []
+    for layer, k in enumerate(fanouts):
+        jkl = jax.random.fold_in(jk, layer)
+        for _ in range(k):
+            jkl, jsub = jax.random.split(jkl)
+            want.append(_key(jsub))
+    got = prng.key_schedule(key, fanouts)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (sum(fanouts), 2)
+    assert [tuple(r) for r in got.tolist()] == want
+
+
+def test_uniform_rows_from_a_schedule_table_equal_the_tuple_path():
+    """A [K, 2] int64 table draws what the same keys as tuples draw, on
+    the table's device, and what jax.random.uniform draws."""
+    fanouts = (3, 2)
+    key = prng.fold_in(prng.PRNGKey(9), 5)
+    table = prng.key_schedule(key, fanouts)
+    keys = [tuple(r) for r in table.tolist()]
+    got = prng.uniform_rows(table, 57, "meta").numpy()  # device: the table's
+    want = prng.uniform_rows(keys, 57, "cpu").numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(
+        got[4].view(np.int32),
+        np.asarray(jax.random.uniform(_jkey(keys[4]), (57,))).view(np.int32))

@@ -3,11 +3,12 @@
 SLICE_CFG serve path: what a request costs end to end and what the rank
 epilogue's five calls cost on the arrays the path hands them; or, with
 ``--what kernels``, what the chunk sort, the filter, the merge ladder's
-kernels and a MERGE_CFG convert cost; or, with ``--what digit``, what the
-global_radix digit pass, its whole sort and a SLICE_CFG convert cost.
+kernels and a MERGE_CFG convert cost; with ``--what digit``, what the
+global_radix digit pass, its whole sort and a SLICE_CFG convert cost; or,
+with ``--what serve``, what serving costs under both configurations.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
-      --order parent,change,change,parent [--what kernels|digit]
+      --order parent,change,change,parent [--what kernels|digit|serve]
 
 A tree is the root of a checkout (unpack an earlier commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Each turn is
@@ -50,6 +51,16 @@ the digit; the whole 18-bit sort as SLICE_CFG routes it
 (``ordering.stable_sort_by_key`` with the tree's ``kernel_fns``), checked
 against the torch.sort strategy; and the host-clock seconds of a SLICE_CFG convert
 of chip_smoke's Reddit-scale COO (the median of three after a warm-up).
+
+``--what serve`` serves chip_smoke's 16 mixed-size requests (after its
+warm-up request) through the tree's ``GnnServeEngine`` under SLICE_CFG
+and under MERGE_CFG with ``use_pallas_agg``, both on the SLICE_CFG
+convert of chip_smoke's Reddit-scale graph: predictions/s, p50/p99
+request latency, steps, the step programs the engine built (where the
+tree counts them); then each of the 16 requests alone (submitted, served
+and read before the next: light traffic, one slot busy), their p50/p99
+latency; and the peak memory allocated and reserved over the engine's
+life.
 
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
@@ -345,6 +356,89 @@ def turn_digit(tree: str, seed: int) -> dict:
     return dict(tree=tree, **out)
 
 
+def turn_serve(tree: str, seed: int, n_requests: int) -> dict:
+    """One tree's serve readings under both engine configurations, in
+    this process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.graphsage_reddit import config
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import ENGINE_CFGS, percentile
+    from repro_torch.models.gnn import GraphSAGE
+    from repro_torch.serve import GnnServeEngine
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
+                        cs.CONVERT_CAP, seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    feats = torch.randn((cs.REDDIT["nodes"], cs.REDDIT["feats"]),
+                        generator=g, device=dev)
+    csc = pipeline.convert(coo, ENGINE_CFGS["slice"][0], device=dev)
+    del coo
+    out = {}
+    for path, (cfg, pallas_agg) in ENGINE_CFGS.items():
+        model = GraphSAGE(
+            dataclasses.replace(config(), use_pallas_agg=pallas_agg),
+            d_in=cs.REDDIT["feats"], n_classes=cs.REDDIT["classes"],
+            generator=torch.Generator().manual_seed(seed + 2), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng = GnnServeEngine(model, csc, feats, n_slots=cs.N_SLOTS,
+                             seed_cap=cs.SEED_CAP, cfg=cfg, device=dev)
+        rng = np.random.default_rng(seed)  # chip_smoke's draws
+        eng.submit(rng.choice(cs.REDDIT["nodes"], 16, replace=False).tolist())
+        eng.close_submissions()
+        eng.run()
+        torch.cuda.synchronize()
+        eng.reopen()
+        reqs = [rng.choice(cs.REDDIT["nodes"], int(k), replace=False).tolist()
+                for k in rng.integers(1, cs.SEED_CAP + 1, n_requests)]
+        steps = eng.stats.steps
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.close_submissions()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lat = [r.total_latency_s for r in done]
+        lone = []  # each request alone: light traffic, one slot busy
+        for r in reqs:
+            eng.reopen()
+            eng.submit(r)
+            eng.close_submissions()
+            lone += [q.total_latency_s for q in eng.run()]
+            torch.cuda.synchronize()
+        cache = getattr(eng, "step_cache_size", None)
+        out[path] = dict(
+            preds_per_s=sum(map(len, reqs)) / dt, wall_s=dt,
+            p50_ms=percentile(lat, 0.5) * 1e3,
+            p99_ms=percentile(lat, 0.99) * 1e3,
+            lone_p50_ms=percentile(lone, 0.5) * 1e3,
+            lone_p99_ms=percentile(lone, 0.99) * 1e3,
+            steps=eng.stats.steps - steps,
+            step_programs=cache() if cache else None,
+            peak_over_start_gib=(torch.cuda.max_memory_allocated() - base)
+            / 2**30,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+        del eng, model
+        torch.cuda.empty_cache()
+    return dict(tree=tree, **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[],
@@ -353,12 +447,12 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--what", choices=("slice", "kernels", "digit"),
+    ap.add_argument("--what", choices=("slice", "kernels", "digit", "serve"),
                     default="slice",
                     help="the SLICE_CFG request and rank calls; the chunk "
                     "sort, the filter, the merge kernels and the MERGE_CFG "
-                    "convert; or the global_radix digit pass, sort and "
-                    "SLICE_CFG convert")
+                    "convert; the global_radix digit pass, sort and "
+                    "SLICE_CFG convert; or both configurations' serving")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
@@ -366,6 +460,8 @@ def main():
         name, tree = args.turn.split("=", 1)
         out = (turn_kernels(tree, args.seed) if args.what == "kernels" else
                turn_digit(tree, args.seed) if args.what == "digit" else
+               turn_serve(tree, args.seed, args.requests)
+               if args.what == "serve" else
                turn(tree, args.seed, args.requests, args.reps))
         print(json.dumps(dict(name=name, **out)), flush=True)
         return 0
