@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's GraphSAGE serve paths, its gemma2-9b
-prefill and its gemma2-9b training step on one H100.
+"""Drive the PyTorch + CUDA port's GraphSAGE serve paths, its engine
+service, its gemma2-9b prefill and its gemma2-9b training step on one
+H100.
 
   python3 chip_smoke.py
 
@@ -114,6 +115,38 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    hand-written kernels by name, the rest, the device spans of the merge
    rungs above the fused merge's block, and no ``searchsorted`` or
    ``scatter`` op (the plain ladder's) in the trace.
+7a. service — the serve engines freed (no CUDA graph is captured while a
+   prefetch producer runs); launch counters set to 0; the engine service
+   (``repro_torch.engine``) on the library with the kernels routed
+   (``use_pallas`` on every entry of ``bitstream_library()``): the bare
+   chunk-sort wrapper refuses 65,536 pairs a chunk, and every entry
+   converts 2^20 pairs (two-pass, Reddit's VID space) under chunked_merge
+   and global_radix equal to the torch.sort strategy (chunks wider than a
+   CTA sort as sub-chunks and one merge rung). A ``Calibration`` fitted on
+   the card: converts under each pinned strategy at 2^20, 2^24 and 2^27
+   edges (the last the merge path's Reddit COO) for two entries of
+   different w_upe, each bit-equal to torch.sort, and the reindex epilogue
+   fused and unfused at 1,024 and 128 seeds; non-negative least squares on
+   the cost model's own columns (constants the readings do not identify
+   keep the reference's); each reading beside its prediction under the
+   fitted and the default Calibration; ``choose_config`` under both beside
+   the fastest measured. DynPre (one service a Calibration) over a 2^14-edge
+   graph at degree 4, a 2^20-edge one at degree 32 and Reddit, 1,024 seeds
+   each: every subgraph bit-equal to ``pipeline.preprocess`` under
+   ``SLICE_CFG``; a fresh service re-dispatching the Reddit pair adds no
+   dispatch entry and loads no library. ``sample_batched`` on the Reddit
+   CSC, rows of 1..1,024 seeds bucketed to a power of two, each row equal
+   to ``sample_subgraph``. ``apply_delta`` on the Reddit CSC (4,096
+   inserts, 4,096 deletes of existing edges, 1,024 of them twice) in merge
+   and rebuild modes under the service's configuration and ``SLICE_CFG``,
+   timed, each bit-equal to the torch.sort convert of the post-update edge
+   list built with numpy on the host, then a chain of 3 such deltas. 16
+   batches of a request's sampling and feature gather through a
+   ``Prefetcher`` (side stream) into the full-width graphsage-reddit
+   forward: logits bit-equal to ``SyncBatches``, both timed, the launch
+   counters (bumped from two threads) equal. ``train/loop.py`` with and
+   without prefetch, 3 steps of the gemma2-9b smoke config: bit-equal.
+   Counters read: every kernel of the phase launched.
 8. LM kernels — the GNN paths' memory freed; the flash-attention forward
    (bf16 on tensor cores, float32 on scalar FMAs) against its twin at
    gemma2-9b's head shapes (16 heads over 8 kv heads,
@@ -1618,10 +1651,12 @@ def rank_epilogue_is_invisible(eng, reqs, handles):
             a.contiguous(), q.contiguous(), side)
         tre.rename_fn = lambda a, t, q: tre._rename_plain(
             a.contiguous(), t.contiguous(), q.contiguous())
+        pipeline._KERNEL_FNS.clear()  # routing is built once a config
         try:
             sub_t, logits_t = run(row, key)
         finally:
             tre.rank_fn, tre.rename_fn = kernels
+            pipeline._KERNEL_FNS.clear()
         check(all(torch.equal(a, b) for a, b in (
             (sub_k.csc.ptr, sub_t.csc.ptr), (sub_k.csc.idx, sub_t.csc.idx),
             (sub_k.order, sub_t.order), (logits_k, logits_t))),
@@ -2235,6 +2270,733 @@ def merge_checks(dev, seed, coo, csc_m, eng, reqs, handles, eng_s, extra):
                       extra, "merge")
 
 
+# ------------------------------------------------------------- phase 7a
+# the engine service's phase: fanouts and seeds a dispatch, the convert
+# sizes and library entries the Calibration fit reads (two of different
+# w_upe: their n_upe, the model's lanes, differ too), the request sizes
+# of the reindex readings, DynPre's graphs (nodes, edges: 2^14 at degree
+# 4, 2^20 at degree 32, then Reddit), the batched rows' seed counts, the
+# delta's size and chain, the prefetched batches, the train loop's steps
+SERVICE_FANOUTS, SERVICE_SEEDS = (25, 10), 1024
+CAL_SIZES = (1 << 20, 1 << 24, 1 << 27)
+CAL_ENTRIES = ((65536, 4), (4096, 64))  # (w_upe, n_upe), SCR 2048 x 2048
+CAL_STRATEGIES = ("global_radix", "chunked_merge", "xla_sort")
+REINDEX_READ_SEEDS = (1024, 128)
+DYNPRE_GRAPHS = ((4096, 1 << 14), (32_768, 1 << 20))  # then Reddit
+SAMPLE_ROWS = ((1, 3, 200, 300), (17, 1024))
+DELTA_EDGES, DELTA_DUPLICATES, DELTA_CHAIN = 4096, 1024, 3
+PREFETCH_BATCHES, LOOP_STEPS = 16, 3
+# the service phase's kernels: the calibration converts (both sort
+# strategies on the kernels), the reindex readings, the delta splice (its
+# event rung), the prefetched sampling and forward, the train loop
+SERVICE_KERNELS = ("digit_hist", "digit_scatter", "rank_search", "rename",
+                   "chunk_sort", "fused_merge", "merge_rung",
+                   "set_count_less", "ptr_seg_sum",
+                   "flash_attention_fwd", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv")
+# the Calibration constants the readings fit: Ordering from the converts,
+# the reindex epilogue from its readings; sel_nodes_per_s has no reading
+ORDER_FIT = ("upe_elems_per_s", "merge_step", "hbm_bytes_per_s",
+             "xla_cmp_per_s", "sort_dispatch_s")
+REINDEX_FIT = ("scr_cmps_per_s", "reidx_elems_per_s", "unroll_bytes_per_s",
+               "loop_trip_s")
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def wall_s(fn, dev, iters=3):
+    """Median wall seconds of ``fn`` (synchronised) after one warm-up."""
+    fn()
+    sync(dev)
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2]
+
+
+def basis_cal(name):
+    """A Calibration in which the model's time is the column of one
+    constant: its inverse (or itself, for the two in seconds) at 1, every
+    other rate infinite and every other seconds constant 0.
+    ``merge_step`` is merge_step_weight / upe_elems_per_s."""
+    from repro_torch.core.costmodel import Calibration
+    inf = float("inf")
+    c = dict(upe_elems_per_s=inf, scr_cmps_per_s=inf, sel_nodes_per_s=inf,
+             reidx_elems_per_s=inf, hbm_bytes_per_s=inf,
+             merge_step_weight=0.0, xla_cmp_per_s=inf, sort_dispatch_s=0.0,
+             loop_trip_s=0.0, unroll_bytes_per_s=inf)
+    if name == "merge_step":
+        c.update(upe_elems_per_s=1.0, merge_step_weight=1.0)
+    else:
+        c[name] = 1.0
+    return Calibration(**c)
+
+
+def model_columns(price, names):
+    """The model's time as a linear form in the constants ``names``:
+    ``price(cal)`` under each one's basis (``merge_step`` less the digit
+    term it carries)."""
+    cols = {n: price(basis_cal(n)) for n in names}
+    if "merge_step" in cols:
+        cols["merge_step"] -= price(basis_cal("upe_elems_per_s"))
+    return [cols[n] for n in names]
+
+
+def nnls_fit(rows, times, names):
+    """Non-negative least squares of the readings on the model's columns
+    (each scaled to unit norm); returns {name: coefficient} (0: the
+    readings do not identify it) and the design's rank."""
+    import numpy as np
+    from scipy.optimize import nnls
+    a = np.asarray(rows, np.float64)
+    b = np.asarray(times, np.float64)
+    scale = np.linalg.norm(a, axis=0)
+    scale[scale == 0] = 1.0
+    x, _ = nnls(a / scale, b)
+    return ({n: float(v) for n, v in zip(names, x / scale)},
+            int(np.linalg.matrix_rank(a / scale, tol=1e-9)))
+
+
+def fitted_calibration(order_coef, reindex_coef):
+    """The default Calibration with every constant the readings identify
+    (a positive coefficient) replaced; returns it and the names kept."""
+    import dataclasses
+    from repro_torch.core.costmodel import Calibration
+    fit, kept = {}, []
+    coef = {**order_coef, **reindex_coef}
+    for name, v in coef.items():
+        if name == "merge_step":
+            continue
+        if v <= 0:
+            kept.append(name)
+        elif name in ("sort_dispatch_s", "loop_trip_s"):  # seconds
+            fit[name] = v
+        else:
+            fit[name] = 1.0 / v
+    if coef.get("merge_step", 0) > 0 and coef["upe_elems_per_s"] > 0:
+        fit["merge_step_weight"] = coef["merge_step"] / coef[
+            "upe_elems_per_s"]
+    else:
+        kept.append("merge_step_weight")
+    kept.append("sel_nodes_per_s")
+    return dataclasses.replace(Calibration(), **fit), sorted(kept)
+
+
+def calibration_phase(dev, seed, coo27, csc27, lib):
+    """Convert readings under each pinned strategy at CAL_SIZES for the two
+    CAL_ENTRIES (each convert bit-equal to the torch.sort strategy's), and
+    the reindex epilogue fused and unfused at REINDEX_READ_SEEDS; the fit;
+    each reading beside the model's prediction under the fitted and the
+    default Calibration; choose_config under both beside the fastest
+    measured."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import costmodel as tcm
+    from repro_torch.core import pipeline, prng
+    from repro_torch.core.graph import next_pow2, synthetic_coo
+    from repro_torch.core.reindexing import build_reindex_map, reindex_edges
+    from repro_torch.core.ordering import stable_sort_by_key
+    from repro_torch.core.sampling import sample_khop
+
+    n = REDDIT["nodes"]
+    entries = [next(c for c in lib if (c.w_upe, c.n_upe, c.w_scr, c.n_scr)
+                    == (wu, nu, 2048, 2048)) for wu, nu in CAL_ENTRIES]
+    readings, rows, times = [], [], []
+    for size in CAL_SIZES:
+        coo = coo27 if size == CONVERT_CAP else synthetic_coo(
+            n, size, size, seed + size.bit_length(), device=dev)
+        want = pipeline.convert(coo, tcm.EngineConfig(
+            sort_strategy="xla_sort", reindex_strategy="fused"), device=dev)
+        w = tcm.Workload(n=n, e=coo.capacity)
+        for entry in entries:
+            for s in CAL_STRATEGIES:
+                cfg = dataclasses.replace(entry, sort_strategy=s,
+                                          reindex_strategy="fused")
+                got = pipeline.convert(coo, cfg, device=dev)
+                check(torch.equal(got.ptr, want.ptr)
+                      and torch.equal(got.idx, want.idx),
+                      f"calibration convert {cfg.key} at {size} == the "
+                      "torch.sort strategy")
+                del got
+                t = wall_s(lambda: pipeline.convert(coo, cfg, device=dev),
+                           dev)
+                readings.append(dict(what="convert", key=cfg.key, e=size,
+                                     strategy=s, seconds=t))
+                rows.append(model_columns(
+                    lambda cal: tcm._ordering_seconds(cfg, w, cal, s),
+                    ORDER_FIT))
+                times.append(t)
+        del want, coo
+    order_coef, order_rank = nnls_fit(rows, times, ORDER_FIT)
+    for rd, row in zip(readings, rows):
+        rd["fit_s"] = sum(c * order_coef[k] for c, k in zip(row, ORDER_FIT))
+
+    # the reindex epilogue at a request's shape: one sample_khop on the
+    # Reddit CSC, then build_reindex_map + reindex_edges (the shared sort
+    # on global_radix, as SLICE_CFG) fused and unfused
+    rrows, rtimes = [], []
+    rng = np.random.default_rng(seed + 40)
+    for b in REINDEX_READ_SEEDS:
+        seeds = torch.from_numpy(rng.choice(n, b, replace=False).astype(
+            np.int32)).to(dev)
+        nodes, e_dst, e_src = sample_khop(csc27, seeds, SERVICE_FANOUTS,
+                                          prng.PRNGKey(seed + b))
+        n_cap = nodes.shape[0]
+        w = tcm.Workload(n=n, e=CONVERT_CAP, l=len(SERVICE_FANOUTS),
+                         k=max(SERVICE_FANOUTS), b=b)
+        want = None
+        for r in ("fused", "unfused"):
+            cfg = dataclasses.replace(entries[1], sort_strategy="global_radix",
+                                      reindex_strategy=r)
+            kf = pipeline.kernel_fns(cfg)
+            fused = r == "fused"
+
+            def sort_fn(k, v, bound, cfg=cfg, kf=kf):
+                return stable_sort_by_key(
+                    k, v, bound, chunk=min(cfg.w_upe, k.shape[0]),
+                    strategy="global_radix",
+                    **pipeline._sort_kwargs(cfg, kf, kf.chunk_sort_fn))
+
+            def epilogue():
+                rmap = build_reindex_map(
+                    nodes, vid_bound=n, strategy=r, sort_fn=sort_fn,
+                    rank_fn=kf.rank_fn if fused else None,
+                    rename_fn=kf.rename_fn if fused else None)
+                return rmap, reindex_edges(rmap, e_dst, e_src,
+                                           n_nodes_cap=n_cap)
+
+            rmap, sub = epilogue()
+            got = (rmap.order, sub.dst, sub.src)
+            if want is None:
+                want = got
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"reindex epilogue {r} == fused at {b} seeds")
+            t = wall_s(epilogue, dev, iters=5)
+            readings.append(dict(what="reindex", key=cfg.key, seeds=b,
+                                 strategy=r, n_cap=n_cap, seconds=t))
+            rrows.append((cfg, w))
+            rtimes.append(t)
+        del nodes, e_dst, e_src
+    # the shared sort priced under the fitted Ordering constants comes off
+    # each reindex reading before its own constants are fitted
+    order_cal, _ = fitted_calibration(order_coef, {k: 0 for k in
+                                                    REINDEX_FIT})
+    cols, rest = [], []
+    for (cfg, w), t in zip(rrows, rtimes):
+        wsub = tcm.Workload(n=w.n, e=next_pow2(tcm.sample_vid_capacity(w)))
+        t_sort = tcm._ordering_seconds(cfg, wsub, order_cal, "global_radix") \
+            / tcm.sort_pass_count(cfg, wsub)
+        cols.append(model_columns(
+            lambda cal, cfg=cfg, w=w: tcm._reindex_seconds(cfg, w, cal),
+            REINDEX_FIT))
+        rest.append(max(0.0, t - t_sort))
+    reindex_coef, reindex_rank = nnls_fit(cols, rest, REINDEX_FIT)
+    # the fit's own prediction: a constant whose best coefficient is 0
+    # costs nothing there, while the fitted Calibration keeps its
+    # reference value
+    for rd, col, t_rest, t in zip(
+            [r for r in readings if r["what"] == "reindex"], cols, rest,
+            rtimes):
+        rd["fit_s"] = (t - t_rest) + sum(
+            c * reindex_coef[k] for c, k in zip(col, REINDEX_FIT))
+    fitted, kept = fitted_calibration(order_coef, reindex_coef)
+    default = tcm.Calibration()
+
+    # each reading beside the model's prediction under both calibrations
+    for rd in readings:
+        cfg = next(c for c in [dataclasses.replace(
+            e, sort_strategy=s, reindex_strategy=r) for e in entries
+            for s in CAL_STRATEGIES for r in ("fused", "unfused")]
+            if c.key == rd["key"])
+        if rd["what"] == "convert":
+            w = tcm.Workload(n=n, e=rd["e"])
+            price = lambda cal: tcm._ordering_seconds(  # noqa: E731
+                cfg, w, cal, rd["strategy"])
+        else:
+            w = tcm.Workload(n=n, e=CONVERT_CAP, l=len(SERVICE_FANOUTS),
+                             k=max(SERVICE_FANOUTS), b=rd["seeds"])
+            price = lambda cal: tcm._reindex_seconds(  # noqa: E731
+                cfg, w, cal)
+        rd["predicted_fitted_s"] = price(fitted)
+        rd["predicted_default_s"] = price(default)
+    picks = {}
+    for size in CAL_SIZES:
+        w = tcm.Workload(n=n, e=size, l=len(SERVICE_FANOUTS),
+                         k=max(SERVICE_FANOUTS), b=SERVICE_SEEDS)
+        fastest = min((r for r in readings if r["what"] == "convert"
+                       and r["e"] == size), key=lambda r: r["seconds"])
+        picks[size] = dict(
+            fitted=tcm.choose_config(w, lib, fitted).key,
+            default=tcm.choose_config(w, lib, default).key,
+            fastest_measured=fastest["key"],
+            fastest_measured_s=fastest["seconds"])
+    return dict(readings=readings, fitted=dataclasses.asdict(fitted),
+                kept_reference=kept, order_coef=order_coef,
+                reindex_coef=reindex_coef, order_rank=order_rank,
+                reindex_rank=reindex_rank, picks=picks), fitted
+
+
+def same_subgraph(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in (
+        (a.csc.ptr, b.csc.ptr), (a.csc.idx, b.csc.idx), (a.order, b.order),
+        (a.csc.n_edges, b.csc.n_edges), (a.n_sub_nodes, b.n_sub_nodes)))
+
+
+def dynpre_phase(dev, seed, coo27, lib, cals):
+    """DynPre over diverse graphs (the paper's Fig. 28a): one service per
+    Calibration, 1,024 seeds and a key a graph; each subgraph bit-equal to
+    ``pipeline.preprocess`` under SLICE_CFG on the same inputs. Then a
+    fresh service dispatches the Reddit pair and another fresh one
+    re-dispatches it: no new entry, no library loaded."""
+    import numpy as np
+    from repro_torch.core import pipeline, prng
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.engine import PreprocService, preprocess_cache_size
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import SLICE_CFG
+
+    graphs = [synthetic_coo(nn, e, e, seed + 50 + i, device=dev)
+              for i, (nn, e) in enumerate(DYNPRE_GRAPHS)] + [coo27]
+    rng = np.random.default_rng(seed + 51)
+    inputs = [(g, rng.choice(g.n_nodes, SERVICE_SEEDS, replace=False).astype(
+        np.int32), prng.fold_in(prng.PRNGKey(seed), 51 + i))
+        for i, g in enumerate(graphs)]
+    out = {}
+    for name, cal in cals.items():
+        svc = PreprocService(SERVICE_FANOUTS, library=lib, cal=cal)
+        runs = []
+        for g, seeds, key in inputs:
+            sync(dev)
+            t0 = time.perf_counter()
+            sub = svc.preprocess(g, seeds, key)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            want = pipeline.preprocess(g, seeds, SERVICE_FANOUTS, key,
+                                       SLICE_CFG, device=dev)
+            check(same_subgraph(sub, want),
+                  f"DynPre ({name}) subgraph of a {g.n_nodes}-node graph == "
+                  "SLICE_CFG's, bit for bit")
+            runs.append(dict(nodes=g.n_nodes, capacity=g.capacity,
+                             key=svc.active_cfg.key,
+                             bucket=(g.capacity, SERVICE_SEEDS),
+                             n_reconfigs=svc.stats.n_reconfigs,
+                             seconds=secs))
+            del sub, want
+        out[name] = dict(runs=runs, stats=dict(vars(svc.stats)))
+    g, seeds, key = inputs[-1]
+    first = PreprocService(SERVICE_FANOUTS, library=lib)
+    first.preprocess(g, seeds, key)
+    size, libs = preprocess_cache_size(), dict(_build._LIBS)
+    fresh = PreprocService(SERVICE_FANOUTS, library=lib)
+    fresh.preprocess(g, seeds, key)
+    sync(dev)
+    check(preprocess_cache_size() == size and _build._LIBS == libs
+          and fresh._keys_seen == first._keys_seen,
+          f"a fresh service re-dispatching the Reddit pair "
+          f"{sorted(fresh._keys_seen)} adds no entry ({size} → "
+          f"{preprocess_cache_size()}) and loads no library")
+    out["redispatch"] = dict(pair=sorted(fresh._keys_seen), entries=size,
+                             libraries=sorted(libs))
+    return out
+
+
+def sample_batched_phase(dev, seed, csc, lib):
+    """Batched rows of 1..1,024 seeds (each call's rows SENTINEL-padded to
+    the widest, then bucketed to the next power of two) on the Reddit CSC:
+    each row equal to sample_subgraph on it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline, prng
+    from repro_torch.core.graph import SENTINEL
+    from repro_torch.engine import PreprocService
+    from repro_torch.engine.service import bucket_seed_rows
+
+    svc = PreprocService(SERVICE_FANOUTS, library=lib)
+    rng = np.random.default_rng(seed + 60)
+    out = []
+    for c, counts in enumerate(SAMPLE_ROWS):
+        width = max(counts)
+        rows = np.full((len(counts), width), SENTINEL, np.int32)
+        for i, k in enumerate(counts):
+            rows[i, :k] = rng.choice(REDDIT["nodes"], k, replace=False)
+        keys = prng.split(prng.fold_in(prng.PRNGKey(seed), 60 + c),
+                          len(counts))
+        sync(dev)
+        t0 = time.perf_counter()
+        sub = svc.sample_batched(csc, torch.from_numpy(rows).to(dev), keys)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        padded = bucket_seed_rows(torch.from_numpy(rows).to(dev))
+        for i in range(len(counts)):
+            one = pipeline.sample_subgraph(csc, padded[i], SERVICE_FANOUTS,
+                                           keys[i], svc.active_cfg)
+            check(all(torch.equal(a, b) for a, b in (
+                (sub.csc.ptr[i], one.csc.ptr), (sub.csc.idx[i], one.csc.idx),
+                (sub.order[i], one.order))),
+                f"sample_batched row {i} ({counts[i]} seeds) == "
+                "sample_subgraph on it")
+        out.append(dict(counts=counts, bucket=tuple(padded.shape),
+                        key=svc.active_cfg.key, seconds=secs))
+    return dict(calls=out, stats=dict(vars(svc.stats)))
+
+
+def delta_oracle(dst, src, ins, dels, bits):
+    """The post-update edge list on the host (numpy): each delete kills one
+    remaining copy of its edge (duplicates: one copy each), misses are
+    no-ops, the inserts are appended."""
+    import numpy as np
+    keys = (dst.astype(np.int64) << bits) | src
+    dk = (dels[0].astype(np.int64) << bits) | dels[1]
+    uniq, cnt = np.unique(dk, return_counts=True)
+    at = np.minimum(np.searchsorted(uniq, keys), uniq.shape[0] - 1)
+    pos = np.nonzero(uniq[at] == keys)[0]
+    kp = keys[pos]
+    order = np.argsort(kp, kind="stable")
+    pos, kp = pos[order], kp[order]
+    occ = np.arange(kp.shape[0]) - np.searchsorted(kp, kp, side="left")
+    kill = pos[occ < cnt[np.searchsorted(uniq, kp)]]
+    keep = np.ones(keys.shape[0], bool)
+    keep[kill] = False
+    return (np.concatenate([dst[keep], ins[0]]),
+            np.concatenate([src[keep], ins[1]]))
+
+
+def draw_delta(rng, dst, src, n):
+    """DELTA_EDGES inserts and deletes: the deletes hit existing edges,
+    DELTA_DUPLICATES of them twice; an eighth of the inserts re-insert a
+    deleted edge."""
+    import numpy as np
+    hit = rng.integers(0, dst.shape[0], DELTA_EDGES - DELTA_DUPLICATES)
+    hit = np.concatenate([hit, hit[:DELTA_DUPLICATES]])
+    dels = (dst[hit], src[hit])
+    k = DELTA_EDGES // 8
+    ins = (np.concatenate([rng.integers(0, n, DELTA_EDGES - k), dst[hit[:k]]]
+                          ).astype(np.int32),
+           np.concatenate([rng.integers(0, n, DELTA_EDGES - k), src[hit[:k]]]
+                          ).astype(np.int32))
+    return ins, dels
+
+
+def delta_service_phase(dev, seed, coo, csc, lib):
+    """apply_delta through the service on the Reddit CSC: DELTA_EDGES
+    inserts and deletes from ``--seed``, in merge and rebuild modes under
+    the service's own configuration and under SLICE_CFG, each
+    bit-identical to the torch.sort convert of the post-update edge list
+    built with numpy on the host, timed; the mode auto picks; then a
+    chain of DELTA_CHAIN deltas, checked the same way."""
+    import numpy as np
+    import torch
+    from repro_torch.core import costmodel as tcm
+    from repro_torch.core import pipeline
+    from repro_torch.core.delta import EdgeDelta
+    from repro_torch.core.graph import COO
+    from repro_torch.engine import PreprocService
+    from repro_torch.launch.serve import SLICE_CFG
+
+    n = REDDIT["nodes"]
+    bits = n.bit_length()
+    ne = int(coo.n_edges)
+    h_dst = coo.dst[:ne].cpu().numpy()
+    h_src = coo.src[:ne].cpu().numpy()
+    rng = np.random.default_rng(seed + 70)
+    ref_cfg = tcm.EngineConfig(sort_strategy="xla_sort",
+                               reindex_strategy="fused")
+
+    def oracle_csc(nd, ns, cap):
+        return pipeline.convert(COO.from_arrays(nd, ns, n, capacity=cap,
+                                                device=dev), ref_cfg,
+                                device=dev)
+
+    def same(a, b):
+        return (torch.equal(a.ptr, b.ptr) and torch.equal(a.idx, b.idx)
+                and int(a.n_edges) == int(b.n_edges))
+
+    svc = PreprocService(SERVICE_FANOUTS, library=lib)
+    ins, dels = draw_delta(rng, h_dst, h_src, n)
+    delta = EdgeDelta.from_arrays(*ins, *dels, n_nodes=n, device=dev)
+    nd, ns = delta_oracle(h_dst, h_src, ins, dels, bits)
+    want = oracle_csc(nd, ns, csc.idx.shape[0])
+    out = dict(n_edges_after=int(nd.shape[0]),
+               deleted=int(ne + DELTA_EDGES - nd.shape[0]), modes={})
+    for tag, cfg in (("service", None), ("slice", SLICE_CFG)):
+        for mode in ("merge", "rebuild"):
+            got = svc.apply_delta(csc, delta, cfg=cfg, mode=mode)
+            check(same(got, want), f"apply_delta ({tag}, {mode}) on the "
+                  "Reddit CSC == the torch.sort convert of the post-update "
+                  "edge list")
+            del got
+            t = wall_s(lambda: svc.apply_delta(csc, delta, cfg=cfg,
+                                               mode=mode), dev)
+            out["modes"][f"{tag}_{mode}"] = dict(
+                seconds=t, key=(cfg or svc.active_cfg).key)
+    if dev.type == "cuda":  # where one merge's time goes
+        out["merge_profile"] = profile_call(
+            lambda: svc.apply_delta(csc, delta, cfg=SLICE_CFG, mode="merge"),
+            top=10)
+    w = tcm.Workload(n=n, e=csc.idx.shape[0])
+    out["auto_picks"] = {
+        tag: tcm.resolve_delta_mode(cfg, w, delta.capacity)
+        for tag, cfg in (("service", svc.active_cfg), ("slice", SLICE_CFG))}
+    del want
+    chain, cd, cs = [], nd, ns
+    cur = svc.apply_delta(csc, delta)  # the chain starts after the first
+    for step in range(DELTA_CHAIN):
+        ins, dels = draw_delta(rng, cd, cs, n)
+        delta = EdgeDelta.from_arrays(*ins, *dels, n_nodes=n, device=dev)
+        cur = svc.apply_delta(cur, delta)
+        cd, cs = delta_oracle(cd, cs, ins, dels, bits)
+        check(same(cur, oracle_csc(cd, cs, cur.idx.shape[0])),
+              f"chained delta {step} == the torch.sort convert of the "
+              "post-update edge list")
+        chain.append(int(cd.shape[0]))
+    out["chain_n_edges"] = chain
+    out["stats"] = dict(vars(svc.stats))
+    return out
+
+
+def prefetch_phase(dev, seed, csc, feats):
+    """PREFETCH_BATCHES batches of a request's sampling (1,024 seeds,
+    fanouts 25-10, SLICE_CFG) and feature gather made by a Prefetcher's
+    producer on its side stream, consumed by the graphsage-reddit forward
+    at full width on the main stream: every logit bit-equal to
+    SyncBatches's, wall times of both, and the launch counters of the
+    prefetched run (bumped from two threads) equal to the synchronous
+    run's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.graphsage_reddit import config
+    from repro_torch.core import prng
+    from repro_torch.engine import Prefetcher, SyncBatches, sample_jit
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.models.gnn import GraphSAGE, subgraph_batch
+
+    model = GraphSAGE(config(), d_in=REDDIT["feats"],
+                      n_classes=REDDIT["classes"],
+                      generator=torch.Generator().manual_seed(seed + 2),
+                      device=dev)
+
+    def batch_fn(step):
+        rng = np.random.default_rng(seed + 100 + step)
+        seeds = torch.from_numpy(rng.choice(
+            REDDIT["nodes"], SERVICE_SEEDS, replace=False).astype(
+            np.int32)).to(dev)
+        sub = sample_jit(csc, seeds, SERVICE_FANOUTS,
+                         prng.fold_in(prng.PRNGKey(seed), 100 + step),
+                         SLICE_CFG)
+        return subgraph_batch(sub, feats)
+
+    def consume(it, want=None):
+        got = []
+        with torch.inference_mode():
+            for step, batch in it:
+                logits = model(batch)
+                del batch  # its memory goes back to the allocator at once
+                if want is None:
+                    got.append(logits)
+                else:
+                    check(torch.equal(logits, want[step]),
+                          f"prefetched batch {step}: logits == sync")
+        return got
+
+    def counted(run):
+        before = launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        got = run()
+        sync(dev)
+        secs = time.perf_counter() - t0
+        after = launch_counts()
+        return got, secs, {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+
+    def prefetched():
+        with Prefetcher(batch_fn, stop=PREFETCH_BATCHES) as pf:
+            out["side_stream"] = pf.stream is not None
+            return consume(pf, want)
+
+    batch_fn(0)  # warm-up
+    out = {}
+    want, out["sync_s"], out["sync_launches"] = counted(
+        lambda: consume(SyncBatches(batch_fn, stop=PREFETCH_BATCHES)))
+    # in turns: prefetched twice (the first on a fresh side stream, whose
+    # allocator pool starts empty), then synchronous once more
+    _, out["prefetch_s"], out["prefetch_launches"] = counted(prefetched)
+    _, out["prefetch_again_s"], again = counted(prefetched)
+    _, out["sync_again_s"], _ = counted(
+        lambda: consume(SyncBatches(batch_fn, stop=PREFETCH_BATCHES), want))
+    if dev.type == "cuda":  # the card's busy share, 4 batches each way
+        out["profiles"] = {
+            "sync": profile_call(lambda: consume(
+                SyncBatches(batch_fn, stop=4), want), top=6),
+            "prefetched": profile_call(lambda: consume(
+                Prefetcher(batch_fn, stop=4), want), top=6)}
+    check(out["prefetch_launches"] == out["sync_launches"] == again
+          and out["sync_launches"].get("ptr_seg_sum") == 4 * PREFETCH_BATCHES,
+          f"the prefetched runs' launch counters == the synchronous run's "
+          f"(4 ptr_seg_sum a batch): {out['prefetch_launches']} / {again} / "
+          f"{out['sync_launches']}")
+    check(all(bool(torch.isfinite(x).all()) for x in want),
+          "finite prefetched logits")
+    return out
+
+
+def train_loop_phase(dev, seed):
+    """LOOP_STEPS of the gemma2-9b smoke config through train/loop.py
+    (``launch/train.run_lm``) on the card, with prefetch (batches made on
+    the side stream) and without: the same losses and weights, bit for
+    bit."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.train import run_lm
+
+    runs = {}
+    for prefetch in (False, True):
+        d = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+        try:
+            t0 = time.perf_counter()
+            model, _, hist = run_lm(LM_ARCH, LOOP_STEPS, True, d, None,
+                                    seed=seed, device=dev, prefetch=prefetch)
+            sync(dev)
+            runs[prefetch] = (model, hist, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    (m0, h0, s0), (m1, h1, s1) = runs[False], runs[True]
+    check(h0 == h1 and all(torch.equal(p, q) for p, q in zip(
+        m0.parameters(), m1.parameters())),
+        f"train loop with prefetch == without, bit for bit: {h1} / {h0}")
+    return dict(history=h1, seconds_sync=s0, seconds_prefetch=s1)
+
+
+def service_phase(dev, seed, coo27, csc27, feats):
+    """The engine service on the card (phase 7a): launch counters to 0,
+    every ``_pl`` library entry converting 2^20 pairs, the Calibration
+    fit, DynPre, re-dispatch, sample_batched, apply_delta, prefetch and
+    the train loop; counters read."""
+    import dataclasses
+    import torch
+    from repro_torch.core import costmodel as tcm
+    from repro_torch.core import pipeline
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import radix_sort as trs
+
+    lib = [dataclasses.replace(c, use_pallas=True)
+           for c in tcm.bitstream_library()]
+    out = {}
+    reset_launch_counts()
+    # step 0: the bare chunk-sort wrapper refuses a chunk wider than one CTA
+    # holds; the routing sorts it as sub-chunks and one merge rung, so
+    # every library entry converts
+    keys = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    refused = False
+    try:
+        trs.chunk_sort(keys, keys.clone(), 1 << 16, 18)
+    except ValueError:
+        refused = True
+    check(refused or dev.type != "cuda", "chunk_sort refuses 65,536 pairs "
+          "a chunk (one CTA holds 16,384)")
+    coo = synthetic_coo(REDDIT["nodes"], 1 << 20, 1 << 20, seed + 20,
+                        device=dev)
+    want = pipeline.convert(coo, tcm.EngineConfig(sort_strategy="xla_sort",
+                                                  reindex_strategy="fused"),
+                            device=dev)
+    for c in lib:
+        for s in ("chunked_merge", "global_radix"):
+            got = pipeline.convert(coo, dataclasses.replace(
+                c, sort_strategy=s), device=dev)
+            check(torch.equal(got.ptr, want.ptr)
+                  and torch.equal(got.idx, want.idx),
+                  f"{c.key} ({s}) converts 2^20 pairs == torch.sort")
+    out["library_converts"] = 2 * len(lib)
+    del coo, want, got, keys
+
+    t0 = time.perf_counter()
+    out["calibration"], fitted = calibration_phase(dev, seed, coo27, csc27,
+                                                   lib)
+    out["calibration_s"] = time.perf_counter() - t0
+    out["dynpre"] = dynpre_phase(dev, seed, coo27, lib,
+                                 {"default": tcm.Calibration(),
+                                  "fitted": fitted})
+    out["sample_batched"] = sample_batched_phase(dev, seed, csc27, lib)
+    out["delta"] = delta_service_phase(dev, seed, coo27, csc27, lib)
+    out["prefetch"] = prefetch_phase(dev, seed, csc27, feats)
+    out["train_loop"] = train_loop_phase(dev, seed)
+    out["launches"] = launch_counts()
+    return out
+
+
+def log_service(out):
+    cal = out["calibration"]
+    log(f"[service] {out['library_converts']} conversions of 2^20 pairs, "
+        "every _pl library entry under chunked_merge and global_radix "
+        "(w_upe 256 .. 65,536): == torch.sort")
+    log(f"[calibration] fitted on the card ({out['calibration_s']:.1f}s): "
+        f"{json.dumps(cal['fitted'])}")
+    log(f"[calibration] kept the reference's (not identified): "
+        f"{cal['kept_reference']}; design rank {cal['order_rank']}/"
+        f"{len(ORDER_FIT)} (Ordering), {cal['reindex_rank']}/"
+        f"{len(REINDEX_FIT)} (reindex)")
+    for r in cal["readings"]:
+        log(f"[calibration] {r['what']} {r['key']} "
+            f"{r.get('e', r.get('seeds'))}: measured {r['seconds']:.6f}s, "
+            f"fit {r['fit_s']:.6f}s, model under the fitted Calibration "
+            f"{r['predicted_fitted_s']:.6f}s, default "
+            f"{r['predicted_default_s']:.6f}s")
+    for size, p in cal["picks"].items():
+        log(f"[calibration] choose_config at {size} edges: fitted "
+            f"{p['fitted']}, default {p['default']}; fastest measured "
+            f"{p['fastest_measured']} ({p['fastest_measured_s']:.6f}s)")
+    for name in ("default", "fitted"):
+        for r in out["dynpre"][name]["runs"]:
+            log(f"[dynpre {name}] {r['nodes']} nodes, bucket {r['bucket']}: "
+                f"{r['key']}, n_reconfigs {r['n_reconfigs']}, "
+                f"{r['seconds']:.4f}s")
+    log(f"[dynpre] re-dispatch of {out['dynpre']['redispatch']['pair']}: "
+        "no new entry, no library loaded")
+    for c in out["sample_batched"]["calls"]:
+        log(f"[sample_batched] rows of {c['counts']} seeds → bucket "
+            f"{c['bucket']} ({c['key']}): {c['seconds']:.4f}s, each row == "
+            "sample_subgraph")
+    d = out["delta"]
+    log(f"[delta] {DELTA_EDGES} inserts, {DELTA_EDGES} deletes "
+        f"({DELTA_DUPLICATES} twice): {d['deleted']} edges deleted in "
+        f"effect; " + ", ".join(f"{k} {v['seconds']:.4f}s ({v['key']})"
+                               for k, v in d["modes"].items())
+        + f"; auto picks {d['auto_picks']}; chain of {DELTA_CHAIN}: "
+        f"{d['chain_n_edges']} edges, each == a fresh convert")
+    for tag, prof in ([("delta merge (SLICE_CFG)", d["merge_profile"])]
+                      if "merge_profile" in d else []) + [
+            (f"prefetch {k}, 4 batches", v)
+            for k, v in out["prefetch"].get("profiles", {}).items()]:
+        log(f"[{tag} profile] wall {prof['wall_ms']:.2f} ms, device "
+            f"{prof['device_ms']:.2f} ms (busy share "
+            f"{prof['device_busy_share']:.3f}); top by device time: " + "; ".join(
+                f"{r['name'][:60]} {r['device_ms']:.3f} ms x{r['count']}"
+                for r in prof["top"]))
+    p = out["prefetch"]
+    log(f"[prefetch] {PREFETCH_BATCHES} batches in turns: sync "
+        f"{p['sync_s']:.3f}s, prefetched {p['prefetch_s']:.3f}s and "
+        f"{p['prefetch_again_s']:.3f}s, sync {p['sync_again_s']:.3f}s (side "
+        f"stream {p['side_stream']}); logits bit-equal; launches "
+        f"{p['prefetch_launches']}")
+    t = out["train_loop"]
+    log(f"[train loop] {LOOP_STEPS} smoke steps through train/loop.py, "
+        f"prefetch == sync bit for bit: {t['history']} "
+        f"({t['seconds_sync']:.2f}s / {t['seconds_prefetch']:.2f}s)")
+    log(f"[service] launches {out['launches']}")
+
+
 def profile_phase(eng, seeds, rid, top=8):
     """One full-width request (``slot_fn``) under ``torch.profiler``, with
     the count of the plain merge ladder's ops (a MERGE_CFG request runs
@@ -2299,10 +3061,13 @@ def convert_profile(dev, coo, path="merge"):
         ev[1].record()
         spans.append((ev, k))
         return out
-    # kernel_fns imports merge_rung at each call; the wrapper counts its
-    # launch on the module's name, so the stand-in carries the count
+    # kernel_fns imports merge_rung when it builds a config's routing
+    # (cleared here, so it is built again around the swap); the wrapper
+    # counts its launch on the module's name, so the stand-in carries the
+    # count
     timed_rung.launches = rung.launches
     tm.merge_rung = timed_rung
+    pipeline._KERNEL_FNS.clear()
     try:
         prof = profile_call(lambda: pipeline.convert(coo, cfg, device=dev),
                             top=12, kernels=CONVERT_KERNEL_RE[path],
@@ -2310,6 +3075,7 @@ def convert_profile(dev, coo, path="merge"):
     finally:
         tm.merge_rung = rung
         rung.launches = timed_rung.launches
+        pipeline._KERNEL_FNS.clear()
     named = sum(r["device_ms"] for r in prof["kernels"].values())
     prof["other_device_ms"] = prof["device_ms"] - named
     prof["merge_rung_spans_ms"] = [ev[0].elapsed_time(ev[1])
@@ -3277,7 +4043,19 @@ def main():
     check(not cprof["ops"] and len(cprof["merge_rung_spans_ms"]) == rungs,
           f"the profiled convert ran no plain ladder op ({cprof['ops']}) "
           f"and {rungs} merge_rung calls")
-    del mcoo, mcsc, meng, csc, eng, feats, handles, mhandles
+    del meng, csc, eng, handles, mhandles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7a. the engine service: no serve engine is alive (no CUDA graph is
+    # captured while a prefetch producer runs)
+    t0 = time.perf_counter()
+    sout = service_phase(dev, args.seed, mcoo, mcsc, feats)
+    log_service(sout)
+    check(all(sout["launches"][k] > 0 for k in SERVICE_KERNELS),
+          f"every kernel of the service phase launched: {sout['launches']}")
+    log(f"[service] phase done in {time.perf_counter() - t0:.1f}s")
+    del mcoo, mcsc, feats
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[time] GNN phases done at {time.perf_counter() - t_start:.1f}s; "
@@ -3409,12 +4187,13 @@ def main():
 
     # 13. report
     launches = {k: out["launches"][k] + mout["launches"][k]
-                for k in SLICE_KERNELS + MERGE_KERNELS}
+                + sout["launches"][k] for k in SLICE_KERNELS + MERGE_KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"all ten GNN kernels launched across the two paths: {launches}")
     launches.update({k: lout["launches"][k] + tout["launches"][k]
-                     for k in LM_KERNELS + TRAIN_KERNELS})
-    launches.update({k: sum(p["launches"][k] for p in (out, mout, lout, tout))
+                     + sout["launches"][k] for k in LM_KERNELS + TRAIN_KERNELS})
+    launches.update({k: sum(p["launches"][k] for p in (out, mout, sout, lout,
+                                                       tout))
                      for k in OFF_PATH_KERNELS})
     kernels = []
     for key in (SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + TRAIN_KERNELS
@@ -3425,7 +4204,8 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, rows=rows, main_path=out, merge_path=mout,
-                       lm_path=lout, train_path=tout, extra=extra,
+                       service=sout, lm_path=lout, train_path=tout,
+                       extra=extra,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(smi)

@@ -1,12 +1,24 @@
-"""Cost model (port of the part of ``repro/core/costmodel.py`` the serve
-path resolves through).
+"""Cost model (port of ``repro/core/costmodel.py``, paper §V-B, Table I).
+
+The paper's closed forms, verbatim:
+
+  Ordering:   m = log2(e / w_upe) - 1
+              cycles = 2 * m * e / (n_upe * w_upe)
+  Selecting:  s = b * k^(l+1) - 1
+              cycles = s / n_upe
+  Reshaping:  cycles = max(n / n_scr, e / w_scr)
 
 ``EngineConfig`` carries the reconfigurable knobs; ``resolve_sort_strategy``
 and ``resolve_reindex_strategy`` turn its ``"auto"`` axes into the strategy
-that runs, scored by the paper's Table-I terms under a ``Calibration``.
-The default calibration is the reference's CPU-measured one, so ``auto``
-picks what the reference picks; it has not been recalibrated on a GPU.
-The delta-update terms and the HLO censuses are not ported yet.
+that runs, ``estimate_seconds`` prices a whole preprocess and
+``choose_config`` picks a library entry (the engine service's decision),
+and the delta terms price ``pipeline.apply_delta``'s merge against a
+rebuild. Every term is the reference's own arithmetic, so it returns the
+reference's floats bit for bit. The default ``Calibration`` is the
+reference's CPU-measured one, so ``auto`` picks what the reference picks;
+``chip_smoke.py``'s service phase fits one on the H100 but does not make
+it the default. The reference's HLO while-op censuses have no torch
+counterpart and are not ported.
 """
 from __future__ import annotations
 
@@ -60,6 +72,12 @@ class EngineConfig:
                 f"{ridx}{'_pl' if self.use_pallas else ''}")
 
 
+# The resource budget analog of the paper's 70:30 UPE:SCR split: the
+# product of width × lanes is bounded.
+UPE_BUDGET = 4096 * 64
+SCR_BUDGET = 2048 * 2048
+
+
 def bitstream_library() -> list[EngineConfig]:
     """Pre-compiled configuration library: halve width / double count from
     one wide engine, for both the UPE and the SCR axis."""
@@ -109,6 +127,8 @@ class Workload:
 
 
 SORT_STRATEGIES = ("chunked_merge", "global_radix", "xla_sort")
+REINDEX_STRATEGIES = ("fused", "unfused")
+DELTA_MODES = ("merge", "rebuild")
 
 
 def sort_pass_count(cfg: EngineConfig, w: Workload) -> int:
@@ -130,6 +150,25 @@ def digit_pass_count(cfg: EngineConfig, w: Workload) -> int:
 def _merge_fan_ins(cfg: EngineConfig, w: Workload) -> list[int]:
     e = next_pow2(w.e)
     return merge_round_fan_ins(e, min(cfg.w_upe, e), cfg.merge_fan_in)
+
+
+def merge_round_count(cfg: EngineConfig, w: Workload,
+                      strategy: str | None = None) -> int:
+    """Full-array merge rounds per edge Ordering: 0 for the radix and
+    native strategies, ``sort_pass_count`` × the ladder's rungs for
+    chunked_merge. ``strategy=None`` prices the cfg's resolved one."""
+    strategy = strategy or resolve_sort_strategy(cfg, w)
+    if strategy in ("global_radix", "xla_sort"):
+        return 0
+    return sort_pass_count(cfg, w) * len(_merge_fan_ins(cfg, w))
+
+
+def sort_op_count(cfg: EngineConfig, w: Workload,
+                  strategy: str | None = None) -> int:
+    """Native sorts in the Ordering: one a global sort pass under
+    xla_sort, none on the radix strategies."""
+    strategy = strategy or resolve_sort_strategy(cfg, w)
+    return sort_pass_count(cfg, w) if strategy == "xla_sort" else 0
 
 
 def relocation_bytes(cfg: EngineConfig, w: Workload,
@@ -204,3 +243,248 @@ def pointer_reindex_strategy(cfg: EngineConfig, w: Workload,
     """The convert pointer build's epilogue strategy (n+1 targets over the
     pow2 sorted-dst stream)."""
     return resolve_reindex_strategy(cfg, w.n + 1, next_pow2(w.e), cal)
+
+
+# ---------------------------------------------------------------------------
+# Delta-update terms. The merge path (core/delta.py) sorts two delta-sized
+# streams (inserts and deletes) plus the one event-zip rung (a 2·d keys-only
+# native sort), then splices positionally: three bounded row searches with
+# delta-many queries, one full-width event rank and two (n+1)-query pointer
+# corrections (the DELTA_RANK_PASSES whose lowering is the fused/unfused
+# axis). ``resolve_delta_mode`` prices that against a full re-convert.
+# ---------------------------------------------------------------------------
+
+def delta_workload(w: Workload, d_cap: int) -> Workload:
+    """The delta sorts' workload: the graph's VID space over the pow2
+    delta bucket."""
+    return Workload(n=w.n, e=next_pow2(d_cap), l=w.l, k=w.k, b=w.b)
+
+
+def resolve_delta_sort_strategy(cfg: EngineConfig, wd: Workload,
+                                cal: Calibration | None = None) -> str:
+    """Sort strategy of the delta streams: each strategy's Ordering
+    latency plus, for the radix ones, the materialising native sort the
+    reference's splice gathers need, so the native sort wins at delta
+    buckets; a pinned ``cfg.sort_strategy`` is honoured."""
+    if cfg.sort_strategy != "auto":
+        return cfg.sort_strategy
+    cal = cal or Calibration()
+
+    def price(s: str) -> float:
+        t = _ordering_seconds(cfg, wd, cal, s)
+        if s != "xla_sort":
+            t += _ordering_seconds(cfg, wd, cal, "xla_sort")
+        return t
+
+    return min(SORT_STRATEGIES, key=price)
+
+
+def delta_epilogue_strategy(cfg: EngineConfig, w: Workload,
+                            d_cap: int | None = None,
+                            cal: Calibration | None = None) -> str:
+    """fused/unfused for the DELTA_RANK_PASSES full-width rank passes of one
+    delta merge, resolved on the event rank plus the two pointer
+    corrections (8 bytes a query a round fused, 24 and a loop trip
+    unfused); a pinned ``cfg.reindex_strategy`` short-circuits."""
+    if cfg.reindex_strategy != "auto":
+        return cfg.reindex_strategy
+    cal = cal or Calibration()
+    wd = delta_workload(w, d_cap if d_cap is not None else 1)
+    rounds = reindex_round_count(2 * wd.e)
+    q = next_pow2(w.e) + 2 * (w.n + 1)
+    t_fused = rounds * q * 8.0 / cal.unroll_bytes_per_s
+    t_unfused = rounds * (q * 24.0 / cal.unroll_bytes_per_s
+                          + cal.loop_trip_s)
+    return "fused" if t_fused <= t_unfused else "unfused"
+
+
+def delta_merge_seconds(cfg: EngineConfig, w: Workload, d_cap: int,
+                        cal: Calibration | None = None) -> float:
+    """Latency of one delta merge: two delta-bucket sorts and the event-zip
+    rung (one shared dispatch), the bounded row searches, the full-width
+    event rank and pointer corrections, the splice streams, and the
+    resolved epilogue's own extra."""
+    from .delta import DELTA_RANK_PASSES
+    cal = cal or Calibration()
+    wd = delta_workload(w, d_cap)
+    strat = resolve_delta_sort_strategy(cfg, wd, cal)
+    passes = sort_pass_count(cfg, wd)
+    t_sort = (cal.sort_dispatch_s
+              + 2 * max(0.0, _ordering_seconds(cfg, wd, cal, strat)
+                        - passes * cal.sort_dispatch_s))
+    zipn = 2 * wd.e
+    t_zip = zipn * math.log2(max(2.0, zipn)) / cal.xla_cmp_per_s
+    e_cap = next_pow2(w.e)
+    log_e = reindex_round_count(e_cap)
+    log_d = reindex_round_count(wd.e)
+    log_2d = reindex_round_count(zipn)
+    t_rows = 3 * min(log_e, 6) * wd.e * 4.0 / cal.hbm_bytes_per_s
+    cmps = (e_cap * log_2d
+            + 2 * (w.n + 1) * log_d
+            + 3 * wd.e * log_d)
+    t_rank = cmps / cal.scr_cmps_per_s
+    t_mem = 6.0 * 4.0 * e_cap / cal.unroll_bytes_per_s
+    rounds = log_2d + 2 * log_d
+    q = e_cap + 2 * (w.n + 1)
+    if delta_epilogue_strategy(cfg, w, d_cap, cal) == "fused":
+        t_extra = rounds * q * 8.0 / cal.unroll_bytes_per_s / 3
+    else:
+        t_extra = (rounds * q * 24.0 / cal.unroll_bytes_per_s / 3
+                   + DELTA_RANK_PASSES * rounds * cal.loop_trip_s / 3)
+    return t_sort + t_zip + t_rows + t_rank + t_mem + t_extra
+
+
+def delta_rebuild_seconds(cfg: EngineConfig, w: Workload, d_cap: int,
+                          cal: Calibration | None = None) -> float:
+    """Latency of the rebuild: sort the delete stream, match the
+    tombstones, then re-convert the combined pow2 edge buffer."""
+    cal = cal or Calibration()
+    wd = delta_workload(w, d_cap)
+    comb = Workload(n=w.n, e=next_pow2(w.e + wd.e), l=w.l, k=w.k, b=w.b)
+    t = _ordering_seconds(cfg, wd, cal,
+                          resolve_delta_sort_strategy(cfg, wd, cal))
+    t /= 2  # one delete-stream sort, not both delta streams
+    t += _ordering_seconds(cfg, comb, cal,
+                           resolve_sort_strategy(cfg, comb, cal))
+    log_d = reindex_round_count(wd.e)
+    log_c = reindex_round_count(comb.e)
+    cmps = (w.e * (reindex_round_count(w.n + 1) + 2 * log_d)
+            + (w.n + 1) * log_c)
+    t_rows = 2 * min(reindex_round_count(next_pow2(w.e)), 6) \
+        * wd.e * 4.0 / cal.hbm_bytes_per_s
+    t_mem = 6.0 * 4.0 * comb.e / cal.unroll_bytes_per_s
+    return t + cmps / cal.scr_cmps_per_s + t_rows + t_mem
+
+
+def resolve_delta_mode(cfg: EngineConfig, w: Workload, d_cap: int,
+                       cal: Calibration | None = None) -> str:
+    """``apply_delta(mode="auto")``: merge while it prices at or below a
+    rebuild, else rebuild."""
+    cal = cal or Calibration()
+    return ("merge"
+            if delta_merge_seconds(cfg, w, d_cap, cal)
+            <= delta_rebuild_seconds(cfg, w, d_cap, cal)
+            else "rebuild")
+
+
+def sample_vid_capacity(w: Workload) -> int:
+    """Collected-VID-list length of one ``sample_subgraph``: the seeds plus
+    every frontier, b · Σ_{i≤l} k^i."""
+    frontier = nodes = w.b
+    for _ in range(w.l):
+        frontier *= w.k
+        nodes += frontier
+    return nodes
+
+
+def sample_edge_capacity(w: Workload) -> int:
+    """Pow2 capacity of the sampled edge buffer, b · Σ_{1≤i≤l} k^i."""
+    frontier, edges = w.b, 0
+    for _ in range(w.l):
+        frontier *= w.k
+        edges += frontier
+    return next_pow2(max(1, edges))
+
+
+def reindex_dispatch_count(strategy: str) -> int:
+    """Loop dispatches of the reindex epilogue: none fused, three unfused
+    (first-occurrence rank, order compaction, the rename)."""
+    return 0 if strategy == "fused" else 3
+
+
+def rename_gather_bytes(capacity: int, e: int) -> float:
+    """Bytes the rename lookups gather: one int32 pivot a query a round,
+    plus the hit and table gathers."""
+    return 4.0 * (reindex_round_count(capacity) + 2) * 2 * e
+
+
+def reindex_sort_op_count(cfg: EngineConfig, vid_bound: int, capacity: int,
+                          cal: Calibration | None = None) -> int:
+    """Native sorts of the one shared reindex sort: 1 under xla_sort, 0 on
+    the radix strategies."""
+    strat = resolve_sort_strategy(
+        cfg, Workload(n=vid_bound, e=capacity), cal)
+    return 1 if strat == "xla_sort" else 0
+
+
+def _reindex_seconds(cfg: EngineConfig, w: Workload,
+                     cal: Calibration) -> float:
+    """Reindexing latency: the shared VID-stream sort, the rank passes at
+    SCR throughput, three element passes, the rename gathers and the
+    resolved epilogue's own extra."""
+    cap = next_pow2(sample_vid_capacity(w))
+    e = sample_edge_capacity(w)
+    wsub = Workload(n=w.n, e=cap)
+    strat = resolve_sort_strategy(cfg, wsub, cal)
+    t_sort = _ordering_seconds(cfg, wsub, cal, strat) / sort_pass_count(
+        cfg, wsub)
+    q = reindex_query_count(cap, e)
+    rounds = reindex_round_count(cap)
+    t_rank = rounds * q / cal.scr_cmps_per_s
+    t_pass = 3 * cap / cal.reidx_elems_per_s  # head flags, prefix, order
+    rstrat = resolve_reindex_strategy(cfg, q, cap, cal)
+    if rstrat == "fused":
+        t_extra = rounds * q * 4.0 / cal.unroll_bytes_per_s
+    else:
+        t_extra = reindex_dispatch_count(rstrat) * rounds * cal.loop_trip_s
+    return (t_sort + t_rank + t_pass + t_extra
+            + rename_gather_bytes(cap, e) / cal.unroll_bytes_per_s)
+
+
+def ordering_cycles(cfg: EngineConfig, w: Workload) -> float:
+    m = max(1.0, math.log2(max(2.0, w.e / cfg.w_upe)) - 1)
+    return sort_pass_count(cfg, w) * m * w.e / (cfg.n_upe * cfg.w_upe)
+
+
+def selecting_cycles(cfg: EngineConfig, w: Workload) -> float:
+    s = w.b * (w.k ** (w.l + 1)) - 1
+    return s / cfg.n_upe
+
+
+def reshaping_cycles(cfg: EngineConfig, w: Workload) -> float:
+    return max(w.n / cfg.n_scr, w.e / cfg.w_scr)
+
+
+def estimate_seconds(cfg: EngineConfig, w: Workload,
+                     cal: Calibration | None = None) -> dict[str, float]:
+    """The cycle model in seconds, per stage and in total; an ``"auto"``
+    sort strategy scores as its cheapest, which is what dispatch runs."""
+    cal = cal or Calibration()
+    if cfg.sort_strategy == "auto":
+        t_order = min(_ordering_seconds(cfg, w, cal, s)
+                      for s in SORT_STRATEGIES)
+    else:
+        t_order = _ordering_seconds(cfg, w, cal, cfg.sort_strategy)
+    s = w.b * (w.k ** (w.l + 1)) - 1
+    t_select = s / (cal.sel_nodes_per_s * cfg.n_upe)
+    t_reshape = max(w.n / cfg.n_scr, w.e / cfg.w_scr) * (
+        cfg.n_scr * cfg.w_scr / cal.scr_cmps_per_s)
+    t_reindex = _reindex_seconds(cfg, w, cal)
+    return {
+        "ordering": t_order,
+        "selecting": t_select,
+        "reshaping": t_reshape,
+        "reindexing": t_reindex,
+        "total": t_order + t_select + t_reshape + t_reindex,
+    }
+
+
+def best_config(w: Workload, library: list[EngineConfig] | None = None,
+                cal: Calibration | None = None) -> EngineConfig:
+    """DynPre's decision: the library entry with the least total."""
+    lib = library or bitstream_library()
+    return min(lib, key=lambda c: estimate_seconds(c, w, cal)["total"])
+
+
+def choose_config(w: Workload, library: list[EngineConfig] | None = None,
+                  cal: Calibration | None = None) -> EngineConfig:
+    """``best_config`` with its ``sort_strategy`` and its subgraph rename's
+    ``reindex_strategy`` pinned, so the dispatched program is the one the
+    model priced (the engine service's entry point)."""
+    cal = cal or Calibration()
+    best = best_config(w, library, cal)
+    cap = next_pow2(sample_vid_capacity(w))
+    q = reindex_query_count(cap, sample_edge_capacity(w))
+    return dataclasses.replace(
+        best, sort_strategy=resolve_sort_strategy(best, w, cal),
+        reindex_strategy=resolve_reindex_strategy(best, q, cap, cal))

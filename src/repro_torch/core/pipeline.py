@@ -11,9 +11,12 @@ from typing import NamedTuple
 
 import torch
 
-from .costmodel import (EngineConfig, Workload, pointer_reindex_strategy,
-                        reindex_query_count, resolve_reindex_strategy,
+from .costmodel import (EngineConfig, Workload, delta_epilogue_strategy,
+                        delta_workload, pointer_reindex_strategy,
+                        reindex_query_count, resolve_delta_mode,
+                        resolve_delta_sort_strategy, resolve_reindex_strategy,
                         resolve_sort_strategy)
+from .delta import EdgeDelta, delta_merge, rebuild_coo
 from .graph import (COO, CSC, SENTINEL, Subgraph, next_pow2, pad_to,
                     resolve_device, take)
 from .ordering import edge_ordering, stable_sort_by_key
@@ -32,8 +35,15 @@ class KernelFns(NamedTuple):
     radix_sort_fn: object
 
 
+# cfg.key -> its KernelFns, built once a configuration (the staged
+# bitstreams: every later convert, sample or service dispatch reuses them)
+_KERNEL_FNS: dict[str, KernelFns] = {}
+
+
 def kernel_fns(cfg: EngineConfig) -> KernelFns:
-    """The kernel routing rule: ``use_pallas`` swaps in the chunk-sort
+    """The kernel routing rule, built once a ``cfg.key`` and kept in
+    ``_KERNEL_FNS`` (a caller that swaps a kernel module's function clears
+    it around the swap): ``use_pallas`` swaps in the chunk-sort
     kernel (digit width ``cfg.radix_bits``), the set-count kernel, the
     fused-merge kernel (ladder fan-in ``cfg.merge_fan_in``), the
     rank-epilogue kernels, the merge-rung kernel (the ladder's rungs above
@@ -42,6 +52,13 @@ def kernel_fns(cfg: EngineConfig) -> KernelFns:
     own digit schedule, where the reference routes each digit pass). Each
     wrapper launches its kernel on a CUDA tensor and runs its plain twin on
     a CPU tensor."""
+    kf = _KERNEL_FNS.get(cfg.key)
+    if kf is None:
+        kf = _KERNEL_FNS[cfg.key] = _build_kernel_fns(cfg)
+    return kf
+
+
+def _build_kernel_fns(cfg: EngineConfig) -> KernelFns:
     if not cfg.use_pallas:
         return KernelFns(None, None, None, None, None, None, None)
     from repro_torch.kernels.merge import make_merge_fn, merge_rung
@@ -79,6 +96,64 @@ def convert(coo: COO, cfg: EngineConfig | None = None, device="cuda",
     ptr_fused = pointer_reindex_strategy(cfg, w) == "fused"
     return data_reshaping(sorted_coo, count_fn=count_fn, unroll=ptr_fused,
                           rank_fn=kf.rank_fn if ptr_fused else None)
+
+
+def apply_delta(csc: CSC, delta: EdgeDelta, cfg: EngineConfig | None = None,
+                mode: str = "auto", out_capacity: int | None = None) -> CSC:
+    """Incremental conversion: splice one insert/delete batch into a sorted
+    CSC, on the device that holds it.
+
+    ``mode="merge"`` runs the O(delta) path (``delta.delta_merge``);
+    ``"rebuild"`` tombstones the deletes, appends the inserts and
+    re-converts; ``"auto"`` takes the one the cost model prices cheaper
+    (``costmodel.resolve_delta_mode``) on this (capacity, delta bucket).
+    Both modes return a CSC with ``out_capacity`` (default: the input's)
+    index slots, bit-identical to a fresh :func:`convert` of the
+    post-update edge list. The delta sorts run under
+    ``costmodel.resolve_delta_sort_strategy`` with this config's kernel
+    routing, the rank passes fused or unfused as
+    ``costmodel.delta_epilogue_strategy`` prices them. The caller makes
+    sure the surviving edges fit ``out_capacity``
+    (``engine.service.PreprocService.apply_delta`` grows it).
+    """
+    cfg = cfg or EngineConfig()
+    kf = kernel_fns(cfg)
+    e_cap = csc.idx.shape[0]
+    d_cap = delta.capacity
+    w = Workload(n=csc.n_nodes, e=e_cap)
+    if mode == "auto":
+        mode = resolve_delta_mode(cfg, w, d_cap)
+    if mode not in ("merge", "rebuild"):
+        raise ValueError(f"unknown delta mode {mode!r}")
+    d_strategy = resolve_delta_sort_strategy(cfg, delta_workload(w, d_cap))
+    fused = delta_epilogue_strategy(cfg, w, d_cap) == "fused"
+    sort_kw = _sort_kwargs(cfg, kf, kf.chunk_sort_fn)
+
+    def delta_sort_fn(k, v, bound):
+        return stable_sort_by_key(k, v, bound, chunk=min(cfg.w_upe, d_cap),
+                                  strategy=d_strategy, **sort_kw)
+
+    if mode == "merge":
+        return delta_merge(csc, delta, sort_fn=delta_sort_fn, unroll=fused,
+                           out_capacity=out_capacity, rank_fn=kf.rank_fn,
+                           rung_fn=kf.rung_fn)
+    coo = rebuild_coo(csc, delta, sort_fn=delta_sort_fn, unroll=fused,
+                      rank_fn=kf.rank_fn)
+    wc = Workload(n=coo.n_nodes, e=coo.capacity)
+    sorted_coo = edge_ordering(
+        coo, chunk=min(cfg.w_upe, coo.capacity), mode=cfg.sort_mode,
+        strategy=resolve_sort_strategy(cfg, wc), **sort_kw)
+    ptr_fused = pointer_reindex_strategy(cfg, wc) == "fused"
+    full = data_reshaping(sorted_coo, count_fn=kf.count_fn, unroll=ptr_fused,
+                          rank_fn=kf.rank_fn if ptr_fused else None)
+    out_cap = e_cap if out_capacity is None else out_capacity
+    idx = (full.idx[:out_cap] if out_cap <= full.idx.shape[0]
+           else pad_to(full.idx, out_cap, SENTINEL))
+    ptr = full.ptr
+    if csc.ptr.shape[0] > ptr.shape[0]:  # keep a padded pointer tail
+        ptr = torch.cat([ptr, ptr[-1:].expand(csc.ptr.shape[0]
+                                              - ptr.shape[0])])
+    return CSC(ptr=ptr, idx=idx, n_edges=full.n_edges, n_nodes=csc.n_nodes)
 
 
 def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,

@@ -50,6 +50,20 @@ def gather_sources_from_counts(incl_counts: torch.Tensor,
     return lo
 
 
+def set_partition(values: torch.Tensor, cond: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable two-way partition of ``values`` ([N] or [N, k]; rows move
+    together) by ``cond``: the selected rows first, in order, then the
+    rest. Returns (partitioned, n_selected as a 0-d int32), relocated by
+    the gather router."""
+    c = cond.to(torch.int32)
+    incl = torch.stack([prefix_sum(c), prefix_sum(1 - c)], dim=1)  # [N, 2]
+    n_sel = incl[-1, 0]
+    base = torch.stack([torch.zeros_like(n_sel), n_sel])
+    src = gather_sources_from_counts(incl, base)
+    return take(values, src), n_sel
+
+
 def digit_relocation_sources(digit: torch.Tensor, n_buckets: int
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sources, bucket bases) for one stable digit pass over ``digit``."""

@@ -2,10 +2,22 @@
 
 Every wrapper takes its plain twin only for a tensor that lies on the CPU;
 on a CUDA tensor it launches the kernel or raises. Each wrapper carries a
-``launches`` counter that only the kernel branch bumps; a replayed CUDA
-graph adds the launches captured in it (``add_launch_counts``).
+``launches`` counter that only the kernel branch bumps (``count_launch``);
+a replayed CUDA graph adds the launches captured in it
+(``add_launch_counts``). The counters are bumped under one lock: a
+prefetcher's producer thread launches kernels beside the consumer.
 """
 from __future__ import annotations
+
+import threading
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, n: int = 1) -> None:
+    """Add ``n`` to wrapper ``fn``'s launch counter, under the lock."""
+    with _COUNT_LOCK:
+        fn.launches += n
 
 
 def kernel_wrappers():
@@ -50,9 +62,10 @@ def add_launch_counts(counts: dict[str, int]) -> None:
     kernels captured in it, but no wrapper runs on the host to count them."""
     wrappers = kernel_wrappers()
     for k, n in counts.items():
-        wrappers[k].launches += n
+        count_launch(wrappers[k], n)
 
 
 def reset_launch_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    with _COUNT_LOCK:
+        for fn in kernel_wrappers().values():
+            fn.launches = 0

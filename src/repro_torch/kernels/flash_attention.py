@@ -27,7 +27,7 @@ import torch
 from repro_torch.models.attention import (flash_attention_bwd_plain,
                                           flash_attention_plain)
 
-from . import _build
+from . import _build, count_launch
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
@@ -97,7 +97,7 @@ def _fwd_kernel(q, k, v, *, lse: bool, causal, window, logit_cap, q_offset):
         out_f32 = (out if q.dtype == torch.float32 else
                    torch.empty(q.shape, dtype=torch.float32, device=q.device))
     if out.numel():
-        flash_attention_bhsd.launches += 1
+        count_launch(flash_attention_bhsd)
         _build.check(_build.load("flash_attention", _SIGNATURES)
                      .flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -113,7 +113,7 @@ def flash_dq(q, k, v, dout, lse, delta, dq, **mask) -> None:
     """Launch ``flash_dq_kernel`` into ``dq`` (inputs checked by
     ``flash_attention_bwd``)."""
     b, h, sq, dh = q.shape
-    flash_dq.launches += 1
+    count_launch(flash_dq)
     _build.check(_build.load("flash_attention_bwd", _BWD_SIGNATURES)
                  .flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -125,7 +125,7 @@ def flash_dkv(q, k, v, dout, lse, delta, dk, dv, **mask) -> None:
     """Launch ``flash_dkv_kernel`` into ``dk``, ``dv`` (inputs checked by
     ``flash_attention_bwd``)."""
     b, h, sq, dh = q.shape
-    flash_dkv.launches += 1
+    count_launch(flash_dkv)
     _build.check(_build.load("flash_attention_bwd", _BWD_SIGNATURES)
                  .flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.ordering import merge_ladder, merge_round_fan_ins
 
-from . import _build
+from . import _build, count_launch
 
 # Elements of one super-block (the reference's VMEM budget: 2 arrays × in
 # and out × 4 B × 65536 = 2 MiB); the kernel's schedule does not depend on
@@ -129,7 +129,7 @@ def fused_merge_rounds(keys: torch.Tensor, vals: torch.Tensor | None,
     if not keys.is_cuda:
         return (*merge_ladder(keys, vals, run, fan_ins), block)
     _check(keys, vals)
-    fused_merge_rounds.launches += 1
+    count_launch(fused_merge_rounds)
     return (*merge_passes_c(keys, vals, run, fan_ins), block)
 
 
@@ -147,7 +147,7 @@ def merge_rung(keys: torch.Tensor, vals: torch.Tensor | None, run: int,
     if k < 2 or keys.shape[0] % (run * k):
         raise ValueError(f"a rung of {k} runs of {run} does not tile "
                          f"{keys.shape[0]} elements")
-    merge_rung.launches += 1
+    count_launch(merge_rung)
     return merge_passes_c(keys, vals, run, [k])
 
 

@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.set_partition import (gather_sources_from_counts,
                                             prefix_sum)
 
-from . import _build
+from . import _build, count_launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,7 +60,7 @@ def prefix_partition(values: torch.Tensor, cond: torch.Tensor,
     n_sel = torch.empty((n // block,), dtype=torch.int32,
                         device=values.device)
     if n:
-        prefix_partition.launches += 1
+        count_launch(prefix_partition)
         _build.check(_build.load("prefix_partition", _SIGNATURES)
                      .prefix_partition(
             values.data_ptr(), cond.data_ptr(), n, block, out.data_ptr(),

@@ -18,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, count_launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,7 +68,7 @@ def ptr_seg_sum(ptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
         totals = torch.empty((-(-e // chunk), d), dtype=torch.float32,
                              device=dev)
         table = torch.empty((n, d), dtype=torch.float32, device=dev)
-        ptr_seg_sum.launches += 1
+        count_launch(ptr_seg_sum)
         _build.check(_build.load("ptr_scan", _SIGNATURES).ptr_seg_sum(
             msgs.data_ptr(), e, d, ptr.data_ptr(), n, chunk, out.data_ptr(),
             first.data_ptr(), totals.data_ptr(), table.data_ptr(),

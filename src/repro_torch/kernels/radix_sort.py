@@ -26,7 +26,7 @@ from repro_torch.core.ordering import DEFAULT_CHUNK, _chunk_sort
 from repro_torch.core.set_partition import (partition_tiles,
                                             rank_gather_sources)
 
-from . import _build
+from . import _build, count_launch
 
 # Dynamic shared memory one CTA of an H100 can use.
 MAX_SMEM_BYTES = 232448
@@ -150,7 +150,7 @@ def chunk_sort(keys: torch.Tensor, vals: torch.Tensor | None, chunk: int,
         lib = _lib()
         assert lib.chunk_sort_smem_bytes(chunk, n_bits,
                                          vals is not None) == smem
-        chunk_sort.launches += 1
+        count_launch(chunk_sort)
         _build.check(lib.chunk_sort(
             keys.data_ptr(), None if vals is None else vals.data_ptr(),
             out_k.data_ptr(), None if out_v is None else out_v.data_ptr(),
@@ -174,15 +174,34 @@ def radix_sort_chunks_keys(keys: torch.Tensor, chunk: int, key_bits: int,
     return chunk_sort(keys, None, chunk, key_bits, radix_bits)[0]
 
 
+def widest_sub_chunk(chunk: int, has_vals: bool) -> int:
+    """The widest divisor of ``chunk`` that one chunk-sort CTA holds:
+    ``chunk`` itself when it fits (at most MAX_PAIR_CHUNK pairs, or the
+    largest instantiation's keys)."""
+    most = MAX_PAIR_CHUNK if has_vals else 32 * max(
+        w * i for w, i in CHUNK_SORT_SHAPES)
+    return next(d for d in range(min(chunk, most), 0, -1) if chunk % d == 0)
+
+
 def make_chunk_sort_fn(radix_bits: int = 4):
     """``chunk_sort_fn`` for ``ordering.stable_sort_by_key`` with the digit
     width routed from ``EngineConfig.radix_bits``; ``vals=None`` sorts the
-    keys alone and returns ``(keys, None)``."""
+    keys alone and returns ``(keys, None)``. A chunk wider than one CTA
+    holds (``EngineConfig.w_upe`` up to 65,536) is sorted as stable
+    sub-chunks of the widest shape that fits (``widest_sub_chunk``), then
+    merged up to the chunk by one merge rung (``merge.merge_rung``, earlier
+    runs winning ties): the same stable order, so the same output as one
+    sort of the chunk."""
 
     def chunk_sort_fn(keys, vals, chunk, key_bits):
-        return chunk_sort(keys.contiguous(),
-                          None if vals is None else vals.contiguous(),
-                          chunk, key_bits, radix_bits)
+        keys = keys.contiguous()
+        vals = None if vals is None else vals.contiguous()
+        sub = widest_sub_chunk(chunk, vals is not None)
+        ks, vs = chunk_sort(keys, vals, sub, key_bits, radix_bits)
+        if sub == chunk:
+            return ks, vs
+        from .merge import merge_rung
+        return merge_rung(ks, vs, sub, chunk // sub)
 
     return chunk_sort_fn
 
@@ -231,7 +250,7 @@ def digit_partition_hist(keys: torch.Tensor, vals: torch.Tensor | None,
     if n_tiles:
         lib = _lib()
         assert lib.digit_partition_smem_bytes(tile, nb, vals is not None) == smem
-        digit_partition_hist.launches += 1
+        count_launch(digit_partition_hist)
         _build.check(lib.digit_partition_hist(
             keys.data_ptr(), None if vals is None else vals.data_ptr(),
             pk.data_ptr(), None if pv is None else pv.data_ptr(),
@@ -255,7 +274,7 @@ def digit_rank_gather(gbase: torch.Tensor, incl_t: torch.Tensor,
     n = n_tiles * tile
     out = torch.empty(n, dtype=torch.int32, device=gbase.device)
     if n:
-        digit_rank_gather.launches += 1
+        count_launch(digit_rank_gather)
         _build.check(_lib().digit_rank_gather(
             gbase.data_ptr(), incl_t.data_ptr(), excl_t.data_ptr(),
             lbase.data_ptr(), out.data_ptr(), n, n_tiles, tile, nb,
@@ -356,7 +375,7 @@ def digit_hist(keys: torch.Tensor, shift: int, tile: int = SCATTER_TILE,
         lib = _lib()
         assert lib.digit_hist_smem_bytes(tile, radix_bits) == \
             digit_smem_bytes(tile, radix_bits, None)
-        digit_hist.launches += 1
+        count_launch(digit_hist)
         _build.check(lib.digit_hist(keys.data_ptr(), counts.data_ptr(), n,
                                     tile, shift, radix_bits,
                                     _build.stream_of(keys)), "digit_hist")
@@ -435,7 +454,7 @@ def digit_scatter(keys: torch.Tensor, vals: torch.Tensor | None,
         assert lib.digit_scatter_smem_bytes(tile, radix_bits,
                                             vals is not None) == \
             digit_smem_bytes(tile, radix_bits, vals is not None)
-        digit_scatter.launches += 1
+        count_launch(digit_scatter)
         _build.check(lib.digit_scatter(
             keys.data_ptr(), None if vals is None else vals.data_ptr(),
             offsets.data_ptr(), out_k.data_ptr(),

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.graph import take
 
-from . import _build
+from . import _build, count_launch
 from .common import SENTINEL
 
 _P = ctypes.c_void_p
@@ -69,7 +69,7 @@ def rank_search(sorted_arr: torch.Tensor, queries: torch.Tensor,
     _check_cuda_i32(sorted_arr, queries)
     out = torch.empty_like(queries)
     if queries.shape[0]:
-        rank_search.launches += 1
+        count_launch(rank_search)
         _build.check(_lib().rank_search(
             sorted_arr.data_ptr(), sorted_arr.shape[0], queries.data_ptr(),
             out.data_ptr(), queries.shape[0], int(side == "right"),
@@ -103,7 +103,7 @@ def rename(sorted_vids: torch.Tensor, slot_to_new: torch.Tensor,
         raise ValueError("rename needs a non-empty sorted stream")
     out = torch.empty_like(queries)
     if queries.shape[0]:
-        rename.launches += 1
+        count_launch(rename)
         _build.check(_lib().rename_lookup(
             sorted_vids.data_ptr(), slot_to_new.data_ptr(),
             sorted_vids.shape[0], queries.data_ptr(), out.data_ptr(),

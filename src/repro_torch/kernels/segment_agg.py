@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,7 +52,7 @@ def segment_sum_sorted(dst: torch.Tensor, messages: torch.Tensor,
     e, d = messages.shape
     out = torch.empty((n_nodes, d), dtype=torch.float32, device=dst.device)
     if out.numel():
-        segment_sum_sorted.launches += 1
+        count_launch(segment_sum_sorted)
         _build.check(_build.load("segment_agg", _SIGNATURES).segment_sum_sorted(
             dst.data_ptr(), e, messages.data_ptr(), d, out.data_ptr(), n_nodes,
             _build.stream_of(dst)), "segment_sum_sorted")

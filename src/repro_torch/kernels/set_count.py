@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.set_count import count_less_than, filter_lookup
 
-from . import _build
+from . import _build, count_launch
 from .common import SENTINEL, pad_pow2_1d
 
 _P = ctypes.c_void_p
@@ -90,10 +90,10 @@ def set_count_less(elements: torch.Tensor, targets: torch.Tensor
         lib = _build.load("set_count", _SIGNATURES)
         tiles, bounds = set_count_scratch(elements.shape[0], elements.device)
         if elements.shape[0]:
-            set_count_less.launches += 1
+            count_launch(set_count_less)
             _build.check(tile_sort_c(lib, elements, tiles, bounds),
                          "set_count_less (tile sort)")
-        set_count_less.launches += 1
+        count_launch(set_count_less)
         _build.check(count_c(lib, elements.shape[0], targets, out, tiles,
                              bounds), "set_count_less (count)")
     return out
@@ -168,10 +168,10 @@ def filter_tree_lookup(keys: torch.Tensor, payloads: torch.Tensor,
         lib = _build.load("set_count", _SIGNATURES)
         table = filter_scratch(keys.shape[0], keys.device)
         if keys.shape[0]:
-            filter_tree_lookup.launches += 1
+            count_launch(filter_tree_lookup)
         _build.check(build_c(lib, keys, payloads, table),
                      "filter_tree_lookup (build)")
-        filter_tree_lookup.launches += 1
+        count_launch(filter_tree_lookup)
         _build.check(probe_c(lib, keys.shape[0], table, targets, out, hit),
                      "filter_tree_lookup (probe)")
     return out, hit

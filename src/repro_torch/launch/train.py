@@ -28,11 +28,13 @@ from repro_torch.train.optim import AdamWConfig, adamw_init
 
 
 def run_lm(arch: str, steps: int, smoke: bool, ckpt_dir: str | None,
-           fail_at: int | None, seed: int = 0, device="cuda"):
+           fail_at: int | None, seed: int = 0, device="cuda",
+           prefetch: bool = False):
     """Train ``arch`` for ``steps`` steps (4 × 64 tokens with ``smoke``,
     else the reference's 256 × 4,096), checkpointing into ``ckpt_dir``
     (default ``train.loop.default_ckpt_dir()``) and resuming from it;
-    returns (model, AdamW state, metrics history)."""
+    ``prefetch`` makes each batch a step ahead (on a side CUDA stream on
+    the card). Returns (model, AdamW state, metrics history)."""
     cfg = get_config(arch, smoke=smoke)
     batch, seq = (4, 64) if smoke else (256, 4096)
     dev = resolve_device(device)
@@ -48,7 +50,8 @@ def run_lm(arch: str, steps: int, smoke: bool, ckpt_dir: str | None,
                                                    cfg.vocab)).to(dev)
 
     loop_cfg = LoopConfig(total_steps=steps, ckpt_every=max(steps // 4, 10),
-                          ckpt_dir=ckpt_dir or default_ckpt_dir())
+                          ckpt_dir=ckpt_dir or default_ckpt_dir(),
+                          prefetch=prefetch)
     return train(loop_cfg, step_fn, model, opt, batch_fn,
                  failure=FailureInjector(fail_at))
 

@@ -34,7 +34,9 @@ the column-scan kernel) and ``MERGE_CFG`` (chunked_merge sorts through the
 chunk-sort and fused-merge kernels, the unfused set-count pointer build,
 and, with the model's ``use_pallas_agg``, the segment-sum kernel).
 
-Streamed graph updates (``submit_update``) are not ported yet.
+Streamed graph updates (``submit_update``) are not ported yet: the
+delta splice is (``pipeline.apply_delta``), but writing its CSC into the
+captured step's tensors in place is not (``ROADMAP.md`` A.3).
 """
 from __future__ import annotations
 
@@ -169,8 +171,10 @@ class GnnServeEngine(SlotEngineBase):
 
     def submit_update(self, inserts, deletes=()) -> Request:
         raise NotImplementedError(
-            "streamed graph updates need the delta-merge path "
-            "(repro/core/delta.py), not ported yet")
+            "streamed graph updates need the spliced CSC copied into the "
+            "captured step's tensors in place (UPDATE_MARKER, "
+            "deactivate_update), not ported yet (ROADMAP.md A.3); "
+            "pipeline.apply_delta splices one outside the engine")
 
     def request_key(self, rid: int) -> prng.Key:
         """The per-request key, folded from the request id alone — the
@@ -222,7 +226,13 @@ class GnnServeEngine(SlotEngineBase):
         into a CUDA graph on the engine's own pool. Capturing launches
         nothing, so the kernel launches the wrappers counted meanwhile are
         taken off the counters and kept as the graph's per-replay
-        counts."""
+        counts. A prefetch producer thread launching meanwhile would put
+        its launches in that count, so a running one is refused."""
+        from repro_torch.engine.prefetch import active_producers
+        if active_producers():
+            raise RuntimeError(
+                "a prefetch producer is running: close it before the serve "
+                "step is captured")
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)

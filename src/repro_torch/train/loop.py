@@ -11,13 +11,14 @@ Contract:
   card before it reads the clock (PyTorch returns before the card is
   done) and raises; a launcher restarts the job from the last commit;
 * ``FailureInjector`` crashes the loop at a chosen step, so tests prove
-  restart-equivalence end to end.
+  restart-equivalence end to end;
+* ``prefetch`` double-buffers the batches (``engine.prefetch.Prefetcher``:
+  batch i + 1 is made while step i runs, on a side CUDA stream on the
+  card); ``batch_fn`` is pure, so restart determinism is unchanged.
 
 The parameters are an ``nn.Module`` or a dictionary name → tensor, and
 the step function updates them and the optimizer state in place; a
-restore copies the checkpoint into the same tensors. The double-buffered
-batch ``prefetch`` of the reference belongs to the engine service
-(``ROADMAP.md``, A8), which is not ported.
+restore copies the checkpoint into the same tensors.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ class LoopConfig:
     keep: int = 3
     log_every: int = 10
     step_timeout_s: float | None = None  # straggler watchdog
+    # double-buffer batches (repro_torch.engine.prefetch): batch i + 1 is
+    # made while step i runs
     prefetch: bool = False
 
 
@@ -89,10 +92,6 @@ def train(cfg: LoopConfig, step_fn: Callable, params, opt_state: dict,
     ``step_fn(params, opt_state, batch) -> (params, opt_state, metrics)``
     updates in place and returns the same objects.
     """
-    if cfg.prefetch:
-        raise NotImplementedError(
-            "prefetch needs the engine service's Prefetcher, which is not "
-            "ported yet (ROADMAP.md, A8)")
     start_step = 0
     latest = ckpt.latest_step(cfg.ckpt_dir)
     if latest is not None:
@@ -103,25 +102,43 @@ def train(cfg: LoopConfig, step_fn: Callable, params, opt_state: dict,
                 t.copy_(saved[key])
         start_step = meta["step"]
 
+    prefetcher = None
+    if cfg.prefetch:
+        from repro_torch.engine.prefetch import Prefetcher
+        prefetcher = Prefetcher(batch_fn, start=start_step,
+                                stop=cfg.total_steps)
+
     history: list[dict] = []
-    for step in range(start_step, cfg.total_steps):
-        if failure is not None:
-            failure.maybe_fail(step)
-        t0 = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state,
-                                             batch_fn(step))
-        if cfg.step_timeout_s is not None:
-            _synchronize(metrics)
-            dt = time.perf_counter() - t0
-            if dt > cfg.step_timeout_s:
-                raise TimeoutError(
-                    f"step {step} took {dt:.1f}s > {cfg.step_timeout_s}s — "
-                    "straggler watchdog (the launcher restarts from the "
-                    "last commit)")
-        if step % cfg.log_every == 0 or step == cfg.total_steps - 1:
-            history.append({"step": step,
-                            **{k: float(v) for k, v in metrics.items()}})
-        if (step + 1) % cfg.ckpt_every == 0 or step == cfg.total_steps - 1:
-            ckpt.save(cfg.ckpt_dir, step + 1,
-                      state_tensors(params, opt_state), keep=cfg.keep)
+    try:
+        for step in range(start_step, cfg.total_steps):
+            if failure is not None:
+                failure.maybe_fail(step)
+            t0 = time.perf_counter()
+            if prefetcher is not None:
+                got_step, batch = next(prefetcher)
+                if got_step != step:  # data order is the restart contract
+                    raise RuntimeError(
+                        f"prefetcher yielded step {got_step}, loop expected "
+                        f"{step}")
+            else:
+                batch = batch_fn(step)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            if cfg.step_timeout_s is not None:
+                _synchronize(metrics)
+                dt = time.perf_counter() - t0
+                if dt > cfg.step_timeout_s:
+                    raise TimeoutError(
+                        f"step {step} took {dt:.1f}s > {cfg.step_timeout_s}s"
+                        " — straggler watchdog (the launcher restarts from "
+                        "the last commit)")
+            if step % cfg.log_every == 0 or step == cfg.total_steps - 1:
+                history.append({"step": step,
+                                **{k: float(v) for k, v in metrics.items()}})
+            if (step + 1) % cfg.ckpt_every == 0 \
+                    or step == cfg.total_steps - 1:
+                ckpt.save(cfg.ckpt_dir, step + 1,
+                          state_tensors(params, opt_state), keep=cfg.keep)
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
     return params, opt_state, history

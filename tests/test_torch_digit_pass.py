@@ -111,6 +111,8 @@ def test_slice_cfg_convert_and_sample_match_reference(n, e, cap, route,
     if route == "card_schedule":
         monkeypatch.setattr(trs, "make_radix_sort_fn",
                             lambda rb, tile: _card_schedule_fn(rb, 1000))
+        # the routing is built once a config: build it afresh on the swap
+        monkeypatch.setattr(tp, "_KERNEL_FNS", {})
     jc, tc = _graph(n, e, cap, seed=n)
     jcfg = EngineConfig(sort_strategy="xla_sort")
     ref = convert(jc, jcfg)

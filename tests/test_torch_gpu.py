@@ -1296,3 +1296,146 @@ def test_replay_refuses_a_rebound_state_tensor(cuda):
     with pytest.raises(RuntimeError, match=r"state\.seeds"):
         eng._step()
     assert eng.step_cache_size() == 1
+
+
+# ------------------------------------------------------- the engine service
+@pytest.mark.parametrize("w_upe", [32768, 65536])
+@pytest.mark.parametrize("n_nodes", [40_000, 232_965])  # packed, two-pass
+def test_wide_chunks_sort_as_sub_chunks_and_a_merge_rung(cuda, w_upe,
+                                                         n_nodes):
+    """Library entries wider than one chunk-sort CTA holds (16,384 pairs,
+    32,768 keys): the chunk sorts as sub-chunks of the widest shape that
+    fits and one merge rung, so a chunked_merge convert of 2^20 edges
+    equals the torch.sort strategy's bit for bit, and the chunk-sort
+    routing equals the twin at the chunk's width."""
+    coo = tg.synthetic_coo(n_nodes, (1 << 20) - 1000, 1 << 20, seed=w_upe,
+                           device=cuda)
+    cfg = tcm.EngineConfig(w_upe=w_upe, use_pallas=True,
+                           sort_strategy="chunked_merge",
+                           reindex_strategy="fused")
+    want = tp.convert(coo, tcm.EngineConfig(sort_strategy="xla_sort"),
+                      device=cuda)
+    reset_launch_counts()
+    got = tp.convert(coo, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ptr, want.ptr) and torch.equal(got.idx, want.idx)
+    counts = launch_counts()
+    assert counts["chunk_sort"] > 0 and counts["merge_rung"] > 0
+    rng = np.random.default_rng(w_upe)
+    keys = torch.from_numpy(rng.integers(0, 1 << 18, 1 << 20).astype(
+        np.int32))
+    vals = torch.arange(1 << 20, dtype=torch.int32)
+    fn = trs.make_chunk_sort_fn(4)
+    for v in (vals, None):
+        wk, wv = fn(keys, v, w_upe, 18)
+        gk, gv = fn(keys.to(cuda), None if v is None else v.to(cuda), w_upe,
+                    18)
+        assert torch.equal(gk.cpu(), wk)
+        assert (gv is None) == (wv is None)
+        if wv is not None:
+            assert torch.equal(gv.cpu(), wv)
+
+
+def test_every_kernel_library_entry_converts_on_the_card(cuda):
+    """Every entry of the library with the kernels routed, under each
+    pinned strategy, converts 2^20 pairs equal to the torch.sort
+    strategy (none raises)."""
+    coo = tg.synthetic_coo(232_965, 1 << 20, 1 << 20, seed=3, device=cuda)
+    want = tp.convert(coo, tcm.EngineConfig(sort_strategy="xla_sort"),
+                      device=cuda)
+    for c in tcm.bitstream_library():
+        for s in ("chunked_merge", "global_radix"):
+            cfg = dataclasses.replace(c, use_pallas=True, sort_strategy=s)
+            got = tp.convert(coo, cfg, device=cuda)
+            assert torch.equal(got.ptr, want.ptr), cfg.key
+            assert torch.equal(got.idx, want.idx), cfg.key
+
+
+def test_service_on_the_kernel_library_equals_the_cpu_path(cuda):
+    """PreprocService on the ``_pl`` library: DynPre's subgraphs, a batched
+    sample and a delta on the card equal the CPU path's (the twins)."""
+    from repro_torch.core.delta import EdgeDelta
+    from repro_torch.engine import PreprocService
+    lib = [dataclasses.replace(c, use_pallas=True)
+           for c in tcm.bitstream_library()]
+    rng = np.random.default_rng(11)
+    dst, src = tg.random_coo(rng, 4096, 1 << 14)
+    key = prng.PRNGKey(4)
+    seeds = rng.choice(4096, 1000, replace=False).astype(np.int32)
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        svc = PreprocService((25, 10), library=lib)
+        coo = tg.COO.from_arrays(dst, src, 4096, device=dev)
+        sub = svc.preprocess(coo, seeds, key)
+        csc = tp.convert(coo, svc.active_cfg, device=dev)
+        rows = torch.from_numpy(seeds[:600].reshape(2, 300)).to(dev)
+        batched = svc.sample_batched(csc, rows, prng.split(key, 2))
+        delta = EdgeDelta.from_arrays(dst[:50], src[:50][::-1].copy(),
+                                      dst[100:160], src[100:160],
+                                      n_nodes=4096, device=dev)
+        spliced = svc.apply_delta(csc, delta, mode="merge")
+        outs[dev.type] = [t.cpu() for t in (
+            sub.csc.ptr, sub.csc.idx, sub.order, batched.csc.ptr,
+            batched.csc.idx, batched.order, spliced.ptr, spliced.idx,
+            spliced.n_edges)]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert torch.equal(a, b)
+
+
+def test_prefetcher_on_a_side_stream_equals_sync_batches(cuda):
+    """Batches made on the producer's side stream (a convert, a sample
+    and a gather on the card) equal SyncBatches's, with a consumer that
+    frees each batch at once and allocates over it: the batch's
+    record_stream keeps its memory from the producer's next batch until
+    the consumer's stream is done with it."""
+    from repro_torch.engine import Prefetcher, SyncBatches
+    rng = np.random.default_rng(12)
+    dst, src = tg.random_coo(rng, 8192, 1 << 16)
+    coo = tg.COO.from_arrays(dst, src, 8192, device=cuda)
+    feats = torch.randn(8192, 64, device=cuda)
+
+    def batch_fn(step):
+        sub = tp.preprocess(coo, np.arange(step, step + 512, dtype=np.int32),
+                            (10, 5), prng.PRNGKey(step), SLICE_CFG,
+                            device=cuda)
+        return sub, tp.gather_features(sub, feats)
+
+    def consume(it):
+        out = []
+        for step, (sub, x) in it:
+            y = (x @ x.T).sum(1)  # on the consumer's stream
+            del sub, x  # freed at once
+            junk = torch.empty(1 << 22, device=cuda).fill_(float(step))
+            out.append((y + junk[:1]).cpu())
+        return out
+
+    with SyncBatches(batch_fn, stop=8) as it:
+        want = consume(it)
+    with Prefetcher(batch_fn, stop=8) as pf:
+        assert pf.stream is not None
+        got = consume(pf)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_launch_counters_are_exact_under_two_threads(cuda):
+    """Kernel launches from two threads at once (each on its own stream)
+    count exactly."""
+    import threading
+    arr = torch.arange(1 << 16, dtype=torch.int32, device=cuda)
+    q = torch.randint(0, 1 << 16, (1 << 12,), dtype=torch.int32,
+                      device=cuda)
+    reset_launch_counts()
+
+    def run():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for _ in range(500):
+                tre.rank_search(arr, q)
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert launch_counts()["rank_search"] == 1000

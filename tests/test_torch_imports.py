@@ -58,7 +58,13 @@ def test_port_file_inventory():
                  "src/repro_torch/train/checkpoint.py",
                  "src/repro_torch/train/loop.py",
                  "src/repro_torch/data/synthetic.py",
-                 "src/repro_torch/serve/gnn.py"):
+                 "src/repro_torch/serve/gnn.py",
+                 "src/repro_torch/core/costmodel.py",
+                 "src/repro_torch/core/reconfig.py",
+                 "src/repro_torch/core/delta.py",
+                 "src/repro_torch/engine/__init__.py",
+                 "src/repro_torch/engine/service.py",
+                 "src/repro_torch/engine/prefetch.py"):
         assert must in names, must
 
 
@@ -91,6 +97,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.prefix_partition\n"
         "import repro_torch.models.transformer, repro_torch.launch.steps\n"
         "import repro_torch.launch.train, repro_torch.train.loop\n"
+        "import repro_torch.engine, repro_torch.core.reconfig\n"
+        "import repro_torch.core.delta\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
         "assert len(kernel_wrappers()) == 17\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -379,10 +379,17 @@ def test_straggler_watchdog_fires(tmp_path):
 
 
 def test_prefetch_names_the_unported_engine_service(tmp_path):
+    """The engine service's Prefetcher is ported: ``prefetch=True`` no
+    longer raises, and it trains what the synchronous loop trains."""
     params, opt, step_fn, batch_fn = _toy_problem()
-    cfg = LoopConfig(total_steps=1, ckpt_dir=str(tmp_path), prefetch=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        train(cfg, step_fn, params, opt, batch_fn)
+    cfg = LoopConfig(total_steps=7, ckpt_dir=str(tmp_path / "p"),
+                     log_every=1, prefetch=True)
+    p1, _, h1 = train(cfg, step_fn, params, opt, batch_fn)
+    params, opt, step_fn, batch_fn = _toy_problem()
+    cfg = LoopConfig(total_steps=7, ckpt_dir=str(tmp_path / "s"),
+                     log_every=1)
+    p2, _, h2 = train(cfg, step_fn, params, opt, batch_fn)
+    assert torch.equal(p1["w"], p2["w"]) and h1 == h2
 
 
 def test_run_lm_resumes_after_injected_failure(tmp_path):
