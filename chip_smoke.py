@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's GraphSAGE serve paths, its engine
+"""Drive the PyTorch + CUDA port's GNN serve paths (GraphSAGE under two
+routings, GAT, GatedGCN and MeshGraphNet, keysort and reservoir
+selection, graph updates through the captured step), its engine
 service, its gemma2-9b prefill and its gemma2-9b training step on one
 H100.
 
@@ -78,8 +80,10 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    column), on a request's layer-1 shape with every row in a segment,
    and on a ragged E and D: within ``twin_tolerance`` (derived from
    float32 rounding) of the twin, the same bits twice, timed beside its
-   bound for the data, the twin and the transposed ``cumsum`` the port
-   ran before, with each version's distance from a float64 prefix. Then
+   bound for the data, the twin, ``torch.segment_reduce(msgs, "sum",
+   offsets=ptr)`` (the one library call of the same function) and the
+   transposed ``cumsum`` the port ran before, with each version's
+   distance from a float64 prefix. Then
    the largest request once more (eager ``slot_fn``) under
    ``torch.profiler``: its wall time, its kernels' device time, the ops
    that take the most of it, the rank and scan kernels' time by name and
@@ -147,6 +151,41 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    counters (bumped from two threads) equal. ``train/loop.py`` with and
    without prefetch, 3 steps of the gemma2-9b smoke config: bit-equal.
    Counters read: every kernel of the phase launched.
+7b. families — on the slice path's Reddit CSC, at the reference's
+   minibatch_lg fanout (15, 10), 1,024 seeds a request, 4 slots, each
+   with launch counters set to 0 and read after: graphsage-reddit (at
+   this fanout, Floyd's side of 7c's keysort), gat-cora (2 layers, 8
+   heads x 8), gatedgcn (16 layers, d 70) and meshgraphnet (15 layers, d
+   128, 2-layer MLPs, d_out 3, head to 41) at their published widths,
+   602 features in, 41 classes out, served under ``SLICE_CFG``, and
+   gatedgcn again under ``MERGE_CFG`` with ``use_pallas_agg`` (the
+   segment-sum kernel on D = 70): the checks of phase 4 (one captured
+   step program; the counters against a trace; a lane's 4 / 32 / 15
+   column scans or 32 segment sums), batched == sequential, the largest
+   request's logits finite; every column-scan or segment-sum call of
+   that request (D = 8, 64 and 1 for GAT's softmax denominators and
+   aggregations, 70, 128) against its twin within its derived tolerance,
+   the first of each width timed beside its bound, twin and library
+   call; the family's smoke config on a small graph card == CPU; one
+   replayed step profiled.
+7c. selections — graphsage-reddit served under ``SLICE_CFG`` with
+   keysort selection (the checks of 7b) and 4 requests' subgraphs (ptr,
+   idx, order) equal, bit for bit, to the same sampling run on the host
+   from the card's CSC copied over; reservoir selection (a sequential
+   step a neighbour slot, about 1,000 a layer: run eagerly through
+   ``pipeline.sample_subgraph``, not captured) on 4 requests, counters
+   set to 0 and read, each subgraph equal to the host's; one 1,024-seed
+   sample under each selection timed.
+7d. updates — a stream of 12 items on the Reddit CSC under
+   ``SLICE_CFG`` (graphsage-reddit, fanout (15, 10)), every third an
+   update of 4,096 inserts and 4,096 deletes of existing edges
+   (``delta_cap`` 4,096), the rest queries, submitted at once to one
+   engine whose step was captured before; counters set to 0 before the
+   engine is built and read after the stream. Every prediction equals
+   the eager ``slot_fn`` on the oracle's graph (``apply_delta_jit``
+   chained where the updates sat); the final CSC equals the oracle's bit
+   for bit; one step program; every bound tensor at its address. Each
+   update's latency from submit to finish.
 8. LM kernels — the GNN paths' memory freed; the flash-attention forward
    (bf16 on tensor cores, float32 on scalar FMAs) against its twin at
    gemma2-9b's head shapes (16 heads over 8 kv heads,
@@ -279,6 +318,12 @@ REQUEST_DIGIT_PASSES = 9
 # one [524288, 602] float32 copy (a request's layer-1 messages, read and
 # written once) cannot take less: 2.53 GB at 3.35 TB/s
 COPY_BOUND_MS = 0.75
+# a small graph's logits card vs CPU, as a share of their largest
+# magnitude (at least 1): the column scan against its cumsum twin, cuBLAS
+# against the CPU's GEMMs. On the CPU the pointer sum against index_add_
+# (another order) moves the smoke families' logits by at most 6e-6 of it
+# (GatedGCN; graphsage 1.2e-6 absolute), so 1e-4 holds 15x that
+SMALL_LOGIT_TOL = 1e-4
 MERGE_KERNELS = ("chunk_sort", "fused_merge", "merge_rung",
                  "set_count_less", "segment_sum_sorted")
 LM_KERNELS = ("flash_attention_fwd",)
@@ -1792,26 +1837,36 @@ SCAN_CASES = {"full_stream": (SERVE_CAP, REDDIT["feats"], SERVE_NODES, True),
               "ragged_wide": (300_001, REDDIT["feats"], 150_007, False)}
 
 
+def recorded_calls(eng, seeds, rid, module, name):
+    """Copies of the arguments of every call one request (``slot_fn`` on
+    ``seeds``, eager) makes to ``module.name``, in order, taken by
+    wrapping it for that request."""
+    import torch
+
+    calls = []
+    fn = getattr(module, name)
+
+    def recording(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return fn(*args)
+    setattr(module, name, recording)
+    try:
+        eng.slot_fn(eng.params, seed_row(eng, seeds), eng.request_key(rid))
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, fn)
+    return calls
+
+
 def scan_calls_of_the_path(eng, seeds, rid):
     """{name: (ptr, msgs)}: copies of what one SLICE_CFG request (``slot_fn``
     on ``seeds``) hands the column scan, taken by wrapping
     ``models.gnn.ptr_seg_sum``: per layer the masked messages and the
     ones column of the degrees, in the order the forward calls them."""
-    import torch
     from repro_torch.models import gnn as tgnn
 
-    calls = []
-    kernel = tgnn.ptr_seg_sum
-
-    def recording(ptr, msgs):
-        calls.append((ptr.clone(), msgs.clone()))
-        return kernel(ptr, msgs)
-    tgnn.ptr_seg_sum = recording
-    try:
-        eng.slot_fn(eng.params, seed_row(eng, seeds), eng.request_key(rid))
-        torch.cuda.synchronize()
-    finally:
-        tgnn.ptr_seg_sum = kernel
+    calls = recorded_calls(eng, seeds, rid, tgnn, "ptr_seg_sum")
     check(len(calls) == len(SCAN_CALLS)
           and [m.shape[1] for _, m in calls] == [REDDIT["feats"], 1, 128, 1],
           f"a request hands the column scan {SCAN_CALLS}: "
@@ -1834,16 +1889,18 @@ def scan_case(dev, seed, e, d, n, full):
     return ptr, msgs
 
 
-def scan_reading(ptr, msgs, twin=True):
+def scan_reading(ptr, msgs, twin=True, timed=True):
     """The column scan on (ptr, msgs) against its twin within
     ``twin_tolerance``, the same bits on two launches, and timed: the
     kernel, the twin (``torch.cumsum`` along dim 0 and two
-    ``index_select``s), the transposed form the port ran before (a
+    ``index_select``s), the one PyTorch call that computes the same
+    function (``torch.segment_reduce(msgs, "sum", offsets=ptr)``: the
+    library yardstick), the transposed form the port ran before (a
     contiguous copy of msgs.T, ``cumsum`` along its last axis, two
-    ``index_select``s, the transpose back: the library yardstick), and
-    the bound for this data: the rows below ptr[N] read, the output
-    written. ``twin=False``: the bound and the kernel alone (a check
-    elsewhere holds it)."""
+    ``index_select``s, the transpose back), and the bound for this data:
+    the rows below ptr[N] read, the output written. ``twin=False``: the
+    bound and the kernel alone (a check elsewhere holds it);
+    ``timed=False``: the checks alone."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ptr_scan
@@ -1857,9 +1914,10 @@ def scan_reading(ptr, msgs, twin=True):
           "on two launches")
     lim = min(e, int(ptr[-1]))
     b_ms, b_by = bound(4 * (lim * d + n * d + n + 1), lim * d + n * d)
-    r = dict(ms=cuda_ms(lambda: ptr_scan.ptr_seg_sum(ptr, msgs)),
-             bound_ms=b_ms, bound_by=b_by, rows_read=lim,
+    r = dict(bound_ms=b_ms, bound_by=b_by, rows_read=lim,
              shape=f"[{e}, {d}] -> {n} rows, ptr[N] = {lim}")
+    if timed:
+        r["ms"] = cuda_ms(lambda: ptr_scan.ptr_seg_sum(ptr, msgs))
     if not twin:
         return r
 
@@ -1868,6 +1926,10 @@ def scan_reading(ptr, msgs, twin=True):
     p = ptr.to(torch.int64)
 
     def library():
+        return torch.segment_reduce(msgs, "sum", offsets=p, axis=0,
+                                    unsafe=True)
+
+    def transposed():
         cs = F.pad(torch.cumsum(msgs.T.contiguous(), dim=1), (1, 0))
         return (cs.index_select(1, p[1:]) - cs.index_select(1, p[:-1])).T
     want = plain()
@@ -1877,16 +1939,19 @@ def scan_reading(ptr, msgs, twin=True):
     check(bool((err <= tol).all()),
           f"ptr_seg_sum [{e}, {d}] within twin_tolerance of the twin "
           f"(worst {share:.3f} of it)")
+    r.update(max_abs_err=float(err.max()) if err.numel() else 0.0,
+             share_of_tolerance=share)
+    if not timed:
+        return r
     cs64 = F.pad(torch.cumsum(msgs.double(), 0), (0, 0, 1, 0))
     exact = cs64.index_select(0, p[1:]) - cs64.index_select(0, p[:-1])
     lib_out = library()
-    r.update(max_abs_err=float(err.max()) if err.numel() else 0.0,
-             share_of_tolerance=share,
-             kernel_vs_float64=float((got.double() - exact).abs().max()),
+    r.update(kernel_vs_float64=float((got.double() - exact).abs().max()),
              twin_vs_float64=float((want.double() - exact).abs().max()),
              library_vs_float64=float((lib_out.double() - exact).abs().max()),
              plain_ms=cuda_ms(plain, iters=2, warmup=1),
-             library_ms=cuda_ms(library, iters=5))
+             library_ms=cuda_ms(library, iters=5),
+             transposed_ms=cuda_ms(transposed, iters=5))
     del want, tol, err, cs64, exact, lib_out
     return r
 
@@ -2058,13 +2123,20 @@ def step_profile(eng, reqs, handles, lane_trace, top=10):
                 step_walls_ms=walls, step_spans_ms=spans, **prof)
 
 
-def seed_row(eng, seeds):
-    """A request's SENTINEL-padded seed row on the engine's device."""
+def padded_row(seeds, cap=None):
+    """A request's row of ``cap`` (default SEED_CAP) on the host,
+    SENTINEL after its seeds."""
     import torch
     from repro_torch.core.graph import SENTINEL
-    row = torch.full((eng.seed_cap,), SENTINEL, dtype=torch.int32)
+    row = torch.full((SEED_CAP if cap is None else cap,), SENTINEL,
+                     dtype=torch.int32)
     row[:len(seeds)] = torch.tensor(seeds, dtype=torch.int32)
-    return row.to(eng.device)
+    return row
+
+
+def seed_row(eng, seeds):
+    """A request's SENTINEL-padded seed row on the engine's device."""
+    return padded_row(seeds, eng.seed_cap).to(eng.device)
 
 
 def batched_equals_sequential(eng, reqs, handles, tag):
@@ -2079,21 +2151,22 @@ def batched_equals_sequential(eng, reqs, handles, tag):
 
 
 def small_graph_check(dev, seed, cfg, gnn_cfg, extra, tag):
-    """A small graph converted, sampled and run through the forward on the
-    card under ``cfg`` equals the CPU path: integers exact, logits within
-    1e-4 (cuBLAS and the card's sums add in another order than the
-    CPU)."""
+    """A small graph converted, sampled and run through the forward of
+    ``gnn_cfg``'s family on the card under ``cfg`` equals the CPU path:
+    integers exact, logits within SMALL_LOGIT_TOL of their largest
+    magnitude (at least 1; cuBLAS and the card's sums add in another order
+    than the CPU)."""
     import numpy as np
     import torch
     from repro_torch.core import pipeline
     from repro_torch.core.graph import COO, random_coo
-    from repro_torch.models.gnn import GraphSAGE, subgraph_batch
+    from repro_torch.models.gnn import gnn_model, subgraph_batch
 
     d, s = random_coo(np.random.default_rng(seed), 3000, 20000)
     small = COO.from_arrays(d, s, 3000, capacity=1 << 15, device="cpu")
     feats = torch.from_numpy(np.random.default_rng(seed + 1).normal(
         size=(3000, 24)).astype(np.float32))
-    model = GraphSAGE(gnn_cfg, d_in=24, n_classes=5,
+    model = gnn_model(gnn_cfg, d_in=24, n_classes=5,
                       generator=torch.Generator().manual_seed(seed),
                       device="cpu")
     csc_c = pipeline.convert(small, cfg, device="cpu")
@@ -2116,9 +2189,10 @@ def small_graph_check(dev, seed, cfg, gnn_cfg, extra, tag):
         lc = model(subgraph_batch(sub_c, feats))
         lg = model.to(dev)(subgraph_batch(sub_g, feats.to(dev)))
     err = float((lg.cpu() - lc).abs().max())
+    tol = SMALL_LOGIT_TOL * max(1.0, float(lc.abs().max()))
     extra[f"{tag}_small_logit_max_abs_err"] = err
-    check(torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4),
-          f"{tag} small logits card vs CPU within 1e-4 (max err {err})")
+    check(err <= tol, f"{tag} small logits card vs CPU within {tol:.3g} "
+          f"(max err {err})")
     check(bool(torch.isfinite(lg).all()), f"{tag} finite logits")
 
 
@@ -2268,6 +2342,389 @@ def merge_checks(dev, seed, coo, csc_m, eng, reqs, handles, eng_s, extra):
     small_graph_check(dev, seed, MERGE_CFG,
                       dataclasses.replace(smoke_config(), use_pallas_agg=True),
                       extra, "merge")
+
+
+# ------------------------------------------------------------- phases 7b-7d
+# the slice-13 paths on the Reddit CSC, at the reference's minibatch_lg
+# fanout: the three other GNN families served at their published widths
+# (GatedGCN also under MERGE_CFG with use_pallas_agg), graphsage-reddit
+# served under keysort selection, reservoir selection run eagerly, and a
+# stream of queries and graph updates through one captured step
+FAMILY_FANOUTS = (15, 10)
+# (graphsage-reddit at this fanout too: Floyd's side of keysort's step)
+FAMILIES = (("graphsage-reddit", "slice"), ("gat-cora", "slice"),
+            ("gatedgcn", "slice"), ("gatedgcn", "merge"),
+            ("meshgraphnet", "slice"))
+# pointer or segment sums of one request's forward: GAT a softmax
+# denominator and an aggregation a layer, GatedGCN a numerator and a
+# denominator a layer, MeshGraphNet an aggregation a layer, GraphSAGE a
+# mean (messages and degrees) a layer
+FAMILY_SUMS = {"gat-cora": 4, "gatedgcn": 32, "meshgraphnet": 15,
+               "graphsage-reddit": 4}
+HOST_CHECKED = 4  # requests whose subgraphs are held against the host's
+RESERVOIR_REQUESTS = 4
+# the update stream: every UPDATE_EVERY-th of UPDATE_ITEMS items is an
+# update of UPDATE_EDGES inserts and as many deletes of existing edges
+UPDATE_ITEMS, UPDATE_EVERY, UPDATE_EDGES = 12, 3, 4096
+
+
+def family_path(dev, seed, arch, which, csc, feats, n_requests,
+                selection="floyd"):
+    """Launch counters to 0; ``arch`` at its published width (602
+    features in, 41 classes out, random weights from ``--seed``) served on
+    the Reddit CSC under ``which``'s engine configuration
+    (``launch/serve.ENGINE_CFGS``, with its use_pallas_agg) and
+    ``selection``, on FAMILY_FANOUTS with SEED_CAP seeds and N_SLOTS
+    slots: a warm-up request (the step's eager first run, its capture),
+    then ``n_requests`` requests of 1..SEED_CAP seeds twice, traced (the
+    counted run) and timed; counters read. Returns the readings, the
+    engine, the requests and their handles."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import ENGINE_CFGS
+    from repro_torch.models.gnn import gnn_model
+    from repro_torch.serve import GnnServeEngine
+
+    engine_cfg, agg = ENGINE_CFGS[which]
+    engine_cfg = dataclasses.replace(engine_cfg, selection=selection)
+    gcfg = dataclasses.replace(get_config(arch), use_pallas_agg=agg)
+    model = gnn_model(gcfg, d_in=REDDIT["feats"], n_classes=REDDIT["classes"],
+                      generator=torch.Generator().manual_seed(seed + 2),
+                      device=dev)
+    out = dict(arch=arch, engine_cfg=engine_cfg.key,
+               params=sum(p.numel() for p in model.parameters()))
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng = GnnServeEngine(model, csc, feats, fanouts=FAMILY_FANOUTS,
+                         n_slots=N_SLOTS, seed_cap=SEED_CAP, cfg=engine_cfg,
+                         device=dev)
+    rng = np.random.default_rng(seed + 13)
+    eng.submit(rng.choice(REDDIT["nodes"], 16, replace=False).tolist())
+    eng.close_submissions()
+    eng.run()  # warm-up request: the step's eager first run, its capture
+    torch.cuda.synchronize()
+    out["step_programs_after_warmup"] = eng.step_cache_size()
+    eng.reopen()
+    reqs = [rng.choice(REDDIT["nodes"], int(k), replace=False).tolist()
+            for k in rng.integers(1, SEED_CAP + 1, n_requests)]
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    counted, handles = serve_run(eng, reqs, traced=True)
+    out.update(counted)
+    out.update(serve_run(eng, reqs)[0])
+    out["peak_mem_gib"] = max(out["peak_mem_gib"], out["serve_peak_mem_gib"])
+    return out, eng, reqs, handles
+
+
+def seg_tolerance(dst, msgs, n):
+    """A bound on the segment-sum kernel's float32 error against the sum
+    rounded once: (count + 1) units of float32 roundoff (2^-24) of the
+    segment's sum of |messages| (any order of float32 additions)."""
+    import torch
+    from repro_torch.kernels import segment_agg as tsa
+    valid = dst < n
+    cnt = torch.bincount(torch.clamp(dst[valid], max=n - 1).to(torch.int64),
+                         minlength=n).to(torch.float64)
+    abs_sum = tsa._segment_sum_plain(dst, msgs.abs(), n).to(torch.float64)
+    return (cnt[:, None] + 1.0) * 2.0 ** -24 * abs_sum
+
+
+def seg_sum_reading(dst, msgs, n, timed=True):
+    """The segment-sum kernel on one call's (dst, msgs) against its twin
+    (the float64 sum rounded once) within ``seg_tolerance``, the same bits
+    on two launches; ``timed``: the kernel, the twin, ``index_add_`` (the
+    library yardstick) and the bound (the live rows read, the output
+    written)."""
+    import torch
+    from repro_torch.kernels import segment_agg as tsa
+
+    e, d = msgs.shape
+    got = tsa.segment_sum_sorted(dst, msgs, n)
+    again = tsa.segment_sum_sorted(dst, msgs, n)
+    want = tsa._segment_sum_plain(dst, msgs, n)
+    tol = seg_tolerance(dst, msgs, n)
+    err = (got.double() - want.double()).abs()
+    share = float((err / tol.clamp_min(1e-300)).max()) if err.numel() else 0.0
+    check(bool((err <= tol).all()) and torch.equal(got, again),
+          f"segment_sum_sorted [{e}, {d}] within its tolerance of the twin "
+          f"(worst {share:.3f} of it) and the same bits twice")
+    r = dict(max_abs_err=float(err.max()) if err.numel() else 0.0,
+             share_of_tolerance=share, shape=f"[{e}, {d}] -> [{n}, {d}]")
+    if timed:
+        live = int((dst < n).sum())
+        r["bound_ms"], r["bound_by"] = bound(4 * (live * d + n * d + live),
+                                             live * d)
+        dst_lib = torch.clamp(dst, max=n).to(torch.int64)
+        r.update(ms=cuda_ms(lambda: tsa.segment_sum_sorted(dst, msgs, n)),
+                 plain_ms=cuda_ms(lambda: tsa._segment_sum_plain(dst, msgs,
+                                                                 n), iters=5),
+                 library_ms=cuda_ms(lambda: torch.zeros(
+                     (n + 1, d), device=msgs.device).index_add_(0, dst_lib,
+                                                                msgs)),
+                 rows_read=live)
+    del got, again, want, tol, err
+    return r
+
+
+def family_sum_readings(tag, eng, seeds, rid):
+    """Every pointer (column-scan) and segment-sum call of one request of
+    the family's forward, recorded, each held against its twin within its
+    derived tolerance; the first call of each width timed. Returns
+    {call: reading}."""
+    import torch
+    from repro_torch.kernels import segment_agg as tsa
+    from repro_torch.models import gnn as tgnn
+
+    scans = recorded_calls(eng, seeds, rid, tgnn, "ptr_seg_sum")
+    sums = recorded_calls(eng, seeds, rid, tsa, "segment_sum_padded")
+    out, widths = {}, set()
+    for i, (ptr, msgs) in enumerate(scans):
+        d = msgs.shape[1]
+        out[f"scan{i}_d{d}"] = scan_reading(ptr, msgs,
+                                            timed=("scan", d) not in widths)
+        widths.add(("scan", d))
+    for i, (dst, msgs, n) in enumerate(sums):
+        d = msgs.shape[1]
+        out[f"segsum{i}_d{d}"] = seg_sum_reading(
+            dst.contiguous(), msgs.to(torch.float32).contiguous(), n,
+            timed=("segsum", d) not in widths)
+        widths.add(("segsum", d))
+    del scans, sums
+    torch.cuda.empty_cache()
+    for key, r in out.items():
+        if "ms" in r:
+            log(f"[{tag} sums] {key}: {r}")
+    return out
+
+
+def family_checks(dev, seed, tag, arch, which, eng, out, reqs, handles,
+                  extra):
+    """One family's served run held: one step program, the counters
+    against a trace (``serve_launch_checks``), a lane's pointer or segment
+    sums, batched == sequential, finite logits of the expected shape for
+    the largest request, the sums of that request against their twins,
+    a small graph under the same routing card == CPU, and one replayed
+    step profiled (``step_profile``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline
+    from repro_torch.launch.serve import ENGINE_CFGS
+    from repro_torch.models.gnn import subgraph_batch
+
+    lane = serve_launch_checks(tag, eng, out, reqs, handles)
+    kernel = "segment_sum_sorted" if which == "merge" else "ptr_seg_sum"
+    check(lane.get(kernel, 0) == FAMILY_SUMS[arch],
+          f"{tag}: a lane runs {FAMILY_SUMS[arch]} {kernel} launches: {lane}")
+    batched_equals_sequential(eng, reqs, handles, tag)
+    big = max(range(len(reqs)), key=lambda i: len(reqs[i]))
+    with torch.inference_mode():
+        sub = pipeline.sample_subgraph(
+            eng.params["csc"], seed_row(eng, reqs[big]), eng.fanouts,
+            eng.request_key(handles[big].rid), eng.engine_cfg)
+        logits = eng.params["gnn"](subgraph_batch(sub,
+                                                  eng.params["features"]))
+    check(tuple(logits.shape) == (sub.order.shape[0], REDDIT["classes"])
+          and bool(torch.isfinite(logits).all()),
+          f"{tag}: finite logits [{sub.order.shape[0]}, {REDDIT['classes']}]"
+          f" for the largest request: {tuple(logits.shape)}")
+    out["largest_logit_abs_max"] = float(logits.abs().max())
+    del sub, logits
+    out["sums"] = family_sum_readings(tag, eng, reqs[big], handles[big].rid)
+    small_graph_check(dev, seed, eng.engine_cfg, dataclasses.replace(
+        get_config(arch, smoke=True), use_pallas_agg=ENGINE_CFGS[which][1]),
+        extra, tag)
+    out["step_profile"] = step_profile(eng, reqs, handles, out["lane_trace"])
+    return lane
+
+
+def host_csc(csc):
+    """The card's CSC copied to the host."""
+    from repro_torch.core.graph import CSC
+    return CSC(csc.ptr.cpu(), csc.idx.cpu(), csc.n_edges.cpu(), csc.n_nodes)
+
+
+def same_as_host(tag, csc, csc_h, seeds, key, cfg):
+    """One request's subgraph sampled on the card equals, bit for bit, the
+    same sampling run on the host from the card's CSC copied over."""
+    import torch
+    from repro_torch.core import pipeline
+    row = padded_row(seeds)
+    got = pipeline.sample_subgraph(csc, row.to(csc.idx.device),
+                                   FAMILY_FANOUTS, key, cfg)
+    want = pipeline.sample_subgraph(csc_h, row, FAMILY_FANOUTS, key, cfg)
+    for a, b, what in ((got.csc.ptr, want.csc.ptr, "ptr"),
+                       (got.csc.idx, want.csc.idx, "idx"),
+                       (got.order, want.order, "order"),
+                       (got.csc.n_edges, want.csc.n_edges, "n_edges")):
+        check(torch.equal(a.cpu(), b), f"{tag}: subgraph {what} card == host")
+    return int(want.n_sub_nodes)
+
+
+def selection_phase(dev, seed, csc, csc_h):
+    """Reservoir selection (the reference's baseline, a sequential step a
+    neighbour slot of the window: run eagerly, not captured) under
+    SLICE_CFG: launch counters to 0, RESERVOIR_REQUESTS requests sampled
+    on the card, counters read, each subgraph equal to the host's; then
+    one request of SEED_CAP seeds sampled under each selection, wall
+    seconds (median of 3, synchronised)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline, prng
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import SLICE_CFG
+
+    rng = np.random.default_rng(seed + 17)
+    cfg = dataclasses.replace(SLICE_CFG, selection="reservoir")
+    reqs = [rng.choice(REDDIT["nodes"], int(k), replace=False).tolist()
+            for k in rng.integers(1, SEED_CAP + 1, RESERVOIR_REQUESTS)]
+    keys = [prng.fold_in(prng.PRNGKey(seed), 100 + i)
+            for i in range(len(reqs))]
+    reset_launch_counts()
+    for seeds, key in zip(reqs, keys):
+        pipeline.sample_subgraph(csc, padded_row(seeds).to(dev),
+                                 FAMILY_FANOUTS, key, cfg)
+    torch.cuda.synchronize()
+    out = dict(launches=launch_counts(), seeds=[len(r) for r in reqs])
+    out["sub_nodes"] = [same_as_host("reservoir", csc, csc_h, seeds, key,
+                                     cfg) for seeds, key in zip(reqs, keys)]
+    full = torch.from_numpy(rng.choice(REDDIT["nodes"], SEED_CAP,
+                                       replace=False).astype(np.int32))
+    out["sample_s"] = {
+        sel: wall_s(lambda: pipeline.sample_subgraph(
+            csc, full.to(dev), FAMILY_FANOUTS, keys[0],
+            dataclasses.replace(SLICE_CFG, selection=sel)), dev)
+        for sel in ("floyd", "keysort", "reservoir")}
+    return out
+
+
+def keysort_checks(eng, reqs, handles, csc_h):
+    """The keysort-served requests: HOST_CHECKED of them sampled again on
+    the card equal the host's sampling of the card's CSC."""
+    return [same_as_host("keysort", eng.params["csc"], csc_h, seeds,
+                         eng.request_key(h.rid), eng.engine_cfg)
+            for seeds, h in zip(reqs[:HOST_CHECKED], handles[:HOST_CHECKED])]
+
+
+def existing_edges(csc, rng, k):
+    """``k`` edges of the graph (uniform positions of its live index
+    slots) as host (dst, src) arrays: src from ``idx``, dst the node whose
+    pointer span holds the position."""
+    import numpy as np
+    import torch
+    pos = torch.from_numpy(rng.integers(0, int(csc.n_edges), k).astype(
+        np.int32)).to(csc.idx.device)
+    src = csc.idx[pos.to(torch.int64)]
+    dst = torch.searchsorted(csc.ptr, pos, right=True) - 1
+    return dst.to(torch.int32).cpu().numpy(), src.cpu().numpy()
+
+
+def update_phase(dev, seed, csc, feats):
+    """A stream of UPDATE_ITEMS items on the Reddit CSC under SLICE_CFG
+    (graphsage-reddit at full width, FAMILY_FANOUTS, SEED_CAP, N_SLOTS,
+    ``delta_cap`` UPDATE_EDGES): every UPDATE_EVERY-th item an update of
+    UPDATE_EDGES inserts and as many deletes of existing edges, the rest
+    queries of 1..SEED_CAP seeds. The oracle chains ``apply_delta_jit``
+    over the stream first; then launch counters to 0, an engine, a
+    warm-up query (its capture), the stream submitted at once and served,
+    counters read. Checked: every prediction equals the eager ``slot_fn``
+    on the oracle's graph at the query's place in the stream; updates
+    finish with no predictions; the engine's final CSC equals the
+    oracle's bit for bit; one step program; every bound tensor at its
+    address. Read: each update's latency from submit to finish and the
+    host time of its apply."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.graphsage_reddit import config
+    from repro_torch.core.delta import EdgeDelta
+    from repro_torch.engine.service import apply_delta_jit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.models.gnn import gnn_model
+    from repro_torch.serve import GnnServeEngine
+
+    n = REDDIT["nodes"]
+    cap = int(csc.idx.shape[0])
+    rng = np.random.default_rng(seed + 19)
+    stream, cur = [], csc
+    t0 = time.perf_counter()
+    for i in range(UPDATE_ITEMS):
+        if i % UPDATE_EVERY == UPDATE_EVERY - 1:
+            dels = existing_edges(cur, rng, UPDATE_EDGES)
+            ins = (rng.integers(0, n, UPDATE_EDGES).astype(np.int32),
+                   rng.integers(0, n, UPDATE_EDGES).astype(np.int32))
+            delta = EdgeDelta.from_arrays(*ins, *dels, n_nodes=n,
+                                          capacity=UPDATE_EDGES, device=dev)
+            cur = apply_delta_jit(cur, delta, cfg=SLICE_CFG,
+                                  out_capacity=cap)
+            stream.append(("u", ins, dels))
+        else:
+            seeds = rng.choice(n, int(rng.integers(1, SEED_CAP + 1)),
+                               replace=False).tolist()
+            stream.append(("q", seeds, cur))
+    torch.cuda.synchronize()
+    out = dict(oracle_s=time.perf_counter() - t0)
+
+    model = gnn_model(config(), d_in=REDDIT["feats"],
+                      n_classes=REDDIT["classes"],
+                      generator=torch.Generator().manual_seed(seed + 2),
+                      device=dev)
+    reset_launch_counts()
+    eng = GnnServeEngine(model, csc, feats, fanouts=FAMILY_FANOUTS,
+                         n_slots=N_SLOTS, seed_cap=SEED_CAP, cfg=SLICE_CFG,
+                         device=dev, delta_cap=UPDATE_EDGES)
+    warm = rng.choice(n, 16, replace=False).tolist()
+    eng.submit(warm)
+    eng.close_submissions()
+    eng.run()
+    torch.cuda.synchronize()
+    eng.reopen()
+    bound = eng._bindings()
+    handles = []
+    t0 = time.perf_counter()
+    for item in stream:
+        if item[0] == "q":
+            handles.append(eng.submit(item[1]))
+        else:
+            _, ins, dels = item
+            handles.append(eng.submit_update(zip(*ins), zip(*dels)))
+    eng.close_submissions()
+    done = eng.run()
+    torch.cuda.synchronize()
+    out["stream_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    check(len(done) == len(stream), "every item of the stream finished")
+    check(eng.step_cache_size() == 1 and eng._bindings() == bound,
+          f"one step program ({eng.step_cache_size()}) and every bound "
+          "tensor at its address across the updates")
+    fin = eng.params["csc"]
+    check(torch.equal(fin.ptr, cur.ptr) and torch.equal(fin.idx, cur.idx)
+          and int(fin.n_edges) == int(cur.n_edges),
+          "the engine's CSC after the stream == the oracle's chain")
+    for h, item in zip(handles, stream):
+        if item[0] == "u":
+            check(h.tokens_out == [], f"update {h.rid} emits nothing")
+            continue
+        seeds, graph = item[1], item[2]
+        bundle = {**eng.params, "csc": graph}
+        seq = eng.slot_fn(bundle, seed_row(eng, seeds),
+                          eng.request_key(h.rid))
+        check(h.tokens_out == seq[:len(seeds)].tolist(),
+              f"query {h.rid} == the eager slot_fn on the graph at its place "
+              "in the stream")
+    ups = [h for h, item in zip(handles, stream) if item[0] == "u"]
+    out.update(
+        updates=len(ups), queries=len(stream) - len(ups),
+        steps=eng.stats.steps, n_edges_after=int(fin.n_edges),
+        update_latency_ms=[h.total_latency_s * 1e3 for h in ups],
+        update_apply_host_ms=[(h.finish_t - h.admit_t) * 1e3 for h in ups],
+        query_latency_ms=[h.total_latency_s * 1e3 for h, item
+                          in zip(handles, stream) if item[0] == "q"])
+    del eng, stream, cur
+    return out
 
 
 # ------------------------------------------------------------- phase 7a
@@ -4043,9 +4500,10 @@ def main():
     check(not cprof["ops"] and len(cprof["merge_rung_spans_ms"]) == rungs,
           f"the profiled convert ran no plain ladder op ({cprof['ops']}) "
           f"and {rungs} merge_rung calls")
-    del meng, csc, eng, handles, mhandles
+    del meng, eng, handles, mhandles
     gc.collect()
     torch.cuda.empty_cache()
+
 
     # 7a. the engine service: no serve engine is alive (no CUDA graph is
     # captured while a prefetch producer runs)
@@ -4055,7 +4513,80 @@ def main():
     check(all(sout["launches"][k] > 0 for k in SERVICE_KERNELS),
           f"every kernel of the service phase launched: {sout['launches']}")
     log(f"[service] phase done in {time.perf_counter() - t0:.1f}s")
-    del mcoo, mcsc, feats
+    del mcoo, mcsc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7b. the GAT, GatedGCN and MeshGraphNet families served
+    fouts = {}
+    for arch, which in FAMILIES:
+        tag = f"{arch} {which}"
+        fout, feng, freqs, fhandles = family_path(
+            dev, args.seed, arch, which, csc, feats, args.requests)
+        log_serve(tag, fout)
+        kernels = SLICE_KERNELS if which == "slice" else MERGE_KERNELS
+        check(all(fout["launches"][k] > 0 for k in kernels),
+              f"{tag}: every kernel of its routing launched: "
+              f"{fout['launches']}")
+        flane = family_checks(dev, args.seed, tag, arch, which, feng, fout,
+                              freqs, fhandles, extra)
+        log(f"[{tag}] {fout['params']:,} parameters; captured step: "
+            f"{fout['serve']['steps']} replays, {fout['step_launches']} "
+            f"launches a replay, {flane} a lane; largest request's logits "
+            f"up to {fout['largest_logit_abs_max']:.4g}; batched == "
+            "sequential, sums == twins, small graph card == CPU: ok")
+        log_profile(f"{tag} step profile", fout["step_profile"])
+        log(f"[{tag} step profile] a replayed step: wall "
+            f"{fout['step_profile']['step_wall_ms']:.2f} ms, device span "
+            f"{fout['step_profile']['step_device_span_ms']:.2f} ms")
+        fouts[tag] = fout
+        del feng, fhandles
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 7c. keysort served; reservoir run eagerly; both against the host
+    t0 = time.perf_counter()
+    csc_h = host_csc(csc)
+    kout, keng, kreqs, khandles = family_path(
+        dev, args.seed, "graphsage-reddit", "slice", csc, feats,
+        args.requests, selection="keysort")
+    log_serve("keysort serve", kout)
+    check(all(kout["launches"][k] > 0 for k in SLICE_KERNELS),
+          f"keysort: every kernel of the slice path launched: "
+          f"{kout['launches']}")
+    klane = family_checks(dev, args.seed, "keysort", "graphsage-reddit",
+                          "slice", keng, kout, kreqs, khandles, extra)
+    kout["host_sub_nodes"] = keysort_checks(keng, kreqs, khandles, csc_h)
+    log_profile("keysort step profile", kout["step_profile"])
+    log(f"[keysort] captured step: {kout['serve']['steps']} replays, "
+        f"{klane} a lane; batched == sequential; {HOST_CHECKED} requests' "
+        f"subgraphs ({kout['host_sub_nodes']} nodes) card == host: ok")
+    del keng, khandles
+    gc.collect()
+    torch.cuda.empty_cache()
+    rout = selection_phase(dev, args.seed, csc, csc_h)
+    check(all(rout["launches"][k] > 0 for k in SLICE_KERNELS
+              if k != "ptr_seg_sum"),
+          f"reservoir sampling: every sampling kernel of the slice path "
+          f"launched: {rout['launches']}")
+    log(f"[reservoir] {RESERVOIR_REQUESTS} requests ({rout['seeds']} seeds, "
+        f"{rout['sub_nodes']} subgraph nodes) card == host: ok; one "
+        f"{SEED_CAP}-seed sample, wall s: {rout['sample_s']}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    del csc_h
+
+    # 7d. graph updates streamed through the captured step
+    uout = update_phase(dev, args.seed, csc, feats)
+    check(all(uout["launches"][k] > 0 for k in SLICE_KERNELS),
+          f"updates: every kernel of the slice path launched: "
+          f"{uout['launches']}")
+    log(f"[updates] {uout['queries']} queries and {uout['updates']} updates "
+        f"of {UPDATE_EDGES} + {UPDATE_EDGES} edges in {uout['stream_s']:.3f}"
+        f"s ({uout['steps']} steps): every prediction == the chained oracle,"
+        f" final CSC == oracle, one step program, bindings kept; update "
+        f"latency ms {uout['update_latency_ms']}, apply host ms "
+        f"{uout['update_apply_host_ms']}")
+    del csc, feats
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[time] GNN phases done at {time.perf_counter() - t_start:.1f}s; "
@@ -4186,14 +4717,17 @@ def main():
     log(f"[extra] {json.dumps(extra)}")
 
     # 13. report
+    new_paths = list(fouts.values()) + [kout, rout, uout]
     launches = {k: out["launches"][k] + mout["launches"][k]
-                + sout["launches"][k] for k in SLICE_KERNELS + MERGE_KERNELS}
+                + sout["launches"][k]
+                + sum(p["launches"][k] for p in new_paths)
+                for k in SLICE_KERNELS + MERGE_KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"all ten GNN kernels launched across the two paths: {launches}")
     launches.update({k: lout["launches"][k] + tout["launches"][k]
                      + sout["launches"][k] for k in LM_KERNELS + TRAIN_KERNELS})
-    launches.update({k: sum(p["launches"][k] for p in (out, mout, sout, lout,
-                                                       tout))
+    launches.update({k: sum(p["launches"][k] for p in [out, mout, sout, lout,
+                                                       tout] + new_paths)
                      for k in OFF_PATH_KERNELS})
     kernels = []
     for key in (SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + TRAIN_KERNELS
@@ -4204,6 +4738,8 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, rows=rows, main_path=out, merge_path=mout,
+                       families=fouts, keysort=kout, reservoir=rout,
+                       updates=uout,
                        service=sout, lm_path=lout, train_path=tout,
                        extra=extra,
                        seconds=time.perf_counter() - t_start), f, indent=1)

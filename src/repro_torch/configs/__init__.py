@@ -1,10 +1,13 @@
-"""Model configurations of the port: graphsage-reddit (the GNN serve
-paths) and gemma2-9b (the LM prefill and training paths)."""
+"""Model configurations of the port: the four GNN families the serve
+paths run (graphsage-reddit, gat-cora, gatedgcn, meshgraphnet) and
+gemma2-9b (the LM prefill and training paths)."""
 from __future__ import annotations
 
-from . import gemma2_9b, graphsage_reddit
+from . import gat_cora, gatedgcn, gemma2_9b, graphsage_reddit, meshgraphnet
 
-_CONFIGS = {"graphsage-reddit": graphsage_reddit, "gemma2-9b": gemma2_9b}
+_CONFIGS = {"graphsage-reddit": graphsage_reddit, "gat-cora": gat_cora,
+            "gatedgcn": gatedgcn, "meshgraphnet": meshgraphnet,
+            "gemma2-9b": gemma2_9b}
 
 # the reference's LM shape cells (repro/configs/base.py) the port runs
 LM_SHAPES = {

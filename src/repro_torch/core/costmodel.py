@@ -37,7 +37,7 @@ class EngineConfig:
     w_upe: radix chunk width / global-radix histogram tile
     n_upe: parallel sort lanes
     w_scr / n_scr: set-count element-block width / target-block height
-    selection: selector algorithm (only "floyd" is ported)
+    selection: node-wise selector, "floyd" | "keysort" | "reservoir"
     use_pallas: route the sort and rank epilogue through the hand-written
         kernels (``pipeline.kernel_fns``)
     radix_bits: digit width of every LSD radix pass

@@ -162,8 +162,9 @@ def sample_subgraph(csc: CSC, batch_nodes: torch.Tensor,
                     chunk_sort_fn=None) -> Subgraph:
     """Selecting + Reindexing + subgraph conversion → sampled CSC subgraph,
     on the device that holds ``csc``. ``key`` is the request key or its
-    [sum(fanouts), 2] schedule (``prng.key_schedule``). Explicit
-    ``count_fn`` / ``chunk_sort_fn`` override the config's routing."""
+    [K, 2] schedule (``prng.key_schedule`` under ``cfg.selection``).
+    Explicit ``count_fn`` / ``chunk_sort_fn`` override the config's
+    routing."""
     cfg = cfg or EngineConfig()
     kf = kernel_fns(cfg)
     count_fn = count_fn or kf.count_fn

@@ -9,9 +9,9 @@ if every draw matches. This module re-implements that generator:
   math on the host, exactly like JAX's ``threefry_seed`` / ``fold_in`` /
   ``_threefry_split_foldlike``;
 * ``key_schedule`` lays out every sub-key a request's sampler draws with
-  as one [K, 2] int64 table, so a captured serve step reads its keys from
-  a device tensor that admission overwrites, with no host-to-device copy
-  of its own;
+  (Floyd, keysort or reservoir selection) as one [K, 2] int64 table, so
+  a captured serve step reads its keys from a device tensor that
+  admission overwrites, with no host-to-device copy of its own;
 * ``uniform`` hashes the flat element index (high word 0, low word the
   index) on the tensor's device and maps the xor of the two output words
   to [0, 1) through the mantissa trick of ``jax.random.uniform``.
@@ -65,14 +65,33 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
-def key_schedule(key: Key, fanouts) -> torch.Tensor:
-    """The sub-keys Floyd selection draws with, as a [sum(fanouts), 2]
-    int64 CPU table: layer l's k_l rows are the second halves of k_l
-    successive ``split``s of ``fold_in(key, l)`` (``core/sampling.py``)."""
+def schedule_rows(selection: str, fanouts, window: int) -> list[int]:
+    """Sub-key rows each layer's selector draws with: Floyd one a step
+    (k_l), keysort one (the layer key itself), reservoir one a step past
+    the first k_l (``window - k_l``, none when the window is not wider)."""
+    if selection == "floyd":
+        return [int(k) for k in fanouts]
+    if selection == "keysort":
+        return [1] * len(fanouts)
+    if selection == "reservoir":
+        return [max(0, int(window) - int(k)) for k in fanouts]
+    raise ValueError(f"unknown selection {selection!r}")
+
+
+def key_schedule(key: Key, fanouts, selection: str = "floyd",
+                 window: int = 1024) -> torch.Tensor:
+    """The sub-keys a request's selection draws with, as one [K, 2] int64
+    CPU table, layer by layer (``schedule_rows`` gives each layer's K_l;
+    ``core/sampling.py``): keysort's row is ``fold_in(key, l)``; Floyd's
+    and reservoir's rows are the second halves of successive ``split``s
+    of ``fold_in(key, l)``."""
     rows = []
-    for layer, k in enumerate(fanouts):
+    for layer, n in enumerate(schedule_rows(selection, fanouts, window)):
         lk = fold_in(key, layer)
-        for _ in range(k):
+        if selection == "keysort":
+            rows.append(lk)
+            continue
+        for _ in range(n):
             lk, sub = split(lk)
             rows.append(sub)
     return torch.tensor(rows, dtype=torch.int64).reshape(len(rows), 2)

@@ -4,6 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch graphsage-reddit \
       --smoke --device cpu --engine-cfg merge
 
+``--arch`` is any registered GNN arch (graphsage-reddit, gat-cora,
+gatedgcn, meshgraphnet); the model is built by ``models.gnn.gnn_model``.
+The engine samples with the config's ``sample_sizes``: gat-cora, gatedgcn
+and meshgraphnet have none, so, as in the reference's CLI, the engine
+raises for them.
+
 Builds a synthetic power-law graph on the device (``--nodes`` nodes,
 ``--edges`` edges), converts it, and submits ``--requests`` requests of
 mixed seed counts in [1, ``--seed-cap``] to a GnnServeEngine with random
@@ -34,7 +40,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import pipeline
 from repro_torch.core.costmodel import EngineConfig
 from repro_torch.core.graph import next_pow2, resolve_device, synthetic_coo
-from repro_torch.models.gnn import GraphSAGE
+from repro_torch.models.gnn import gnn_model
 from repro_torch.serve import GnnServeEngine
 
 SLICE_CFG = EngineConfig(use_pallas=True, sort_strategy="global_radix",
@@ -78,7 +84,7 @@ def main(argv=None):
     csc = pipeline.convert(coo, engine_cfg, device=dev)
     g = torch.Generator().manual_seed(args.seed)
     feats = torch.randn((args.nodes, args.features), generator=g)
-    model = GraphSAGE(cfg, d_in=args.features, n_classes=args.classes,
+    model = gnn_model(cfg, d_in=args.features, n_classes=args.classes,
                       generator=g, device=dev)
     eng = GnnServeEngine(model, csc, feats, n_slots=args.slots,
                          seed_cap=args.seed_cap, cfg=engine_cfg, device=dev)

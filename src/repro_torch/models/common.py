@@ -1,6 +1,6 @@
 """Shared model components (port of the parts of ``repro/models/common.py``
-the LM prefill and training paths run): seeded initialisers, RMSNorm, the
-gated MLP, the logit softcap and the cross entropy.
+the LM and GNN paths run): seeded initialisers, RMSNorm, LayerNorm, the
+plain and the gated MLP, the logit softcap and the cross entropy.
 
 Weights keep the reference's layout, ``x @ W`` with ``W`` shaped
 [d_in, d_out], so a parameter tree from the reference loads without
@@ -42,6 +42,46 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     x = x * torch.rsqrt(var + eps)
     w = (1.0 + scale) if zero_centered else scale
     return (x * w).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (biased variance), cast back to ``x``'s
+    dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(dt)
+
+
+def mlp_init(generator: torch.Generator, dims: tuple[int, ...],
+             dtype=torch.float32, device=None,
+             bias: bool = True) -> dict[str, torch.Tensor]:
+    """Plain MLP, dims = (in, h1, ..., out): ``w{i}`` [dims[i],
+    dims[i+1]] from ``dense_init``, ``b{i}`` zeros (the reference's
+    keys)."""
+    p = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        p[f"w{i}"] = dense_init(generator, a, b, dtype, device)
+        if bias:
+            p[f"b{i}"] = torch.zeros((b,), dtype=dtype, device=device)
+    return p
+
+
+def mlp_apply(p, x: torch.Tensor, act=torch.relu,
+              final_act: bool = False) -> torch.Tensor:
+    """``x @ w0 + b0``, ``act``, ... through every ``w{i}`` of ``p``;
+    ``act`` after the last layer only with ``final_act``."""
+    n = sum(1 for k in p.keys() if k.startswith("w"))
+    for i in range(n):
+        x = x @ p[f"w{i}"]
+        if f"b{i}" in p:
+            x = x + p[f"b{i}"]
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
 
 
 def glu_init(generator: torch.Generator, d_model: int, d_ff: int,

@@ -1,15 +1,19 @@
-"""GraphSAGE over sampled subgraphs (port of the GraphSAGE path of
-``repro/models/gnn.py``).
+"""The GNN model zoo over sampled subgraphs: GraphSAGE, GAT, GatedGCN and
+MeshGraphNet (port of ``repro/models/gnn.py``).
 
 Message passing is edge gather → segment reduce. The serve path attaches
-the subgraph's CSC pointers to the batch, so every reduction is the
-scatter-free pointer form: one cumulative sum of the masked message stream
-and a difference of prefix sums at each node's pointer span, on the
-column-scan kernel (``kernels/ptr_scan.py``); under
-``GNNConfig.use_pallas_agg`` it is the segment-sum kernel over the
-dst-sorted edges instead (``kernels/segment_agg.py``).
-``gnn_apply_batched`` stacks one forward per slot. Weights keep
-the reference's layout, ``h @ W`` with ``W`` shaped [d_in, d_out], so a
+the subgraph's CSC pointers to the batch, so every sum is the scatter-free
+pointer form: one cumulative sum of the masked message stream and a
+difference of prefix sums at each node's pointer span, on the column-scan
+kernel (``kernels/ptr_scan.py``); under ``GNNConfig.use_pallas_agg`` the
+model's aggregations are the segment-sum kernel over the dst-sorted edges
+instead (``kernels/segment_agg.py``). No reduction on the serve path uses
+float atomics, so a lane's logits are the same bits batched and alone:
+GAT's edge softmax takes its maximum with ``scatter_reduce("amax")``
+(exact in any order) and its denominator from the pointer sum.
+``index_add_`` remains only for a batch without ``ptr``.
+``gnn_apply_batched`` stacks one forward per slot. Weights keep the
+reference's layout, ``h @ W`` with ``W`` shaped [d_in, d_out], so a
 parameter tree from the reference's ``gnn_init`` loads without transposes
 (``load_reference_params``).
 """
@@ -20,24 +24,29 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.graph import SENTINEL, resolve_device, take
 from repro_torch.core.pipeline import gather_features
 from repro_torch.core.set_count import rank_in_sorted
 from repro_torch.kernels.ptr_scan import ptr_seg_sum
+from repro_torch.models.common import layer_norm, mlp_apply, mlp_init
 
 
 @dataclasses.dataclass
 class GraphBatch:
     """Static-shape graph minibatch. With ``ptr`` set (the serve path),
     ``edge_dst`` is sorted ascending and ``ptr[d] .. ptr[d+1]`` spans node
-    d's incoming edges."""
+    d's incoming edges. ``edge_feat`` [E, De] feeds GatedGCN's and
+    MeshGraphNet's edge encoders; without it (the serve path) their edge
+    states start at zero."""
 
     edge_dst: torch.Tensor  # [E] int32, sorted ascending, SENTINEL pad
     edge_src: torch.Tensor  # [E] int32
     node_feat: torch.Tensor  # [N, Df] float
     ptr: torch.Tensor | None = None  # [N+1] int32 CSC pointers
+    edge_feat: torch.Tensor | None = None  # [E, De] float
 
     @property
     def n_nodes(self) -> int:
@@ -47,15 +56,19 @@ class GraphBatch:
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
     name: str
-    kind: str  # only "graphsage" is ported
+    kind: str  # graphsage | gat | gatedgcn | meshgraphnet
     n_layers: int
     d_hidden: int
+    n_heads: int = 1
     aggregator: str = "mean"
+    mlp_layers: int = 2
     sample_sizes: tuple[int, ...] = ()
+    d_out: int = 0  # regression output dim (0 → classification)
     dtype: torch.dtype = torch.float32
     use_pallas_agg: bool = False
 
 
+# ------------------------------------------------------ segment reductions
 def _valid(batch: GraphBatch) -> torch.Tensor:
     return batch.edge_dst < batch.n_nodes
 
@@ -71,6 +84,10 @@ def _ptr_seg_sum(ptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
     return seg.reshape((p.shape[0] - 1,) + msgs.shape[1:]).to(msgs.dtype)
 
 
+def _dst(batch: GraphBatch) -> torch.Tensor:
+    return torch.clamp(batch.edge_dst, max=batch.n_nodes - 1)
+
+
 def seg_sum(batch: GraphBatch, msgs: torch.Tensor,
             use_pallas: bool = False) -> torch.Tensor:
     """Σ over incoming edges per dst node; SENTINEL edges contribute 0.
@@ -84,10 +101,9 @@ def seg_sum(batch: GraphBatch, msgs: torch.Tensor,
                                   batch.n_nodes).to(msgs.dtype)
     if batch.ptr is not None:
         return _ptr_seg_sum(batch.ptr, msgs)
-    dst = torch.clamp(batch.edge_dst, max=batch.n_nodes - 1).to(torch.int64)
     out = torch.zeros((batch.n_nodes,) + msgs.shape[1:], dtype=msgs.dtype,
                       device=msgs.device)
-    return out.index_add_(0, dst, msgs)
+    return out.index_add_(0, _dst(batch).to(torch.int64), msgs)
 
 
 def seg_mean(batch: GraphBatch, msgs: torch.Tensor,
@@ -99,47 +115,102 @@ def seg_mean(batch: GraphBatch, msgs: torch.Tensor,
     return s / torch.clamp(deg, min=1.0)
 
 
+def seg_softmax(batch: GraphBatch, scores: torch.Tensor) -> torch.Tensor:
+    """Edge softmax per destination (ragged softmax), scores [E, H]: the
+    maximum over each node's edges (masked edges at -1e30, on the last
+    node as the reference clamps them; an empty node's maximum is -inf),
+    the exponentials, their sum through ``seg_sum`` (the pointer sum when
+    the batch has ``ptr``)."""
+    dst = _dst(batch).to(torch.int64)[:, None].expand_as(scores)
+    valid = _valid(batch)[:, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    mx = torch.full((batch.n_nodes,) + scores.shape[1:], -math.inf,
+                    dtype=scores.dtype, device=scores.device)
+    mx = mx.scatter_reduce(0, dst, scores, "amax")
+    ex = torch.exp(scores - torch.gather(mx, 0, dst))
+    ex = torch.where(valid, ex, torch.zeros_like(ex))
+    den = seg_sum(batch, ex)
+    return ex / torch.clamp(torch.gather(den, 0, dst), min=1e-20)
+
+
 def gather_src(batch: GraphBatch, h: torch.Tensor) -> torch.Tensor:
     return take(h, torch.clamp(batch.edge_src, max=batch.n_nodes - 1))
 
 
-class GraphSAGE(nn.Module):
-    """GraphSAGE with a linear classification head.
+def gather_dst(batch: GraphBatch, h: torch.Tensor) -> torch.Tensor:
+    return take(h, _dst(batch))
 
-    Per layer: ``h = h @ w_self + mean_nb(h) @ w_nb + b``, then ReLU and L2
-    row normalisation on every layer but the last; ``head`` maps the last
-    layer to ``n_classes`` logits. Random init draws N(0, 1/d_in) weights
-    from the CPU ``generator`` (the reference's ``dense_init`` scale), so
-    the values do not depend on ``device``, where they are then placed (a
-    missing card raises).
-    """
+
+# ------------------------------------------------------------------ models
+class _Init:
+    """Seeded parameters for a model: N(0, 1/d_in) weights drawn from the
+    CPU ``generator`` (the reference's ``dense_init`` scale), so the
+    values do not depend on ``device``, where they are then placed (a
+    missing card raises) in ``cfg.dtype``."""
+
+    def __init__(self, cfg: GNNConfig, generator, device):
+        self.gen, self.dtype = generator, cfg.dtype
+        self.device = resolve_device(device)
+
+    def put(self, t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t.to(device=self.device, dtype=self.dtype))
+
+    def dense(self, a: int, b: int) -> nn.Parameter:
+        w = torch.randn((a, b), generator=self.gen, dtype=torch.float32)
+        return self.put(w / math.sqrt(a))
+
+    def normal(self, shape, scale: float) -> nn.Parameter:
+        return self.put(scale * torch.randn(shape, generator=self.gen))
+
+    def mlp(self, dims: tuple[int, ...]) -> nn.ParameterDict:
+        return nn.ParameterDict({k: self.put(v) for k, v in
+                                 mlp_init(self.gen, dims).items()})
+
+
+class _GNN(nn.Module):
+    """What the four models share: the config and the linear
+    classification ``head`` (``n_classes`` > 0) after the model's own
+    output."""
+
+    kind = ""
+
+    def __init__(self, cfg: GNNConfig):
+        super().__init__()
+        if cfg.kind != self.kind:
+            raise ValueError(f"{type(self).__name__} builds kind "
+                             f"{self.kind!r}, not {cfg.kind!r}")
+        self.cfg = cfg
+
+    def body(self, batch: GraphBatch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        h = self.body(batch)
+        return h @ self.head if self.head is not None else h
+
+
+class GraphSAGE(_GNN):
+    """Per layer: ``h = h @ w_self + mean_nb(h) @ w_nb + b``, then ReLU and
+    L2 row normalisation on every layer but the last; ``head`` maps the
+    last layer to ``n_classes`` logits."""
+
+    kind = "graphsage"
 
     def __init__(self, cfg: GNNConfig, d_in: int, n_classes: int = 0,
                  generator: torch.Generator | None = None, device="cuda"):
-        super().__init__()
-        if cfg.kind != "graphsage":
-            raise NotImplementedError(f"GNN kind {cfg.kind!r} is not ported")
-        self.cfg = cfg
-        device = resolve_device(device)
-
-        def dense(a, b):
-            w = torch.randn((a, b), generator=generator, dtype=torch.float32)
-            return nn.Parameter((w / math.sqrt(a)).to(device=device,
-                                                      dtype=cfg.dtype))
-
+        super().__init__(cfg)
+        init = _Init(cfg, generator, device)
         self.layers = nn.ModuleList()
         d = d_in
         for _ in range(cfg.n_layers):
-            layer = nn.ParameterDict({
-                "w_self": dense(d, cfg.d_hidden),
-                "w_nb": dense(d, cfg.d_hidden),
-                "b": nn.Parameter(torch.zeros(cfg.d_hidden, dtype=cfg.dtype,
-                                              device=device))})
-            self.layers.append(layer)
+            self.layers.append(nn.ParameterDict({
+                "w_self": init.dense(d, cfg.d_hidden),
+                "w_nb": init.dense(d, cfg.d_hidden),
+                "b": init.put(torch.zeros(cfg.d_hidden))}))
             d = cfg.d_hidden
-        self.head = dense(cfg.d_hidden, n_classes) if n_classes else None
+        self.head = init.dense(cfg.d_hidden, n_classes) if n_classes else None
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
+    def body(self, batch: GraphBatch) -> torch.Tensor:
         cfg = self.cfg
         h = batch.node_feat.to(cfg.dtype)
         for i, lp in enumerate(self.layers):
@@ -152,33 +223,206 @@ class GraphSAGE(nn.Module):
                 h = torch.relu(h)
                 h = h / torch.clamp(torch.linalg.norm(h, dim=-1, keepdim=True),
                                     min=1e-6)
-        if self.head is not None:
-            h = h @ self.head
         return h
 
 
-def load_reference_params(model: GraphSAGE, params) -> GraphSAGE:
-    """Carry the reference's ``gnn_init`` tree (``{"layers": [{"w_self",
-    "w_nb", "b"}], "head"}``, arrays convertible by ``np.asarray``) into
-    ``model``, in place; shapes must match exactly (same [d_in, d_out]
-    layout, no transposes)."""
-    if len(params["layers"]) != len(model.layers):
-        raise ValueError("layer count differs")
+class GAT(_GNN):
+    """Multi-head graph attention: per layer ``z = h @ w`` split into heads,
+    scores ``leaky_relu(a_src·z_src + a_dst·z_dst, 0.2)``, the edge softmax
+    per destination, the weighted sum of ``z_src``; ELU between layers.
+    Every layer but the last has ``n_heads`` heads, the last one."""
 
-    def put(dst: nn.Parameter, src):
+    kind = "gat"
+
+    def __init__(self, cfg: GNNConfig, d_in: int, n_classes: int = 0,
+                 generator: torch.Generator | None = None, device="cuda"):
+        super().__init__(cfg)
+        init = _Init(cfg, generator, device)
+        self.layers = nn.ModuleList()
+        d = d_in
+        for i in range(cfg.n_layers):
+            heads = cfg.n_heads if i < cfg.n_layers - 1 else 1
+            self.layers.append(nn.ParameterDict({
+                "w": init.dense(d, heads * cfg.d_hidden),
+                "a_src": init.normal((heads, cfg.d_hidden), 0.1),
+                "a_dst": init.normal((heads, cfg.d_hidden), 0.1)}))
+            d = heads * cfg.d_hidden
+        # the last layer has one head: d_hidden wide
+        self.head = init.dense(cfg.d_hidden, n_classes) if n_classes else None
+
+    def body(self, batch: GraphBatch) -> torch.Tensor:
+        cfg = self.cfg
+        n = batch.n_nodes
+        h = batch.node_feat.to(cfg.dtype)
+        for i, lp in enumerate(self.layers):
+            heads = lp["a_src"].shape[0]
+            z = (h @ lp["w"]).reshape(n, heads, cfg.d_hidden)
+            s_src = torch.einsum("nhd,hd->nh", z, lp["a_src"])
+            s_dst = torch.einsum("nhd,hd->nh", z, lp["a_dst"])
+            e = F.leaky_relu(gather_src(batch, s_src)
+                             + gather_dst(batch, s_dst), 0.2)
+            alpha = seg_softmax(batch, e)  # [E, H]
+            msgs = gather_src(batch, z) * alpha[..., None]  # [E, H, D]
+            agg = seg_sum(batch, msgs.reshape(msgs.shape[0], -1),
+                          cfg.use_pallas_agg)
+            h = agg.reshape(n, heads * cfg.d_hidden)
+            if i < cfg.n_layers - 1:
+                h = F.elu(h)
+        return h
+
+
+class GatedGCN(_GNN):
+    """Residual gated graph convnet with edge states: per layer
+    ``e' = A h_dst + B h_src + C e``, gate ``σ(e')``, ``h' = U h +
+    Σ gate·V h_src / (Σ gate + 1e-6)``, each state updated residually
+    through its LayerNorm and ReLU. Node features are embedded by
+    ``embed_n``, edge features by ``embed_e`` (zero edge states without
+    them)."""
+
+    kind = "gatedgcn"
+
+    def __init__(self, cfg: GNNConfig, d_in: int, d_edge: int = 0,
+                 n_classes: int = 0, generator: torch.Generator | None = None,
+                 device="cuda"):
+        super().__init__(cfg)
+        init = _Init(cfg, generator, device)
+        d = cfg.d_hidden
+        self.embed_n = init.dense(d_in, d)
+        self.embed_e = init.dense(max(d_edge, 1), d)
+        self.layers = nn.ModuleList()
+        for _ in range(cfg.n_layers):
+            lp = {k: init.dense(d, d) for k in "ABCUV"}
+            for s in ("h", "e"):
+                lp[f"ln_{s}_scale"] = init.put(torch.ones(d))
+                lp[f"ln_{s}_bias"] = init.put(torch.zeros(d))
+            self.layers.append(nn.ParameterDict(lp))
+        self.head = init.dense(d, n_classes) if n_classes else None
+
+    def body(self, batch: GraphBatch) -> torch.Tensor:
+        cfg = self.cfg
+        h = batch.node_feat.to(cfg.dtype) @ self.embed_n
+        if batch.edge_feat is not None:
+            e = batch.edge_feat.to(cfg.dtype) @ self.embed_e
+        else:
+            e = torch.zeros((batch.edge_dst.shape[0], cfg.d_hidden),
+                            dtype=cfg.dtype, device=h.device)
+        for lp in self.layers:
+            e_new = (gather_dst(batch, h @ lp["A"])
+                     + gather_src(batch, h @ lp["B"]) + e @ lp["C"])
+            gate = torch.sigmoid(e_new)
+            msg = gate * gather_src(batch, h @ lp["V"])
+            num = seg_sum(batch, msg, cfg.use_pallas_agg)
+            den = seg_sum(batch, gate, cfg.use_pallas_agg)
+            h_new = h @ lp["U"] + num / (den + 1e-6)
+            h = h + torch.relu(layer_norm(h_new, lp["ln_h_scale"],
+                                          lp["ln_h_bias"]))
+            e = e + torch.relu(layer_norm(e_new, lp["ln_e_scale"],
+                                          lp["ln_e_bias"]))
+        return h
+
+
+class MeshGraphNet(_GNN):
+    """Encode-process-decode: MLP encoders of nodes (``enc_n``) and edges
+    (``enc_e``; zero edge states without edge features), per layer an
+    edge MLP over [e, h_src, h_dst] and a node MLP over [h, Σ e], both
+    residual, then the ``dec`` MLP to ``max(d_out, 1)`` outputs. Every
+    MLP has ``mlp_layers`` hidden layers of ``d_hidden``."""
+
+    kind = "meshgraphnet"
+
+    def __init__(self, cfg: GNNConfig, d_in: int, d_edge: int = 0,
+                 n_classes: int = 0, generator: torch.Generator | None = None,
+                 device="cuda"):
+        super().__init__(cfg)
+        init = _Init(cfg, generator, device)
+        d = cfg.d_hidden
+        hidden = (d,) * cfg.mlp_layers
+        d_out = max(cfg.d_out, 1)
+        self.enc_n = init.mlp((d_in,) + hidden + (d,))
+        self.enc_e = init.mlp((max(d_edge, 1),) + hidden + (d,))
+        self.dec = init.mlp((d,) + hidden + (d_out,))
+        self.layers = nn.ModuleList()
+        for _ in range(cfg.n_layers):
+            self.layers.append(nn.ModuleDict({
+                "edge_mlp": init.mlp((3 * d,) + hidden + (d,)),
+                "node_mlp": init.mlp((2 * d,) + hidden + (d,))}))
+        self.head = init.dense(d_out, n_classes) if n_classes else None
+
+    def body(self, batch: GraphBatch) -> torch.Tensor:
+        cfg = self.cfg
+        h = mlp_apply(self.enc_n, batch.node_feat.to(cfg.dtype))
+        if batch.edge_feat is not None:
+            e = mlp_apply(self.enc_e, batch.edge_feat.to(cfg.dtype))
+        else:
+            e = torch.zeros((batch.edge_dst.shape[0], cfg.d_hidden),
+                            dtype=cfg.dtype, device=h.device)
+        for lp in self.layers:
+            e = e + mlp_apply(lp["edge_mlp"], torch.cat(
+                [e, gather_src(batch, h), gather_dst(batch, h)], dim=-1))
+            agg = seg_sum(batch, e, cfg.use_pallas_agg)
+            h = h + mlp_apply(lp["node_mlp"], torch.cat([h, agg], dim=-1))
+        return mlp_apply(self.dec, h)
+
+
+_MODELS = {m.kind: m for m in (GraphSAGE, GAT, GatedGCN, MeshGraphNet)}
+
+
+def gnn_model(cfg: GNNConfig, d_in: int, d_edge: int = 0, n_classes: int = 0,
+              generator: torch.Generator | None = None,
+              device="cuda") -> _GNN:
+    """The model of ``cfg.kind`` (the counterpart of the reference's
+    ``gnn_init``): with ``n_classes``, a head from the model's output width
+    (GraphSAGE, GAT and GatedGCN: ``d_hidden``; MeshGraphNet:
+    ``max(d_out, 1)``) to the classes. ``d_edge`` sizes the edge encoders
+    of GatedGCN and MeshGraphNet."""
+    if cfg.kind not in _MODELS:
+        raise ValueError(f"unknown GNN kind {cfg.kind!r}; kinds: "
+                         f"{sorted(_MODELS)}")
+    kw = dict(n_classes=n_classes, generator=generator, device=device)
+    if cfg.kind in ("gatedgcn", "meshgraphnet"):
+        kw["d_edge"] = d_edge
+    return _MODELS[cfg.kind](cfg, d_in, **kw)
+
+
+def load_reference_params(model: _GNN, params) -> _GNN:
+    """Carry a reference ``gnn_init`` tree into ``model``, in place: the
+    tree's nesting (dicts by key, lists by position; arrays convertible by
+    ``np.asarray``) must name exactly the model's parameters, with the
+    same shapes (the [d_in, d_out] layout, no transposes)."""
+
+    def put(dst: nn.Parameter, src, path):
         arr = torch.from_numpy(np.array(src, dtype=np.float32))
         if tuple(arr.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {tuple(arr.shape)} != {tuple(dst.shape)}")
+            raise ValueError(f"{path}: shape {tuple(arr.shape)} != "
+                             f"{tuple(dst.shape)}")
         with torch.no_grad():
             dst.copy_(arr.to(device=dst.device, dtype=dst.dtype))
 
-    for lp, src in zip(model.layers, params["layers"]):
-        for name in ("w_self", "w_nb", "b"):
-            put(lp[name], src[name])
-    if ("head" in params) != (model.head is not None):
-        raise ValueError("head presence differs")
-    if model.head is not None:
-        put(model.head, params["head"])
+    def walk(node, src, path):
+        if isinstance(src, dict):
+            if isinstance(node, (nn.ParameterDict, nn.ModuleDict)):
+                names = set(node.keys())
+            else:
+                names = ({k for k, _ in node.named_parameters(recurse=False)}
+                         | {k for k, _ in node.named_children()})
+            if names != set(src):
+                raise ValueError(f"{path or 'params'}: the tree names "
+                                 f"{sorted(src)}, the model {sorted(names)}")
+            for k, v in src.items():
+                child = (node[k] if isinstance(
+                    node, (nn.ParameterDict, nn.ModuleDict))
+                    else getattr(node, k))
+                walk(child, v, f"{path}.{k}" if path else k)
+        elif isinstance(src, (list, tuple)):
+            if len(src) != len(node):
+                raise ValueError(f"{path}: {len(src)} entries in the tree, "
+                                 f"{len(node)} in the model")
+            for i, (child, v) in enumerate(zip(node, src)):
+                walk(child, v, f"{path}[{i}]")
+        else:
+            put(node, src, path)
+
+    walk(model, params, "")
     return model
 
 
@@ -198,7 +442,7 @@ def subgraph_batch(sub, features: torch.Tensor) -> GraphBatch:
                       ptr=ptr)
 
 
-def gnn_apply_batched(model: GraphSAGE, batches: list[GraphBatch]
+def gnn_apply_batched(model: _GNN, batches: list[GraphBatch]
                       ) -> torch.Tensor:
     """The forward over one batch per slot → [S, N, out]: lane i computes
     exactly what ``model(batches[i])`` computes on its own batch."""

@@ -22,12 +22,17 @@ class RequestState(enum.Enum):
 
 @dataclasses.dataclass
 class Request:
-    """One serve request: a payload row (seed node ids for the GNN engine);
-    ``tokens_out`` collects what the engine emits (one class id per
-    seed)."""
+    """One serve request: a payload row (seed node ids for the GNN engine)
+    and what it may emit (``max_new``: 1 for a prediction, 0 for a control
+    request); ``tokens_out`` collects what the engine emits (one class id
+    per seed). A control request (a streamed graph update) rides the same
+    FIFO with its ``payload`` (an ``EdgeDelta``); its row is a marker the
+    feeder pads like any other and nothing reads."""
 
     rid: int
     prompt: list[int]
+    max_new: int = 1
+    payload: object | None = None
     state: RequestState = RequestState.QUEUED
     slot: int | None = None
     tokens_out: list[int] = dataclasses.field(default_factory=list)

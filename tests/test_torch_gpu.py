@@ -12,8 +12,12 @@ the card give the integers the CPU path gives, and the gemma2 smoke
 prefill and train step on the card give the CPU's results. The column
 scan is within its derived tolerance of its twin; the serve engine's
 captured step, replayed for new waves, equals the eager step bit for bit
-and advances the launch counters by its captured launches. Every test
-skips with a reason on a host without a card or nvcc.
+and advances the launch counters by its captured launches; so do the
+GAT, GatedGCN and MeshGraphNet steps, also under keysort selection, and
+their logits on the card are within 1e-4 of the CPU's; keysort and
+reservoir sampling on the card give the CPU's subgraphs; a streamed
+update is copied into the captured step's graph. Every test skips with
+a reason on a host without a card or nvcc.
 
 Run them on a machine with an H100:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1166,20 +1170,22 @@ def test_ptr_scan_wrapper_refuses_what_the_kernel_cannot_take(cuda):
                                               dtype=torch.float64))
 
 
-def _serve_engine(cuda, cfg, n_slots=2):
-    from repro_torch.configs.graphsage_reddit import smoke_config
-    from repro_torch.models.gnn import GraphSAGE
+def _serve_engine(cuda, cfg, n_slots=2, arch="graphsage-reddit",
+                  delta_cap=64):
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import gnn_model
     from repro_torch.serve import GnnServeEngine
     dst, src = tg.random_coo(np.random.default_rng(0), 3000, 20_000)
     coo = tg.COO.from_arrays(dst, src, 3000, capacity=1 << 15, device=cuda)
-    gcfg = dataclasses.replace(smoke_config(),
-                               use_pallas_agg=cfg is MERGE_CFG)
-    model = GraphSAGE(gcfg, d_in=24, n_classes=5,
+    gcfg = dataclasses.replace(get_config(arch, smoke=True),
+                               use_pallas_agg=cfg.sort_strategy
+                               == "chunked_merge")
+    model = gnn_model(gcfg, d_in=24, n_classes=5,
                       generator=torch.Generator().manual_seed(0), device=cuda)
     feats = torch.randn((3000, 24), generator=torch.Generator().manual_seed(1))
     return GnnServeEngine(model, tp.convert(coo, cfg, device=cuda), feats,
                           fanouts=(25, 10), n_slots=n_slots, seed_cap=64,
-                          cfg=cfg, device=cuda)
+                          cfg=cfg, device=cuda, delta_cap=delta_cap)
 
 
 def _wave(eng, rng, rid0):
@@ -1225,6 +1231,129 @@ def test_replayed_step_equals_the_eager_step(cuda, cfg):
             assert torch.equal(replayed[slot, 1:1 + len(seeds)],
                                seq[:len(seeds)].cpu()), (w, slot)
     assert eng.step_cache_size() == 1
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "gatedgcn", "meshgraphnet"])
+@pytest.mark.parametrize("cfg", [SLICE_CFG, MERGE_CFG,
+                                 dataclasses.replace(SLICE_CFG,
+                                                     selection="keysort")],
+                         ids=["slice", "merge", "keysort"])
+def test_families_replayed_step_equals_the_eager_step(cuda, arch, cfg):
+    """GAT, GatedGCN and MeshGraphNet (smoke configs), also under keysort
+    selection: the captured step replayed for a new wave equals the eager
+    step bit for bit and every row the sequential slot_fn; one capture."""
+    eng = _serve_engine(cuda, cfg, arch=arch)
+    rng = np.random.default_rng(6)
+    eng._admit_many(_wave(eng, rng, 0))
+    eng._step()
+    wave = _wave(eng, rng, 10)
+    eng._admit_many(wave)
+    saved = {k: v.clone() for k, v in eng.state.items()}
+    replayed = torch.from_numpy(eng._step())
+    for k, v in saved.items():
+        eng.state[k].copy_(v)
+    eng.step_fn(eng.params, eng.state)
+    assert torch.equal(replayed, eng.state["emission"].cpu())
+    for slot, prep in wave:
+        seeds = prep.request.prompt
+        seq = eng.slot_fn(eng.params, torch.from_numpy(prep.row).to(cuda),
+                          eng.request_key(prep.request.rid))
+        assert torch.equal(replayed[slot, 1:1 + len(seeds)],
+                           seq[:len(seeds)].cpu()), slot
+    assert eng.step_cache_size() == 1
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "gatedgcn", "meshgraphnet"])
+def test_family_logits_on_card_equal_cpu(cuda, arch):
+    """One sampled subgraph through the family's forward on the card and
+    on the CPU (the column scan against its twin, cuBLAS, the card's
+    scatter_reduce maximum of GAT's softmax): within 1e-4 of the logits'
+    largest magnitude (at least 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import gnn_model, subgraph_batch
+    dst, src = tg.random_coo(np.random.default_rng(0), 3000, 20_000)
+    coo = tg.COO.from_arrays(dst, src, 3000, capacity=1 << 15, device="cpu")
+    feats = torch.randn((3000, 24), generator=torch.Generator().manual_seed(1))
+    model = gnn_model(get_config(arch, smoke=True), d_in=24, n_classes=5,
+                      generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    seeds = torch.arange(64, dtype=torch.int32)
+    key = prng.fold_in(prng.PRNGKey(0), 3)
+    sub = tp.sample_subgraph(tp.convert(coo, SLICE_CFG, device="cpu"), seeds,
+                             (25, 10), key, SLICE_CFG)
+    with torch.no_grad():
+        want = model(subgraph_batch(sub, feats))
+        got = model.to(cuda)(subgraph_batch(
+            tp.sample_subgraph(tp.convert(coo, SLICE_CFG, device=cuda),
+                               seeds.to(cuda), (25, 10), key, SLICE_CFG),
+            feats.to(cuda))).cpu()
+    assert (got - want).abs().max() <= 1e-4 * max(1.0, float(
+        want.abs().max()))
+
+
+@pytest.mark.parametrize("selection", ["keysort", "reservoir"])
+def test_selection_on_card_equals_cpu(cuda, selection):
+    """keysort and reservoir sampling of one request under SLICE_CFG on the
+    card give the CPU's subgraph bit for bit."""
+    cfg = dataclasses.replace(SLICE_CFG, selection=selection)
+    dst, src = tg.random_coo(np.random.default_rng(2), 3000, 40_000)
+    coo = tg.COO.from_arrays(dst, src, 3000, capacity=1 << 16, device="cpu")
+    seeds = torch.from_numpy(np.random.default_rng(3).choice(
+        3000, 128, replace=False).astype(np.int32))
+    key = prng.fold_in(prng.PRNGKey(4), 1)
+    want = tp.sample_subgraph(tp.convert(coo, cfg, device="cpu"), seeds,
+                              (15, 10), key, cfg)
+    got = tp.sample_subgraph(tp.convert(coo, cfg, device=cuda),
+                             seeds.to(cuda), (15, 10), key, cfg)
+    for a, b in ((got.csc.ptr, want.csc.ptr), (got.csc.idx, want.csc.idx),
+                 (got.order, want.order)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_update_is_copied_into_the_captured_graph(cuda):
+    """A streamed update after the capture: the step is not captured
+    again, every bound tensor keeps its address, the engine's CSC equals
+    ``apply_delta`` of the old one, and the replays serve the old graph to
+    the query queued before the update and the new one to those after
+    (each equal to the sequential slot_fn on its graph)."""
+    from repro_torch.core.delta import EdgeDelta
+    rng = np.random.default_rng(7)
+    eng = _serve_engine(cuda, SLICE_CFG, delta_cap=256)
+    eng.submit([1, 2, 3])
+    eng.close_submissions()
+    eng.run()
+    bound = eng._bindings()
+    eng.reopen()
+    csc = eng.params["csc"]
+    old = tg.CSC(csc.ptr.clone(), csc.idx.clone(), csc.n_edges.clone(),
+                 csc.n_nodes)
+    pos = rng.integers(0, int(old.n_edges), 200)
+    ptr = old.ptr.cpu().numpy()
+    idx = old.idx.cpu().numpy()
+    dels = [(int(np.searchsorted(ptr, p, side="right") - 1), int(idx[p]))
+            for p in pos]
+    ins = [(int(a), int(b)) for a, b in rng.integers(0, 3000, (256, 2))]
+    queries = [rng.choice(3000, 40, replace=False).tolist()
+               for _ in range(3)]
+    handles = [eng.submit(queries[0]), eng.submit_update(ins, dels),
+               eng.submit(queries[1]), eng.submit(queries[2])]
+    eng.close_submissions()
+    eng.run()
+    assert eng.step_cache_size() == 1 and eng._bindings() == bound
+    new = tp.apply_delta(old, EdgeDelta.from_arrays(
+        *zip(*ins), *zip(*dels), n_nodes=3000, capacity=256, device=cuda),
+        SLICE_CFG, out_capacity=old.idx.shape[0])
+    assert torch.equal(csc.ptr, new.ptr) and torch.equal(csc.idx, new.idx)
+    assert int(csc.n_edges) == int(new.n_edges)
+    assert handles[1].tokens_out == []
+    for h, seeds, graph in ((handles[0], queries[0], old),
+                            (handles[2], queries[1], new),
+                            (handles[3], queries[2], new)):
+        row = torch.full((eng.seed_cap,), SEN, dtype=torch.int32)
+        row[:len(seeds)] = torch.tensor(seeds, dtype=torch.int32)
+        seq = eng.slot_fn({**eng.params, "csc": graph}, row.to(cuda),
+                          eng.request_key(h.rid))
+        assert h.tokens_out == seq[:len(seeds)].tolist(), h.rid
 
 
 # the hand-written kernels of the GNN serve step, by name in a trace

@@ -59,6 +59,15 @@ def test_port_file_inventory():
                  "src/repro_torch/train/loop.py",
                  "src/repro_torch/data/synthetic.py",
                  "src/repro_torch/serve/gnn.py",
+                 "src/repro_torch/serve/slots.py",
+                 "src/repro_torch/serve/request.py",
+                 "src/repro_torch/core/sampling.py",
+                 "src/repro_torch/core/prng.py",
+                 "src/repro_torch/models/gnn.py",
+                 "src/repro_torch/configs/graphsage_reddit.py",
+                 "src/repro_torch/configs/gat_cora.py",
+                 "src/repro_torch/configs/gatedgcn.py",
+                 "src/repro_torch/configs/meshgraphnet.py",
                  "src/repro_torch/core/costmodel.py",
                  "src/repro_torch/core/reconfig.py",
                  "src/repro_torch/core/delta.py",
@@ -98,7 +107,12 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.transformer, repro_torch.launch.steps\n"
         "import repro_torch.launch.train, repro_torch.train.loop\n"
         "import repro_torch.engine, repro_torch.core.reconfig\n"
-        "import repro_torch.core.delta\n"
+        "import repro_torch.core.delta, repro_torch.core.sampling\n"
+        "import repro_torch.models.gnn, repro_torch.serve.slots\n"
+        "from repro_torch.configs import get_config\n"
+        "for a in ('graphsage-reddit', 'gat-cora', 'gatedgcn',\n"
+        "          'meshgraphnet'):\n"
+        "    get_config(a)\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
         "assert len(kernel_wrappers()) == 17\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

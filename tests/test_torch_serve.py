@@ -172,6 +172,10 @@ def test_reopen_serves_a_second_stream():
 
 
 def test_submit_guards_and_unported_updates():
+    """The submit guards, and the update guards that now stand where the
+    unported update raised: an empty update, more inserts or deletes than
+    the delta bucket, and VIDs out of range each raise ValueError before
+    anything is queued."""
     eng = _engine()
     with pytest.raises(ValueError):
         eng.submit([])
@@ -179,8 +183,15 @@ def test_submit_guards_and_unported_updates():
         eng.submit(list(range(SEED_CAP + 1)))
     with pytest.raises(ValueError):
         eng.submit([N_NODES])
-    with pytest.raises(NotImplementedError):
-        eng.submit_update([(0, 1)])
+    with pytest.raises(ValueError, match="empty update"):
+        eng.submit_update([], [])
+    with pytest.raises(ValueError, match="delta bucket"):
+        eng.submit_update([(0, 1)] * (eng.delta_cap + 1))
+    with pytest.raises(ValueError, match="out of range"):
+        eng.submit_update([(0, N_NODES)])
+    assert len(eng.queue) == 0
+    req = eng.submit_update([(0, 1)])
+    assert req.prompt == [-2] and req.max_new == 0
 
 
 def test_entry_points_refuse_missing_card():

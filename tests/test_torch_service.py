@@ -314,17 +314,38 @@ def test_a_data_parallel_mesh_names_the_sharded_engine():
 
 
 def test_submit_update_still_names_the_serve_half_of_delta_updates():
-    """The service splices deltas; the serve engine's streamed update (the
-    splice copied into the captured step's tensors) is ROADMAP.md A.3."""
+    """The serve half of delta updates goes through the service: a served
+    update is one ``apply_delta_jit`` dispatch (a new table entry the
+    first time, none for a second update of the same buckets), and the
+    engine's graph after it equals ``pipeline.apply_delta`` of the same
+    delta."""
     from repro_torch.configs.graphsage_reddit import smoke_config
     from repro_torch.models.gnn import GraphSAGE
     from repro_torch.serve import GnnServeEngine
     tc, _ = _graph(seed=9, n=64, e=300, cap=512)
+    csc0 = tp.convert(tc, device="cpu")
     model = GraphSAGE(smoke_config(), d_in=4, n_classes=3, device="cpu")
-    eng = GnnServeEngine(model, tp.convert(tc, device="cpu"),
-                         torch.zeros(64, 4), seed_cap=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        eng.submit_update([(0, 1)])
+    eng = GnnServeEngine(model, csc0, torch.zeros(64, 4), seed_cap=4,
+                         device="cpu", delta_cap=4)
+    updates = (([(0, 1), (5, 7)], [(int(tc.dst[0]), int(tc.src[0]))]),
+               ([(2, 2)], []))
+    before = ts.apply_delta_cache_size()
+    for ins, dels in updates:
+        eng.submit_update(ins, dels)
+    eng.close_submissions()
+    done = eng.run()
+    assert [r.tokens_out for r in done] == [[], []]
+    assert ts.apply_delta_cache_size() <= before + 1
+    want = csc0
+    for ins, dels in updates:
+        delta = EdgeDelta.from_arrays(
+            [d for d, _ in ins], [s for _, s in ins],
+            [d for d, _ in dels], [s for _, s in dels], n_nodes=64,
+            capacity=4, device="cpu")
+        want = tp.apply_delta(want, delta, out_capacity=512)
+    got = eng.params["csc"]
+    assert torch.equal(got.ptr, want.ptr) and torch.equal(got.idx, want.idx)
+    assert int(got.n_edges) == int(want.n_edges)
 
 
 def test_engine_package_exports_the_reference_names_but_the_sharded_ones():
