@@ -18,7 +18,7 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    tile's MMAs as HMMA instructions in its SASS and no local-memory
    traffic (no spills).
 3. kernels — each of the nine kernels of the GNN paths (the tenth, the
-   column scan, in phase 5) and the reference design's digit-pass pair
+   span sum, in phase 5) and the reference design's digit-pass pair
    (and the keys-only, shuffled and
    D = 1 variants) against its plain-torch twin on the card at the serve
    paths' shapes (the card's digit pass, ``digit_hist`` and
@@ -53,10 +53,11 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    untraced, give the timings and the peak memory. Checked: one step
    program after the warm-up and after the 16 requests; one eager
    ``slot_fn``'s counted launches are the hand-written kernels its trace
-   shows (9 + 9 digit-pass launches and 4 ``ptr_seg_sum``, the column
-   scan); a capture counted 4 lanes of them; the counted run counted
-   that for every step, and its trace shows every step's 4 lanes of the
-   eager lane's kernels, so the replays' counted launches happened.
+   shows (9 + 9 digit-pass launches and 2 ``ptr_seg_sum``, the span
+   sum with GraphSAGE's gather and mean folded in); a capture counted 4
+   lanes of them; the counted run counted that for every step, and its
+   trace shows every step's 4 lanes of the eager lane's kernels, so the
+   replays' counted launches happened.
 5. slice checks — convert bit-identical to the torch.sort strategy on the
    same COO; every request bit-identical to a sequential per-request
    slot_fn loop; the convert-scale pointer rank (232,966 queries over
@@ -74,20 +75,22 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    arrays the path hands it (one convert: its pointer build over 2^27;
    the largest request: its first-occurrence rank, prefix-sum rank, edge
    rename and subgraph pointer build), each equal to its twin and timed
-   in turns (twin, kernel, kernel, ``torch.searchsorted``). The column
-   scan (``csrc/ptr_scan.cu``) on copies of the four calls of the largest
-   request's forward (per layer the messages and the degrees' ones
-   column), on a request's layer-1 shape with every row in a segment,
-   and on a ragged E and D: within ``twin_tolerance`` (derived from
-   float32 rounding) of the twin, the same bits twice, timed beside its
-   bound for the data, the twin, ``torch.segment_reduce(msgs, "sum",
-   offsets=ptr)`` (the one library call of the same function) and the
-   transposed ``cumsum`` the port ran before, with each version's
-   distance from a float64 prefix. Then
+   in turns (twin, kernel, kernel, ``torch.searchsorted``). The span sum
+   (``csrc/ptr_scan.cu``) on copies of the two calls of the largest
+   request's forward (per layer the node states read through the edge
+   sources, the mean), on a request's layer-1 shape with every row in a
+   segment, on a ragged E and D, and on one span of 2^17 rows at D 1 and
+   602: within ``twin_tolerance`` (derived from float32 rounding) of the
+   twin, the same bits twice, timed beside its bound for the data, the
+   twin and ``torch.segment_reduce(msgs, "sum", offsets=ptr)`` (the one
+   library call of the sum; on the gathered stream for the path's calls),
+   with each version's distance from a float64 prefix; the path's layer 1
+   also as the unfused composition it replaced (the gather, the span sum,
+   the division). Then
    the largest request once more (eager ``slot_fn``) under
    ``torch.profiler``: its wall time, its kernels' device time, the ops
-   that take the most of it, the rank and scan kernels' time by name and
-   the copy kernels' (less than one [524288, 602] copy could take: no
+   that take the most of it, the rank and span-sum kernels' time by name
+   and the copy kernels' (less than one [524288, 602] copy could take: no
    transposing copy); one replayed step with the 4 largest requests
    seated (its rows equal to what they were served): wall and device
    span (CUDA events), and under ``torch.profiler`` (its hand-written
@@ -104,7 +107,7 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    step; counters read: every rung of the convert's two sorts above the
    fused merge's 65,536 went through one ``merge_rung`` launch (2 × 11);
    the step checks of phase 4 (a lane aggregates on 4
-   ``segment_sum_sorted`` launches, no column scan).
+   ``segment_sum_sorted`` launches, no span sum).
 7. merge checks — that convert bit-identical to the torch.sort strategy;
    ``set_count_less`` at the convert's shape (232,966 targets over the
    2^27 sorted dst, then shuffled) equal to ``torch.searchsorted`` and to
@@ -160,9 +163,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    602 features in, 41 classes out, served under ``SLICE_CFG``, and
    gatedgcn again under ``MERGE_CFG`` with ``use_pallas_agg`` (the
    segment-sum kernel on D = 70): the checks of phase 4 (one captured
-   step program; the counters against a trace; a lane's 4 / 32 / 15
-   column scans or 32 segment sums), batched == sequential, the largest
-   request's logits finite; every column-scan or segment-sum call of
+   step program; the counters against a trace; a lane's 2 / 4 / 32 / 15
+   span sums or 32 segment sums), batched == sequential, the largest
+   request's logits finite; every span-sum or segment-sum call of
    that request (D = 8, 64 and 1 for GAT's softmax denominators and
    aggregations, 70, 128) against its twin within its derived tolerance,
    the first of each width timed beside its bound, twin and library
@@ -303,14 +306,16 @@ CHUNK_SORT_BIG, CHUNK_SORT_TWIN_SLICE = 1 << 27, 1 << 24
 MERGE_CONVERT_CAP = CONVERT_CAP  # the merge path converts Reddit too
 CONVERT_TWIN_STRIDE = 256  # targets the all-pairs twin checks at 2^27
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-4  # segment sum against the float64 sum
-# MERGE_CFG logits against the slice path's: the pointer segment sum
-# differences float32 prefix sums over 2^19 message rows (cancellation of
-# about 1e-4 per aggregate), the kernel sums each segment directly. Ten
-# times the largest error read on the card: 7.3e-5 (NVIDIA H100 80GB HBM3,
-# 700 W, every run of this script so far)
-LOGIT_TOL = 7.5e-4
+# MERGE_CFG logits against the slice path's: the two paths sum each
+# segment in other orders (the segment-sum kernel over the dst-sorted
+# edges, the span sum in pieces). Ten times the largest error read on the
+# card with the span sum: 4.47e-8 (NVIDIA H100 80GB HBM3, 700 W)
+LOGIT_TOL = 4.5e-7
 SLICE_KERNELS = ("digit_hist", "digit_scatter", "rank_search", "rename",
                  "ptr_seg_sum")
+# segment sums of one MERGE_CFG GraphSAGE request: a layer's messages and
+# its degrees
+MERGE_SUMS = 4
 # digit-pass launches of one SLICE_CFG request: its three sorts (the
 # reindex sort, the subgraph convert's two) on 3 passes each (7, 7 and
 # 6 bits, ``global_radix_schedule``)
@@ -319,7 +324,7 @@ REQUEST_DIGIT_PASSES = 9
 # written once) cannot take less: 2.53 GB at 3.35 TB/s
 COPY_BOUND_MS = 0.75
 # a small graph's logits card vs CPU, as a share of their largest
-# magnitude (at least 1): the column scan against its cumsum twin, cuBLAS
+# magnitude (at least 1): the span sum against its cumsum twin, cuBLAS
 # against the CPU's GEMMs. On the CPU the pointer sum against index_add_
 # (another order) moves the smoke families' logits by at most 6e-6 of it
 # (GatedGCN; graphsage 1.2e-6 absolute), so 1e-4 holds 15x that
@@ -1828,13 +1833,20 @@ def rank_phase(dev, coo, eng, seeds, rid):
     return rows, timed
 
 
-SCAN_CALLS = ("layer1_msgs", "layer1_deg", "layer2_msgs", "layer2_deg")
-# (E, D, N, every row in a segment) of the column scan's synthetic cases:
-# a request's layer-1 shape with the whole stream read, a ragged E and D,
-# and a ragged E at the feature width
-SCAN_CASES = {"full_stream": (SERVE_CAP, REDDIT["feats"], SERVE_NODES, True),
-              "ragged": (100_003, 37, 20_011, False),
-              "ragged_wide": (300_001, REDDIT["feats"], 150_007, False)}
+# a GraphSAGE request's pointer sums: a layer's mean of the node states
+# read through the edge sources, one call each
+SCAN_CALLS = ("layer1", "layer2")
+# (E, D, N, pointers) of the span sum's synthetic cases: a request's
+# layer-1 shape with every row in a segment ("full"), a ragged E and D
+# and a ragged E at the feature width ("ragged"), and one span of 2^17
+# rows among short ones at D 1 and at the feature width ("long")
+SCAN_CASES = {"full_stream": (SERVE_CAP, REDDIT["feats"], SERVE_NODES,
+                              "full"),
+              "ragged": (100_003, 37, 20_011, "ragged"),
+              "ragged_wide": (300_001, REDDIT["feats"], 150_007, "ragged"),
+              "long_d1": (1 << 18, 1, 4096, "long"),
+              "long_wide": (1 << 18, REDDIT["feats"], 4096, "long")}
+LONG_SPAN = 1 << 17
 
 
 def recorded_calls(eng, seeds, rid, module, name):
@@ -1860,126 +1872,160 @@ def recorded_calls(eng, seeds, rid, module, name):
 
 
 def scan_calls_of_the_path(eng, seeds, rid):
-    """{name: (ptr, msgs)}: copies of what one SLICE_CFG request (``slot_fn``
-    on ``seeds``) hands the column scan, taken by wrapping
-    ``models.gnn.ptr_seg_sum``: per layer the masked messages and the
-    ones column of the degrees, in the order the forward calls them."""
+    """{name: (ptr, x, rows, mean)}: copies of what one SLICE_CFG request
+    (``slot_fn`` on ``seeds``) hands the span sum, taken by wrapping
+    ``models.gnn.ptr_seg_sum``: per layer the node states, the edge
+    sources to read them through, and the mean flag, in the order the
+    forward calls them."""
     from repro_torch.models import gnn as tgnn
 
     calls = recorded_calls(eng, seeds, rid, tgnn, "ptr_seg_sum")
     check(len(calls) == len(SCAN_CALLS)
-          and [m.shape[1] for _, m in calls] == [REDDIT["feats"], 1, 128, 1],
-          f"a request hands the column scan {SCAN_CALLS}: "
-          f"{[tuple(m.shape) for _, m in calls]}")
+          and [c[1].shape[1] for c in calls] == [REDDIT["feats"], 128]
+          and all(len(c) == 4 and c[2] is not None and c[3] is True
+                  for c in calls),
+          f"a request hands the span sum {SCAN_CALLS}, each with the edge "
+          f"sources and the mean: "
+          f"{[(tuple(c[1].shape), len(c)) for c in calls]}")
     return dict(zip(SCAN_CALLS, calls))
 
 
-def scan_case(dev, seed, e, d, n, full):
-    """Sorted pointers [n + 1] in [0, e] (``full``: from 0 to e, every
-    message row inside a segment; else a first pointer past 0 and a last
-    short of e, with empty segments) over N(0, 1) messages [e, d]."""
+def scan_case(dev, seed, e, d, n, kind):
+    """Sorted pointers [n + 1] in [0, e] over N(0, 1) messages [e, d]:
+    ``full`` from 0 to e, every message row inside a segment; ``ragged`` a
+    first pointer past 0 and a last short of e, with empty segments;
+    ``long`` as ragged over e - LONG_SPAN rows, with one span of
+    LONG_SPAN rows in the middle."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     msgs = torch.randn((e, d), generator=g, device=dev)
-    ptr = torch.sort(torch.randint(0, e + 1, (n + 1,), generator=g,
+    top = e - LONG_SPAN if kind == "long" else e
+    ptr = torch.sort(torch.randint(0, top + 1, (n + 1,), generator=g,
                                    device=dev, dtype=torch.int32)).values
     ptr[n // 4:n // 4 + 50] = ptr[n // 4].clone()
-    if full:
+    if kind == "full":
         ptr[0], ptr[-1] = 0, e
+    if kind == "long":
+        ptr[n // 2 + 1:] += LONG_SPAN
     return ptr, msgs
 
 
-def scan_reading(ptr, msgs, twin=True, timed=True):
-    """The column scan on (ptr, msgs) against its twin within
+def scan_reading(ptr, x, rows=None, mean=False, twin=True, timed=True):
+    """The span sum on (ptr, x, rows, mean) against its twin within
     ``twin_tolerance``, the same bits on two launches, and timed: the
     kernel, the twin (``torch.cumsum`` along dim 0 and two
-    ``index_select``s), the one PyTorch call that computes the same
-    function (``torch.segment_reduce(msgs, "sum", offsets=ptr)``: the
-    library yardstick), the transposed form the port ran before (a
-    contiguous copy of msgs.T, ``cumsum`` along its last axis, two
-    ``index_select``s, the transpose back), and the bound for this data:
-    the rows below ptr[N] read, the output written. ``twin=False``: the
-    bound and the kernel alone (a check elsewhere holds it);
-    ``timed=False``: the checks alone."""
+    ``index_select``s, after the gather when ``rows`` is given), the one
+    PyTorch call that computes the sum (``torch.segment_reduce(msgs,
+    "sum", offsets=ptr)``: the library yardstick, on the gathered stream
+    when ``rows`` is given, the gather and the mean's division untimed),
+    and the bound for this data: the rows the spans name read once (the
+    distinct ones through ``rows``, and the index below ptr[N]), the
+    pointers, the output written. ``twin=False``: the bound and the kernel
+    alone (a check elsewhere holds it); ``timed=False``: the checks
+    alone."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ptr_scan
 
-    e, d = msgs.shape
+    e = x.shape[0] if rows is None else rows.shape[0]
+    d = x.shape[1]
     n = ptr.shape[0] - 1
-    got = ptr_scan.ptr_seg_sum(ptr, msgs)
-    again = ptr_scan.ptr_seg_sum(ptr, msgs)
+
+    def kernel():
+        return ptr_scan.ptr_seg_sum(ptr, x, rows, mean)
+    got, again = kernel(), kernel()
     torch.cuda.synchronize()
-    check(torch.equal(got, again), f"ptr_seg_sum [{e}, {d}]: the same bits "
-          "on two launches")
+    what = (f"ptr_seg_sum [{e}, {d}]" + (" through rows" if rows is not None
+                                         else "") + (", mean" if mean else ""))
+    check(torch.equal(got, again), f"{what}: the same bits on two launches")
     lim = min(e, int(ptr[-1]))
-    b_ms, b_by = bound(4 * (lim * d + n * d + n + 1), lim * d + n * d)
+    if rows is None:
+        read = lim * d
+    else:
+        read = (int(torch.unique(rows[:lim].clamp(0, x.shape[0] - 1)).numel())
+                * d + lim)
+    b_ms, b_by = bound(4 * (read + n * d + n + 1),
+                       lim * d + (n * d if mean else 0))
     r = dict(bound_ms=b_ms, bound_by=b_by, rows_read=lim,
-             shape=f"[{e}, {d}] -> {n} rows, ptr[N] = {lim}")
+             shape=f"[{e}, {d}] -> {n} rows, ptr[N] = {lim}"
+             + (f", x [{x.shape[0]}, {d}] through rows" if rows is not None
+                else "") + (", mean" if mean else ""))
     if timed:
-        r["ms"] = cuda_ms(lambda: ptr_scan.ptr_seg_sum(ptr, msgs))
+        r["ms"] = cuda_ms(kernel)
     if not twin:
         return r
 
     def plain():
-        return ptr_scan._ptr_seg_sum_plain(ptr, msgs)
+        return ptr_scan._ptr_seg_sum_plain(ptr, x, rows, mean)
     p = ptr.to(torch.int64)
+    msgs = ptr_scan._rows_of(x, rows)
 
     def library():
         return torch.segment_reduce(msgs, "sum", offsets=p, axis=0,
                                     unsafe=True)
-
-    def transposed():
-        cs = F.pad(torch.cumsum(msgs.T.contiguous(), dim=1), (1, 0))
-        return (cs.index_select(1, p[1:]) - cs.index_select(1, p[:-1])).T
     want = plain()
-    tol = ptr_scan.twin_tolerance(ptr, msgs)
+    tol = ptr_scan.twin_tolerance(ptr, x, rows, mean)
     err = (got.double() - want.double()).abs()
     share = float((err / tol.clamp_min(1e-300)).max()) if err.numel() else 0.0
     check(bool((err <= tol).all()),
-          f"ptr_seg_sum [{e}, {d}] within twin_tolerance of the twin "
-          f"(worst {share:.3f} of it)")
+          f"{what} within twin_tolerance of the twin (worst {share:.3f} of "
+          f"it)")
     r.update(max_abs_err=float(err.max()) if err.numel() else 0.0,
              share_of_tolerance=share)
     if not timed:
         return r
     cs64 = F.pad(torch.cumsum(msgs.double(), 0), (0, 0, 1, 0))
     exact = cs64.index_select(0, p[1:]) - cs64.index_select(0, p[:-1])
+    if mean:
+        exact = exact / (p[1:] - p[:-1]).clamp(min=1).double()[:, None]
     lib_out = library()
+    if mean:
+        lib_out = lib_out / (p[1:] - p[:-1]).clamp(min=1).float()[:, None]
     r.update(kernel_vs_float64=float((got.double() - exact).abs().max()),
              twin_vs_float64=float((want.double() - exact).abs().max()),
              library_vs_float64=float((lib_out.double() - exact).abs().max()),
              plain_ms=cuda_ms(plain, iters=2, warmup=1),
-             library_ms=cuda_ms(library, iters=5),
-             transposed_ms=cuda_ms(transposed, iters=5))
-    del want, tol, err, cs64, exact, lib_out
+             library_ms=cuda_ms(library, iters=5))
+    del want, tol, err, cs64, exact, lib_out, msgs
     return r
 
 
 def scan_phase(dev, seed, eng, seeds, rid):
-    """The column scan (``ptr_seg_sum``) on the four calls of one
-    full-width SLICE_CFG request (``scan_calls_of_the_path``), on every
-    message row valid at a request's layer-1 shape (ptr from 0 to E: the
-    whole stream read), and on a ragged E and D; each against its twin
-    within the derived tolerance and timed. Returns the kernel's row (the
-    request's layer 1) and every reading."""
+    """The span sum (``ptr_seg_sum``) on the two calls of one full-width
+    SLICE_CFG request (``scan_calls_of_the_path``), on every message row
+    valid at a request's layer-1 shape (ptr from 0 to E: the whole stream
+    read), on a ragged E and D, and on one span of 2^17 rows; each against
+    its twin within the derived tolerance and timed. The request's layer 1
+    also as the composition the fused call replaced: the [E, D] gather,
+    the span sum of the stream, the division by the degrees. Returns the
+    kernel's row (the request's layer 1) and every reading."""
     import torch
     from repro_torch.kernels import ptr_scan
 
     readings = {}
-    for key, (ptr, msgs) in scan_calls_of_the_path(eng, seeds, rid).items():
-        readings[key] = scan_reading(ptr, msgs)
+    for key, call in scan_calls_of_the_path(eng, seeds, rid).items():
+        readings[key] = scan_reading(*call)
+        if key == "layer1":
+            ptr, x, rows, _ = call
+            deg = (ptr[1:] - ptr[:-1]).clamp(min=1).float()[:, None]
+
+            def unfused():
+                msgs = ptr_scan._rows_of(x, rows)
+                return ptr_scan.ptr_seg_sum(ptr, msgs) / deg
+            readings[key]["unfused_ms"] = cuda_ms(unfused)
         log(f"[scan] {key}: {readings[key]}")
-        del ptr, msgs
-    for key, (e, d, n, full) in SCAN_CASES.items():
-        ptr, msgs = scan_case(dev, seed + e, e, d, n, full)
+        del call
+    for key, (e, d, n, kind) in SCAN_CASES.items():
+        ptr, msgs = scan_case(dev, seed + e + d, e, d, n, kind)
         readings[key] = scan_reading(ptr, msgs)
         log(f"[scan] {key}: {readings[key]}")
         del ptr, msgs
     torch.cuda.empty_cache()
-    readings["resources"] = resource_usage(
-        "ptr_scan", r"\w+_kernel")
-    r = readings["layer1_msgs"]
+    readings["resources"] = resource_usage("ptr_scan", r"\w+_kernel")
+    check(readings["resources"] and all(
+        u["local"] == 0 for u in readings["resources"].values()),
+        f"the span-sum kernel spills no registers: {readings['resources']}")
+    r = readings["layer1"]
     row = dict(name="ptr_seg_sum", route="cuda",
                source="src/repro_torch/csrc/ptr_scan.cu",
                replaces="src/repro/models/gnn.py:80 (_ptr_seg_sum in jnp, no "
@@ -1987,8 +2033,9 @@ def scan_phase(dev, seed, eng, seeds, rid):
                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
                shape="a request's layer-1 call, the path's own arrays: "
-                     + r["shape"] + f"; launches a lane: {len(SCAN_CALLS)}")
-    check(ptr_scan.ptr_seg_sum.launches > 0, "the column scan launched")
+                     + r["shape"] + f"; launches a lane: {len(SCAN_CALLS)}; "
+                     "library: segment_reduce on the gathered stream")
+    check(ptr_scan.ptr_seg_sum.launches > 0, "the span sum launched")
     return {"ptr_seg_sum": row}, readings
 
 
@@ -2009,16 +2056,14 @@ def lane_launches(eng, seeds, rid):
 def counters_match_trace(what, counts, trace):
     """The launches the wrappers counted against the kernels a trace of
     the same run shows: one kernel a counted launch for the 1:1 wrappers
-    and ptr_seg_sum (its difference kernel, one a call; its other four
-    once a call each), the set count's two counted launches its two
-    kernels, and one partition and one tile kernel a pass of the merge
-    pair's calls (one pass or more a call)."""
+    (ptr_seg_sum among them: its span-sum kernel, one a call), the set
+    count's two counted launches its two kernels, and one partition and
+    one tile kernel a pass of the merge pair's calls (one pass or more a
+    call)."""
     def n(kernel):
         return trace.get(kernel, 0)
     merges = counts.get("fused_merge", 0) + counts.get("merge_rung", 0)
-    scan = counts.get("ptr_seg_sum", 0)
     ok = (all(counts.get(w, 0) == n(k) for w, k in TRACE_OF_WRAPPER.items())
-          and all(n(k) <= scan for k in SCAN_SETUP_KERNELS)
           and counts.get("set_count_less", 0)
           == n("tile_sort_kernel") + n("set_count_kernel")
           and n("merge_tile_kernel") == n("merge_partition_kernel")
@@ -2358,9 +2403,9 @@ FAMILIES = (("graphsage-reddit", "slice"), ("gat-cora", "slice"),
 # pointer or segment sums of one request's forward: GAT a softmax
 # denominator and an aggregation a layer, GatedGCN a numerator and a
 # denominator a layer, MeshGraphNet an aggregation a layer, GraphSAGE a
-# mean (messages and degrees) a layer
+# mean a layer (the gather and the degrees folded into the span sum)
 FAMILY_SUMS = {"gat-cora": 4, "gatedgcn": 32, "meshgraphnet": 15,
-               "graphsage-reddit": 4}
+               "graphsage-reddit": 2}
 HOST_CHECKED = 4  # requests whose subgraphs are held against the host's
 RESERVOIR_REQUESTS = 4
 # the update stream: every UPDATE_EVERY-th of UPDATE_ITEMS items is an
@@ -2469,7 +2514,7 @@ def seg_sum_reading(dst, msgs, n, timed=True):
 
 
 def family_sum_readings(tag, eng, seeds, rid):
-    """Every pointer (column-scan) and segment-sum call of one request of
+    """Every pointer (span-sum) and segment-sum call of one request of
     the family's forward, recorded, each held against its twin within its
     derived tolerance; the first call of each width timed. Returns
     {call: reading}."""
@@ -2480,9 +2525,9 @@ def family_sum_readings(tag, eng, seeds, rid):
     scans = recorded_calls(eng, seeds, rid, tgnn, "ptr_seg_sum")
     sums = recorded_calls(eng, seeds, rid, tsa, "segment_sum_padded")
     out, widths = {}, set()
-    for i, (ptr, msgs) in enumerate(scans):
-        d = msgs.shape[1]
-        out[f"scan{i}_d{d}"] = scan_reading(ptr, msgs,
+    for i, call in enumerate(scans):
+        d = call[1].shape[1]
+        out[f"scan{i}_d{d}"] = scan_reading(*call,
                                             timed=("scan", d) not in widths)
         widths.add(("scan", d))
     for i, (dst, msgs, n) in enumerate(sums):
@@ -3298,9 +3343,11 @@ def prefetch_phase(dev, seed, csc, feats):
             "prefetched": profile_call(lambda: consume(
                 Prefetcher(batch_fn, stop=4), want), top=6)}
     check(out["prefetch_launches"] == out["sync_launches"] == again
-          and out["sync_launches"].get("ptr_seg_sum") == 4 * PREFETCH_BATCHES,
+          and out["sync_launches"].get("ptr_seg_sum")
+          == len(SCAN_CALLS) * PREFETCH_BATCHES,
           f"the prefetched runs' launch counters == the synchronous run's "
-          f"(4 ptr_seg_sum a batch): {out['prefetch_launches']} / {again} / "
+          f"({len(SCAN_CALLS)} ptr_seg_sum a batch): "
+          f"{out['prefetch_launches']} / {again} / "
           f"{out['sync_launches']}")
     check(all(bool(torch.isfinite(x).all()) for x in want),
           "finite prefetched logits")
@@ -3542,21 +3589,16 @@ def convert_profile(dev, coo, path="merge"):
 
 
 # the hand-written kernels of the GNN serve step in a trace, and the one
-# a counted launch of each 1:1 wrapper runs (ptr_seg_sum: its difference
-# kernel, once a call; SCAN_SETUP_KERNELS once a call or, on an empty
-# stream, not at all)
+# a counted launch of each 1:1 wrapper runs
 SERVE_KERNEL_RE = (r"\b(?:digit_hist|digit_scatter|chunk_sort|rank|rename|"
-                   r"mark|chunk_total|chunk_carry|chunk_rescan|difference|"
-                   r"merge_partition|merge_tile|tile_sort|set_count|"
+                   r"span_sum|merge_partition|merge_tile|tile_sort|set_count|"
                    r"segment_sum)_kernel\b")
 TRACE_OF_WRAPPER = {"digit_hist": "digit_hist_kernel",
                     "digit_scatter": "digit_scatter_kernel",
                     "rank_search": "rank_kernel", "rename": "rename_kernel",
-                    "ptr_seg_sum": "difference_kernel",
+                    "ptr_seg_sum": "span_sum_kernel",
                     "chunk_sort": "chunk_sort_kernel",
                     "segment_sum_sorted": "segment_sum_kernel"}
-SCAN_SETUP_KERNELS = ("mark_kernel", "chunk_total_kernel",
-                      "chunk_carry_kernel", "chunk_rescan_kernel")
 # a request's or a step's trace: those kernels by name, and every copy
 # kernel as one ("copy": the transposing copies of the port's earlier
 # pointer segment sum were ones)
@@ -4424,9 +4466,9 @@ def main():
     out["profile"] = profile_phase(eng, reqs[big], handles[big].rid)
     log_profile("profile", out["profile"])
     copy = out["profile"]["kernels"].get("copy", {}).get("device_ms", 0.0)
-    scans = out["profile"]["kernels"].get("difference_kernel", {})
+    scans = out["profile"]["kernels"].get("span_sum_kernel", {})
     check(copy < COPY_BOUND_MS and scans.get("count") == len(SCAN_CALLS),
-          f"the profiled slice request ran {len(SCAN_CALLS)} column scans "
+          f"the profiled slice request ran {len(SCAN_CALLS)} span sums "
           f"({scans}) and copies of {copy:.3f} ms, less than one transposing"
           f" copy of its layer-1 messages could take ({COPY_BOUND_MS} ms)")
     out["step_profile"] = step_profile(eng, reqs, handles, out["lane_trace"])
@@ -4457,9 +4499,9 @@ def main():
           f"every kernel of the merge path launched: {mout['launches']}")
     mlane = serve_launch_checks("merge", meng, mout, mreqs, mhandles)
     check(mlane.get("ptr_seg_sum", 0) == 0
-          and mlane["segment_sum_sorted"] == len(SCAN_CALLS),
-          f"a merge request (lane) aggregates on segment_sum_sorted, not "
-          f"the column scan: {mlane}")
+          and mlane["segment_sum_sorted"] == MERGE_SUMS,
+          f"a merge request (lane) aggregates on {MERGE_SUMS} "
+          f"segment_sum_sorted launches, not the span sum: {mlane}")
     log(f"[merge serve] captured step: {mout['serve']['steps']} replays, "
         f"{mout['step_launches']} launches a replay, {mlane} a lane")
     # two sorts (the two-pass Ordering), each: the fused merge to 65,536,

@@ -1,15 +1,17 @@
-"""The GNN forward's pointer segment sum as a column scan (no Pallas
+"""The GNN forward's pointer segment sum as direct span sums (no Pallas
 counterpart: the reference computes ``_ptr_seg_sum`` in jnp,
 ``repro/models/gnn.py``).
 
 ``ptr_seg_sum`` launches the kernel of ``csrc/ptr_scan.cu`` on CUDA tensors
-and runs its plain twin on CPU tensors. Both compute the reference's
-prefix-difference arithmetic, ``cs[ptr[1:]] - cs[ptr[:-1]]`` over the
-prefix sum ``cs`` of the message rows with a zero row in front; they add in
-other orders (the kernel in fixed row chunks plus a carry, the twin in
-``torch.cumsum``'s order), so they agree within float32 rounding of the
-prefix, not bit for bit. The kernel's chunking depends on the shape alone,
-so a lane gives the same bits batched and alone.
+and runs its plain twin on CPU tensors. The kernel sums each node's span of
+rows directly, in one launch, optionally reading the rows through a gather
+index (GraphSAGE's neighbour features, so the [E, D] message stream is never
+written) and dividing by the span's length (the mean). The twin keeps the
+reference's arithmetic, ``cs[ptr[1:]] - cs[ptr[:-1]]`` over the prefix sum
+``cs`` of the rows with a zero row in front, so the two agree within float32
+rounding (``twin_tolerance``), not bit for bit. The kernel's summation order
+depends on each span's length alone, so a lane gives the same bits batched
+and alone.
 """
 from __future__ import annotations
 
@@ -23,81 +25,104 @@ from . import _build, count_launch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ptr_seg_sum": (ctypes.c_int, (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
-                                   _P)),
+    "ptr_seg_sum": (ctypes.c_int, (_P, _I, _I, _P, _P, _I, _I, _P, _P)),
 }
 
 
-def scan_chunk(n_rows: int) -> int:
-    """Rows of one chunk of the kernel's scan: 512, or more so that no
-    column carries over more than 1024 chunks (its carry scan is
-    sequential)."""
-    need = -(-n_rows // 1024)
-    return max(512, 1 << max(0, need - 1).bit_length())
+def _rows_of(x: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor:
+    """x's rows at ``rows`` clamped into range (the forward's
+    ``gather_src``), or x itself."""
+    if rows is None:
+        return x
+    return x.index_select(0, rows.clamp(0, x.shape[0] - 1))
 
 
-def _ptr_seg_sum_plain(ptr, msgs):
-    cs = F.pad(torch.cumsum(msgs, dim=0), (0, 0, 1, 0))
+def _ptr_seg_sum_plain(ptr, x, rows=None, mean=False):
+    cs = F.pad(torch.cumsum(_rows_of(x, rows), dim=0), (0, 0, 1, 0))
     p = ptr.to(torch.int64)
-    return cs.index_select(0, p[1:]) - cs.index_select(0, p[:-1])
+    out = cs.index_select(0, p[1:]) - cs.index_select(0, p[:-1])
+    if mean:
+        deg = (p[1:] - p[:-1]).to(out.dtype)[:, None]
+        out = out / torch.clamp(deg, min=1.0)
+    return out
 
 
-def ptr_seg_sum(ptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
-    """out[i, :] = cs[ptr[i + 1], :] - cs[ptr[i], :], cs the float32 prefix
-    sum of ``msgs`` along its rows with a zero row in front.
+def ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
+                rows: torch.Tensor | None = None,
+                mean: bool = False) -> torch.Tensor:
+    """out[i, :] = Σ x[row(e), :] over e in [ptr[i], ptr[i + 1]), row(e) = e
+    or, given ``rows``, rows[e] clamped into [0, x.shape[0] − 1]; with
+    ``mean``, divided by max(ptr[i + 1] − ptr[i], 1).
 
-    ptr [N + 1] int32, sorted, every entry in [0, E]; msgs [E, D] float32.
-    Returns [N, D] float32.
+    ptr [N + 1] int32, sorted, every entry in [0, E]; x [E, D] float32, or
+    [M, D] with rows [E] int32. Returns [N, D] float32.
     """
-    if msgs.ndim != 2 or ptr.ndim != 1 or ptr.shape[0] < 1:
-        raise ValueError("ptr_seg_sum takes ptr [N + 1] and msgs [E, D]")
-    if not msgs.is_cuda:
-        return _ptr_seg_sum_plain(ptr, msgs)
-    if (ptr.dtype != torch.int32 or msgs.dtype != torch.float32
-            or not ptr.is_contiguous() or not msgs.is_contiguous()
-            or ptr.device != msgs.device):
+    if x.ndim != 2 or ptr.ndim != 1 or ptr.shape[0] < 1:
+        raise ValueError("ptr_seg_sum takes ptr [N + 1] and x [rows, D]")
+    if not isinstance(mean, bool):
+        raise ValueError("ptr_seg_sum's mean is a bool")
+    if rows is not None and (rows.ndim != 1 or rows.dtype != torch.int32
+                             or rows.device != x.device
+                             or (x.shape[0] == 0 and rows.shape[0] > 0)):
+        raise ValueError("ptr_seg_sum's rows are int32 [E] on x's device, "
+                         "into a non-empty x")
+    if not x.is_cuda:
+        return _ptr_seg_sum_plain(ptr, x, rows, mean)
+    if (ptr.dtype != torch.int32 or x.dtype != torch.float32
+            or not ptr.is_contiguous() or not x.is_contiguous()
+            or (rows is not None and not rows.is_contiguous())
+            or ptr.device != x.device):
         raise ValueError("ptr_seg_sum takes contiguous int32 ptr and float32 "
-                         "msgs on one CUDA device")
-    e, d = msgs.shape
+                         "x on one CUDA device")
+    n_x, d = x.shape
     n = ptr.shape[0]
-    dev = msgs.device
-    out = torch.empty((n - 1, d), dtype=torch.float32, device=dev)
+    out = torch.empty((n - 1, d), dtype=torch.float32, device=x.device)
     if out.numel():
-        chunk = scan_chunk(e)
-        first = torch.empty(e, dtype=torch.int32, device=dev)
-        totals = torch.empty((-(-e // chunk), d), dtype=torch.float32,
-                             device=dev)
-        table = torch.empty((n, d), dtype=torch.float32, device=dev)
         count_launch(ptr_seg_sum)
         _build.check(_build.load("ptr_scan", _SIGNATURES).ptr_seg_sum(
-            msgs.data_ptr(), e, d, ptr.data_ptr(), n, chunk, out.data_ptr(),
-            first.data_ptr(), totals.data_ptr(), table.data_ptr(),
-            _build.stream_of(msgs)), "ptr_seg_sum")
+            x.data_ptr(), n_x, d, None if rows is None else rows.data_ptr(),
+            ptr.data_ptr(), n, int(mean), out.data_ptr(),
+            _build.stream_of(x)), "ptr_seg_sum")
     return out
 
 
 ptr_seg_sum.launches = 0
 
 
-def twin_tolerance(ptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
-    """[N, D] float64 bound on |kernel − twin| for ``ptr_seg_sum(ptr,
-    msgs)``, derived from float32 rounding, not measured.
+def twin_tolerance(ptr: torch.Tensor, x: torch.Tensor,
+                   rows: torch.Tensor | None = None,
+                   mean: bool = False) -> torch.Tensor:
+    """[N, D] float64 bound on |kernel − twin| for ``ptr_seg_sum(ptr, x,
+    rows, mean)``, derived from float32 rounding, not measured.
 
-    Let U_c be the float32 ulp at twice the column's largest exact |prefix|
-    M_c (every partial either version forms, prefix or chunk-local, lies
-    within 2 M_c, so each of its roundings errs by at most U_c / 2), and
-    len_i = ptr[i + 1] − ptr[i]. The twin's cs[b] − cs[a] carries its len
-    roundings between a and b plus the subtraction's: (len + 1) U / 2. The
-    kernel's carries the same len local roundings, at most len carry
-    additions between the two chunks (each crossed chunk holds a row of
-    the segment), its two carry + local roundings and the subtraction's:
-    (2 len + 3) U / 2. So |kernel − twin| ≤ (1.5 len + 2) U; the bound
-    allows (2 len + 4) U.
+    Over the rows the sum reads, in stream order (x through ``rows`` when
+    given), let M_c be the largest exact |prefix sum| of column c over the
+    rows below ptr[N] (no output depends on a row at or past it), U_c the
+    float32 ulp at 2 M_c, and len_i = ptr[i + 1] − ptr[i]. Every partial
+    either version forms lies within 2 M_c: the twin's are prefixes up to
+    ptr[N] and their differences, the kernel's are sums of contiguous
+    sub-ranges of a span (a piece summed in row order, or adjacent pieces
+    combined pairwise), so each rounding errs by at most U_c / 2. The twin's
+    cs[b] − cs[a] carries the len roundings between a and b plus the
+    subtraction's: (len + 1) U / 2. The kernel adds len rows from 0 in
+    some tree: len − 1 roundings (the first addition, to 0, is exact):
+    (len − 1) U / 2. So |kernel − twin| ≤ len U; the bound allows
+    (2 len + 4) U, which also covers a partial rounded just past 2 M_c
+    into the next binade (an ulp twice U). With ``mean`` both divide by
+    max(len, 1): the difference divides with them, and each quotient
+    rounds once, by at most U (its magnitude is at most 2 M_c, just past
+    it after a rounding): (2 len + 4) U / max(len, 1) + 2 U.
     """
     p = ptr.to(torch.int64)
-    m = torch.cumsum(msgs.to(torch.float64), dim=0).abs().amax(dim=0)
+    lim = int(p[-1])
+    msgs = _rows_of(x, rows)[:lim].to(torch.float64)
+    m = torch.cumsum(msgs, dim=0).abs().amax(dim=0) if lim else \
+        torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
     _, exp = torch.frexp(2 * m)
     ulp = torch.where(m > 0, torch.ldexp(torch.ones_like(m), exp - 24),
                       torch.zeros_like(m))
     seg = (p[1:] - p[:-1]).to(torch.float64)
-    return (2 * seg + 4)[:, None] * ulp[None, :]
+    tol = (2 * seg + 4)[:, None] * ulp[None, :]
+    if mean:
+        tol = tol / torch.clamp(seg, min=1.0)[:, None] + 2 * ulp[None, :]
+    return tol

@@ -3,14 +3,16 @@ MeshGraphNet (port of ``repro/models/gnn.py``).
 
 Message passing is edge gather → segment reduce. The serve path attaches
 the subgraph's CSC pointers to the batch, so every sum is the scatter-free
-pointer form: one cumulative sum of the masked message stream and a
-difference of prefix sums at each node's pointer span, on the column-scan
-kernel (``kernels/ptr_scan.py``); under ``GNNConfig.use_pallas_agg`` the
-model's aggregations are the segment-sum kernel over the dst-sorted edges
-instead (``kernels/segment_agg.py``). No reduction on the serve path uses
-float atomics, so a lane's logits are the same bits batched and alone:
-GAT's edge softmax takes its maximum with ``scatter_reduce("amax")``
-(exact in any order) and its denominator from the pointer sum.
+pointer form: each node's sum read straight from its own span of the
+message stream, in one launch of the span-sum kernel
+(``kernels/ptr_scan.py``); GraphSAGE's mean reads the node states through
+``edge_src`` in that same launch, so its [E, D] messages are never
+written. Under ``GNNConfig.use_pallas_agg`` the model's aggregations are
+the segment-sum kernel over the dst-sorted edges instead
+(``kernels/segment_agg.py``). No reduction on the serve path uses float
+atomics, so a lane's logits are the same bits batched and alone: GAT's
+edge softmax takes its maximum with ``scatter_reduce("amax")`` (exact in
+any order) and its denominator from the pointer sum.
 ``index_add_`` remains only for a batch without ``ptr``.
 ``gnn_apply_batched`` stacks one forward per slot. Weights keep the
 reference's layout, ``h @ W`` with ``W`` shaped [d_in, d_out], so a
@@ -73,15 +75,23 @@ def _valid(batch: GraphBatch) -> torch.Tensor:
     return batch.edge_dst < batch.n_nodes
 
 
-def _ptr_seg_sum(ptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
-    """Scatter-free segment sum over CSC pointers: prefix-sum the masked
-    message stream once, then difference it at each node's span — the
-    column-scan kernel on the card, its twin (``torch.cumsum`` and two
-    ``index_select``) on the CPU."""
-    flat = msgs.to(torch.float32).reshape(msgs.shape[0], -1).contiguous()
-    p = torch.clamp(ptr, 0, msgs.shape[0]).to(torch.int32)
-    seg = ptr_seg_sum(p, flat)
-    return seg.reshape((p.shape[0] - 1,) + msgs.shape[1:]).to(msgs.dtype)
+def _ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
+                 rows: torch.Tensor | None = None,
+                 mean: bool = False) -> torch.Tensor:
+    """Scatter-free segment sum over CSC pointers: each node's span of the
+    message stream ``x`` summed, or, given ``rows`` (the edges' source
+    nodes), of ``x`` read through them inside the sum, so no [E, D] stream
+    is written; with ``mean`` divided by the span's length (at least 1).
+    The span-sum kernel on the card, one launch; its twin on the CPU
+    (``torch.cumsum`` and two ``index_select``, after the gather), whose
+    bits are those of ``seg_mean(batch, gather_src(batch, x))``
+    (``seg_sum`` without ``mean``)."""
+    flat = x.to(torch.float32).reshape(x.shape[0], -1).contiguous()
+    if rows is not None:
+        rows = rows.to(torch.int32).contiguous()
+    p = torch.clamp(ptr, 0, x.shape[0] if rows is None else rows.shape[0])
+    seg = ptr_seg_sum(p.to(torch.int32), flat, rows, mean)
+    return seg.reshape((p.shape[0] - 1,) + x.shape[1:]).to(x.dtype)
 
 
 def _dst(batch: GraphBatch) -> torch.Tensor:
@@ -92,15 +102,22 @@ def seg_sum(batch: GraphBatch, msgs: torch.Tensor,
             use_pallas: bool = False) -> torch.Tensor:
     """Σ over incoming edges per dst node; SENTINEL edges contribute 0.
     ``use_pallas`` runs the segment-sum kernel over ``edge_dst`` (which
-    must then be sorted) and ignores ``ptr``."""
+    must then be sorted) and ignores ``ptr``.
+
+    The pointer path reads no mask: every row inside a span ptr[d] ..
+    ptr[d + 1] is a valid edge of node d, and every SENTINEL row lies at or
+    past ptr[N], which no span reaches (``subgraph_batch``, the builder of
+    every pointer batch, sets SENTINEL exactly at the positions from the
+    subgraph's edge count on, and ptr[N] is that count). The pointer sum
+    never reads those rows, so the mask would change no output bit."""
+    if batch.ptr is not None and not use_pallas:
+        return _ptr_seg_sum(batch.ptr, msgs)
     msgs = torch.where(_valid(batch)[:, None], msgs,
                        torch.zeros((), dtype=msgs.dtype, device=msgs.device))
     if use_pallas:
         from repro_torch.kernels.segment_agg import segment_sum_padded
         return segment_sum_padded(batch.edge_dst, msgs,
                                   batch.n_nodes).to(msgs.dtype)
-    if batch.ptr is not None:
-        return _ptr_seg_sum(batch.ptr, msgs)
     out = torch.zeros((batch.n_nodes,) + msgs.shape[1:], dtype=msgs.dtype,
                       device=msgs.device)
     return out.index_add_(0, _dst(batch).to(torch.int64), msgs)
@@ -213,11 +230,16 @@ class GraphSAGE(_GNN):
     def body(self, batch: GraphBatch) -> torch.Tensor:
         cfg = self.cfg
         h = batch.node_feat.to(cfg.dtype)
+        fused = batch.ptr is not None and not cfg.use_pallas_agg
         for i, lp in enumerate(self.layers):
-            msgs = gather_src(batch, h)
-            agg = (seg_mean(batch, msgs, cfg.use_pallas_agg)
-                   if cfg.aggregator == "mean"
-                   else seg_sum(batch, msgs, cfg.use_pallas_agg))
+            if fused:
+                agg = _ptr_seg_sum(batch.ptr, h, batch.edge_src,
+                                   cfg.aggregator == "mean")
+            else:
+                msgs = gather_src(batch, h)
+                agg = (seg_mean(batch, msgs, cfg.use_pallas_agg)
+                       if cfg.aggregator == "mean"
+                       else seg_sum(batch, msgs, cfg.use_pallas_agg))
             h = h @ lp["w_self"] + agg @ lp["w_nb"] + lp["b"]
             if i < cfg.n_layers - 1:
                 h = torch.relu(h)

@@ -1121,38 +1121,63 @@ def test_gemma2_smoke_train_step_on_card_equals_cpu(cuda, seq):
             2 * want["lr"] + 1e-6), name
 
 
-# ---------------------------------------- the column scan, the captured step
-def _scan_case(e, d, n, seed, full=False):
+# ---------------------------------------- the span sum, the captured step
+def _scan_case(e, d, n, seed, kind="ragged", n_x=0):
     """msgs [e, d] (N(0, 1) + 3, so that the prefix drifts) and sorted
-    pointers [n + 1] in [0, e], with empty segments and, unless ``full``,
-    a first pointer past 0 and a last one short of e."""
+    pointers [n + 1] in [0, e], with empty segments and, for ``ragged``, a
+    first pointer past 0 and a last one short of e; ``full`` from 0 to e;
+    ``long`` as ragged with one span of 2^17 rows in the middle. With
+    ``n_x``, x is [n_x, d] and rows [e] int32 gathers from it (every 50th
+    out of range: clamped)."""
     rng = np.random.default_rng(seed)
-    msgs = torch.from_numpy((rng.normal(size=(e, d)) + 3).astype(np.float32))
-    p = np.sort(rng.integers(0, e + 1, n + 1)).astype(np.int32)
+    span = 1 << 17 if kind == "long" else 0
+    p = np.sort(rng.integers(0, e - span + 1, n + 1)).astype(np.int32)
     if n > 8:
         p[n // 4:n // 4 + 5] = p[n // 4]
-    if full:
+    if kind == "full":
         p[0], p[-1] = 0, e
-    return torch.from_numpy(p), msgs
+    if kind == "long":
+        p[n // 2 + 1:] += span
+    x = rng.normal(size=(n_x or e, d)) + 3
+    rows = None
+    if n_x:
+        rows = rng.integers(0, n_x, e).astype(np.int32)
+        rows[::50] = 0x7FFFFFFF
+        rows = torch.from_numpy(rows)
+    return (torch.from_numpy(p), torch.from_numpy(x.astype(np.float32)),
+            rows)
 
 
-@pytest.mark.parametrize("e,d,n,full", [
-    (1, 1, 1, True), (3000, 7, 400, False), (100_003, 37, 20_000, False),
-    (1 << 19, 1, 282_624, True), (1 << 19, 128, 282_624, True),
-    (70_001, 602, 50_000, False)])
+@pytest.mark.parametrize("e,d,n,kind,n_x,mean", [
+    (1, 1, 1, "full", 0, False), (3000, 7, 400, "ragged", 0, False),
+    (100_003, 37, 20_000, "ragged", 0, False),
+    (1 << 19, 1, 282_624, "full", 0, False),
+    (1 << 19, 128, 282_624, "full", 0, False),
+    (70_001, 602, 50_000, "ragged", 0, False),
+    (262_144, 3, 169_984, "ragged", 0, True),
+    (262_144, 8, 169_984, "ragged", 0, False),
+    (262_144, 70, 169_984, "ragged", 0, False),
+    (1 << 18, 1, 4096, "long", 0, False),
+    (1 << 18, 602, 4096, "long", 0, True),
+    (300_000, 70, 4096, "long", 5000, True),
+    (524_288, 602, 282_624, "ragged", 282_624, True),
+    (524_288, 128, 282_624, "full", 282_624, True),
+    (200_000, 8, 50_000, "ragged", 30_000, False)])
 def test_ptr_scan_kernel_within_its_tolerance_of_the_twin(cuda, e, d, n,
-                                                          full):
-    """The column-scan kernel against its twin within ``twin_tolerance``
-    (derived from float32 rounding), on ragged E and D, empty segments
-    and pointers that start past 0 or end short of E; two launches give
-    the same bits, and one launch counts one."""
+                                                          kind, n_x, mean):
+    """The span-sum kernel against its twin within ``twin_tolerance``
+    (derived from float32 rounding) at D 1, 3, 7, 8, 37, 70, 128 and 602,
+    with empty segments, pointers that start past 0 or end short of E, a
+    span of 2^17 rows, a gather index (clamped where out of range) and the
+    mean; two launches give the same bits, and one launch counts one."""
     from repro_torch.kernels import ptr_scan
-    ptr, msgs = _scan_case(e, d, n, seed=e + d, full=full)
-    want = ptr_scan.ptr_seg_sum(ptr, msgs)
-    tol = ptr_scan.twin_tolerance(ptr, msgs)
+    ptr, x, rows = _scan_case(e, d, n, seed=e + d, kind=kind, n_x=n_x)
+    want = ptr_scan.ptr_seg_sum(ptr, x, rows, mean)
+    tol = ptr_scan.twin_tolerance(ptr, x, rows, mean)
+    args = (ptr.to(cuda), x.to(cuda), None if rows is None else rows.to(cuda))
     before = ptr_scan.ptr_seg_sum.launches
-    got = ptr_scan.ptr_seg_sum(ptr.to(cuda), msgs.to(cuda))
-    again = ptr_scan.ptr_seg_sum(ptr.to(cuda), msgs.to(cuda))
+    got = ptr_scan.ptr_seg_sum(*args, mean)
+    again = ptr_scan.ptr_seg_sum(*args, mean)
     torch.cuda.synchronize()
     assert ptr_scan.ptr_seg_sum.launches == before + 2
     assert torch.equal(got, again)
@@ -1168,6 +1193,16 @@ def test_ptr_scan_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         ptr_scan.ptr_seg_sum(ptr, torch.zeros((4, 2), device=cuda,
                                               dtype=torch.float64))
+    with pytest.raises(ValueError, match="rows"):
+        ptr_scan.ptr_seg_sum(ptr, torch.zeros((4, 2), device=cuda),
+                             torch.zeros(4, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="rows"):
+        ptr_scan.ptr_seg_sum(ptr, torch.zeros((4, 2), device=cuda),
+                             torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="float32"):
+        ptr_scan.ptr_seg_sum(ptr, torch.zeros((4, 2), device=cuda),
+                             torch.zeros(8, dtype=torch.int32,
+                                         device=cuda)[::2])
 
 
 def _serve_engine(cuda, cfg, n_slots=2, arch="graphsage-reddit",
@@ -1266,7 +1301,7 @@ def test_families_replayed_step_equals_the_eager_step(cuda, arch, cfg):
 @pytest.mark.parametrize("arch", ["gat-cora", "gatedgcn", "meshgraphnet"])
 def test_family_logits_on_card_equal_cpu(cuda, arch):
     """One sampled subgraph through the family's forward on the card and
-    on the CPU (the column scan against its twin, cuBLAS, the card's
+    on the CPU (the span sum against its twin, cuBLAS, the card's
     scatter_reduce maximum of GAT's softmax): within 1e-4 of the logits'
     largest magnitude (at least 1)."""
     from repro_torch.configs import get_config
@@ -1358,9 +1393,8 @@ def test_update_is_copied_into_the_captured_graph(cuda):
 
 # the hand-written kernels of the GNN serve step, by name in a trace
 _SERVE_KERNEL_RE = (r"\b(?:digit_hist|digit_scatter|chunk_sort|rank|rename|"
-                    r"mark|chunk_total|chunk_carry|chunk_rescan|difference|"
-                    r"merge_partition|merge_tile|tile_sort|set_count|"
-                    r"segment_sum)_kernel\b")
+                    r"span_sum|merge_partition|merge_tile|tile_sort|"
+                    r"set_count|segment_sum)_kernel\b")
 
 
 def _traced_kernels(fn):
@@ -1382,10 +1416,10 @@ def _traced_kernels(fn):
 
 def test_replays_advance_the_launch_counters(cuda):
     """A replay adds the captured graph's launches to the counters: per
-    lane, what one eager slot_fn counts (4 ptr_seg_sum launches: two
-    layers, messages and degrees); and a trace of one replay shows n_slots
-    times the hand-written kernels a trace of one eager slot_fn shows, so
-    the counted launches happened."""
+    lane, what one eager slot_fn counts (2 ptr_seg_sum launches: two
+    layers, each a mean read through the edge sources); and a trace of
+    one replay shows n_slots times the hand-written kernels a trace of one
+    eager slot_fn shows, so the counted launches happened."""
     eng = _serve_engine(cuda, SLICE_CFG)
     rng = np.random.default_rng(6)
     eng._admit_many(_wave(eng, rng, 0))
@@ -1395,7 +1429,7 @@ def test_replays_advance_the_launch_counters(cuda):
     lane = _traced_kernels(lambda: eng.slot_fn(
         eng.params, eng.state["seeds"][0], eng.request_key(0)))
     one = {k: v for k, v in launch_counts().items() if v}
-    assert one["ptr_seg_sum"] == 4 == lane["difference_kernel"]
+    assert one["ptr_seg_sum"] == 2 == lane["span_sum_kernel"]
     assert one["digit_hist"] == lane["digit_hist_kernel"]
     assert per_step == {k: eng.n_slots * v for k, v in one.items()}
     eng._admit_many(_wave(eng, rng, 0))

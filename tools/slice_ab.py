@@ -4,11 +4,13 @@ SLICE_CFG serve path: what a request costs end to end and what the rank
 epilogue's five calls cost on the arrays the path hands them; or, with
 ``--what kernels``, what the chunk sort, the filter, the merge ladder's
 kernels and a MERGE_CFG convert cost; with ``--what digit``, what the
-global_radix digit pass, its whole sort and a SLICE_CFG convert cost; or,
-with ``--what serve``, what serving costs under both configurations.
+global_radix digit pass, its whole sort and a SLICE_CFG convert cost;
+with ``--what serve``, what serving costs under both configurations; or,
+with ``--what scan``, what the pointer segment sum costs on the serve
+path's own pointers.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
-      --order parent,change,change,parent [--what kernels|digit|serve]
+      --order parent,change,change,parent [--what kernels|digit|serve|scan]
 
 A tree is the root of a checkout (unpack an earlier commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Each turn is
@@ -62,6 +64,20 @@ and read before the next: light traffic, one slot busy), their p50/p99
 latency; and the peak memory allocated and reserved over the engine's
 life.
 
+``--what scan`` converts chip_smoke's Reddit-scale graph under SLICE_CFG,
+samples one request of 1,024 seeds at fanouts 15-10 and one at 25-10
+(``subgraph_batch``: the pointers the forward hands the pointer sum) and
+times, queued behind a device sleep, the tree's ``ptr_seg_sum`` on a
+message stream of the path's shape ([E, D], N(0, 1) from ``--seed``) over
+those pointers: at 15-10 for D 1, 8, 64, 70 and 128 (the GAT, GatedGCN
+and MeshGraphNet widths), at 25-10 for D 602; GraphSAGE's whole pointer
+aggregation of a request's layer 1 as the tree's forward computes it
+(``models.gnn._ptr_seg_sum`` through ``edge_src`` where the tree's takes
+``rows``, else ``seg_mean(batch, gather_src(batch, h))``); and
+chip_smoke's synthetic cases (every row in a segment at [524288, 602];
+one span of 2^17 rows at D 1 and 602). Each result is held against a
+float64 sum of the same rows.
+
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
 comparable only within one run.
@@ -69,6 +85,7 @@ comparable only within one run.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -439,6 +456,87 @@ def turn_serve(tree: str, seed: int, n_requests: int) -> dict:
     return dict(tree=tree, **out)
 
 
+def turn_scan(tree: str, seed: int) -> dict:
+    """One tree's pointer segment sum readings, in this process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import pipeline, prng
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ptr_scan
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.models import gnn as tgnn
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    _build.build()
+    coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
+                        cs.CONVERT_CAP, seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    feats = torch.randn((cs.REDDIT["nodes"], cs.REDDIT["feats"]),
+                        generator=g, device=dev)
+    csc = pipeline.convert(coo, SLICE_CFG, device=dev)
+    del coo
+    rng = np.random.default_rng(seed)
+    seeds = torch.from_numpy(rng.choice(cs.REDDIT["nodes"], cs.SEED_CAP,
+                                        replace=False).astype(np.int32))
+    batches = {f: tgnn.subgraph_batch(pipeline.sample_subgraph(
+        csc, seeds.to(dev), f, prng.PRNGKey(seed), SLICE_CFG), feats)
+        for f in ((15, 10), (25, 10))}
+
+    def exact(ptr, msgs):
+        p = ptr.to(torch.int64)
+        c = F.pad(torch.cumsum(msgs.double(), 0), (0, 0, 1, 0))
+        return c.index_select(0, p[1:]) - c.index_select(0, p[:-1])
+
+    def reading(ptr, msgs):
+        got = ptr_scan.ptr_seg_sum(ptr, msgs)
+        err = float((got.double() - exact(ptr, msgs)).abs().max())
+        return dict(ms=cs.cuda_ms(lambda: ptr_scan.ptr_seg_sum(ptr, msgs)),
+                    shape=list(msgs.shape), rows_out=ptr.shape[0] - 1,
+                    ptr_end=int(ptr[-1]), vs_float64=err)
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    for f, widths in (((15, 10), (1, 8, 64, 70, 128)), ((25, 10), (602,))):
+        b = batches[f]
+        e = b.edge_src.shape[0]
+        ptr = torch.clamp(b.ptr, 0, e).to(torch.int32)
+        for d in widths:
+            msgs = torch.randn((e, d), generator=gen, device=dev)
+            out[f"fanout{f[0]}_d{d}"] = reading(ptr, msgs)
+            del msgs
+    b = batches[(25, 10)]
+    h = b.node_feat
+    if "rows" in inspect.signature(tgnn._ptr_seg_sum).parameters:
+        def agg():
+            return tgnn._ptr_seg_sum(b.ptr, h, b.edge_src, True)
+    else:
+        def agg():
+            return tgnn.seg_mean(b, tgnn.gather_src(b, h))
+    e = b.edge_src.shape[0]
+    msgs = torch.where(tgnn._valid(b)[:, None], tgnn.gather_src(b, h), 0.0)
+    want = exact(torch.clamp(b.ptr, 0, e), msgs) / (
+        b.ptr[1:] - b.ptr[:-1]).clamp(min=1).double()[:, None]
+    out["graphsage_layer1_mean"] = dict(
+        ms=cs.cuda_ms(agg), vs_float64=float((agg().double() - want).abs()
+                                             .max()))
+    del msgs, want, batches, b, h
+    for key in ("full_stream", "long_d1", "long_wide"):
+        e, d, n, kind = cs.SCAN_CASES[key]
+        ptr, msgs = cs.scan_case(dev, seed + e + d, e, d, n, kind)
+        out[key] = reading(ptr, msgs)
+        del ptr, msgs
+    torch.cuda.empty_cache()
+    return dict(tree=tree, **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[],
@@ -447,12 +545,14 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--what", choices=("slice", "kernels", "digit", "serve"),
+    ap.add_argument("--what", choices=("slice", "kernels", "digit", "serve",
+                                       "scan"),
                     default="slice",
                     help="the SLICE_CFG request and rank calls; the chunk "
                     "sort, the filter, the merge kernels and the MERGE_CFG "
                     "convert; the global_radix digit pass, sort and "
-                    "SLICE_CFG convert; or both configurations' serving")
+                    "SLICE_CFG convert; both configurations' serving; or "
+                    "the pointer segment sum on the path's pointers")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
@@ -462,6 +562,7 @@ def main():
                turn_digit(tree, args.seed) if args.what == "digit" else
                turn_serve(tree, args.seed, args.requests)
                if args.what == "serve" else
+               turn_scan(tree, args.seed) if args.what == "scan" else
                turn(tree, args.seed, args.requests, args.reps))
         print(json.dumps(dict(name=name, **out)), flush=True)
         return 0
