@@ -9,7 +9,9 @@ message stream, in one launch of the span-sum kernel
 ``edge_src`` in that same launch, so its [E, D] messages are never
 written. Under ``GNNConfig.use_pallas_agg`` the model's aggregations are
 the segment-sum kernel over the dst-sorted edges instead
-(``kernels/segment_agg.py``). No reduction on the serve path uses float
+(``kernels/segment_agg.py``, the same span-sum body); GraphSAGE's mean
+reads the node states through ``edge_src`` there too, one call a layer.
+No reduction on the serve path uses float
 atomics, so a lane's logits are the same bits batched and alone: GAT's
 edge softmax takes its maximum with ``scatter_reduce("amax")`` (exact in
 any order) and its denominator from the pointer sum.
@@ -92,6 +94,20 @@ def _ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
     p = torch.clamp(ptr, 0, x.shape[0] if rows is None else rows.shape[0])
     seg = ptr_seg_sum(p.to(torch.int32), flat, rows, mean)
     return seg.reshape((p.shape[0] - 1,) + x.shape[1:]).to(x.dtype)
+
+
+def _dst_seg_sum(batch: GraphBatch, x: torch.Tensor, rows: torch.Tensor,
+                 mean: bool) -> torch.Tensor:
+    """The segment-sum kernel over ``edge_dst`` (which must be sorted;
+    ``ptr`` is ignored): each node's sum of ``x`` read through ``rows``
+    (the edges' source nodes, clamped into range) inside the sum, so no
+    [E, D] stream is written; with ``mean`` divided by the node's edge
+    count (at least 1), so no degree stream is summed. One call on the
+    card (the bounds pass and the sum); on the CPU its twin, whose bits are those of ``seg_mean(batch,
+    gather_src(batch, x), True)`` (``seg_sum`` without ``mean``)."""
+    from repro_torch.kernels.segment_agg import segment_sum_padded
+    return segment_sum_padded(batch.edge_dst, x, batch.n_nodes, rows,
+                              mean).to(x.dtype)
 
 
 def _dst(batch: GraphBatch) -> torch.Tensor:
@@ -231,15 +247,15 @@ class GraphSAGE(_GNN):
         cfg = self.cfg
         h = batch.node_feat.to(cfg.dtype)
         fused = batch.ptr is not None and not cfg.use_pallas_agg
+        mean = cfg.aggregator == "mean"
         for i, lp in enumerate(self.layers):
             if fused:
-                agg = _ptr_seg_sum(batch.ptr, h, batch.edge_src,
-                                   cfg.aggregator == "mean")
+                agg = _ptr_seg_sum(batch.ptr, h, batch.edge_src, mean)
+            elif cfg.use_pallas_agg:
+                agg = _dst_seg_sum(batch, h, batch.edge_src, mean)
             else:
                 msgs = gather_src(batch, h)
-                agg = (seg_mean(batch, msgs, cfg.use_pallas_agg)
-                       if cfg.aggregator == "mean"
-                       else seg_sum(batch, msgs, cfg.use_pallas_agg))
+                agg = seg_mean(batch, msgs) if mean else seg_sum(batch, msgs)
             h = h @ lp["w_self"] + agg @ lp["w_nb"] + lp["b"]
             if i < cfg.n_layers - 1:
                 h = torch.relu(h)

@@ -5,7 +5,11 @@ gives the same bits on every launch, the flash kernel is within 2e-5 of
 its twin in float32 and within one bf16 ulp in bf16, the flash backward
 kernels are within 1e-5 of the twin's largest value in float32 and one
 bf16 ulp plus 1e-3 of it in bf16 and give the same bits on every launch,
-the set count equals its twin and searchsorted up to the convert's shape
+the segment sum is also within its derived tolerance of the twin on one
+2^17-edge span, every edge live, every edge SENTINEL, and through a
+gather index with the mean, and gives the pointer segment sum's bits on
+the same spans, the set count equals its twin and searchsorted up to the
+convert's shape
 and gives the same bits twice, as does the bf16 flash forward, the
 wrappers refuse what the kernels cannot take, both serve paths on
 the card give the integers the CPU path gives, and the gemma2 smoke
@@ -576,6 +580,84 @@ def test_segment_sum_kernel_equals_twin_and_is_deterministic(cuda, e, n, d):
     assert torch.equal(got, again)
 
 
+def _segment_case(kind, e, n, d, n_x, seed):
+    """(dst, x, rows) for the segment sum: ``long`` one node of 2^17 edges
+    among short ones and a SENTINEL tail, ``live`` every edge into [0, n),
+    ``sentinel`` every edge SENTINEL, ``ragged`` empty nodes and a tail,
+    ``gaps`` edges into every 97th node only (runs of 96 empty nodes, a
+    CTA's to write) and a tail;
+    with ``n_x``, x is [n_x, d] read through rows (every 50th out of
+    range: clamped), N(0, 1) + 3 so that the sums drift."""
+    rng = np.random.default_rng(seed)
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    if kind == "long":
+        dst[:1 << 17] = n // 2
+        dst = np.sort(dst)
+    if kind == "long":
+        dst[e - e // 16:] = SEN
+    if kind == "gaps":
+        dst = np.sort(rng.choice(np.arange(0, n, 97), e)).astype(np.int32)
+    if kind in ("ragged", "gaps"):
+        dst[e - e // 3:] = SEN
+    if kind == "ragged":
+        dst[:e - e // 3] = np.sort(rng.choice(np.arange(0, n, 3),
+                                              e - e // 3))
+    if kind == "sentinel":
+        dst[:] = SEN
+    x = (rng.normal(size=(n_x or e, d)) + 3).astype(np.float32)
+    rows = None
+    if n_x:
+        rows = rng.integers(0, n_x, e).astype(np.int32)
+        rows[::50] = SEN
+        rows = torch.from_numpy(rows)
+    return torch.from_numpy(dst), torch.from_numpy(x), rows
+
+
+@pytest.mark.parametrize("kind,e,n,d,n_x,mean", [
+    ("long", 1 << 18, 4096, 1, 0, False),
+    ("long", 1 << 18, 4096, 602, 0, True),
+    ("long", 300_000, 5000, 70, 5000, True),
+    ("live", 1 << 19, 282_624, 602, 0, False),
+    ("live", 262_144, 169_984, 1, 0, False),
+    ("sentinel", 262_144, 169_984, 70, 0, False),
+    ("sentinel", 4096, 300, 1, 300, True),
+    ("ragged", 262_144, 169_984, 70, 0, False),
+    ("ragged", 262_144, 169_984, 128, 0, True),
+    ("ragged", 524_288, 282_624, 602, 282_624, True),
+    ("ragged", 524_288, 282_624, 128, 282_624, True),
+    ("ragged", 200_000, 50_000, 8, 30_000, False),
+    ("ragged", 100_003, 20_000, 37, 0, False),
+    ("ragged", 5000, 1, 1, 0, True),
+    ("gaps", 262_144, 169_984, 70, 0, False),
+    ("gaps", 100_000, 2_000_000, 1, 30_000, True)])
+def test_segment_sum_kernel_on_spans_gather_and_mean(cuda, kind, e, n, d,
+                                                     n_x, mean):
+    """The segment sum within ``twin_tolerance`` (derived from float32
+    rounding) of its twin at D 1, 8, 37, 70, 128 and 602: one span of 2^17
+    edges, every edge live, every edge SENTINEL, empty nodes and a
+    SENTINEL tail, long runs of empty nodes, through a gather index and
+    with the mean, n = 1; two
+    launches give the same bits, one call counts one launch, and the
+    bits are the pointer segment sum's on the same spans (one body)."""
+    from repro_torch.kernels import ptr_scan
+    dst, x, rows = _segment_case(kind, e, n, d, n_x, seed=e + d + n)
+    want = tsa.segment_sum_sorted(dst, x, n, rows, mean)
+    tol = tsa.twin_tolerance(dst, x, n, rows, mean)
+    args = (dst.to(cuda), x.to(cuda), n,
+            None if rows is None else rows.to(cuda), mean)
+    before = tsa.segment_sum_sorted.launches
+    got = tsa.segment_sum_sorted(*args)
+    again = tsa.segment_sum_sorted(*args)
+    ptr = torch.searchsorted(args[0], torch.arange(
+        n + 1, dtype=torch.int32, device=cuda), out_int32=True)
+    spans = ptr_scan.ptr_seg_sum(ptr, args[1], args[3], mean)
+    torch.cuda.synchronize()
+    assert tsa.segment_sum_sorted.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(got, spans)
+    err = (got.cpu().double() - want.double()).abs()
+    assert bool((err <= tol).all()), float((err / tol.clamp_min(1e-30)).max())
+
+
 def test_new_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     k = torch.zeros(1 << 15, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -744,7 +826,13 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
 @pytest.mark.parametrize("n,block,p", [(128, 128, 0.4), (512, 128, 0.4),
                                        (2048, 512, 0.4), (3000, 300, 0.5),
                                        (1 << 20, 1024, 0.3),
-                                       (4096, 1024, 0.0), (4096, 1024, 1.0)])
+                                       (4096, 1024, 0.0), (4096, 1024, 1.0),
+                                       (96 * 37, 96, 0.4),
+                                       (1000 * 17, 1000, 0.4),
+                                       (4100 * 9, 4100, 0.4),
+                                       (4100 * 3, 4100, 1.0),
+                                       (2049 * 5, 2049, 0.3),
+                                       (7 * 1031, 7, 0.5)])
 def test_prefix_partition_kernel_equals_twin(cuda, n, block, p):
     rng = np.random.default_rng(n + block)
     vals = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n,
@@ -752,6 +840,22 @@ def test_prefix_partition_kernel_equals_twin(cuda, n, block, p):
     cond = torch.from_numpy(rng.random(n) < p)
     want = tpp.prefix_partition(vals, cond, block)
     got = tpp.prefix_partition(vals.to(cuda), cond.to(cuda), block)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("block", [96, 1000, 1024, 4100])
+def test_prefix_partition_kernel_on_unaligned_views(cuda, block):
+    """Values and flags that start one element past an aligned address
+    (the kernel's scalar loads and stores) equal the twin."""
+    rng = np.random.default_rng(block)
+    n = block * 6
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n + 1,
+                                         dtype=np.int64).astype(np.int32))
+    cond = torch.from_numpy(rng.random(n + 1) < 0.4)
+    want = tpp.prefix_partition(vals[1:], cond[1:], block)
+    got = tpp.prefix_partition(vals.to(cuda)[1:], cond.to(cuda)[1:], block)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -1394,7 +1498,7 @@ def test_update_is_copied_into_the_captured_graph(cuda):
 # the hand-written kernels of the GNN serve step, by name in a trace
 _SERVE_KERNEL_RE = (r"\b(?:digit_hist|digit_scatter|chunk_sort|rank|rename|"
                     r"span_sum|merge_partition|merge_tile|tile_sort|"
-                    r"set_count|segment_sum)_kernel\b")
+                    r"set_count|segment_sum|segment_bounds)_kernel\b")
 
 
 def _traced_kernels(fn):

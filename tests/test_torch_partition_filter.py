@@ -29,7 +29,9 @@ def _partition_inputs(n, seed, p=0.4):
     return vals, rng.random(n) < p
 
 
-@pytest.mark.parametrize("n,block", [(128, 128), (512, 128), (2048, 512)])
+@pytest.mark.parametrize("n,block", [(128, 128), (512, 128), (2048, 512),
+                                     (3000, 300), (3072, 1024), (480, 96),
+                                     (3000, 1000), (8200, 4100)])
 def test_prefix_partition_twin_matches_reference(n, block):
     vals, cond = _partition_inputs(n, seed=1)
     got, nsel = tpp.prefix_partition(torch.from_numpy(vals),
@@ -51,6 +53,82 @@ def test_prefix_partition_edge_fractions(p):
     want, want_n = ref.prefix_partition_ref(vals, cond, 1024)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(nsel.numpy(), want_n)
+
+
+def _card_partition(vals, cond, block, threads=256, items=4):
+    """csrc/prefix_partition.cu in numpy, CTA by CTA: a tile of threads x
+    items elements, each thread's items in a row; a slot's rank from the
+    warp ballots (the selected items of earlier lanes, every slot) plus
+    the warp totals of earlier warps plus the thread's earlier slots; up
+    to a tile of whole blocks a CTA (their bounds' ranks), or a wider
+    block walked tile by tile after its selected count, with carried
+    counts."""
+    tile = threads * items
+    out = np.empty_like(vals)
+    nsel = np.empty(len(vals) // block, np.int32)
+
+    def ranks(f):
+        f = np.pad(f, (0, tile - len(f))).reshape(threads // 32, 32, items)
+        lanes = f.sum(2)
+        ballot = np.cumsum(lanes, 1) - lanes  # earlier lanes, every slot
+        warps = lanes.sum(1)
+        pre = (np.cumsum(warps) - warps)[:, None, None] + ballot[..., None] \
+            + np.cumsum(f, 2) - f
+        return pre.reshape(-1), int(warps.sum())
+
+    nb = len(vals) // block
+    if block <= tile:
+        per = tile // block
+        for b0 in range(0, nb, per):
+            k = min(per, nb - b0)
+            g, cnt = b0 * block, k * block
+            f = cond[g:g + cnt].astype(np.int64)
+            pre, total = ranks(f)
+            bound = np.append(pre[:cnt:block], total)
+            stage = np.empty(cnt, vals.dtype)
+            for i in range(cnt):
+                kk, start = i // block, i // block * block
+                s_ = pre[i] - bound[kk]
+                sel = bound[kk + 1] - bound[kk]
+                stage[start + (s_ if f[i] else sel + i - start - s_)] = \
+                    vals[g + i]
+            out[g:g + cnt] = stage
+            nsel[b0:b0 + k] = np.diff(bound)
+        return out, nsel
+    for b in range(nb):
+        base = b * block
+        n_sel = int(cond[base:base + block].sum())
+        done = [0, 0]
+        for t0 in range(0, block, tile):
+            cnt = min(tile, block - t0)
+            f = cond[base + t0:base + t0 + cnt].astype(np.int64)
+            pre, total = ranks(f)
+            stage = np.empty(cnt, vals.dtype)
+            for i in range(cnt):
+                stage[pre[i] if f[i] else total + i - pre[i]] = \
+                    vals[base + t0 + i]
+            for k in range(cnt):
+                out[base + (done[0] + k if k < total
+                            else n_sel + done[1] + k - total)] = stage[k]
+            done = [done[0] + total, done[1] + cnt - total]
+        nsel[b] = n_sel
+    return out, nsel
+
+
+@pytest.mark.parametrize("n,block,p", [(128, 128, 0.4), (2048, 512, 0.4),
+                                       (3000, 300, 0.5), (480, 96, 0.4),
+                                       (3000, 1000, 0.4), (8200, 4100, 0.4),
+                                       (4096, 1024, 0.0), (4096, 1024, 1.0),
+                                       (2049, 2049, 0.3), (7, 1, 0.5)])
+def test_card_partition_emulation_matches_reference(n, block, p):
+    """The card's tile schedule and rank formulas (emulated) equal the
+    reference's numpy oracle bit for bit, at the tests' blocks and at
+    ragged ones (96, 300, 1000, 4100, an odd 2049, 1)."""
+    vals, cond = _partition_inputs(n, seed=n + block, p=p)
+    got, nsel = _card_partition(vals, cond, block)
+    want, want_n = ref.prefix_partition_ref(vals, cond, block)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(nsel, want_n)
 
 
 def test_prefix_partition_refuses_ragged_blocks():

@@ -7,10 +7,12 @@ kernels and a MERGE_CFG convert cost; with ``--what digit``, what the
 global_radix digit pass, its whole sort and a SLICE_CFG convert cost;
 with ``--what serve``, what serving costs under both configurations; or,
 with ``--what scan``, what the pointer segment sum costs on the serve
-path's own pointers.
+path's own pointers; or, with ``--what segsum``, what the dst-sorted
+segment sum and the prefix partition cost.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
-      --order parent,change,change,parent [--what kernels|digit|serve|scan]
+      --order parent,change,change,parent \\
+      [--what kernels|digit|serve|scan|segsum]
 
 A tree is the root of a checkout (unpack an earlier commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Each turn is
@@ -77,6 +79,19 @@ aggregation of a request's layer 1 as the tree's forward computes it
 chip_smoke's synthetic cases (every row in a segment at [524288, 602];
 one span of 2^17 rows at D 1 and 602). Each result is held against a
 float64 sum of the same rows.
+
+``--what segsum`` converts and samples as ``--what scan`` does and times,
+queued behind a device sleep, the tree's dst-sorted segment sum
+(``segment_sum_sorted``) on the same requests' ``edge_dst``: the message
+streams at 15-10 for D 1, 8, 70 and 128; GraphSAGE's ``MERGE_CFG``
+aggregation of both layers (D 602 and 128) as the tree's forward computes
+it (``models.gnn._dst_seg_sum`` through ``edge_src`` with the mean where
+the tree has it, else ``seg_mean(batch, gather_src(batch, h), True)``);
+and chip_smoke's synthetic stream (``SERVE_EDGES`` live edges sorted over
+``SERVE_NODES`` rows, a SENTINEL tail to 2^19) at D 602 and 1; beside
+them the tree's ``ptr_seg_sum`` on the same spans (its time and a
+checksum of its bits: the header move must keep both); and
+``prefix_partition`` at 2^24 values, blocks 1024, 96, 1000 and 4100.
 
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
@@ -537,6 +552,136 @@ def turn_scan(tree: str, seed: int) -> dict:
     return dict(tree=tree, **out)
 
 
+def turn_segsum(tree: str, seed: int) -> dict:
+    """One tree's dst-sorted segment sum, pointer segment sum and prefix
+    partition readings, in this process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline, prng
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.kernels import _build, ptr_scan
+    from repro_torch.kernels import prefix_partition as tpp
+    from repro_torch.kernels import segment_agg as tsa
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.models import gnn as tgnn
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    _build.build(("segment_agg", "ptr_scan", "prefix_partition"))
+    fused = "rows" in inspect.signature(tsa.segment_sum_sorted).parameters
+    coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
+                        cs.CONVERT_CAP, seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    feats = torch.randn((cs.REDDIT["nodes"], cs.REDDIT["feats"]),
+                        generator=g, device=dev)
+    csc = pipeline.convert(coo, SLICE_CFG, device=dev)
+    del coo
+    rng = np.random.default_rng(seed)
+    seeds = torch.from_numpy(rng.choice(cs.REDDIT["nodes"], cs.SEED_CAP,
+                                        replace=False).astype(np.int32))
+    batches = {f: tgnn.subgraph_batch(pipeline.sample_subgraph(
+        csc, seeds.to(dev), f, prng.PRNGKey(seed), SLICE_CFG), feats)
+        for f in ((15, 10), (25, 10))}
+    del csc
+
+    def bits(t):
+        return int(t.view(torch.int32).to(torch.int64).sum())
+
+    def exact(dst, x, n, rows, mean):
+        msgs = x if rows is None else x.index_select(
+            0, rows.clamp(0, x.shape[0] - 1))
+        out = torch.zeros((n + 1, x.shape[1]), dtype=torch.float64,
+                          device=dev).index_add_(
+            0, dst.clamp(max=n).long(), msgs.double())[:n]
+        if mean:
+            cnt = torch.bincount(dst[dst < n].long(), minlength=n)
+            out = out / cnt.clamp(min=1).double()[:, None]
+        return out
+
+    def reading(dst, x, n, rows=None, mean=False, agg=None):
+        if agg is None:
+            def agg():
+                return (tsa.segment_sum_sorted(dst, x, n, rows, mean) if fused
+                        else tsa.segment_sum_sorted(dst, x, n))
+        got = agg()
+        ptr = torch.searchsorted(dst, torch.arange(n + 1, dtype=torch.int32,
+                                                   device=dev),
+                                 out_int32=True)
+
+        def spans():
+            return ptr_scan.ptr_seg_sum(ptr, x, rows, mean)
+        r = dict(ms=cs.cuda_ms(agg), shape=list(x.shape), rows_out=n,
+                 live=int((dst < n).sum()),
+                 vs_float64=float((got.double() - exact(dst, x, n, rows, mean))
+                                  .abs().max()),
+                 ptr_seg_sum_ms=cs.cuda_ms(spans), ptr_seg_sum_bits=bits(
+                     spans()))
+        r["equals_ptr_seg_sum"] = bool(torch.equal(got, spans()))
+        return r
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    b = batches[(15, 10)]
+    n = b.n_nodes
+    for d in (1, 8, 70, 128):
+        msgs = torch.randn((b.edge_dst.shape[0], d), generator=gen,
+                           device=dev)
+        out[f"fanout15_d{d}"] = reading(b.edge_dst, msgs, n)
+        del msgs
+    b = batches[(25, 10)]
+    n = b.n_nodes
+    for layer, h in (("layer1", b.node_feat),
+                     ("layer2", torch.randn((n, 128), generator=gen,
+                                            device=dev))):
+        bb = tgnn.GraphBatch(edge_dst=b.edge_dst, edge_src=b.edge_src,
+                             node_feat=h)
+        if fused:
+            def agg(bb=bb, h=h):
+                return tgnn._dst_seg_sum(bb, h, bb.edge_src, True)
+        else:
+            def agg(bb=bb, h=h):
+                return tgnn.seg_mean(bb, tgnn.gather_src(bb, h), True)
+        out[f"graphsage_merge_{layer}"] = reading(
+            b.edge_dst, h.contiguous(), n, b.edge_src.contiguous(), True, agg)
+    del batches, b, bb, h
+    # chip_smoke's synthetic stream: SERVE_EDGES live edges over
+    # SERVE_NODES rows, a SENTINEL tail to SERVE_CAP
+    dst = torch.full((cs.SERVE_CAP,), 0x7FFFFFFF, dtype=torch.int32,
+                     device=dev)
+    dst[:cs.SERVE_EDGES] = torch.sort(torch.randint(
+        0, cs.SERVE_NODES, (cs.SERVE_EDGES,), generator=gen, device=dev,
+        dtype=torch.int32)).values
+    for d in (602, 1):
+        msgs = torch.randn((cs.SERVE_CAP, d), generator=gen, device=dev)
+        out[f"synthetic_d{d}"] = reading(dst, msgs, cs.SERVE_NODES)
+        del msgs
+    del dst
+    part = {}
+    n = cs.PARTITION_TIMED[0]
+    vals = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cond = torch.rand((n,), generator=gen, device=dev) < 0.4
+    for block in (1024, 96, 1000, 4100):
+        m = n // block * block
+        v, c = vals[:m], cond[:m]
+        got = tpp.prefix_partition(v, c, block)
+        want = tpp._partition_plain(v, c, block)
+        cs.check(all(torch.equal(a, w) for a, w in zip(got, want)),
+                 f"{tree} prefix_partition block {block} == twin")
+        part[f"block{block}"] = dict(
+            n=m, ms=cs.cuda_ms(lambda v=v, c=c, block=block:
+                               tpp.prefix_partition(v, c, block)))
+    out["prefix_partition"] = part
+    del vals, cond
+    torch.cuda.empty_cache()
+    return dict(tree=tree, fused=fused, **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[],
@@ -546,13 +691,14 @@ def main():
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--what", choices=("slice", "kernels", "digit", "serve",
-                                       "scan"),
+                                       "scan", "segsum"),
                     default="slice",
                     help="the SLICE_CFG request and rank calls; the chunk "
                     "sort, the filter, the merge kernels and the MERGE_CFG "
                     "convert; the global_radix digit pass, sort and "
-                    "SLICE_CFG convert; both configurations' serving; or "
-                    "the pointer segment sum on the path's pointers")
+                    "SLICE_CFG convert; both configurations' serving; "
+                    "the pointer segment sum on the path's pointers; or "
+                    "the dst-sorted segment sum and the prefix partition")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
@@ -563,6 +709,7 @@ def main():
                turn_serve(tree, args.seed, args.requests)
                if args.what == "serve" else
                turn_scan(tree, args.seed) if args.what == "scan" else
+               turn_segsum(tree, args.seed) if args.what == "segsum" else
                turn(tree, args.seed, args.requests, args.reps))
         print(json.dumps(dict(name=name, **out)), flush=True)
         return 0
