@@ -2,8 +2,8 @@
 """Drive the PyTorch + CUDA port's GNN serve paths (GraphSAGE under two
 routings, GAT, GatedGCN and MeshGraphNet, keysort and reservoir
 selection, graph updates through the captured step), its engine
-service, its gemma2-9b prefill and its gemma2-9b training step on one
-H100.
+service, its sampled GNN training, its gemma2-9b prefill and its
+gemma2-9b training step on one H100.
 
   python3 chip_smoke.py
 
@@ -196,6 +196,28 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    chained where the updates sat); the final CSC equals the oracle's bit
    for bit; one step program; every bound tensor at its address. Each
    update's latency from submit to finish.
+7e. GNN training — Reddit's synthetic graph (``launch/train.gnn_data``:
+   232,965 nodes, 114,615,892 edges, 602 features, 41 classes) built once
+   on the host and timed; a ``SampledDataset`` on the card (the service's
+   pick from the kernel library printed, with its sort strategies) and
+   one batch (sampling, reindexing, the subgraph convert and the
+   transposed layout on the card's kernels); one graphsage-reddit step
+   at full width (fanouts 25-10, batch 1024): counters read, the span sum
+   2 launches forward and 1 backward and no other kernel; every
+   parameter's gradient, and the gradient into layer 1's output
+   (non-zero), against the float64 twins (``_ptr_seg_sum_plain`` and
+   ``take`` / ``index_add_`` under autograd) within GNN_GRAD_TOL; the
+   backward's span sum on the batch's own arrays against its twin within
+   ``twin_tolerance``, timed beside its bound and ``index_add_``; one
+   model step profiled: its kernels, and no index_add_ or scatter kernel
+   or op; GNN_TRAIN_TIMED prefetched steps timed (seconds, seeds/s, peak
+   memory), one step with its batch profiled; ``run_gnn`` for
+   GNN_TRAIN_STEPS steps clean, crashed at GNN_TRAIN_FAIL_AT and resumed
+   from its step-10 checkpoint: the same parameters and losses bit for
+   bit, finite; the smoke config's loss falls over its 12 steps; gat-cora,
+   gatedgcn and meshgraphnet at their published widths (fanouts 5-3)
+   two steps each, twice: the same bits, finite losses, and one batch's
+   gradients against the float64 twins.
 8. LM kernels — the GNN paths' memory freed; the flash-attention forward
    (bf16 on tensor cores, float32 on scalar FMAs) against its twin at
    gemma2-9b's head shapes (16 heads over 8 kv heads,
@@ -2813,6 +2835,466 @@ def update_phase(dev, seed, csc, feats):
     return out
 
 
+# ------------------------------------------------------------- phase 7e
+# GNN training: run_gnn's steps at full width (ckpt_every max(12 // 4, 10)
+# = 10), the crash that resumes from the step-10 checkpoint, the steady
+# steps timed after two warm-up steps, and the other families' steps
+GNN_TRAIN_STEPS, GNN_TRAIN_FAIL_AT, GNN_TRAIN_TIMED = 12, 11, 8
+GNN_TRAIN_FAMILIES, GNN_FAMILY_STEPS = ("gat-cora", "gatedgcn",
+                                        "meshgraphnet"), 2
+# span-sum launches of a GraphSAGE training step: one a layer forward; one
+# backward, layer 2's (layer 1 reads the feature batch, which needs none)
+GNN_STEP_SUMS = {"forward": 2, "backward": 1}
+# what the model's step must not run: index_add_'s kernels (indexFunc*),
+# scatter kernels, index_put's, and host ops of the same. torch's gather
+# and scatter share one kernel (_scatter_gather_elementwise_kernel): the
+# ops that launch a kernel so named must all be gathers
+GNN_STEP_KERNEL_RE = r"span_sum_kernel|indexFunc\w*|\w*[Ss]catter\w*|index_put\w*"
+GNN_SCATTER_OP_RE = (r"^aten::(?:index_add|scatter|scatter_add|scatter_reduce|"
+                     r"index_put)_?$")
+GNN_GATHER_OP_RE = r"^aten::(?:gather|index_select|take|take_along_dim)$"
+# a float32 step's gradients against the float64 twins, per parameter, as
+# a share of the twin gradient's largest |value| (at least GNN_GRAD_FLOOR
+# of the largest over all parameters: a gradient the math makes zero, as
+# GAT's a_dst, is rounding noise in both). float32 rounds each operation
+# by at most u = 2^-24 of its result; a gradient here ends a chain of
+# 2 L sums (forward and backward through L layers) of up to 2^19 terms,
+# whose roundings add like a random walk, about sqrt(2^19) u = 4.3e-5 of
+# the terms' magnitude a sum (cuBLAS's long K, the span sums' pieces):
+# 2 L sums give 1.7e-4 at L = 2 and 1.4e-3 at L = 16. Terms that cancel
+# make a gradient smaller than its terms: GNN_GRAD_TOL allows a factor of
+# 20 at L = 2 (GraphSAGE, GAT) and 2.5 at L = 16, 15 (GatedGCN,
+# MeshGraphNet), where the tolerance is the deeper chain's 2^-6 share
+GNN_GRAD_TOL = {2: 2 ** -8, 16: 2 ** -6, 15: 2 ** -6}
+GNN_GRAD_FLOOR = 1e-4
+
+
+def gnn_loss64(model, batch):
+    """``gnn_loss`` in float64 (the port's casts the logits to float32):
+    classification's cross entropy or MeshGraphNet's squared error, over
+    the masked-in rows."""
+    import torch
+    out = model(batch).to(torch.float64)
+    m = batch.label_mask.to(torch.float64)
+    if model.cfg.kind == "meshgraphnet":
+        err = out - batch.labels.to(torch.float64)
+        return torch.sum(err * err * m[:, None]) / torch.clamp(m.sum(), min=1)
+    ll = out.gather(-1, batch.labels.to(torch.int64)[:, None])[:, 0]
+    nll = torch.logsumexp(out, -1) - ll
+    return torch.sum(nll * m) / torch.clamp(m.sum(), min=1.0)
+
+
+def _plain64_seg_sum(ptr, x, rows=None, mean=False, batch=None):
+    """models.gnn's ``_ptr_seg_sum`` as its float64 plain twin under
+    autograd (``cumsum`` and ``index_select`` after the gather: backward
+    by ``index_add_``)."""
+    import torch
+    from repro_torch.kernels import ptr_scan
+    flat = x.reshape(x.shape[0], -1)
+    p = torch.clamp(ptr, 0, x.shape[0] if rows is None else rows.shape[0])
+    seg = ptr_scan._ptr_seg_sum_plain(p, flat, rows, mean)
+    return seg.reshape((p.shape[0] - 1,) + x.shape[1:])
+
+
+def gnn_grads(model, batch, loss_fn, seg_fn):
+    """(loss, {name: float64 gradient}, the gradient into every node-state
+    tensor a fused sum reads through the edge sources that needs one (for
+    GraphSAGE: layer 1's output)), with ``models.gnn._ptr_seg_sum``
+    swapped for ``seg_fn`` while the loss is computed."""
+    import torch
+    from repro_torch.models import gnn as tgnn
+    states = []
+
+    def recording(ptr, x, rows=None, mean=False, batch=None):
+        if rows is not None and x.requires_grad:
+            x.retain_grad()
+            states.append(x)
+        return seg_fn(ptr, x, rows, mean, batch)
+    for p in model.parameters():
+        p.grad = None
+    real = tgnn._ptr_seg_sum
+    tgnn._ptr_seg_sum = recording
+    try:
+        loss = loss_fn(model, batch)
+    finally:
+        tgnn._ptr_seg_sum = real
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)
+                 ).detach().to(torch.float64)
+             for n, p in model.named_parameters()}
+    return float(loss.detach()), grads, [s.grad.detach().to(torch.float64)
+                                for s in states]
+
+
+def gnn_twin_check(tag, model, batch):
+    """Every parameter gradient of one batch through the kernels (float32,
+    the transposed layout) against the float64 twins on the card (the
+    same parameters in float64, ``_plain64_seg_sum`` and ``take`` /
+    ``index_add_`` without the layout, ``gnn_loss64``), within
+    GNN_GRAD_TOL; the same for the gradient into layer 1's output
+    (GraphSAGE), which must not be zero. Returns the readings."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.models import gnn as tgnn
+    loss, got, got_h = gnn_grads(model, batch, tgnn.gnn_loss,
+                                 tgnn._ptr_seg_sum)
+    twin = copy.deepcopy(model).double()
+    twin.cfg = dataclasses.replace(model.cfg, dtype=torch.float64)
+    b64 = dataclasses.replace(
+        batch, node_feat=batch.node_feat.double(), rev_perm=None,
+        rev_ptr=None, labels=(batch.labels.double()
+                              if batch.labels.is_floating_point()
+                              else batch.labels))
+    loss64, want, want_h = gnn_grads(twin, b64, gnn_loss64,
+                                     _plain64_seg_sum)
+    tol = GNN_GRAD_TOL[model.cfg.n_layers]
+    top = max(float(w.abs().max()) for w in want.values())
+    worst, worst_name = 0.0, None
+    for n, w in want.items():
+        scale = max(float(w.abs().max()), GNN_GRAD_FLOOR * top)
+        ratio = float((got[n] - w).abs().max()) / (tol * scale)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    check(worst <= 1.0, f"{tag}: every gradient within {tol} of the float64 "
+          f"twins' (worst {worst:.3f} of it, {worst_name})")
+    check(abs(loss - loss64) <= tol * max(1.0, abs(loss64)),
+          f"{tag}: loss {loss} against the twins' {loss64}")
+    r = dict(loss=loss, loss64=loss64, tol=tol, worst_share=worst,
+             worst_param=worst_name)
+    check(len(got_h) == len(want_h), f"{tag}: the same states recorded")
+    for i, (g, w) in enumerate(zip(got_h, want_h)):
+        gmax = float(g.abs().max())
+        share = float((g - w).abs().max()) / (tol * float(w.abs().max()))
+        check(gmax > 0 and share <= 1.0,
+              f"{tag}: the gradient into layer {i + 1}'s output is non-zero "
+              f"({gmax}) and within {tol} of the twins' ({share:.3f} of it)")
+        r[f"layer{i + 1}_out_grad_abs_max"] = gmax
+        r[f"layer{i + 1}_out_grad_share"] = share
+    del twin, b64, got, want
+    return r
+
+
+def span_sum_backward_reading(model, batch):
+    """The span sum's backward on one training batch's own arrays: the call
+    layer 2's ``SpanSum`` makes (recorded by wrapping
+    ``kernels.ptr_scan.ptr_seg_sum`` for one backward) held and timed as
+    ``scan_reading`` holds the forward's, with ``index_add_`` of the
+    gathered gradient into [N, D] as the library call (timed here, never
+    called on the path)."""
+    import torch
+    from repro_torch.kernels import ptr_scan
+    from repro_torch.models import gnn as tgnn
+    calls = []
+    real = ptr_scan.ptr_seg_sum
+
+    def recording(*args):
+        if torch.is_grad_enabled():  # a backward runs with grad off
+            return real(*args)
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return real(*args)
+    loss = tgnn.gnn_loss(model, batch)
+    # the wrapper stands in for the counted function: counts go on it
+    recording.launches = real.launches
+    ptr_scan.ptr_seg_sum = recording
+    try:
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        ptr_scan.ptr_seg_sum = real
+        real.launches = recording.launches
+    for p in model.parameters():
+        p.grad = None
+    check(len(calls) == 1 and calls[0][2] is not None,
+          f"one backward span sum, through rows: {len(calls)}")
+    rev_ptr, g, rows = calls[0][:3]
+    r = scan_reading(rev_ptr, g, rows)
+    lim = int(rev_ptr[-1])
+    n = rev_ptr.shape[0] - 1
+    # the same sum by index_add_: the gathered gradient rows (in the
+    # transposed order) added into each edge's source node
+    src = torch.repeat_interleave(torch.arange(n, device=g.device),
+                                  (rev_ptr[1:] - rev_ptr[:-1]).long())
+    msgs = g.index_select(0, rows[:lim].long())
+
+    def library():
+        return torch.zeros((n, g.shape[1]), device=g.device).index_add_(
+            0, src, msgs)
+    want = real(rev_ptr, g, rows)
+    check(bool((library() - want).abs().max() <= 1e-4 * max(
+        1.0, float(want.abs().max()))), "index_add_ computes the same sum")
+    r.update(library_ms=cuda_ms(library, iters=5),
+             library="index_add_ of the gathered gradient into "
+                     f"[{n}, {g.shape[1]}]")
+    return r
+
+
+def gnn_train_phase(dev, seed):
+    """GNN training on the card (phase 7e): Reddit's synthetic graph built
+    once on the host (timed); a SampledDataset at full size (its picked
+    EngineConfig printed); one batch's launches and one graphsage-reddit
+    step's (span sums 2 forward, 1 backward); every gradient against the
+    float64 twins (``gnn_twin_check``); the backward span sum timed
+    (``span_sum_backward_reading``); a profiled model step with no
+    index_add_ or scatter; GNN_TRAIN_TIMED steady prefetched steps timed;
+    ``run_gnn`` clean, crashed at GNN_TRAIN_FAIL_AT and resumed: the same
+    bits; the smoke config's loss falls; each other family two steps at
+    full width, twice, the same bits, and its gradients against the
+    twins. Returns the readings; ``launches`` counts the whole phase."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import Workload, resolve_sort_strategy
+    from repro_torch.core.graph import COO, next_pow2
+    from repro_torch.data.sampler import SampledDataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import gnn_train_step
+    from repro_torch.launch.train import (GNN_DATA, gnn_data,
+                                          regression_targets, run_gnn)
+    from repro_torch.models.gnn import gnn_loss, gnn_model
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+
+    out = {}
+    t0 = time.perf_counter()
+    data = gnn_data(seed, False)
+    out["dataset_host_s"] = time.perf_counter() - t0
+    n_nodes, n_edges, d_feat, n_classes, batch_size = GNN_DATA[False]
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def add_counts():
+        for k, v in launch_counts().items():
+            totals[k] += v
+        reset_launch_counts()
+
+    def dataset(fanouts):
+        dst, src, feats, labels = data
+        return SampledDataset(
+            coo=COO.from_arrays(dst, src, n_nodes, device=dev),
+            features=torch.from_numpy(feats).to(dev),
+            labels=torch.from_numpy(labels).to(dev), fanouts=fanouts,
+            batch_size=batch_size, seed=seed)
+
+    def model_of(arch):
+        return gnn_model(get_config(arch), d_feat, d_edge=4,
+                         n_classes=0 if arch == "meshgraphnet" else n_classes,
+                         generator=torch.Generator().manual_seed(seed),
+                         device=dev)
+
+    reset_launch_counts()
+    cfg = get_config("graphsage-reddit")
+    t0 = time.perf_counter()
+    ds = dataset(cfg.sample_sizes)
+    sync(dev)
+    out["dataset_device_s"] = time.perf_counter() - t0
+    ec = ds.engine_cfg
+    out["engine_cfg"] = ec.key
+    f1, f2 = cfg.sample_sizes
+    n_cap = batch_size * (1 + f1 + f1 * f2)
+    out["sort_strategy"] = {
+        "graph": resolve_sort_strategy(ec, Workload(n=n_nodes,
+                                                    e=ds.coo.capacity)),
+        "subgraph": resolve_sort_strategy(ec, Workload(
+            n=n_cap, e=next_pow2(n_cap - batch_size)))}
+    out["convert_launches"] = {k: v for k, v in launch_counts().items() if v}
+    add_counts()
+    batch = ds.batch(0)
+    sync(dev)
+    out["batch_launches"] = {k: v for k, v in launch_counts().items() if v}
+    check(sum(out["batch_launches"].values()) > 0
+          and "ptr_seg_sum" not in out["batch_launches"],
+          f"a batch's sampling and transposed layout ran on the card's "
+          f"kernels: {out['batch_launches']}")
+    out["batch_shape"] = dict(nodes=batch.n_nodes,
+                              edges=int(batch.edge_dst.shape[0]),
+                              live_edges=int(batch.ptr[-1]))
+    add_counts()
+
+    # one step's span sums, forward and backward; the gradients
+    model = model_of("graphsage-reddit")
+    loss = gnn_loss(model, batch)
+    sync(dev)
+    fwd = launch_counts()
+    add_counts()
+    loss.backward()
+    sync(dev)
+    bwd = launch_counts()
+    add_counts()
+    out["step_launches"] = dict(
+        forward={k: v for k, v in fwd.items() if v},
+        backward={k: v for k, v in bwd.items() if v})
+    check(fwd["ptr_seg_sum"] == GNN_STEP_SUMS["forward"]
+          and bwd["ptr_seg_sum"] == GNN_STEP_SUMS["backward"]
+          and sum(fwd.values()) + sum(bwd.values()) == sum(
+              GNN_STEP_SUMS.values()),
+          f"a graphsage step runs {GNN_STEP_SUMS} span sums and no other "
+          f"kernel: {out['step_launches']}")
+    for p in model.parameters():
+        p.grad = None
+    del loss
+    out["twins"] = gnn_twin_check("graphsage-reddit", model, batch)
+    out["span_sum_backward"] = span_sum_backward_reading(model, batch)
+    add_counts()
+
+    # a profiled model step: no index_add_, no scatter
+    opt_cfg = AdamWConfig(lr=1e-3)
+    opt = adamw_init(dict(model.named_parameters()))
+    gnn_train_step(model, opt_cfg, opt, batch)
+    add_counts()
+    out["profile"] = dict(seeds=batch_size, **profile_call(
+        lambda: gnn_train_step(model, opt_cfg, opt, batch), top=10,
+        kernels=GNN_STEP_KERNEL_RE, ops=GNN_SCATTER_OP_RE,
+        owners=GNN_STEP_KERNEL_RE))
+    out["profile"]["launches"] = {k: v for k, v in launch_counts().items()
+                                  if v}
+    named = out["profile"]["kernels"]
+    owners = out["profile"]["owners"]
+    # the counters count the launches; the trace shows what else ran (a
+    # trace can miss records: the host ops are recorded on the host)
+    check(out["profile"]["launches"] == {
+              "ptr_seg_sum": sum(GNN_STEP_SUMS.values())}
+          and not out["profile"]["ops"]
+          and all(k in owners and "indexFunc" not in k and "index_put" not in k
+                  and all(re.search(GNN_GATHER_OP_RE, op) for op in owners[k])
+                  for k in named if k != "span_sum_kernel"),
+          f"the profiled model step launched {sum(GNN_STEP_SUMS.values())} "
+          f"span sums ({out['profile']['launches']}), no index_add_ or "
+          f"index_put kernel, no scatter op, and a scatter-named kernel only "
+          f"from a gather: {named}, launched by {owners}; ops "
+          f"{out['profile']['ops']}")
+    out["iteration_profile"] = dict(seeds=batch_size, **profile_call(
+        lambda: gnn_train_step(model, opt_cfg, opt, ds.batch(1)), top=10))
+    add_counts()
+
+    # steady steps, the batches prefetched on the side stream
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with ds.iter_batches(start=2, stop=4 + GNN_TRAIN_TIMED) as it:
+        for i, (_, b) in enumerate(it):
+            if i == 2:
+                sync(dev)
+                t0 = time.perf_counter()
+            losses.append(gnn_train_step(model, opt_cfg, opt, b)["loss"])
+        sync(dev)
+    step_s = (time.perf_counter() - t0) / GNN_TRAIN_TIMED
+    out["timed"] = dict(
+        step_s=step_s, seeds_per_s=batch_size / step_s,
+        peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30,
+        losses=[float(x) for x in losses])
+    add_counts()
+    del model, opt, batch, ds, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run_gnn clean, crashed and resumed; the smoke config's loss falls
+    root = tempfile.mkdtemp(prefix="gnn_train_")
+    try:
+        kw = dict(steps=GNN_TRAIN_STEPS, smoke=False, device=dev, data=data,
+                  seed=seed, log_every=1)
+        t0 = time.perf_counter()
+        m1, _, h1 = run_gnn("graphsage-reddit", ckpt_dir=f"{root}/clean",
+                            fail_at=None, **kw)
+        sync(dev)
+        out["run_gnn_clean_s"] = time.perf_counter() - t0
+        crashed = False
+        try:
+            run_gnn("graphsage-reddit", ckpt_dir=f"{root}/crash",
+                    fail_at=GNN_TRAIN_FAIL_AT, **kw)
+        except RuntimeError as e:
+            crashed = "injected failure" in str(e)
+        check(crashed, f"run_gnn crashed at step {GNN_TRAIN_FAIL_AT}")
+        m2, _, h2 = run_gnn("graphsage-reddit", ckpt_dir=f"{root}/crash",
+                            fail_at=None, **kw)
+        same = all(torch.equal(p, q) for p, q in zip(m1.parameters(),
+                                                     m2.parameters()))
+        at = max(GNN_TRAIN_STEPS // 4, 10)  # run_gnn's checkpoint interval
+        check(same and h2 == h1[at:] and [h["step"] for h in h2] == list(
+                  range(at, GNN_TRAIN_STEPS)),
+              f"the resumed run's parameters and losses equal the clean "
+              f"run's bit for bit: {h2} against {h1[at:]}")
+        check(all(math.isfinite(h["loss"]) for h in h1),
+              f"finite losses: {h1}")
+        out["loss_curve"] = [h["loss"] for h in h1]
+        out["resumed_losses"] = [h["loss"] for h in h2]
+        del m1, m2
+        _, _, hs = run_gnn("graphsage-reddit", GNN_TRAIN_STEPS, True,
+                           f"{root}/smoke", None, seed=seed, device=dev,
+                           log_every=1)
+        out["smoke_loss_curve"] = [h["loss"] for h in hs]
+        check(hs[-1]["loss"] < hs[0]["loss"],
+              f"the smoke config's loss falls over {GNN_TRAIN_STEPS} steps: "
+              f"{out['smoke_loss_curve']}")
+        add_counts()
+
+        # the other families: two steps at full width, twice; the twins
+        out["families"] = {}
+        for arch in GNN_TRAIN_FAMILIES:
+            runs, run_s = [], []
+            for i in range(2):
+                t0 = time.perf_counter()
+                runs.append(run_gnn(arch, GNN_FAMILY_STEPS, False,
+                                    f"{root}/{arch}{i}", None, seed=seed,
+                                    device=dev, data=data, log_every=1))
+                sync(dev)
+                run_s.append(time.perf_counter() - t0)
+            (ma, _, ha), (mb, _, hb) = runs
+            check(ha == hb and all(math.isfinite(h["loss"]) for h in ha)
+                  and all(torch.equal(p, q) for p, q in zip(
+                      ma.parameters(), mb.parameters())),
+                  f"{arch}: two runs of {GNN_FAMILY_STEPS} steps give the "
+                  f"same bits and finite losses: {ha}, {hb}")
+            fds = dataset(get_config(arch).sample_sizes or (5, 3))
+            fb = fds.batch(0)
+            if arch == "meshgraphnet":
+                fb = regression_targets(fb, get_config(arch).d_out)
+            r = gnn_twin_check(arch, model_of(arch), fb)
+            r.update(losses=[h["loss"] for h in ha],
+                     engine_cfg=fds.engine_cfg.key, run_s=run_s,
+                     batch=dict(nodes=fb.n_nodes,
+                                edges=int(fb.edge_dst.shape[0])))
+            out["families"][arch] = r
+            del runs, ma, mb, fds, fb
+            gc.collect()
+            torch.cuda.empty_cache()
+        add_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = totals
+    return out
+
+
+def log_gnn_train(out):
+    log(f"[gnn train] Reddit's synthetic graph built on the host in "
+        f"{out['dataset_host_s']:.2f}s; dataset on the card "
+        f"{out['dataset_device_s']:.2f}s; picked EngineConfig "
+        f"{out['engine_cfg']} (sort strategies {out['sort_strategy']}); "
+        f"convert launches {out['convert_launches']}")
+    log(f"[gnn train] a batch ({out['batch_shape']}) launches "
+        f"{out['batch_launches']}; a graphsage step {out['step_launches']}")
+    log(f"[gnn train] gradients against the float64 twins: {out['twins']}")
+    log_row("span sum backward", {**out["span_sum_backward"],
+                                  "shape": out["span_sum_backward"]["shape"]})
+    t = out["timed"]
+    log(f"[gnn train] steady step (prefetched): {t['step_s'] * 1e3:.2f} ms, "
+        f"{t['seeds_per_s']:.1f} seeds/s; peak {t['peak_allocated_gib']:.2f} "
+        f"GiB allocated, {t['peak_reserved_gib']:.2f} GiB reserved")
+    log_profile("gnn train step profile", out["profile"])
+    log_profile("gnn train iteration profile", out["iteration_profile"])
+    log(f"[gnn train] run_gnn clean {GNN_TRAIN_STEPS} steps in "
+        f"{out['run_gnn_clean_s']:.2f}s, loss curve {out['loss_curve']}; "
+        f"resumed at 10: {out['resumed_losses']} (bit-equal); smoke "
+        f"{out['smoke_loss_curve']}")
+    for arch, r in out["families"].items():
+        log(f"[gnn train] {arch}: {GNN_FAMILY_STEPS} steps twice bit-equal, "
+            f"losses {r['losses']}; gradients within {r['tol']} of the "
+            f"twins (worst {r['worst_share']:.3f} of it, "
+            f"{r['worst_param']}); batch {r['batch']}, {r['engine_cfg']}")
+    log(f"[gnn train] phase launches {out['launches']}")
+
+
 # ------------------------------------------------------------- phase 7a
 # the engine service's phase: fanouts and seeds a dispatch, the convert
 # sizes and library entries the Calibration fit reads (two of different
@@ -3640,7 +4122,8 @@ TRACE_OF_WRAPPER = {"digit_hist": "digit_hist_kernel",
                     "ptr_seg_sum": "span_sum_kernel",
                     "chunk_sort": "chunk_sort_kernel",
                     "segment_sum_sorted": "segment_sum_kernel"}
-# spin kernels (torch.cuda._sleep) that end every profiled call's trace
+# spin kernels (torch.cuda._sleep) that begin and end every profiled
+# call's trace
 TRACE_TAIL, TRACE_TAIL_KERNEL = 256, "spin_kernel"
 # a request's or a step's trace: those kernels by name, and every copy
 # kernel as one ("copy": the transposing copies of the port's earlier
@@ -3648,18 +4131,27 @@ TRACE_TAIL, TRACE_TAIL_KERNEL = 256, "spin_kernel"
 PATH_KERNEL_RE = SERVE_KERNEL_RE + "|copy"
 
 
-def profile_call(fn, top=8, kernels=None, ops=None):
+def profile_call(fn, top=8, kernels=None, ops=None, owners=None):
     """``fn()`` once under ``torch.profiler``: the host wall time, the
     device time summed over every op's own kernels, and the ops and
     kernels that take the most device time; with ``kernels`` (a regex),
     the device time and count of each kernel whose name it matches; with
-    ``ops`` (a regex), the count of each host op whose name it matches."""
+    ``ops`` (a regex), the count of each host op whose name it matches;
+    with ``owners`` (a regex), for each kernel whose name it matches, the
+    host ops that launched it, counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the first kernel records can miss too (read once on an H100: a
+        # train step's first two span sums in a run of the whole script):
+        # a head of spin kernels, a 10 ms one last, left out as the tail is
+        for _ in range(TRACE_TAIL):
+            torch.cuda._sleep(1000)
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3684,8 +4176,16 @@ def profile_call(fn, top=8, kernels=None, ops=None):
             ms, n = named.get(m.group(0), (0.0, 0))
             named[m.group(0)] = (ms + e.self_device_time_total / 1e3,
                                  n + e.count)
+    launched_by = {}
+    for e in (prof.events() if owners is not None else ()):
+        for k in e.kernels:
+            m = re.search(owners, k.name)
+            if m and e.device_type == DeviceType.CPU:
+                by = launched_by.setdefault(m.group(0), {})
+                by[e.name] = by.get(e.name, 0) + 1
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
+                **({} if owners is None else dict(owners=launched_by)),
                 top=[dict(name=k[:120], device_ms=t, count=c)
                      for k, t, c in rows[:top]],
                 **({} if kernels is None else dict(kernels={
@@ -4683,6 +5183,16 @@ def main():
     del csc, feats
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 7e. GNN training: run_gnn at full width, resumed bit for bit, the
+    # backward through the span sum against the float64 twins
+    t0 = time.perf_counter()
+    gout = gnn_train_phase(dev, args.seed)
+    log_gnn_train(gout)
+    extra["span_sum_backward"] = gout["span_sum_backward"]
+    log(f"[gnn train] phase done in {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[time] GNN phases done at {time.perf_counter() - t_start:.1f}s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
@@ -4811,7 +5321,7 @@ def main():
     log(f"[extra] {json.dumps(extra)}")
 
     # 13. report
-    new_paths = list(fouts.values()) + [kout, rout, uout]
+    new_paths = list(fouts.values()) + [kout, rout, uout, gout]
     launches = {k: out["launches"][k] + mout["launches"][k]
                 + sout["launches"][k]
                 + sum(p["launches"][k] for p in new_paths)
@@ -4833,7 +5343,7 @@ def main():
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, rows=rows, main_path=out, merge_path=mout,
                        families=fouts, keysort=kout, reservoir=rout,
-                       updates=uout,
+                       updates=uout, gnn_train=gout,
                        service=sout, lm_path=lout, train_path=tout,
                        extra=extra,
                        seconds=time.perf_counter() - t_start), f, indent=1)

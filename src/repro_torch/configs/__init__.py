@@ -16,6 +16,20 @@ LM_SHAPES = {
 }
 
 
+# the reference's GNN shape cells (repro/configs/base.py)
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="full_graph", n_nodes=2708, n_edges=10556,
+                          d_feat=1433, n_classes=7),
+    "minibatch_lg": dict(kind="minibatch", n_nodes=232965,
+                         n_edges=114615892, batch_nodes=1024,
+                         fanout=(15, 10), d_feat=602, n_classes=41),
+    "ogb_products": dict(kind="full_graph", n_nodes=2449029,
+                         n_edges=61859140, d_feat=100, n_classes=47),
+    "molecule": dict(kind="batched_graphs", n_nodes=30, n_edges=64,
+                     batch=128, d_feat=16, n_classes=2),
+}
+
+
 def get_config(arch: str, smoke: bool = False):
     if arch not in _CONFIGS:
         raise KeyError(f"unknown or unported arch {arch!r}; "

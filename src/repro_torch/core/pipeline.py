@@ -21,7 +21,7 @@ from .graph import (COO, CSC, SENTINEL, Subgraph, next_pow2, pad_to,
                     resolve_device, take)
 from .ordering import edge_ordering, stable_sort_by_key
 from .reindexing import build_reindex_map, reindex_edges
-from .reshaping import data_reshaping
+from .reshaping import build_pointer_array, data_reshaping
 from .sampling import sample_khop
 
 
@@ -222,6 +222,30 @@ def sample_subgraph_batched(csc: CSC, batch_nodes: torch.Tensor,
                 n_nodes=lanes[0].csc.n_nodes),
         order=torch.stack([s.order for s in lanes]),
         n_sub_nodes=torch.stack([s.n_sub_nodes for s in lanes]))
+
+
+def transpose_layout(edge_src: torch.Tensor, n_nodes: int,
+                     cfg: EngineConfig | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transposed layout of a sampled subgraph's edges, for the
+    backward of its forward's gathers and sums (``models/gnn.py``):
+    (rev_perm [E] int32, the edge positions stably sorted by ``edge_src``,
+    SENTINEL sources last; rev_ptr [n_nodes + 1] int32, its pointers).
+    One sort and one pointer build under ``cfg``'s routing, as the
+    subgraph convert runs them (the card's sort and rank kernels)."""
+    cfg = cfg or EngineConfig()
+    kf = kernel_fns(cfg)
+    e = edge_src.shape[0]
+    pos = torch.arange(e, dtype=torch.int32, device=edge_src.device)
+    sorted_src, rev_perm = stable_sort_by_key(
+        edge_src, pos, n_nodes, chunk=min(cfg.w_upe, e),
+        strategy=resolve_sort_strategy(cfg, Workload(n=n_nodes, e=e)),
+        **_sort_kwargs(cfg, kf, kf.chunk_sort_fn))
+    fused = resolve_reindex_strategy(cfg, n_nodes + 1, e) == "fused"
+    rev_ptr = build_pointer_array(sorted_src, n_nodes, count_fn=kf.count_fn,
+                                  unroll=fused,
+                                  rank_fn=kf.rank_fn if fused else None)
+    return rev_perm, rev_ptr
 
 
 def preprocess(coo: COO, batch_nodes, fanouts: tuple[int, ...], key,

@@ -3,7 +3,8 @@
 
 ptr[v] = |{edges : dst < v}| for v in 0..n_nodes — an independent
 set-count per target, built as one batched rank search over the sorted dst
-stream.
+stream. ``build_pointer_array_serial`` keeps the conventional serial scan
+the paper measures against; ``graph_convert`` is Ordering + Reshaping.
 """
 from __future__ import annotations
 
@@ -35,6 +36,22 @@ def build_pointer_array(sorted_dst: torch.Tensor, n_nodes: int,
     return ptr
 
 
+def build_pointer_array_serial(sorted_dst: torch.Tensor,
+                               n_nodes: int) -> torch.Tensor:
+    """The conventional serial scan (the baseline): one cursor bumped per
+    edge, each step after the previous edge's, on the host; dst entries at
+    or past ``n_nodes`` are skipped. Returns the same int32 pointer array
+    as ``build_pointer_array``, on ``sorted_dst``'s device."""
+    hist = [0] * n_nodes
+    for d in sorted_dst.tolist():
+        if d < n_nodes:
+            hist[d] += 1
+    ptr = [0]
+    for h in hist:
+        ptr.append(ptr[-1] + h)
+    return torch.tensor(ptr, dtype=torch.int32, device=sorted_dst.device)
+
+
 def data_reshaping(sorted_coo: COO, ptr_capacity: int | None = None,
                    count_fn=None, unroll: bool = False,
                    rank_fn=None) -> CSC:
@@ -44,3 +61,16 @@ def data_reshaping(sorted_coo: COO, ptr_capacity: int | None = None,
                               unroll=unroll, rank_fn=rank_fn)
     return CSC(ptr=ptr, idx=sorted_coo.src, n_edges=sorted_coo.n_edges,
                n_nodes=sorted_coo.n_nodes)
+
+
+def graph_convert(coo: COO, chunk: int | None = None, count_fn=None,
+                  chunk_sort_fn=None, ptr_capacity: int | None = None) -> CSC:
+    """Full graph conversion = Ordering + Reshaping, on the COO's device:
+    the reference's chunked_merge ``edge_ordering`` (``chunk`` None is
+    ``ordering.DEFAULT_CHUNK``; ``chunk_sort_fn`` the chunk-sort kernel),
+    then ``data_reshaping``."""
+    from .ordering import edge_ordering
+    sorted_coo = edge_ordering(coo, chunk=chunk, strategy="chunked_merge",
+                               chunk_sort_fn=chunk_sort_fn)
+    return data_reshaping(sorted_coo, ptr_capacity=ptr_capacity,
+                          count_fn=count_fn)

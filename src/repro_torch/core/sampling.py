@@ -1,5 +1,6 @@
-"""Unique random Selecting (port of the node-wise selectors of
-``repro/core/sampling.py``): Floyd's algorithm, keysort and reservoir.
+"""Unique random Selecting (port of ``repro/core/sampling.py``): the
+node-wise selectors (Floyd's algorithm, keysort and reservoir) and
+layer-wise selection.
 
 * ``floyd``: each of the k steps draws from the not-yet-sampled range and
   resolves a collision with a k-wide membership compare, vectorised over
@@ -16,7 +17,12 @@ sampled neighbours equal the reference's bit for bit. The schedule's
 sub-keys are one [K, 2] table (``prng.key_schedule``, its layout a
 function of the selection, the fanouts and the window): a key given as a
 tuple is laid out first, a table already on the device (the serve
-step's) is read as it is. Layer-wise selection is not ported yet.
+step's) is read as it is.
+
+Layer-wise selection (``select_layerwise``, ``sample_layerwise``) draws k
+nodes a layer from the union of the frontier's neighbourhoods, its keys
+derived on the host with ``prng.split`` / ``fold_in`` as the reference
+derives them.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 
 from . import prng
 from .graph import CSC, SENTINEL, take
+from .set_count import rank_in_sorted
 
 DEFAULT_WINDOW = 1024  # the reference's sample_khop window
 
@@ -114,6 +121,70 @@ def select_reservoir(csc: CSC, frontier: torch.Tensor, k: int,
         hit = (slots == j[:, None]) & ((i < deg) & (j < k))[:, None]
         res = torch.where(hit, torch.full_like(res, i), res)
     return _neighbours(csc, start, res, res >= 0)
+
+
+def select_layerwise(csc: CSC, frontier: torch.Tensor, k: int, key,
+                     window: int = 64) -> torch.Tensor:
+    """Layer-wise selection: up to ``window`` neighbours of every frontier
+    node (from a random start in its range, so long lists are covered)
+    form one candidate array; repeats are masked (a sort, then SENTINEL on
+    each equal successor) and k of the rest are drawn uniformly: the k
+    smallest of ``uniform(k2, ...)`` (SENTINEL slots 2.0), in ascending
+    order, ties to the lower slot (``lax.top_k(-r, k)``). ``key`` is one
+    request key ``(k0, k1)``; ``k1, k2 = split(key)``. Returns [k] node ids,
+    SENTINEL where the union is smaller than k."""
+    start, deg = _ranges(csc, frontier)
+    f = frontier.shape[0]
+    dev = frontier.device
+    k1, k2 = prng.split(key)
+    max_start = torch.clamp(deg - window, min=0)
+    off0 = torch.floor(prng.uniform(k1, f, dev)
+                       * (max_start + 1).to(torch.float32)).to(torch.int32)
+    offs = off0[:, None] + torch.arange(window, dtype=torch.int32,
+                                        device=dev)[None, :]
+    cand = take(csc.idx, start[:, None] + offs)
+    cand = torch.where(offs < deg[:, None], cand,
+                       torch.full_like(cand, SENTINEL)).reshape(-1)
+    cand = torch.sort(cand).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                     cand[1:] == cand[:-1]])
+    cand = torch.where(dup, torch.full_like(cand, SENTINEL), cand)
+    r = prng.uniform(k2, cand.shape[0], dev)
+    r = torch.where(cand != SENTINEL, r, torch.full_like(r, 2.0))
+    return take(cand, smallest_k(r[None, :], k)[0])
+
+
+def sample_layerwise(csc: CSC, batch_nodes: torch.Tensor,
+                     layer_sizes: tuple[int, ...], key, window: int = 64
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Layer-wise k-hop sampling → (nodes, edge_dst, edge_src) like
+    ``sample_khop``: layer l draws ``layer_sizes[l]`` nodes with
+    ``select_layerwise`` under ``fold_in(key, l)``; its edges join each
+    frontier node to the drawn nodes among its first ``window``
+    neighbours (a rank search in the sorted draw), SENTINEL elsewhere."""
+    frontier = batch_nodes.to(torch.int32)
+    dev = frontier.device
+    nodes = [frontier]
+    e_dst, e_src = [], []
+    offs = torch.arange(window, dtype=torch.int32, device=dev)[None, :]
+    for layer, k_l in enumerate(layer_sizes):
+        picked = select_layerwise(csc, frontier, k_l,
+                                  prng.fold_in(key, layer), window=window)
+        start, deg = _ranges(csc, frontier)
+        sp = torch.sort(picked).values
+        f = frontier.shape[0]
+        nbr = take(csc.idx, start[:, None] + offs)
+        nbr = torch.where(offs < torch.clamp(deg, max=window)[:, None], nbr,
+                          torch.full_like(nbr, SENTINEL))
+        r = rank_in_sorted(sp, nbr.reshape(-1)).reshape(f, window)
+        hit = take(sp, torch.clamp(r, 0, k_l - 1)) == nbr
+        sen = torch.full_like(nbr, SENTINEL)
+        e_dst.append(torch.where(hit, frontier[:, None].expand_as(nbr),
+                                 sen).reshape(-1))
+        e_src.append(torch.where(hit, nbr, sen).reshape(-1))
+        nodes.append(picked)
+        frontier = picked
+    return torch.cat(nodes), torch.cat(e_dst), torch.cat(e_src)
 
 
 _SELECTORS = {"floyd": select_floyd, "keysort": select_keysort,

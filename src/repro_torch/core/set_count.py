@@ -1,12 +1,12 @@
-"""Set-counting (port of ``count_less_than``, ``rank_in_sorted`` and
-``filter_lookup`` from ``repro/core/set_count.py``).
+"""Set-counting (port of ``repro/core/set_count.py``).
 
-``count_less_than`` is the SCR comparator array + adder tree: a blocked
-all-pairs compare-reduce, correct on unsorted input. ``rank_in_sorted`` is
-the batched rank search over a sorted stream: every query is independent,
-log₂(n) rounds of one compare against a gathered pivot. Both lowerings of
-the reference are kept, and both land on the exact searchsorted rank, so
-they are bit-identical.
+``count_less_than`` and ``count_equal`` are the SCR comparator array +
+adder tree: a blocked all-pairs compare-reduce, correct on unsorted input.
+``rank_in_sorted`` is the batched rank search over a sorted stream: every
+query is independent, log₂(n) rounds of one compare against a gathered
+pivot; ``rank_in_sorted2`` the same over lexicographic (a, b) pairs. Both
+lowerings of the reference are kept, and both land on the exact
+searchsorted rank, so they are bit-identical.
 """
 from __future__ import annotations
 
@@ -29,6 +29,22 @@ def count_less_than(elements: torch.Tensor, targets: torch.Tensor,
     for lo in range(0, elements.shape[0], block):
         chunk = elements[lo:lo + block]
         counts += (chunk[None, :] < targets[:, None]).sum(1, dtype=torch.int32)
+    return counts
+
+
+def count_equal(values: torch.Tensor, targets: torch.Tensor,
+                block: int = 2048) -> torch.Tensor:
+    """counts[t] = |{x in values : x == targets[t]}| (int32), the SCR with
+    equality comparators, by blocks of ``block`` elements; the last block
+    pads with INT32_MIN as the reference pads it (a target equal to
+    INT32_MIN counts those pads too)."""
+    e = values.shape[0]
+    xs = pad_to(values, e + (-e) % block, INT32_MIN).reshape(-1, block)
+    counts = torch.zeros(targets.shape, dtype=torch.int32,
+                         device=targets.device)
+    for chunk in xs:
+        counts += (chunk[None, :] == targets[:, None]).sum(1,
+                                                           dtype=torch.int32)
     return counts
 
 
@@ -59,6 +75,42 @@ def rank_in_sorted(sorted_arr: torch.Tensor, queries: torch.Tensor,
         mid = (lo + hi) >> 1
         pivot = take(sorted_arr, mid)
         go_right = (pivot < queries) if side == "left" else (pivot <= queries)
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
+def rank_in_sorted2(sorted_a: torch.Tensor, sorted_b: torch.Tensor,
+                    query_a: torch.Tensor, query_b: torch.Tensor,
+                    side: str = "left", unroll: bool = False) -> torch.Tensor:
+    """``rank_in_sorted`` over lexicographic (a, b) pairs: the rank of each
+    query pair in the pair-sorted columns ``(sorted_a, sorted_b)`` (int32),
+    for VID spaces too wide to pack (dst, src) into one int32 key. Each
+    round compares the query against one gathered pivot pair; ``unroll``
+    and the bisection's converged-lane freeze as in ``rank_in_sorted``."""
+    n = sorted_a.shape[0]
+    steps = max(1, int(n).bit_length())
+
+    def below(i):  # pivot pair i orders before the query (left side)
+        pa, pb = take(sorted_a, i), take(sorted_b, i)
+        lt_b = (pb < query_b) if side == "left" else (pb <= query_b)
+        return (pa < query_a) | ((pa == query_a) & lt_b)
+
+    if unroll:
+        pos = torch.zeros(query_a.shape, dtype=torch.int32,
+                          device=query_a.device)
+        for s in reversed(range(steps)):
+            cand = pos + (1 << s)
+            ok = below(torch.clamp(cand - 1, max=n - 1))
+            pos = torch.where(ok & (cand <= n), cand, pos)
+        return pos
+    lo = torch.zeros(query_a.shape, dtype=torch.int32, device=query_a.device)
+    hi = torch.full(query_a.shape, n, dtype=torch.int32,
+                    device=query_a.device)
+    for _ in range(steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = below(mid)
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return lo

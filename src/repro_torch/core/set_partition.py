@@ -1,5 +1,5 @@
 """Set-partitioning — the UPE primitive (port of
-``repro/core/set_partition.py``, the parts the serve path runs).
+``repro/core/set_partition.py``).
 
 A stable digit pass is a multi-way set-partition: per-bucket inclusive
 prefix sums give each element its rank inside its bucket, and the
@@ -20,6 +20,25 @@ def prefix_sum(x: torch.Tensor, axis: int = 0,
     """Inclusive (or exclusive) prefix sum along ``axis``, dtype kept."""
     incl = torch.cumsum(x, dim=axis, dtype=x.dtype)
     return incl - x if exclusive else incl
+
+
+def displacement(cond: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum of a boolean condition (int32): the number of
+    selected elements strictly left of each position, the paper's
+    "displacement array"."""
+    return prefix_sum(cond.to(torch.int32), exclusive=True)
+
+
+def partition_indices(cond: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Destination of every element under a stable two-way partition
+    (selected ones first, in order, then the rest, in order), and the
+    selected count: (dest [N] int32, n_selected 0-d int32)."""
+    c = cond.to(torch.int32)
+    left = prefix_sum(c, exclusive=True)  # rank among the selected
+    right = prefix_sum(1 - c, exclusive=True)  # rank among the rest
+    n_sel = c.sum(dtype=torch.int32)
+    return torch.where(cond.to(torch.bool), left, n_sel + right), n_sel
 
 
 def gather_sources_from_counts(incl_counts: torch.Tensor,
@@ -73,6 +92,15 @@ def digit_relocation_sources(digit: torch.Tensor, n_buckets: int
     counts = incl[-1]
     base = prefix_sum(counts) - counts
     return gather_sources_from_counts(incl, base), base
+
+
+def radix_partition(values: torch.Tensor, keys: torch.Tensor,
+                    n_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-way stable partition of ``values`` ([N] or [N, k]) by small
+    integer ``keys`` in [0, n_buckets): one LSD digit pass. Returns the
+    partitioned values and the buckets' start offsets [n_buckets]."""
+    src, base = digit_relocation_sources(keys, n_buckets)
+    return take(values, src), base
 
 
 def partition_tiles(digit: torch.Tensor, n_buckets: int

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import threading
 
+import torch
+
 _COUNT_LOCK = threading.Lock()
 
 
@@ -18,6 +20,18 @@ def count_launch(fn, n: int = 1) -> None:
     """Add ``n`` to wrapper ``fn``'s launch counter, under the lock."""
     with _COUNT_LOCK:
         fn.launches += n
+
+
+def refuse_detached(name: str, x, instead: str) -> None:
+    """Raise when grad mode is on and ``x`` requires grad: a kernel called
+    through ``ctypes`` leaves no autograd history, so its output would pass
+    no gradient back, silently. The CPU twin would, so the rule holds on
+    both devices."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{name} has no autograd history: under grad mode its input "
+            f"must not require grad (call it through {instead}, or under "
+            "torch.no_grad())")
 
 
 def kernel_wrappers():

@@ -12,6 +12,13 @@ reference's arithmetic, ``cs[ptr[1:]] - cs[ptr[:-1]]`` over the prefix sum
 rounding (``twin_tolerance``), not bit for bit. The kernel's summation order
 depends on each span's length alone, so a lane gives the same bits batched
 and alone.
+
+``ptr_seg_sum`` is called through ``ctypes`` and leaves no autograd
+history, so under grad mode it refuses an input that requires grad.
+``SpanSum`` and ``GatherRows`` are the autograd forms: each backward is
+one more span sum (or a row gather), over the transposed layout of the
+edges (their positions stably sorted by source, ``rev_perm``, and its
+pointers, ``rev_ptr``), so no gradient is summed with float atomics.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build, count_launch
+from . import _build, count_launch, refuse_detached
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +64,8 @@ def ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
     ptr [N + 1] int32, sorted, every entry in [0, E]; x [E, D] float32, or
     [M, D] with rows [E] int32. Returns [N, D] float32.
     """
+    refuse_detached("ptr_seg_sum", x, "kernels.ptr_scan.SpanSum (models.gnn"
+                    " uses it when the batch carries its transposed layout)")
     if x.ndim != 2 or ptr.ndim != 1 or ptr.shape[0] < 1:
         raise ValueError("ptr_seg_sum takes ptr [N + 1] and x [rows, D]")
     if not isinstance(mean, bool):
@@ -87,6 +96,77 @@ def ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
 
 
 ptr_seg_sum.launches = 0
+
+
+def _mean_scaled(g: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
+    """g's row i divided by max(ptr[i + 1] − ptr[i], 1): the mean's
+    gradient, one elementwise pass before the backward's launch."""
+    deg = (ptr[1:] - ptr[:-1]).to(g.dtype)[:, None]
+    return g / torch.clamp(deg, min=1.0)
+
+
+class SpanSum(torch.autograd.Function):
+    """``ptr_seg_sum(ptr, x, rows, mean)`` with a gradient for x.
+
+    ``dst`` [E] int32 is each edge's node (the span that holds it, clamped
+    into range); ``rev_perm`` [E] int32 the edge positions stably sorted
+    by ``rows`` and ``rev_ptr`` [M + 1] int32 its pointers (edges with
+    rows[e] = u at rev_ptr[u] .. rev_ptr[u + 1]), over the edges below
+    ptr[N] only. With g' = g (÷ max(len, 1) under ``mean``):
+
+    * no ``rows``: gx[e] = g'[dst[e]] for e < ptr[N], 0 past it (a row
+      gather, no kernel);
+    * ``rows``: gx[u] = Σ g'[dst[e]] over the edges with rows[e] = u, one
+      span sum over the transposed layout (``rev_ptr``, read through
+      dst[rev_perm]).
+
+    Nothing is computed for an x that needs no gradient (a feature batch).
+    """
+
+    @staticmethod
+    def forward(ctx, x, ptr, rows, mean, dst, rev_perm, rev_ptr):
+        ctx.save_for_backward(ptr, dst, rev_perm, rev_ptr)
+        ctx.mean, ctx.fused = mean, rows is not None
+        return ptr_seg_sum(ptr, x, rows, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 7
+        ptr, dst, rev_perm, rev_ptr = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.mean:
+            g = _mean_scaled(g, ptr)
+        if ctx.fused:
+            rows = dst.index_select(0, rev_perm.to(torch.int64))
+            gx = ptr_seg_sum(rev_ptr, g, rows)
+        else:
+            live = (torch.arange(dst.shape[0], device=dst.device)
+                    < ptr[-1])[:, None]
+            gx = torch.where(live, g.index_select(0, dst.to(torch.int64)),
+                             torch.zeros((), dtype=g.dtype, device=g.device))
+        return gx, None, None, None, None, None, None
+
+
+class GatherRows(torch.autograd.Function):
+    """``h[idx]`` (idx [E] int64, in range) with a gradient for h:
+    gh[u] = Σ g[e] over the edges with idx[e] = u, one span sum of g's
+    rows over ``ptr`` [N + 1] (the edges of node u at ptr[u] ..
+    ptr[u + 1]), read through ``rows`` when the edges are not in idx's
+    order (the transposed layout's ``rev_perm``); edges past ptr[N] give
+    nothing. h [N, D] float32."""
+
+    @staticmethod
+    def forward(ctx, h, idx, ptr, rows):
+        ctx.save_for_backward(ptr, rows)
+        return h.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        ptr, rows = ctx.saved_tensors
+        return ptr_seg_sum(ptr, g.contiguous(), rows), None, None, None
 
 
 def twin_tolerance(ptr: torch.Tensor, x: torch.Tensor,

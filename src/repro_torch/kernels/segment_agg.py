@@ -19,7 +19,12 @@ import ctypes
 
 import torch
 
-from . import _build, count_launch
+from . import _build, count_launch, refuse_detached
+
+# the reference's Pallas segment sum has no reverse-mode rule (jax.grad
+# through it raises), and the kernel's wrapper has none either
+_NO_GRAD = ("models.gnn with use_pallas_agg False: the Pallas segment sum "
+            "has no reverse-mode rule in the reference either")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,6 +118,7 @@ def segment_sum_sorted(dst: torch.Tensor, x: torch.Tensor, n_nodes: int,
     tail) contribute nothing. x [E, D] float32 (the messages), or [M, D]
     with rows [E] int32; any D ≥ 1. Returns [n_nodes, D] float32.
     """
+    refuse_detached("segment_sum_sorted", x, _NO_GRAD)
     if x.ndim != 2 or dst.ndim != 1:
         raise ValueError("segment_sum_sorted takes dst [E] and x [rows, D]")
     if not isinstance(mean, bool):
@@ -157,6 +163,7 @@ def segment_sum_padded(dst: torch.Tensor, x: torch.Tensor, n_nodes: int,
     """``segment_sum_sorted`` on any shapes (the reference pads every axis
     to its block sizes; the kernel masks its ragged edges itself):
     contiguous float32 x and int32 rows in, [n_nodes, D] float32 out."""
+    refuse_detached("segment_sum_padded", x, _NO_GRAD)
     if rows is not None:
         rows = rows.to(torch.int32).contiguous()
     return segment_sum_sorted(dst.contiguous(),

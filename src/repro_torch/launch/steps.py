@@ -1,5 +1,5 @@
-"""Step cells of the port (the LM prefill and train cells of
-``repro/launch/steps.py``).
+"""Step cells of the port (the LM prefill and train cells and the GNN
+train cells of ``repro/launch/steps.py``).
 
 A cell is a built model plus an input batch made from a seed; calling its
 ``step`` runs one step. Meshes, shardings and compiled programs of the
@@ -12,9 +12,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs import LM_SHAPES, get_config
+from repro_torch.configs import GNN_SHAPES, LM_SHAPES, get_config
 from repro_torch.core.graph import resolve_device
 from repro_torch.data.synthetic import lm_batch
+from repro_torch.models.gnn import (GNNConfig, GraphBatch, _GNN, gnn_loss,
+                                    gnn_model)
 from repro_torch.models.transformer import LM, lm_loss, lm_prefill
 from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update
 
@@ -49,16 +51,17 @@ def lm_prefill_cell(arch_id: str, seq_len: int | None = None,
                        torch.from_numpy(tokens.astype(np.int32)).to(dev))
 
 
-def lm_train_step(model: LM, opt_cfg: AdamWConfig, opt_state: dict,
-                  tokens: torch.Tensor) -> dict:
-    """One training step (the reference cell's ``train_step``): the
-    gradient of ``lm_loss`` by autograd, then ``adamw_update`` in place.
-    Returns ``{"loss", "grad_norm"}`` as 0-d tensors on the model's device
-    and ``"lr"`` as a float; the gradients are freed."""
+def _train_step(model, loss_fn, opt_cfg: AdamWConfig,
+                opt_state: dict) -> dict:
+    """The gradient of ``loss_fn()`` by autograd, then ``adamw_update`` in
+    place; a parameter the loss does not reach gets a zero gradient (as
+    ``jax.grad`` gives it). Returns ``{"loss", "grad_norm"}`` as 0-d
+    tensors on the model's device and ``"lr"`` as a float; the gradients
+    are freed."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    loss = lm_loss(model, tokens)
+    loss = loss_fn()
     loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in params.items()}
@@ -67,6 +70,22 @@ def lm_train_step(model: LM, opt_cfg: AdamWConfig, opt_state: dict,
     for p in params.values():
         p.grad = None
     return {"loss": loss.detach(), **metrics}
+
+
+def lm_train_step(model: LM, opt_cfg: AdamWConfig, opt_state: dict,
+                  tokens: torch.Tensor) -> dict:
+    """One training step (the reference cell's ``train_step``) of
+    ``lm_loss``: ``{"loss", "grad_norm", "lr"}``."""
+    return _train_step(model, lambda: lm_loss(model, tokens), opt_cfg,
+                       opt_state)
+
+
+def gnn_train_step(model: _GNN, opt_cfg: AdamWConfig, opt_state: dict,
+                   batch: GraphBatch) -> dict:
+    """One training step of ``gnn_loss`` on ``batch`` (the reference's GNN
+    ``train_step``): ``{"loss", "grad_norm", "lr"}``."""
+    return _train_step(model, lambda: gnn_loss(model, batch), opt_cfg,
+                       opt_state)
 
 
 @dataclasses.dataclass
@@ -110,3 +129,111 @@ def lm_train_cell(arch_id: str, n_layers: int | None = None,
     opt_state = adamw_init(dict(model.named_parameters()), opt_cfg.mom_dtype)
     tokens = torch.from_numpy(lm_batch(seed, 0, batch, seq_len, cfg.vocab))
     return TrainCell(arch_id, model, opt_cfg, opt_state, tokens.to(dev))
+
+
+# ================================================================= GNN cells
+def _pad32(x: int) -> int:
+    """Node and edge counts padded to a multiple of 32, as the reference
+    pads them (SENTINEL edges and masked-out nodes make the pad free)."""
+    return -(-x // 32) * 32
+
+
+def _gnn_batch_specs(cfg: GNNConfig, shape: dict) -> dict:
+    """The batch's shapes for a ``GNN_SHAPES`` entry ``shape`` (the
+    reference's ``_gnn_batch_specs``): name -> (shape, dtype), plus
+    ``n_graphs``. Minibatch cells hold every node and edge a sample of
+    ``batch_nodes`` seeds with ``fanout`` can reach."""
+    has_edge_feat = cfg.kind in ("gatedgcn", "meshgraphnet")
+    node_reg = cfg.kind == "meshgraphnet" and cfg.d_out > 0
+    if shape["kind"] == "full_graph":
+        n, e, g = _pad32(shape["n_nodes"]), _pad32(shape["n_edges"]), None
+    elif shape["kind"] == "minibatch":
+        b, (f1, f2) = shape["batch_nodes"], shape["fanout"]
+        n = _pad32(b + b * f1 + b * f1 * f2)
+        e, g = _pad32(b * f1 + b * f1 * f2), None
+    else:  # batched_graphs
+        g = shape["batch"]
+        n, e = _pad32(shape["n_nodes"] * g), _pad32(shape["n_edges"] * g)
+    rows = n if g is None else g
+    specs = {
+        "edge_dst": ((e,), torch.int32), "edge_src": ((e,), torch.int32),
+        "node_feat": ((n, shape["d_feat"]), torch.float32),
+        "labels": (((rows, cfg.d_out), torch.float32) if node_reg
+                   else ((rows,), torch.int32)),
+        "label_mask": ((rows,), torch.bool),
+        "n_graphs": 1 if g is None else g}
+    if has_edge_feat:
+        specs["edge_feat"] = ((e, 4), torch.float32)
+    if g is not None:
+        specs["graph_ids"] = ((n,), torch.int32)
+    return specs
+
+
+def _gnn_batch(specs: dict, shape: dict, seed: int, device) -> GraphBatch:
+    """A batch of ``specs`` drawn with numpy from ``seed``: dst-sorted
+    edges (within each graph for batched graphs), normal features, labels
+    of ``n_classes`` (or normal regression targets), every row masked in."""
+    rng = np.random.default_rng(seed)
+    e = specs["edge_dst"][0][0]
+    n, d_feat = specs["node_feat"][0]
+    g = specs["n_graphs"] if "graph_ids" in specs else None
+    if g is None:
+        dst = rng.integers(0, n, e)
+        src = rng.integers(0, n, e)
+    else:  # each edge inside one graph of n // g nodes
+        per = n // g
+        graph = np.sort(rng.integers(0, g, e))
+        dst = graph * per + rng.integers(0, per, e)
+        src = graph * per + rng.integers(0, per, e)
+    order = np.argsort(dst, kind="stable")
+    t = {"edge_dst": dst[order], "edge_src": src[order],
+         "node_feat": rng.normal(size=(n, d_feat))}
+    shape_l, dtype_l = specs["labels"]
+    t["labels"] = (rng.normal(size=shape_l) if dtype_l == torch.float32
+                   else rng.integers(0, shape["n_classes"], shape_l))
+    t["label_mask"] = np.ones(specs["label_mask"][0], bool)
+    if "edge_feat" in specs:
+        t["edge_feat"] = rng.normal(size=specs["edge_feat"][0])
+    if g is not None:
+        t["graph_ids"] = np.minimum(np.arange(n) // (n // g), g - 1)
+    fields = {k: torch.from_numpy(np.asarray(v)).to(
+        dtype=specs[k][1], device=device) for k, v in t.items()}
+    return GraphBatch(n_graphs=specs["n_graphs"], **fields)
+
+
+@dataclasses.dataclass
+class GnnTrainCell:
+    arch_id: str
+    shape_name: str
+    model: _GNN
+    opt_cfg: AdamWConfig
+    opt_state: dict  # train.optim.adamw_init's
+    batch: GraphBatch  # on the model's device
+
+    def step(self) -> dict:
+        """One AdamW step on the cell's batch (``train_step``):
+        ``{"loss", "grad_norm", "lr"}``."""
+        return gnn_train_step(self.model, self.opt_cfg, self.opt_state,
+                              self.batch)
+
+
+def _gnn_cell(arch_id: str, shape_name: str, device="cuda", seed: int = 0,
+              smoke: bool = False, **shape) -> GnnTrainCell:
+    """The ``GNN_SHAPES[shape_name]`` train cell of ``arch_id``, its entries
+    overridden by ``shape`` (a cut to size): the model with random weights
+    from ``seed`` (edge encoders 4 wide, a head to ``n_classes`` unless
+    MeshGraphNet regresses), AdamW at the reference cell's defaults, and a
+    batch from ``seed`` (``_gnn_batch``). The batch has no ``ptr``, so its
+    sums are ``index_add_``: not deterministic on the card."""
+    cfg = get_config(arch_id, smoke=smoke)
+    dims = {**GNN_SHAPES[shape_name], **shape}
+    node_reg = cfg.kind == "meshgraphnet" and cfg.d_out > 0
+    dev = resolve_device(device)
+    model = gnn_model(cfg, dims["d_feat"], d_edge=4,
+                      n_classes=0 if node_reg else dims["n_classes"],
+                      generator=torch.Generator().manual_seed(seed),
+                      device=dev)
+    opt_cfg = AdamWConfig()
+    opt_state = adamw_init(dict(model.named_parameters()))
+    batch = _gnn_batch(_gnn_batch_specs(cfg, dims), dims, seed, dev)
+    return GnnTrainCell(arch_id, shape_name, model, opt_cfg, opt_state, batch)

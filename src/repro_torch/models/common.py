@@ -109,14 +109,30 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+# up to this many classes the label's logit is picked by a comparison
+PICK_BY_COMPARE = 1024
+
+
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels]: for a few classes (a GNN head) by comparing the
+    class ids with the label, so the backward is elementwise (a gather's
+    is a scatter); for a vocabulary by ``torch.gather``. The same bits
+    either way: the row sum adds exact zeros to the one picked logit."""
+    labels = labels.to(torch.int64)
+    if logits.shape[-1] > PICK_BY_COMPARE:
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    hit = labels[..., None] == torch.arange(logits.shape[-1],
+                                            device=logits.device)
+    return torch.where(hit, logits, torch.zeros_like(logits)).sum(-1)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token cross entropy; logits [..., V] upcast to float32, labels
     integer [...]; with ``mask``, the mean over the masked-in tokens."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
-    nll = lse - ll
+    nll = lse - _label_logit(logits, labels)
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -20,6 +20,19 @@ any order) and its denominator from the pointer sum.
 reference's layout, ``h @ W`` with ``W`` shaped [d_in, d_out], so a
 parameter tree from the reference's ``gnn_init`` loads without transposes
 (``load_reference_params``).
+
+Training (``gnn_loss``) backpropagates through the same kernel. The
+kernels leave no autograd history, so a training batch carries the
+transposed layout of its edges as well (``rev_perm``, ``rev_ptr``: the
+edge positions stably sorted by source and their pointers, which the
+sampler builds once a batch, ``data/sampler.py``); with it every pointer
+sum is ``kernels.ptr_scan.SpanSum`` and every row gather
+``GatherRows``, and each backward is one more span sum or a row gather:
+no float atomics forward or backward, so a training step gives the same
+bits every run. A batch without ``ptr`` (``launch/steps.py``'s cells)
+keeps ``index_add_``, whose float atomics on the card are not
+deterministic. Under ``use_pallas_agg`` nothing trains: the reference's
+Pallas segment sum has no reverse-mode rule either.
 """
 from __future__ import annotations
 
@@ -34,23 +47,35 @@ from torch import nn
 from repro_torch.core.graph import SENTINEL, resolve_device, take
 from repro_torch.core.pipeline import gather_features
 from repro_torch.core.set_count import rank_in_sorted
-from repro_torch.kernels.ptr_scan import ptr_seg_sum
-from repro_torch.models.common import layer_norm, mlp_apply, mlp_init
+from repro_torch.kernels.ptr_scan import GatherRows, SpanSum, ptr_seg_sum
+from repro_torch.models.common import (cross_entropy, layer_norm, mlp_apply,
+                                       mlp_init)
 
 
 @dataclasses.dataclass
 class GraphBatch:
-    """Static-shape graph minibatch. With ``ptr`` set (the serve path),
-    ``edge_dst`` is sorted ascending and ``ptr[d] .. ptr[d+1]`` spans node
-    d's incoming edges. ``edge_feat`` [E, De] feeds GatedGCN's and
-    MeshGraphNet's edge encoders; without it (the serve path) their edge
-    states start at zero."""
+    """Static-shape graph minibatch (block-diagonal for batched graphs).
+    With ``ptr`` set (the serve and sampler paths), ``edge_dst`` is sorted
+    ascending and ``ptr[d] .. ptr[d+1]`` spans node d's incoming edges,
+    every edge below ptr[N] valid. ``edge_feat`` [E, De] feeds GatedGCN's
+    and MeshGraphNet's edge encoders; without it (the serve path) their
+    edge states start at zero. ``labels`` / ``label_mask`` are per node,
+    or per graph with ``graph_ids``. The port's own fields ``rev_perm``
+    [E] int32 (the edge positions stably sorted by ``edge_src``, SENTINEL
+    sources last) and ``rev_ptr`` [N + 1] int32 (its pointers) make the
+    pointer path differentiable (the module's docstring)."""
 
     edge_dst: torch.Tensor  # [E] int32, sorted ascending, SENTINEL pad
     edge_src: torch.Tensor  # [E] int32
     node_feat: torch.Tensor  # [N, Df] float
     ptr: torch.Tensor | None = None  # [N+1] int32 CSC pointers
     edge_feat: torch.Tensor | None = None  # [E, De] float
+    labels: torch.Tensor | None = None  # [N] int32 or [N, Do] / [G, Do] float
+    label_mask: torch.Tensor | None = None  # [N] or [G] bool
+    graph_ids: torch.Tensor | None = None  # [N] int32 (batched graphs)
+    n_graphs: int = 1
+    rev_perm: torch.Tensor | None = None  # [E] int32
+    rev_ptr: torch.Tensor | None = None  # [N + 1] int32
 
     @property
     def n_nodes(self) -> int:
@@ -77,9 +102,14 @@ def _valid(batch: GraphBatch) -> torch.Tensor:
     return batch.edge_dst < batch.n_nodes
 
 
+def _transposed(batch: GraphBatch | None) -> bool:
+    return batch is not None and batch.rev_ptr is not None
+
+
 def _ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
                  rows: torch.Tensor | None = None,
-                 mean: bool = False) -> torch.Tensor:
+                 mean: bool = False,
+                 batch: GraphBatch | None = None) -> torch.Tensor:
     """Scatter-free segment sum over CSC pointers: each node's span of the
     message stream ``x`` summed, or, given ``rows`` (the edges' source
     nodes), of ``x`` read through them inside the sum, so no [E, D] stream
@@ -87,13 +117,28 @@ def _ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
     The span-sum kernel on the card, one launch; its twin on the CPU
     (``torch.cumsum`` and two ``index_select``, after the gather), whose
     bits are those of ``seg_mean(batch, gather_src(batch, x))``
-    (``seg_sum`` without ``mean``)."""
+    (``seg_sum`` without ``mean``). A ``batch`` with the transposed layout
+    makes it ``SpanSum``: the same forward, and a gradient for x."""
     flat = x.to(torch.float32).reshape(x.shape[0], -1).contiguous()
     if rows is not None:
         rows = rows.to(torch.int32).contiguous()
     p = torch.clamp(ptr, 0, x.shape[0] if rows is None else rows.shape[0])
-    seg = ptr_seg_sum(p.to(torch.int32), flat, rows, mean)
+    p = p.to(torch.int32)
+    if _transposed(batch):
+        seg = SpanSum.apply(flat, p, rows, mean, _dst(batch).to(torch.int32),
+                            batch.rev_perm, batch.rev_ptr)
+    else:
+        seg = ptr_seg_sum(p, flat, rows, mean)
     return seg.reshape((p.shape[0] - 1,) + x.shape[1:]).to(x.dtype)
+
+
+def _refuse_grad(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "use_pallas_agg has no gradient: the segment-sum kernel leaves no "
+            "autograd history, and the reference's Pallas segment sum "
+            "(repro.kernels.ops.segment_sum_padded) has no reverse-mode rule "
+            "either; train with use_pallas_agg False")
 
 
 def _dst_seg_sum(batch: GraphBatch, x: torch.Tensor, rows: torch.Tensor,
@@ -106,6 +151,7 @@ def _dst_seg_sum(batch: GraphBatch, x: torch.Tensor, rows: torch.Tensor,
     card (the bounds pass and the sum); on the CPU its twin, whose bits are those of ``seg_mean(batch,
     gather_src(batch, x), True)`` (``seg_sum`` without ``mean``)."""
     from repro_torch.kernels.segment_agg import segment_sum_padded
+    _refuse_grad(x)
     return segment_sum_padded(batch.edge_dst, x, batch.n_nodes, rows,
                               mean).to(x.dtype)
 
@@ -127,10 +173,11 @@ def seg_sum(batch: GraphBatch, msgs: torch.Tensor,
     subgraph's edge count on, and ptr[N] is that count). The pointer sum
     never reads those rows, so the mask would change no output bit."""
     if batch.ptr is not None and not use_pallas:
-        return _ptr_seg_sum(batch.ptr, msgs)
+        return _ptr_seg_sum(batch.ptr, msgs, batch=batch)
     msgs = torch.where(_valid(batch)[:, None], msgs,
                        torch.zeros((), dtype=msgs.dtype, device=msgs.device))
     if use_pallas:
+        _refuse_grad(msgs)
         from repro_torch.kernels.segment_agg import segment_sum_padded
         return segment_sum_padded(batch.edge_dst, msgs,
                                   batch.n_nodes).to(msgs.dtype)
@@ -153,25 +200,47 @@ def seg_softmax(batch: GraphBatch, scores: torch.Tensor) -> torch.Tensor:
     maximum over each node's edges (masked edges at -1e30, on the last
     node as the reference clamps them; an empty node's maximum is -inf),
     the exponentials, their sum through ``seg_sum`` (the pointer sum when
-    the batch has ``ptr``)."""
+    the batch has ``ptr``). The maximum's ``scatter_reduce("amax")`` is
+    exact in any order, and so is its backward (it splits a gradient over
+    ties by a sum of 0/1 counts); its rows and the sums' are read back
+    through ``gather_dst``."""
     dst = _dst(batch).to(torch.int64)[:, None].expand_as(scores)
     valid = _valid(batch)[:, None]
     scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
     mx = torch.full((batch.n_nodes,) + scores.shape[1:], -math.inf,
                     dtype=scores.dtype, device=scores.device)
     mx = mx.scatter_reduce(0, dst, scores, "amax")
-    ex = torch.exp(scores - torch.gather(mx, 0, dst))
+    ex = torch.exp(scores - gather_dst(batch, mx))
     ex = torch.where(valid, ex, torch.zeros_like(ex))
     den = seg_sum(batch, ex)
-    return ex / torch.clamp(torch.gather(den, 0, dst), min=1e-20)
+    return ex / torch.clamp(gather_dst(batch, den), min=1e-20)
+
+
+def _gather(h: torch.Tensor, idx: torch.Tensor, ptr, rows) -> torch.Tensor:
+    """h's rows at ``idx`` (in range) through ``GatherRows``: its backward
+    is a span sum over the edges' pointers ``ptr``."""
+    flat = h.reshape(h.shape[0], -1)
+    out = GatherRows.apply(flat, idx.to(torch.int64), ptr, rows)
+    return out.reshape(idx.shape + h.shape[1:])
 
 
 def gather_src(batch: GraphBatch, h: torch.Tensor) -> torch.Tensor:
-    return take(h, torch.clamp(batch.edge_src, max=batch.n_nodes - 1))
+    """h at each edge's source (clamped into range); with the transposed
+    layout its gradient is a span sum over ``rev_ptr`` through
+    ``rev_perm``."""
+    idx = torch.clamp(batch.edge_src, max=batch.n_nodes - 1)
+    if not _transposed(batch):
+        return take(h, idx)
+    return _gather(h, idx, batch.rev_ptr, batch.rev_perm)
 
 
 def gather_dst(batch: GraphBatch, h: torch.Tensor) -> torch.Tensor:
-    return take(h, _dst(batch))
+    """h at each edge's destination (clamped into range); with the
+    transposed layout its gradient is a span sum over ``ptr``."""
+    if not _transposed(batch):
+        return take(h, _dst(batch))
+    ptr = torch.clamp(batch.ptr, 0, batch.edge_dst.shape[0])
+    return _gather(h, _dst(batch), ptr.to(torch.int32), None)
 
 
 # ------------------------------------------------------------------ models
@@ -250,7 +319,7 @@ class GraphSAGE(_GNN):
         mean = cfg.aggregator == "mean"
         for i, lp in enumerate(self.layers):
             if fused:
-                agg = _ptr_seg_sum(batch.ptr, h, batch.edge_src, mean)
+                agg = _ptr_seg_sum(batch.ptr, h, batch.edge_src, mean, batch)
             elif cfg.use_pallas_agg:
                 agg = _dst_seg_sum(batch, h, batch.edge_src, mean)
             else:
@@ -485,3 +554,35 @@ def gnn_apply_batched(model: _GNN, batches: list[GraphBatch]
     """The forward over one batch per slot → [S, N, out]: lane i computes
     exactly what ``model(batches[i])`` computes on its own batch."""
     return torch.stack([model(b) for b in batches])
+
+
+def pool_graphs(batch: GraphBatch, h: torch.Tensor) -> torch.Tensor:
+    """Mean-pool node outputs per graph (batched small graphs): the sums
+    and the node counts by ``index_add_`` over ``graph_ids``, ids outside
+    [0, n_graphs) dropped as the reference's ``segment_sum`` drops them."""
+    g = batch.n_graphs
+    gid = batch.graph_ids.to(torch.int64)
+    gid = torch.where((gid >= 0) & (gid < g), gid, torch.full_like(gid, g))
+    s = torch.zeros((g + 1,) + h.shape[1:], dtype=h.dtype, device=h.device)
+    s = s.index_add(0, gid, h)[:g]
+    c = torch.zeros((g + 1, 1), dtype=h.dtype, device=h.device)
+    c = c.index_add(0, gid, torch.ones((h.shape[0], 1), dtype=h.dtype,
+                                       device=h.device))[:g]
+    return s / torch.clamp(c, min=1.0)
+
+
+def gnn_loss(model: _GNN, batch: GraphBatch) -> torch.Tensor:
+    """The training loss (0-d float32): the model's outputs, mean-pooled
+    per graph with ``graph_ids``; MeshGraphNet with ``d_out`` regresses
+    (the squared error summed over the output columns, averaged over the
+    masked-in rows), every other model classifies (``cross_entropy`` over
+    the masked-in rows)."""
+    cfg = model.cfg
+    out = model(batch)
+    if batch.graph_ids is not None:
+        out = pool_graphs(batch, out)
+    if cfg.d_out and cfg.kind == "meshgraphnet":
+        err = out.to(torch.float32) - batch.labels.to(torch.float32)
+        m = batch.label_mask[:, None].to(torch.float32)
+        return torch.sum(err * err * m) / torch.clamp(torch.sum(m), min=1.0)
+    return cross_entropy(out, batch.labels, batch.label_mask)

@@ -1,4 +1,4 @@
-"""AdamW (port of the AdamW part of ``repro/train/optim.py``).
+"""AdamW and SGD with momentum (port of ``repro/train/optim.py``).
 
 The reference rebuilds its parameter and moment trees each step; here
 ``adamw_update`` writes the parameters and the moments in place under
@@ -9,8 +9,8 @@ corrections, the update ``u + weight_decay · p`` in float32, parameters
 cast back to their dtype, moments stored in ``mom_dtype``. Parameters and
 gradients are dictionaries name → tensor (``dict(model
 .named_parameters())``); the state is ``{"m": {name: t}, "v": {name: t},
-"step": int32 scalar tensor on the CPU}``. ``SGDConfig`` and
-``sgd_update`` wait for the GNN training slice.
+"step": int32 scalar tensor on the CPU}``; SGD's ``{"mom": {name: t},
+"step": ...}``.
 """
 from __future__ import annotations
 
@@ -93,3 +93,34 @@ def adamw_update(cfg: AdamWConfig, grads: dict[str, torch.Tensor],
                 dst.copy_(src)
     state["step"].add_(1)
     return {"grad_norm": gn, "lr": lr}
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDConfig:
+    lr: float = 1e-2
+    momentum: float = 0.9
+
+
+def sgd_init(params: dict[str, torch.Tensor]) -> dict:
+    """Zero float32 momenta on each parameter's device, step 0."""
+    return {"mom": {n: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+                    for n, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+@torch.no_grad()
+def sgd_update(cfg: SGDConfig, grads: dict[str, torch.Tensor], state: dict,
+               params: dict[str, torch.Tensor]) -> dict:
+    """One momentum-SGD step, in place: m = momentum · m + g, then p −= lr ·
+    m in float32 (the product rounded before the subtraction, as the
+    reference computes it), cast back to p's dtype. Returns no metrics."""
+    for name, p in params.items():
+        m = state["mom"][name]
+        m.mul_(cfg.momentum).add_(grads[name].to(torch.float32))
+        p32 = p.to(torch.float32)
+        p32.sub_(m * cfg.lr)
+        if p32 is not p:
+            p.copy_(p32)
+    state["step"].add_(1)
+    return {}

@@ -1706,3 +1706,155 @@ def test_launch_counters_are_exact_under_two_threads(cuda):
     for t in threads:
         t.join()
     assert launch_counts()["rank_search"] == 1000
+
+
+# ------------------------------------------------------------ GNN training
+def _smoke_dataset(dev, seed=0, fanouts=(3, 2)):
+    """``run_gnn``'s smoke graph (512 nodes, 4,096 edges, 32 features, 7
+    classes, batch 32) in a ``SampledDataset`` on ``dev``."""
+    from repro_torch.data.sampler import SampledDataset
+    from repro_torch.launch.train import gnn_data
+    dst, src, feats, labels = gnn_data(seed, True)
+    return SampledDataset(
+        coo=tg.COO.from_arrays(dst, src, 512, device=dev),
+        features=torch.from_numpy(feats).to(dev),
+        labels=torch.from_numpy(labels).to(dev), fanouts=fanouts,
+        batch_size=32, seed=seed)
+
+
+def _smoke_model(arch, dev, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import gnn_model
+    n_classes = 0 if arch == "meshgraphnet" else 7
+    return gnn_model(get_config(arch, smoke=True), 32, d_edge=4,
+                     n_classes=n_classes,
+                     generator=torch.Generator().manual_seed(seed),
+                     device=dev)
+
+
+def _grads(model, batch):
+    from repro_torch.models.gnn import gnn_loss
+    for p in model.parameters():
+        p.grad = None
+    loss = gnn_loss(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: (p.grad if p.grad is not None
+                             else torch.zeros_like(p)).detach().cpu()
+                         for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", ["graphsage-reddit", "gat-cora", "gatedgcn",
+                                  "meshgraphnet"])
+def test_gnn_gradients_on_card_match_float64_and_repeat(cuda, arch):
+    """A sampler batch on the card (the kernel library's routing) has the
+    CPU's integers; the smoke model's loss and every gradient through the
+    span-sum kernel (forward and backward) lie within 1e-4 of a float64
+    twin's on the CPU (the same batch without ptr: take, the masks and
+    index_add_, the reference's composition), as a share of each
+    gradient's largest value (at least 1e-4 of the largest of all: a
+    gradient the math makes zero is rounding noise); a second backward
+    gives the same bits; a GraphSAGE step launches the span sum twice
+    forward and once backward. (The CPU's float32 twin is no oracle here:
+    its prefix differences cancel, 1.7e-4 of a GatedGCN gradient.)"""
+    import copy
+    from repro_torch.kernels import ptr_scan
+    fanouts = (3, 2) if arch == "graphsage-reddit" else (5, 3)
+    cpu_b = _smoke_dataset("cpu", fanouts=fanouts).batch(3)
+    card_b = _smoke_dataset(cuda, fanouts=fanouts).batch(3)
+    for f in ("edge_dst", "edge_src", "ptr", "rev_perm", "rev_ptr",
+              "labels", "label_mask"):
+        assert torch.equal(getattr(card_b, f).cpu(), getattr(cpu_b, f)), f
+    if arch == "meshgraphnet":
+        from repro_torch.launch.train import regression_targets
+        cpu_b = regression_targets(cpu_b, 3)
+        card_b = regression_targets(card_b, 3)
+    model = _smoke_model(arch, "cpu")
+    twin = copy.deepcopy(model).double()
+    twin.cfg = dataclasses.replace(model.cfg, dtype=torch.float64)
+    want_loss, want = _grads(twin, dataclasses.replace(
+        cpu_b, node_feat=cpu_b.node_feat.double(), ptr=None, rev_perm=None,
+        rev_ptr=None))
+    card = copy.deepcopy(model).to(cuda)
+    before = ptr_scan.ptr_seg_sum.launches
+    loss, got = _grads(card, card_b)
+    torch.cuda.synchronize()
+    if arch == "graphsage-reddit":
+        assert ptr_scan.ptr_seg_sum.launches - before == 3
+    _, again = _grads(card, card_b)
+    assert abs(loss - want_loss) <= 1e-4 * max(1.0, abs(want_loss))
+    top = max(float(w.abs().max()) for w in want.values())
+    for n, w in want.items():
+        assert torch.equal(got[n], again[n]), n
+        scale = max(float(w.abs().max()), 1e-4 * top)
+        assert float((got[n].double() - w).abs().max()) <= 1e-4 * scale, n
+
+
+@pytest.mark.parametrize("fused,mean", [(True, True), (False, False),
+                                        (False, True)])
+def test_span_sum_backward_on_card_within_its_tolerance(cuda, fused, mean):
+    """``SpanSum``'s backward on a sampler batch's transposed layout:
+    through the kernel within ``twin_tolerance`` of the twin on the same
+    scaled gradient, the same bits twice, one launch a backward when
+    fused (none otherwise: a row gather)."""
+    from repro_torch.kernels import ptr_scan
+    b = _smoke_dataset(cuda).batch(0)
+    n, e = b.n_nodes, b.edge_dst.shape[0]
+    dst = torch.clamp(b.edge_dst, max=n - 1)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((n if fused else e, 16), generator=g, device=cuda)
+    gout = torch.randn((n, 16), generator=g, device=cuda)
+    rows = b.edge_src if fused else None
+
+    def backward():
+        xa = x.clone().requires_grad_()
+        ptr_scan.SpanSum.apply(xa, b.ptr, rows, mean, dst, b.rev_perm,
+                               b.rev_ptr).backward(gout)
+        return xa.grad
+    before = ptr_scan.ptr_seg_sum.launches
+    got = backward()
+    again = backward()
+    torch.cuda.synchronize()
+    assert ptr_scan.ptr_seg_sum.launches - before == 2 * (2 if fused else 1)
+    assert torch.equal(got, again)
+    gs = ptr_scan._mean_scaled(gout, b.ptr) if mean else gout
+    if fused:
+        brows = dst.index_select(0, b.rev_perm.long())
+        want = ptr_scan.ptr_seg_sum(b.rev_ptr.cpu(), gs.cpu(), brows.cpu())
+        tol = ptr_scan.twin_tolerance(b.rev_ptr.cpu(), gs.cpu(), brows.cpu())
+        assert bool(((got.cpu().double() - want.double()).abs()
+                     <= tol).all())
+    else:
+        live = (torch.arange(e, device=cuda) < b.ptr[-1])[:, None]
+        assert torch.equal(got, torch.where(live, gs.index_select(
+            0, dst.long()), 0.0))
+
+
+def test_kernels_refuse_silent_detachment_on_card(cuda):
+    from repro_torch.kernels import ptr_scan
+    ptr = torch.tensor([0, 2, 4], dtype=torch.int32, device=cuda)
+    x = torch.randn((4, 3), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no autograd history"):
+        ptr_scan.ptr_seg_sum(ptr, x)
+    with pytest.raises(RuntimeError, match="no autograd history"):
+        tsa.segment_sum_padded(torch.tensor([0, 0, 1, 1], dtype=torch.int32,
+                                            device=cuda), x, 2)
+    with torch.no_grad():
+        assert torch.equal(ptr_scan.ptr_seg_sum(ptr, x),
+                           ptr_scan.ptr_seg_sum(ptr, x.detach()))
+
+
+def test_run_gnn_on_card_resumes_bit_for_bit(cuda, tmp_path):
+    """The smoke trainer on the card: a run crashed at step 11 and resumed
+    from its step-10 checkpoint ends with a clean run's parameters and
+    losses, bit for bit; the loss falls over the 12 steps."""
+    from repro_torch.launch.train import gnn_data, run_gnn
+    kw = dict(arch="graphsage-reddit", steps=12, smoke=True, device=cuda,
+              data=gnn_data(0, True), log_every=1)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        run_gnn(ckpt_dir=str(tmp_path / "a"), fail_at=11, **kw)
+    m1, _, h1 = run_gnn(ckpt_dir=str(tmp_path / "a"), fail_at=None, **kw)
+    m2, _, h2 = run_gnn(ckpt_dir=str(tmp_path / "b"), fail_at=None, **kw)
+    assert h1 == h2[10:]
+    for (n, p), q in zip(m1.named_parameters(), m2.parameters()):
+        assert torch.equal(p, q), n
+    assert h2[-1]["loss"] < h2[0]["loss"]

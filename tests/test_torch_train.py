@@ -412,7 +412,12 @@ def test_run_lm_resumes_after_injected_failure(tmp_path):
         assert torch.equal(p, q), n
 
 
-def test_gnn_and_recsys_training_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="A10.*A12"):
-        tlaunch.main(["--arch", "graphsage-reddit", "--smoke", "--device",
-                      "cpu"])
+def test_gnn_and_recsys_training_name_their_roadmap_items(tmp_path,
+                                                          capsys):
+    """GNN training is ported (``main`` runs ``run_gnn``); recommender
+    training still raises, naming its ROADMAP item."""
+    tlaunch.main(["--arch", "graphsage-reddit", "--smoke", "--steps", "2",
+                  "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert "'step': 1" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="A.8.*A12"):
+        tlaunch.main(["--arch", "dlrm-rm2", "--smoke", "--device", "cpu"])
