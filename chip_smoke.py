@@ -2,8 +2,8 @@
 """Drive the PyTorch + CUDA port's GNN serve paths (GraphSAGE under two
 routings, GAT, GatedGCN and MeshGraphNet, keysort and reservoir
 selection, graph updates through the captured step), its engine
-service, its sampled GNN training, its gemma2-9b prefill and its
-gemma2-9b training step on one H100.
+service, its sampled GNN training, its gemma2-9b prefill, its gemma2-9b
+LM serving and its gemma2-9b training step on one H100.
 
   python3 chip_smoke.py
 
@@ -249,6 +249,41 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    gives the CPU's logits. Then a
    profiled prefill (device busy share, top ops) and, when the run has
    room, one prefill at 32,768 tokens. The prefill model is freed.
+9a. LM serve — gemma2-9b at full width (bf16 weights from ``--seed``, an
+   int8 KV cache) in ``ServeEngine(n_slots=8, max_len=1024,
+   prompt_cap=512)``: the ``decode_32k`` cell (32,768 positions, batch
+   128) cut to 1,024 positions and 8 slots. A warm-up request (the step
+   captured once as a CUDA graph), launch counters set to 0, 16 requests
+   from the seed (prompts of 16..512 tokens, budgets of 8..64 new ones)
+   served with one step in flight, counters read: 84 ``decode_attention``
+   launches a step (the splits and their combine, 42 layers), no flash
+   or other kernel; every request retires with its budget of tokens in
+   [0, 256000); one step program, still one after more streams. The
+   replayed step's wall and device time, one replay profiled (busy share,
+   top ops), tok/s processed and generated, admission and request
+   latency p50/p99, peak memory. The first 4 requests served alone give
+   the stream's tokens bit for bit; the 2 shortest served together with
+   each replay's logits read, and a batch-1 ``lm_decode_step`` loop
+   teacher-forced on their tokens: logits within B1_LOGIT_TOL at every
+   step, the argmax the engine's token wherever the top-2 margin clears
+   it. One decode step on the engine's own cache: each layer's launch
+   within ``twin_tolerance`` (derived from float32 rounding) of the twin
+   on its own inputs; the step's logits within DECODE_PATH_TOL of the
+   same step with the twin in every layer, the next-kv-head twin outside;
+   on the first local and global layers' inputs (float32 q) the cap left
+   out, the dequantization without its bf16 rounding (q x 8), one
+   position more and the next kv head (q x 1) read outside the tolerance.
+   Row 15 timed on the first global layer's inputs beside its bound (the
+   live rows' int8 bytes and scales), the twin and
+   ``scaled_dot_product_attention`` on the dequantized bf16 cache (no
+   cap: a near function). decode_32k's length: one step at position
+   32,767, batch 8, a random int8 cache of 25 GiB from the seed, timed
+   and profiled, its first global layer's kernel timed and held against
+   the twin on 2 slots. The ring: gemma2-9b cut to one (local, global)
+   pair serves one request of 4,200 prompt tokens and 16 new ones in a
+   cache of 8,192 positions (the local ring of 4,096 wraps), then the
+   decode-step checks above on its cache. The smoke model served on the
+   card gives the CPU's tokens, bf16 and int8 caches.
 10. LM backward kernels — flash_dq_kernel and flash_dkv_kernel against
    the twin ``flash_attention_bwd_plain`` on the forward kernel's own out
    and lse, at gemma2-9b's head shapes in bf16 with queries x
@@ -287,7 +322,7 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    the card, crashed at a step and resumed from its checkpoint, against
    an uninterrupted run.
 13. report — every kernel of each path launched in its run; the kernels
-   JSON line (all seventeen; digit_partition_hist, digit_rank_gather,
+   JSON line (all eighteen; digit_partition_hist, digit_rank_gather,
    prefix_partition and filter_tree_lookup with 0 launches), then the last line ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
@@ -297,6 +332,7 @@ Weights and data are random, made from ``--seed``. Details go to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -433,6 +469,38 @@ RAGGED_CASES = ((1, 1, 0, None), (100, 100, 0, None), (500, 500, 0, None),
                 (4000, 4000, 0, None), (4000, 4000, 0, 1024),
                 (100, 228, 128, None), (100, 228, 128, 48))
 RUN_LM_STEPS, RUN_LM_FAIL_AT = 24, 13  # checkpoints at 10, 20, 24
+# phase 9a, LM serving: gemma2-9b at full width through ServeEngine, the
+# reference's decode_32k cell (32,768 positions, batch 128) cut to a cache
+# of 1,024 positions and 8 slots; 16 requests from the seed, prompts of
+# 16..512 tokens, budgets of 8..64 new tokens
+LM_SERVE_SLOTS, LM_SERVE_MAX_LEN, LM_SERVE_PROMPT_CAP = 8, 1024, 512
+LM_SERVE_REQUESTS, LM_SERVE_PROMPTS, LM_SERVE_GEN = 16, (16, 512), (8, 64)
+LM_SERVE_ALONE = 4  # the first requests served alone: slot independence
+LM_SERVE_B1 = 2  # requests held against a batch-1 lm_decode_step loop
+LM_SERVE_TIMED = 20  # replays of the captured step timed
+LM_SERVE_KERNELS = ("decode_attention",)
+DECODE_KERNEL_RE = r"decode_(?:split|combine)_kernel"
+DECODE_LAUNCHES = 2  # a decode attention call: the splits, their combine
+# the decode kernel's planted faults, read on a layer's own inputs with a
+# float32 q: the cap and the dequantization's bf16 rounding at q x 8
+# (scores where a cap of 50 acts), one position more and the next kv head
+# at q x 1 (a spread softmax)
+DECODE_Q_SCALE = 8.0
+# a decode step's logits with the kernel against the same step with the
+# twin in every layer, and the engine's batched logits against a batch-1
+# loop's: bf16 activations round after every op, so one flipped ulp in
+# one layer travels through the rest; the prefill's PATH_TOL
+DECODE_PATH_TOL = B1_LOGIT_TOL = PATH_TOL
+# the ring wrap at full widths: gemma2-9b cut to one (local, global) pair,
+# one request of 4,200 prompt tokens and 16 new ones in a cache of 8,192
+# positions; the local layer's ring holds 4,096
+RING_PROMPT, RING_GEN, RING_MAX_LEN = 4200, 16, 8192
+# decode_32k's length: one lm_decode_step at scalar position 32,767, the
+# batch cut from 128 to 8, the cache random int8 and scales from the
+# seed; the kernel held against the twin on DECODE_32K_CHECKED of its 8
+# slots (the float64 tolerance of all 8 does not fit beside the cache)
+DECODE_32K_LEN, DECODE_32K_BATCH, DECODE_32K_CHECKED = 32768, 8, 2
+DECODE_32K_TIMED = 5  # decode steps timed on the host clock
 
 
 def log(*a):
@@ -4346,6 +4414,541 @@ def long_prefill(cell, seed):
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
+# ------------------------------------------------------------ phase 9a
+def decode_ratio(got, want, tol):
+    """The worst |got − want| / tol (0 where they are equal)."""
+    import torch
+    diff = (got.double() - want.double()).abs()
+    return float(torch.where(diff == 0, 0.0, diff / tol).max())
+
+
+def decode_fault(q, k, v, lens, kw, fault):
+    """The decode twin with one planted fault: the cap left out, one
+    position more, every query head on the next kv head, or the int8
+    cache widened to float32 without the bf16 rounding."""
+    from repro_torch.models.attention import decode_attention_plain
+    if fault == "no_cap":
+        return decode_attention_plain(q, k, v, lens,
+                                      **{**kw, "logit_cap": None})
+    if fault == "len_plus_1":
+        return decode_attention_plain(q, k, v, lens + 1, **kw)
+    if fault == "next_kv_head":
+        return decode_attention_plain(
+            q, k.roll(1, 1), v.roll(1, 1), lens, logit_cap=kw["logit_cap"],
+            k_scale=kw["k_scale"].roll(1, 1), v_scale=kw["v_scale"].roll(1, 1))
+    return decode_attention_plain(q, k.float() * kw["k_scale"],
+                                  v.float() * kw["v_scale"], lens,
+                                  logit_cap=kw["logit_cap"])
+
+
+class swapped_decode:
+    """``models.transformer.decode_attention`` replaced by ``fn`` inside a
+    ``with`` block."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.real = transformer.decode_attention
+        transformer.decode_attention = self.fn
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.decode_attention = self.real
+
+
+def lm_serve_requests(seed, vocab):
+    import numpy as np
+    rng = np.random.default_rng(seed + 1)
+    return [(rng.integers(0, vocab, int(rng.integers(
+        LM_SERVE_PROMPTS[0], LM_SERVE_PROMPTS[1] + 1))).tolist(),
+        int(rng.integers(LM_SERVE_GEN[0], LM_SERVE_GEN[1] + 1)))
+        for _ in range(LM_SERVE_REQUESTS)]
+
+
+def serve_lm(eng, reqs):
+    """``reqs`` ((prompt, max_new) pairs) served to the end of the stream
+    through ``eng``, which is reopened after; (handles, wall seconds)."""
+    import torch
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, g) for p, g in reqs]
+    eng.close_submissions()
+    completed = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eng.reopen()
+    check(len(completed) == len(reqs), "every LM request retired")
+    return handles, dt
+
+
+def lm_serve_path(dev, seed):
+    """gemma2-9b at full width in a ServeEngine: a warm-up request (the
+    step captured), launch counters to 0, the 16 requests served, counters
+    read."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import percentile
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = LM(cfg, seed=seed, device=dev)
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+    eng = ServeEngine(cfg, model, n_slots=LM_SERVE_SLOTS,
+                      max_len=LM_SERVE_MAX_LEN,
+                      prompt_cap=LM_SERVE_PROMPT_CAP, device=dev)
+    out["cache_gib"] = sum(t.numel() * t.element_size()
+                           for c in eng.state["cache"].values()
+                           for t in c.values()) / 2**30
+    serve_lm(eng, [([1, 2, 3], 2)])  # the warm-up: the step captured
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    check(eng.step_cache_size() == 1, "one step program after warm-up")
+    out["captured_launches"] = eng.captured_launches()
+
+    reqs = lm_serve_requests(seed, cfg.vocab)
+    # the counted run, each step between two CUDA events: a step's events
+    # measure its replay alone (the start fires when the stream reaches
+    # it), so their sum over the run is the device's busy time (a
+    # profiler trace of the run's ~10^6 kernels costs minutes to read)
+    st0 = dataclasses.replace(eng.stats)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pairs, step = [], eng._step
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        emitted = step()
+        end.record()
+        pairs.append((start, end))
+        return emitted
+    eng._step = timed
+    try:
+        handles, dt = serve_lm(eng, reqs)
+    finally:
+        del eng._step
+    out["launches"] = launch_counts()
+    out["stream_device_ms"] = sum(a.elapsed_time(b) for a, b in pairs)
+    out["stream_busy_share"] = out["stream_device_ms"] / (dt * 1e3)
+    out["peak_alloc_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    steps = eng.stats.steps - st0.steps
+    proc = eng.stats.tokens_processed - st0.tokens_processed
+    gen = eng.stats.tokens_generated - st0.tokens_generated
+    adm = [h.admission_latency_s for h in handles]
+    tot = [h.total_latency_s for h in handles]
+    out["serve"] = dict(
+        requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
+        new_tokens=sum(g for _, g in reqs), steps=steps, wall_s=dt,
+        tokens_processed=proc, tokens_generated=gen,
+        tok_s_processed=proc / dt, tok_s_generated=gen / dt,
+        admission_p50_ms=percentile(adm, 0.5) * 1e3,
+        admission_p99_ms=percentile(adm, 0.99) * 1e3,
+        latency_p50_ms=percentile(tot, 0.5) * 1e3,
+        latency_p99_ms=percentile(tot, 0.99) * 1e3,
+        step_programs=eng.step_cache_size())
+    check(all(len(h.tokens_out) == g for h, (_, g) in zip(handles, reqs))
+          and all(0 <= t < cfg.vocab for h in handles for t in h.tokens_out),
+          "every request retired with its budget of tokens, each in "
+          f"[0, {cfg.vocab})")
+    check(eng.step_cache_size() == 1, "one step program after the stream")
+    want = DECODE_LAUNCHES * cfg.n_layers
+    check(out["captured_launches"] == {"decode_attention": want}
+          and out["launches"]["decode_attention"] == want * steps,
+          f"{want} decode_attention launches a step ({steps} steps): "
+          f"{out['captured_launches']}, {out['launches']}")
+    check(all(v == 0 for k, v in out["launches"].items()
+              if k not in LM_SERVE_KERNELS),
+          f"no other kernel on the LM serve path (flash included): "
+          f"{out['launches']}")
+    return out, eng, reqs, handles
+
+
+def lm_step_timing(eng, out):
+    """The captured step replayed LM_SERVE_TIMED times on the state the
+    stream left (each slot at its last occupant's position): its wall time
+    (host clock, a synchronise each), its device time (CUDA events around
+    back-to-back replays), one replay under the profiler."""
+    import statistics
+
+    import torch
+    walls = []
+    for _ in range(LM_SERVE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._run_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LM_SERVE_TIMED):
+        eng._run_step()
+    end.record()
+    end.synchronize()
+    out["step_wall_ms"] = statistics.median(walls)
+    out["step_device_ms"] = start.elapsed_time(end) / LM_SERVE_TIMED
+    prof = profile_call(eng._run_step, top=10, kernels=DECODE_KERNEL_RE)
+    out["step_profile"] = dict(tokens=eng.n_slots, **prof)
+    trace = {k: v["count"] for k, v in prof["kernels"].items()}
+    n = eng.cfg.n_layers
+    check(trace == {"decode_split_kernel": n, "decode_combine_kernel": n},
+          f"a replay's trace shows both decode kernels {n} times, the "
+          f"launches a replay counts ({eng.captured_launches()}): {trace}")
+
+
+def lm_slot_independence(eng, reqs, handles):
+    """The first LM_SERVE_ALONE requests, each served alone through the
+    same engine: the stream's tokens, bit for bit; still one program."""
+    for i in range(LM_SERVE_ALONE):
+        [alone], _ = serve_lm(eng, [reqs[i]])
+        check(alone.tokens_out == handles[i].tokens_out,
+              f"request {i} alone gives the stream's tokens")
+    check(eng.step_cache_size() == 1, "one step program after the "
+          "requests served alone")
+
+
+def lm_batch1_check(eng, reqs, extra):
+    """The LM_SERVE_B1 shortest requests served together through the
+    engine, each replay's logits read after it (a synchronise a step);
+    then a batch-1 lm_decode_step loop a request, teacher-forced on the
+    prompt and the engine's tokens: its logits within B1_LOGIT_TOL of the
+    engine's at every step, its argmax the engine's token wherever its
+    top-2 margin exceeds that."""
+    import torch
+    from repro_torch.models.transformer import lm_decode_step, make_cache
+
+    idx = sorted(range(len(reqs)),
+                 key=lambda i: len(reqs[i][0]) + reqs[i][1])[:LM_SERVE_B1]
+    rows = {}
+    step = eng._step
+
+    def traced():
+        emitted = step()
+        torch.cuda.synchronize()
+        logits = eng.last_logits()
+        for slot, req in enumerate(eng.scheduler._slots):
+            if req is not None:
+                rows.setdefault(req.rid, []).append(logits[slot].clone())
+        return emitted
+    eng._step = traced
+    try:
+        handles, _ = serve_lm(eng, [reqs[i] for i in idx])
+    finally:
+        del eng._step
+    worst, compared, skipped = 0.0, 0, 0
+    for h, i in zip(handles, idx):
+        prompt = reqs[i][0]
+        seq = prompt + h.tokens_out[:-1]
+        got = rows[h.rid][:len(seq)]
+        check(len(got) == len(seq), f"the engine ran request {i} "
+              f"{len(seq)} steps ({len(got)})")
+        cache = make_cache(eng.cfg, batch=1, max_len=eng.max_len,
+                           device=eng.device)
+        for t, tok in enumerate(seq):
+            _, lg = lm_decode_step(
+                eng.params, cache, torch.tensor([[tok]], dtype=torch.int32,
+                                                device=eng.device), t,
+                return_logits=True)
+            lg = lg[0].float()
+            worst = max(worst, float((lg - got[t].float()).abs().max()))
+            if t < len(prompt) - 1:
+                continue
+            top = torch.topk(lg, 2).values
+            if float(top[0] - top[1]) > B1_LOGIT_TOL:
+                compared += 1
+                check(int(lg.argmax()) == h.tokens_out[t - len(prompt) + 1],
+                      f"request {i} step {t}: the batch-1 argmax is the "
+                      "engine's token where the margin clears the tolerance")
+            else:
+                skipped += 1
+    extra["lm_b1_logit_max_abs_err"] = worst
+    extra["lm_b1_tokens_compared"] = compared
+    extra["lm_b1_tokens_within_margin"] = skipped
+    check(worst <= B1_LOGIT_TOL, f"batch-1 logits within {B1_LOGIT_TOL} of "
+          f"the engine's at every step ({worst})")
+
+
+def lm_decode_checks(eng, tag, extra):
+    """One decode step on the engine's own cache (the slots' last tokens at
+    their positions): each layer's kernel launch against the twin on its
+    own inputs within ``twin_tolerance``; the step's logits against the
+    same step with the twin in every layer within DECODE_PATH_TOL, and
+    with every query head on the next kv head outside it; on the first
+    local and global layers' inputs, with a float32 q and the lengths one
+    less, the kernel within the tolerance and the four planted faults
+    outside it. Returns the first local and global layers' recorded
+    inputs."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as kernel
+    from repro_torch.kernels.decode_attention import twin_tolerance
+    from repro_torch.models.attention import decode_attention_plain
+    from repro_torch.models.transformer import lm_decode_step
+
+    st = eng.state
+    toks, pos = st["last_tok"][:, None].clone(), st["pos"].clone()
+    layers, saved = [], []
+
+    def step(fn):
+        with swapped_decode(fn):
+            _, logits = lm_decode_step(eng.params, st["cache"], toks, pos,
+                                       return_logits=True)
+        return logits.float()
+
+    def checked(q, k, v, cache_len, **kw):
+        got = kernel(q, k, v, cache_len, **kw)
+        want = decode_attention_plain(q, k, v, cache_len, **kw)
+        tol = twin_tolerance(q, k, v, cache_len, **kw)
+        layers.append((decode_ratio(got, want, tol),
+                       float((got.float() - want.float()).abs().max())))
+        if len(saved) < 2:
+            saved.append((q.clone(), k.clone(), v.clone(), cache_len.clone(),
+                          {**kw, "k_scale": kw["k_scale"].clone(),
+                           "v_scale": kw["v_scale"].clone()}))
+        return got
+    logits = step(checked)
+    n_layers = eng.cfg.n_layers
+    extra[f"{tag}_layers_share_of_tol"] = max(r for r, _ in layers)
+    extra[f"{tag}_layers_max_abs_err"] = max(e for _, e in layers)
+    check(len(layers) == n_layers and all(r <= 1.0 for r, _ in layers),
+          f"{tag}: each of the step's {n_layers} decode launches within "
+          f"twin_tolerance of the twin on its own inputs ({len(layers)} "
+          f"checked, worst {extra[f'{tag}_layers_share_of_tol']:.4f} of it)")
+    twin = step(decode_attention_plain)
+    shifted = step(lambda q, k, v, cl, **kw: decode_fault(
+        q, k, v, cl, kw, "next_kv_head"))
+    err = float((logits - twin).abs().max())
+    fault = float((logits - shifted).abs().max())
+    extra[f"{tag}_kernel_vs_twin_logit_max_abs_err"] = err
+    extra[f"{tag}_kernel_vs_twin_argmax_equal"] = bool(torch.equal(
+        logits.argmax(-1), twin.argmax(-1)))
+    extra[f"{tag}_kernel_vs_kv_shift_logit_max_abs_err"] = fault
+    check(err <= DECODE_PATH_TOL < fault,
+          f"{tag}: decode step logits with the kernel within "
+          f"{DECODE_PATH_TOL} of the twin's ({err}), the next-kv-head fault "
+          f"outside ({fault})")
+    shares = {}
+    for li, (q, k, v, cl, kw) in enumerate(saved):
+        # one position less, so that one more reads a row of the current
+        # occupant; with several slots the first at length 1 (a request's
+        # first token: the output is v's row itself)
+        lens = torch.clamp(cl - 1, min=1)
+        if lens.numel() > 1:
+            lens[0] = 1
+        for scale, faults in ((DECODE_Q_SCALE, ("no_cap", "dequant_f32")),
+                              (1.0, ("len_plus_1", "next_kv_head"))):
+            qf = q.float() * scale
+            got = kernel(qf, k, v, lens, **kw)
+            tol = twin_tolerance(qf, k, v, lens, **kw)
+            sound = decode_ratio(
+                got, decode_attention_plain(qf, k, v, lens, **kw), tol)
+            shares[f"layer{li}_q{scale:g}_sound"] = sound
+            check(sound <= 1.0, f"{tag} layer {li} (float32 q x {scale}): "
+                  f"the kernel within the tolerance ({sound})")
+            for f in faults:
+                shares[f"layer{li}_{f}"] = r = decode_ratio(
+                    got, decode_fault(qf, k, v, lens, kw, f), tol)
+                check(r > 1.0, f"{tag} layer {li}: the tolerance rejects "
+                      f"the planted fault {f} ({r})")
+    extra[f"{tag}_fault_share_of_tol"] = shares
+    return saved
+
+
+def decode_row(q, k, v, cl, kw, err):
+    """Row 15 at these inputs (a layer's own): the kernel, the twin and
+    scaled_dot_product_attention on the dequantized bf16 cache with a
+    boolean mask (no cap: a near function), each timed; the bound from the
+    live positions' int8 bytes and scales, q read, the output written."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models.attention import (decode_attention_plain,
+                                              decode_mask, dequantize_kv)
+    b, h, _, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    ms = cuda_ms(lambda: decode_attention(q, k, v, cl, **kw))
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, cl, **kw),
+                       iters=3, warmup=1)
+    kd, vd = (dequantize_kv(c, kw[f"{n}_scale"]).to(q.dtype)
+              .repeat_interleave(h // hkv, 1) for c, n in ((k, "k"), (v, "v")))
+    mask = decode_mask(cl, s)[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kd, vd, attn_mask=mask))
+    del kd, vd
+    live = int(torch.clamp(cl, max=s).sum())
+    nbytes = live * hkv * (2 * dh + 2 * 4) + 2 * q.numel() * q.element_size()
+    b_ms, b_by = bound(nbytes, 4 * dh * (h // hkv) * live * hkv)
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/models/attention.py:207",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
+                shape=f"B {b}, H {h} over Hkv {hkv}, dh {dh}, int8 cache of "
+                      f"{s} positions, {live} live ({cl.tolist()}), {q.dtype}"
+                      f" q, cap {kw['logit_cap']}; {nbytes / 1e6:.2f} MB "
+                      "(library: scaled_dot_product_attention on the "
+                      "dequantized bf16 cache, a boolean mask, no cap)")
+
+
+def lm_smoke_serve(dev, seed, extra):
+    """The smoke model served on the card and on the CPU, bf16 and int8
+    caches: the same tokens for the same requests."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import ServeEngine
+    rng = np.random.default_rng(seed + 3)
+    reqs = [(rng.integers(0, 256, int(rng.integers(1, 17))).tolist(),
+             int(rng.integers(1, 20))) for _ in range(9)]
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(get_config(LM_ARCH, smoke=True),
+                                  kv_cache_dtype=kv)
+        base = LM(cfg, seed=seed, device="cpu")
+        outs = []
+        for d in ("cpu", dev):
+            eng = ServeEngine(cfg, copy.deepcopy(base).to(d), n_slots=4,
+                              max_len=64, prompt_cap=16, device=d)
+            for p, g in reqs:
+                eng.submit(p, g)
+            eng.close_submissions()
+            outs.append({r.rid: r.tokens_out for r in eng.run()})
+        extra[f"lm_serve_smoke_{kv}_tokens"] = sum(map(len, outs[0].values()))
+        check(outs[0] == outs[1], f"the smoke model ({kv} cache) served on "
+              "the card gives the CPU's tokens")
+
+
+def lm_ring_phase(dev, seed, extra):
+    """gemma2-9b cut to one (local, global) pair: one request of
+    RING_PROMPT prompt tokens and RING_GEN new ones in a cache of
+    RING_MAX_LEN positions, so the local ring (4,096) wraps; then the
+    checks of ``lm_decode_checks`` on the wrapped cache."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2)
+    eng = ServeEngine(cfg, LM(cfg, seed=seed + 5, device=dev), n_slots=1,
+                      max_len=RING_MAX_LEN, prompt_cap=RING_MAX_LEN,
+                      device=dev)
+    ring = eng.state["cache"]["local"]["k"].shape[3]
+    prompt = np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab, RING_PROMPT).tolist()
+    [h], dt = serve_lm(eng, [(prompt, RING_GEN)])
+    pos = int(eng.state["pos"][0])
+    out = dict(ring=ring, steps=eng.stats.steps, wall_s=dt, final_pos=pos,
+               step_programs=eng.step_cache_size())
+    check(ring == cfg.sliding_window < pos and len(h.tokens_out) == RING_GEN
+          and eng.step_cache_size() == 1,
+          f"the local ring ({ring}) wrapped: the request reached position "
+          f"{pos} and got {len(h.tokens_out)} tokens through one program")
+    saved = lm_decode_checks(eng, "lm_ring", extra)
+    local_len = int(saved[0][3][0])
+    check(saved[0][1].shape[2] == ring and local_len == ring,
+          f"the local layer attends its whole ring ({local_len} of {ring})")
+    out["local_len"], out["global_len"] = local_len, int(saved[1][3][0])
+    extra["lm_ring"] = out
+    del eng, saved
+    torch.cuda.empty_cache()
+
+
+def decode_32k_phase(dev, seed, model, extra):
+    """One lm_decode_step at scalar position DECODE_32K_LEN - 1, batch
+    DECODE_32K_BATCH, the int8 cache random from the seed: the step timed
+    (host clock and profiler), the kernel on its first global layer's
+    inputs timed beside its bound, the twin and SDPA, and held against the
+    twin on DECODE_32K_CHECKED slots."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as kernel
+    from repro_torch.kernels.decode_attention import twin_tolerance
+    from repro_torch.models.attention import decode_attention_plain
+    from repro_torch.models.transformer import lm_decode_step, make_cache
+    cfg = model.cfg
+    b, pos = DECODE_32K_BATCH, DECODE_32K_LEN - 1
+    cache = make_cache(cfg, batch=b, max_len=DECODE_32K_LEN, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 32)
+    for c in cache.values():
+        for name in ("k", "v"):
+            c[name].random_(-127, 128, generator=g)
+            c[f"{name}_scale"].uniform_(0.005, 0.03, generator=g)
+    toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    out = dict(cache_gib=sum(t.numel() * t.element_size()
+                             for c in cache.values()
+                             for t in c.values()) / 2**30)
+    saved = []
+
+    def rec(q, k, v, cl, **kw):
+        if not saved and k.shape[2] == DECODE_32K_LEN:
+            saved.append((q.clone(), k, v, cl.clone(), kw))
+        return kernel(q, k, v, cl, **kw)
+    with swapped_decode(rec):
+        lm_decode_step(model, cache, toks, pos)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(DECODE_32K_TIMED):
+        t0 = time.perf_counter()
+        lm_decode_step(model, cache, toks, pos)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_wall_ms"] = statistics.median(walls)
+    out["step_profile"] = dict(tokens=b, **profile_call(
+        lambda: lm_decode_step(model, cache, toks, pos), top=10))
+    q, k, v, cl, kw = saved[0]
+    got = kernel(q, k, v, cl, **kw)
+    n = DECODE_32K_CHECKED
+    sub = {**kw, "k_scale": kw["k_scale"][:n], "v_scale": kw["v_scale"][:n]}
+    want = decode_attention_plain(q[:n], k[:n], v[:n], cl[:n], **sub)
+    share = decode_ratio(got[:n], want, twin_tolerance(q[:n], k[:n], v[:n],
+                                                       cl[:n], **sub))
+    err = float((got[:n].float() - want.float()).abs().max())
+    out["kernel_share_of_tol"] = share
+    check(share <= 1.0, f"decode_32k: the kernel within twin_tolerance of "
+          f"the twin on {n} slots ({share})")
+    del want, got
+    out["row"] = decode_row(q, k, v, cl, kw, err)
+    extra["decode_32k"] = out
+    del cache, saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_phase(dev, seed, extra):
+    """Phase 9a: the LM serve path and its checks (see the docstring)."""
+    import torch
+    out, eng, reqs, handles = lm_serve_path(dev, seed)
+    lm_step_timing(eng, out)
+    lm_slot_independence(eng, reqs, handles)
+    lm_batch1_check(eng, reqs, extra)
+    saved = lm_decode_checks(eng, "lm_decode", extra)
+    q, k, v, cl, kw = saved[1]  # the first global layer
+    out["row"] = decode_row(q, k, v, cl, kw,
+                            extra["lm_decode_layers_max_abs_err"])
+    model = eng.params
+    del eng, saved, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode_32k"] = decode_32k_phase(dev, seed, model, extra)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_ring_phase(dev, seed, extra)
+    lm_smoke_serve(dev, seed, extra)
+    return out
+
+
 # ------------------------------------------------------------ phase 10
 def grad_close(got, want):
     """(within BWD_RTOL · |want| + BWD_ATOL · max |want|, max abs error,
@@ -5248,6 +5851,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 9a. the LM serve path: gemma2-9b at full width through ServeEngine
+    t0 = time.perf_counter()
+    lsout = lm_serve_phase(dev, args.seed, extra)
+    rows["decode_attention"] = lsout["row"]
+    log_lm_serve(lsout, extra)
+    log(f"[lm serve] phase done in {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 10. the flash backward kernels
     bwd_rows, bwd_extra = lm_bwd_kernel_phase(dev, args.seed)
     extra.update(bwd_extra)
@@ -5330,12 +5942,14 @@ def main():
           f"all ten GNN kernels launched across the two paths: {launches}")
     launches.update({k: lout["launches"][k] + tout["launches"][k]
                      + sout["launches"][k] for k in LM_KERNELS + TRAIN_KERNELS})
+    launches.update({k: lsout["launches"][k] for k in LM_SERVE_KERNELS})
     launches.update({k: sum(p["launches"][k] for p in [out, mout, sout, lout,
-                                                       tout] + new_paths)
+                                                       tout, lsout]
+                            + new_paths)
                      for k in OFF_PATH_KERNELS})
     kernels = []
     for key in (SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + TRAIN_KERNELS
-                + OFF_PATH_KERNELS):
+                + LM_SERVE_KERNELS + OFF_PATH_KERNELS):
         r = {k: v for k, v in rows[key].items() if k != "shape"}
         r["launches"] = launches[key]
         kernels.append(r)
@@ -5344,7 +5958,8 @@ def main():
         json.dump(dict(card=smi, rows=rows, main_path=out, merge_path=mout,
                        families=fouts, keysort=kout, reservoir=rout,
                        updates=uout, gnn_train=gout,
-                       service=sout, lm_path=lout, train_path=tout,
+                       service=sout, lm_path=lout, lm_serve=lsout,
+                       train_path=tout,
                        extra=extra,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
@@ -5355,6 +5970,52 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def log_lm_serve(out, extra):
+    sv, d32 = out["serve"], out["decode_32k"]
+    log(f"[lm serve] {LM_ARCH} at full width: {out['params']:,} parameters "
+        f"({out['weights_gib']:.2f} GiB), cache {out['cache_gib']:.3f} GiB "
+        f"({LM_SERVE_SLOTS} slots x {LM_SERVE_MAX_LEN} positions, int8); "
+        f"set up and warmed in {out['setup_s']:.2f}s")
+    log(f"[lm serve] {sv['requests']} requests ({sv['prompt_tokens']} prompt"
+        f" tokens, {sv['new_tokens']} new) in {sv['steps']} steps, "
+        f"{sv['wall_s']:.3f}s: {sv['tok_s_processed']:.1f} tok/s processed, "
+        f"{sv['tok_s_generated']:.1f} tok/s generated; admission latency p50 "
+        f"{sv['admission_p50_ms']:.1f} ms p99 {sv['admission_p99_ms']:.1f} "
+        f"ms; request latency p50 {sv['latency_p50_ms']:.1f} ms p99 "
+        f"{sv['latency_p99_ms']:.1f} ms; {sv['step_programs']} step "
+        f"program; peak {out['peak_alloc_gib']:.2f} GiB allocated, "
+        f"{out['peak_reserved_gib']:.2f} GiB reserved; launches "
+        f"{out['launches']} ({out['captured_launches']} a replay)")
+    log(f"[lm serve] a replayed step: wall {out['step_wall_ms']:.3f} ms "
+        f"(median of {LM_SERVE_TIMED}), device {out['step_device_ms']:.3f} "
+        f"ms (mean of {LM_SERVE_TIMED} back to back); the counted run: "
+        f"{out['stream_device_ms']:.1f} ms of steps on the device, busy "
+        f"share {out['stream_busy_share']:.3f}")
+    log_profile("lm serve step profile", out["step_profile"])
+    log(f"[lm serve checks] {LM_SERVE_ALONE} requests alone == the stream's"
+        f" tokens; batch-1 loop logits within {B1_LOGIT_TOL} "
+        f"({extra['lm_b1_logit_max_abs_err']}; tokens compared "
+        f"{extra['lm_b1_tokens_compared']}, within the margin "
+        f"{extra['lm_b1_tokens_within_margin']}); each decode launch within "
+        f"twin_tolerance (worst {extra['lm_decode_layers_share_of_tol']:.4f} "
+        f"of it, max abs {extra['lm_decode_layers_max_abs_err']}); step "
+        f"logits kernel vs twin {extra['lm_decode_kernel_vs_twin_logit_max_abs_err']}"
+        f" (next kv head {extra['lm_decode_kernel_vs_kv_shift_logit_max_abs_err']}"
+        f"); planted faults, shares of the tolerance "
+        f"{extra['lm_decode_fault_share_of_tol']}: ok")
+    log(f"[lm ring] {extra['lm_ring']}; kernel vs twin logits "
+        f"{extra['lm_ring_kernel_vs_twin_logit_max_abs_err']}, faults "
+        f"{extra['lm_ring_fault_share_of_tol']}: ok")
+    log(f"[decode_32k] one step at position {DECODE_32K_LEN - 1}, batch "
+        f"{DECODE_32K_BATCH}, cache {d32['cache_gib']:.2f} GiB: wall "
+        f"{d32['step_wall_ms']:.3f} ms (median of {DECODE_32K_TIMED}); "
+        f"kernel within {d32['kernel_share_of_tol']:.4f} of its tolerance")
+    log_profile("decode_32k step profile", d32["step_profile"])
+    log_row("decode_attention (decode_32k)", d32["row"])
+    log("[lm serve smoke] the smoke model served card == CPU, bf16 and "
+        "int8 caches: ok")
 
 
 def log_row(key, r):
@@ -5383,6 +6044,8 @@ def log_profile(tag, prof):
             "seeds" if "slots" in prof
             else f"one request of {prof['seeds']} seeds" if "seeds" in prof
             else "one convert" if "convert" in tag
+            else f"one decode step of {prof['tokens']} rows" if "decode" in tag
+            or "serve" in tag
             else f"one {'train step' if 'train' in tag else 'prefill'} of "
                  f"{prof['tokens']} tokens")
     log(f"[{tag}] {what}: wall "

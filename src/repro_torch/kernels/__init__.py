@@ -39,9 +39,11 @@ def kernel_wrappers():
     (the SLICE_CFG sorts run digit_hist and digit_scatter, its forward the
     pointer segment sum ptr_seg_sum), the flash
     attention forward of the LM prefill and training paths, its two
-    backward kernels (training), and the four kernels no path runs
+    backward kernels (training), the decode attention of the LM serve
+    path, and the four kernels no path runs
     (digit_partition_hist and digit_rank_gather, the reference's digit
     pass one to one; prefix_partition, filter_tree_lookup)."""
+    from .decode_attention import decode_attention
     from .flash_attention import flash_attention_bhsd, flash_dkv, flash_dq
     from .merge import fused_merge_rounds, merge_rung
     from .prefix_partition import prefix_partition
@@ -63,6 +65,7 @@ def kernel_wrappers():
             "flash_attention_fwd": flash_attention_bhsd,
             "flash_attention_bwd_dq": flash_dq,
             "flash_attention_bwd_dkv": flash_dkv,
+            "decode_attention": decode_attention,
             "prefix_partition": prefix_partition,
             "filter_tree_lookup": filter_tree_lookup}
 

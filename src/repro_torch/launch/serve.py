@@ -1,19 +1,30 @@
-"""GNN serving driver — a thin CLI over ``repro_torch.serve.GnnServeEngine``.
+"""The serve CLI — a thin front over the port's serve engines.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+      --smoke --device cpu --requests 6
   PYTHONPATH=src python -m repro_torch.launch.serve --arch graphsage-reddit
   PYTHONPATH=src python -m repro_torch.launch.serve --arch graphsage-reddit \
       --smoke --device cpu --engine-cfg merge
 
-``--arch`` is any registered GNN arch (graphsage-reddit, gat-cora,
-gatedgcn, meshgraphnet); the model is built by ``models.gnn.gnn_model``.
-The engine samples with the config's ``sample_sizes``: gat-cora, gatedgcn
-and meshgraphnet have none, so, as in the reference's CLI, the engine
-raises for them.
+LM archs (gemma2-9b, the one LM layout the port has; the others come with
+ROADMAP.md A.7) submit ``--requests`` random-token requests of mixed
+prompt lengths in [1, ``--prompt-len``] and budgets in [1, ``--gen``]
+(from ``--seed + 1``) to a ``ServeEngine`` (continuous batching over
+``--slots`` slots, a KV cache of ``--max-len`` positions, the step
+captured once as a CUDA graph on the card) with random weights made from
+``--seed``; it prints each request's tokens, tokens/s (processed and
+generated), admission latency p50/p99 and the captured step programs. A
+mesh (the reference's sequence-sharded cache) is ROADMAP.md A.9.
 
-Builds a synthetic power-law graph on the device (``--nodes`` nodes,
-``--edges`` edges), converts it, and submits ``--requests`` requests of
-mixed seed counts in [1, ``--seed-cap``] to a GnnServeEngine with random
-weights made from ``--seed``. The preprocessing runs under the
+GNN archs (graphsage-reddit, gat-cora, gatedgcn, meshgraphnet; the model
+is built by ``models.gnn.gnn_model``) serve on a ``GnnServeEngine``: the
+engine samples with the config's ``sample_sizes``, and gat-cora, gatedgcn
+and meshgraphnet have none, so, as in the reference's CLI, the engine
+raises for them. It builds a synthetic power-law graph on the device
+(``--nodes`` nodes, ``--edges`` edges), converts it, and submits
+``--requests`` requests of mixed seed counts in [1, ``--seed-cap``] with
+random weights made from ``--seed``. The preprocessing runs under the
 hand-written kernels, in one of two engine configurations
 (``--engine-cfg``):
 
@@ -24,8 +35,8 @@ hand-written kernels, in one of two engine configurations
   the set-count kernel, and the model's aggregation through the
   segment-sum kernel (``use_pallas_agg``).
 
-On ``--device cpu`` the same routing runs the kernels' plain twins. Prints
-the predictions, predictions/s and request latency.
+It prints the predictions, predictions/s and request latency. On
+``--device cpu`` the same routing runs the kernels' plain twins.
 """
 from __future__ import annotations
 
@@ -41,7 +52,8 @@ from repro_torch.core import pipeline
 from repro_torch.core.costmodel import EngineConfig
 from repro_torch.core.graph import next_pow2, resolve_device, synthetic_coo
 from repro_torch.models.gnn import gnn_model
-from repro_torch.serve import GnnServeEngine
+from repro_torch.models.transformer import LM, LMConfig
+from repro_torch.serve import GnnServeEngine, ServeEngine
 
 SLICE_CFG = EngineConfig(use_pallas=True, sort_strategy="global_radix",
                          reindex_strategy="fused")
@@ -56,6 +68,40 @@ def percentile(xs: list[float], q: float) -> float:
     return xs[min(len(xs) - 1, int(len(xs) * q))]
 
 
+def _make_lm_engine(cfg: LMConfig, args, dev) -> ServeEngine:
+    model = LM(cfg, seed=args.seed, device=dev)
+    return ServeEngine(cfg, model, n_slots=args.slots,
+                       max_len=args.max_len, prompt_cap=args.prompt_len,
+                       device=dev)
+
+
+def _serve_lm(cfg: LMConfig, args, dev) -> None:
+    eng = _make_lm_engine(cfg, args, dev)
+    rng = np.random.default_rng(args.seed + 1)
+    t0 = time.perf_counter()
+    for _ in range(args.requests):
+        plen = int(rng.integers(1, args.prompt_len + 1))
+        gen = int(rng.integers(1, args.gen + 1))
+        eng.submit(rng.integers(0, cfg.vocab, plen).tolist(), gen)
+    eng.close_submissions()
+    completed = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+
+    for req in sorted(completed, key=lambda r: r.rid):
+        print(f"req{req.rid}: prompt_len={req.prompt_len} "
+              f"gen={req.tokens_out}")
+    lat = [r.admission_latency_s for r in completed]
+    print(f"{eng.stats.tokens_processed / dt:.1f} tok/s processed, "
+          f"{eng.stats.tokens_generated / dt:.1f} tok/s generated over "
+          f"{len(completed)} requests ({eng.stats.steps} steps, "
+          f"{eng.step_cache_size()} step program(s), "
+          f"{dt:.2f}s total, device {dev})")
+    print(f"admission latency p50={percentile(lat, 0.5) * 1e3:.2f}ms "
+          f"p99={percentile(lat, 0.99) * 1e3:.2f}ms")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -63,6 +109,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="LM: KV cache positions")
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="LM: max prompt length; actual lengths are mixed")
+    ap.add_argument("--gen", type=int, default=32,
+                    help="LM: max new tokens; actual budgets are mixed")
     ap.add_argument("--nodes", type=int, default=1024)
     ap.add_argument("--edges", type=int, default=None,
                     help="default: 6 × nodes")
@@ -75,9 +127,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if isinstance(cfg, LMConfig):
+        _serve_lm(cfg, args, dev)
+        return
     engine_cfg, pallas_agg = ENGINE_CFGS[args.engine_cfg]
-    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
-                              use_pallas_agg=pallas_agg)
+    cfg = dataclasses.replace(cfg, use_pallas_agg=pallas_agg)
     edges = args.edges or 6 * args.nodes
     coo = synthetic_coo(args.nodes, edges, next_pow2(edges), args.seed,
                         device=dev)

@@ -1,7 +1,7 @@
-"""Attention for the LM prefill and training paths (port of
-``repro/models/attention.py`` without decode): RoPE, the GQA grouping,
-the block mask, and the blocked online-softmax flash attention forward
-and backward.
+"""Attention for the LM prefill, training and decode paths (port of
+``repro/models/attention.py``): RoPE, the GQA grouping, the block mask,
+the blocked online-softmax flash attention forward and backward, the
+int8 KV quantization and the one-token decode attention over a cache.
 
 ``flash_attention_plain`` is the reference's ``lax.scan`` over kv blocks
 written as a Python loop: the plain twin of the flash forward kernel.
@@ -9,8 +9,14 @@ written as a Python loop: the plain twin of the flash forward kernel.
 (``_bwd_impl``) as a loop over kv blocks: the plain twin of the two
 backward kernels. The model calls ``kernels.flash_attention
 .flash_attention_bhsd``, which launches the kernels on CUDA tensors and
-runs these twins on CPU tensors. Decode and ``quantize_kv`` belong to a
-later slice.
+runs these twins on CPU tensors.
+
+``decode_attention_plain`` is the reference's ``decode_attention``: the
+plain twin of the decode kernel (``kernels.decode_attention``, which the
+decode step calls). ``decode_attention_partial`` is the reference's
+per-shard ``(m, l, acc)`` form, and ``decode_attention_split`` runs the
+kernel's own arithmetic in torch: fixed splits of the cache, each a
+partial, combined in split order by the log-sum-exp rule.
 """
 from __future__ import annotations
 
@@ -191,3 +197,122 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
     return (dq, torch.movedim(dk, 0, 2).reshape(k.shape),
             torch.movedim(dv, 0, 2).reshape(v.shape))
 
+
+
+# ------------------------------------------------------------------ decode
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(B, H, S) symmetric int8 quantization of a KV tensor [B,H,S,dh]:
+    (int8 values, float32 scales [B,H,S,1]). ``torch.round`` rounds half
+    to even, as ``jnp.round``: the bits are the reference's."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """``int8 × scale`` in float32, rounded to ``dtype`` (bf16: the decode
+    attention reads an int8 cache through bf16)."""
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def _decode_scores(q, k_cache, logit_cap):
+    """(qg [B,Hkv,G,1,dh] scaled float32, capped float32 scores
+    [B,Hkv,G,1,S])."""
+    dh = q.shape[-1]
+    qg = _group_q(q, k_cache.shape[1]).to(torch.float32) * dh ** -0.5
+    sc = torch.einsum("bkgqd,bkcd->bkgqc", qg, k_cache.to(torch.float32))
+    return qg, _softcap(sc, logit_cap)
+
+
+def decode_mask(cache_len: torch.Tensor, s: int,
+                window: int | None = None) -> torch.Tensor:
+    """[B, S] bool: the positions a decode step attends, ``pos <
+    cache_len`` (and ``pos >= cache_len - window``)."""
+    pos = torch.arange(s, device=cache_len.device)
+    mask = pos[None, :] < cache_len[:, None]
+    if window is not None:
+        mask &= pos[None, :] >= cache_len[:, None] - window
+    return mask
+
+
+def _partial(sc, v_cache, mask):
+    """(m, l, acc) of capped scores sc [B,Hkv,G,1,S] under mask [B,S]."""
+    sc = torch.where(mask[:, None, None, None, :], sc, NEG_INF)
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqc,bkcd->bkgqd", p, v_cache.to(torch.float32))
+    return m, l, acc
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cache_len: torch.Tensor,
+                           *, window: int | None = None,
+                           logit_cap: float | None = None,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """One-token decode attention, the reference's ``decode_attention``:
+    q [B,H,1,dh]; caches [B,Hkv,S,dh] (bf16, or int8 with float32 scales
+    [B,Hkv,S,1], read through bf16); ``cache_len`` [B] the valid length
+    (the new token at cache_len - 1). Softmax in float32 over one pass;
+    returns [B,H,1,dh] in q's dtype. The plain twin of the decode
+    kernel."""
+    b, h, _, dh = q.shape
+    _init_cpu_math()
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale)
+        v_cache = dequantize_kv(v_cache, v_scale)
+    _, sc = _decode_scores(q, k_cache, logit_cap)
+    m, l, acc = _partial(sc, v_cache,
+                         decode_mask(cache_len, k_cache.shape[2], window))
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, h, 1, dh).to(q.dtype)
+
+
+def decode_attention_partial(q, k_cache, v_cache, valid_mask, *,
+                             logit_cap=None):
+    """Partial-softmax decode over a sequence shard of the cache, the
+    reference's form for a log-sum-exp combine: (m, l, acc) shaped
+    [B,Hkv,G,1], [B,Hkv,G,1], [B,Hkv,G,1,dh]. q [B,H,1,dh]; caches
+    [B,Hkv,S_shard,dh]; valid_mask [B,S_shard]."""
+    _init_cpu_math()
+    _, sc = _decode_scores(q, k_cache, logit_cap)
+    return _partial(sc, v_cache, valid_mask)
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """The log-sum-exp combine of (m, l, acc) partials, in their order
+    (``dist/collectives.py``'s rule): out = Σ acc·e^(m − M) / max(Σ
+    l·e^(m − M), 1e-30), M the largest m."""
+    mg = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mg = torch.maximum(mg, m)
+    l_sum = acc_sum = 0.0
+    for m, l, acc in parts:
+        corr = torch.exp(m - mg)
+        l_sum = l_sum + l * corr
+        acc_sum = acc_sum + acc * corr[..., None]
+    return acc_sum / torch.clamp(l_sum[..., None], min=1e-30)
+
+
+def decode_attention_split(q, k_cache, v_cache, cache_len, *, split: int,
+                           window=None, logit_cap=None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """The decode kernel's arithmetic in torch: the cache cut into fixed
+    splits of ``split`` positions, a (m, l, acc) partial each, combined in
+    split order by ``combine_partials``. Equal to
+    ``decode_attention_plain`` up to float32 summation order."""
+    b, h, _, dh = q.shape
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale)
+        v_cache = dequantize_kv(v_cache, v_scale)
+    mask = decode_mask(cache_len, k_cache.shape[2], window)
+    parts = [decode_attention_partial(
+        q, k_cache[:, :, i:i + split], v_cache[:, :, i:i + split],
+        mask[:, i:i + split], logit_cap=logit_cap)
+        for i in range(0, k_cache.shape[2], split)]
+    return combine_partials(parts).reshape(b, h, 1, dh).to(q.dtype)

@@ -1,5 +1,5 @@
-"""LM-family transformer, the prefill and training paths (port of
-``LMConfig``, the forward and ``lm_loss`` of
+"""LM-family transformer, the prefill, training and decode paths (port of
+``LMConfig``, the forward, ``lm_loss`` and the decode step of
 ``repro/models/transformer.py``) for gemma2-style alternating local /
 global layers.
 
@@ -16,10 +16,20 @@ kernels' backward under autograd. With ``cfg.remat`` each (local, global)
 pair is recomputed in the backward (``torch.utils.checkpoint``), as the
 reference's ``jax.checkpoint(pair)``.
 
+Decode (``lm_decode_step``) runs one token a batch row through every
+layer against a KV cache (``make_cache``: the reference's dict, ``local``
+/ ``global`` stacked ``[n_layers / 2, B, Hkv, S, dh]``, int8 with float32
+scales when ``cfg.kv_cache_dtype`` is ``"int8"``, else bf16, whatever
+``cfg.dtype`` is). A local layer's cache is a ring of ``min(window,
+max_len)`` positions. The cache is updated in place, with device-side
+index writes only, so a decode step can be captured as a CUDA graph; its
+attention is ``kernels.decode_attention.decode_attention`` (the kernel on
+the card, the plain twin on the CPU).
+
 Branches gemma2 does not take raise ``NotImplementedError``: MoE blocks,
 the unrolled ``blocks_list`` and stacked ``blocks`` layouts (configs
-without ``local_global``) and ``qkv_bias`` wait for the LM substrate's
-later slices (ROADMAP.md, A12).
+without ``local_global``) and ``qkv_bias`` come with the LM configs of
+ROADMAP.md A.7.
 """
 from __future__ import annotations
 
@@ -33,13 +43,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import resolve_device
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 
-from .attention import rope
+from .attention import quantize_kv, rope
 from .common import (cross_entropy, dense_init, embed_init, gelu_tanh,
                      glu_apply, glu_init, rms_norm, softcap)
 
-_UNPORTED = "is not ported yet (ROADMAP.md, A12: the LM substrate)"
+_UNPORTED = ("is not ported yet (ROADMAP.md A.7: the LMConfig branches "
+             "other than gemma2's)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,3 +299,122 @@ def lm_prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     only ([B, V] logits), with no autograd record."""
     x, _ = lm_trunk(model, tokens)
     return lm_head_logits(model, x[:, -1])
+
+
+# -------------------------------------------------------------------- decode
+def make_cache(cfg: LMConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    """Zeroed KV cache, the reference's dict: ``{"local": ..., "global":
+    ...}``, each ``{"k", "v"}`` [n_layers / 2, batch, Hkv, length, dh]
+    (int8 with float32 ``"k_scale"``, ``"v_scale"`` [..., length, 1] when
+    ``cfg.kv_cache_dtype`` is ``"int8"``, else bf16); a local layer's
+    length is ``min(sliding_window, max_len)`` (a ring), a global layer's
+    ``max_len``."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    int8 = cfg.kv_cache_dtype == "int8"
+    qdt = torch.int8 if int8 else torch.bfloat16
+
+    def kv(length):
+        shape = (cfg.n_layers // 2, batch, cfg.n_kv_heads, length, cfg.dh)
+        c = {"k": torch.zeros(shape, dtype=qdt, device=dev),
+             "v": torch.zeros(shape, dtype=qdt, device=dev)}
+        if int8:
+            for name in ("k_scale", "v_scale"):
+                c[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                      device=dev)
+        return c
+
+    return {"local": kv(min(cfg.sliding_window, max_len)),
+            "global": kv(max_len)}
+
+
+def layer_cache(cache: dict, i: int) -> dict:
+    """Layer i's views of ``cache`` (layer i runs in stack ``local`` for
+    even i, ``global`` for odd i, at depth i // 2)."""
+    stack = cache["local" if i % 2 == 0 else "global"]
+    return {name: t[i // 2] for name, t in stack.items()}
+
+
+def _cache_insert(cfg: LMConfig, layer_cache: dict, k, v, pos) -> None:
+    """Write one token's k, v [B, Hkv, 1, dh] at ``pos`` into the layer's
+    cache views, in place: at ``pos % length`` (a ring when the cache is
+    shorter than the positions). ``pos`` is a scalar (every row at one
+    position) or a [B] tensor (a position a row): row b is written at its
+    own slot by one index write on device indices (no host read, so it can
+    be captured). int8 caches store ``quantize_kv``'s values and scales,
+    bf16 caches ``k.to(bfloat16)``, whatever the model's dtype."""
+    length = layer_cache["k"].shape[-2]
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        updates = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    if not torch.is_tensor(pos):
+        for name, u in updates.items():
+            layer_cache[name][:, :, pos % length] = u[:, :, 0]
+        return
+    rows = torch.arange(k.shape[0], device=k.device)
+    slot = (pos.reshape(-1) % length).to(torch.int64).expand(k.shape[0])
+    for name, u in updates.items():
+        layer_cache[name][rows, :, slot] = u[:, :, 0]
+
+
+def _decode_block(cfg: LMConfig, p: Block, x, layer_cache: dict, pos):
+    """One token through one block: x [B, 1, d]; ``pos`` a scalar or a [B]
+    tensor. The new k, v are inserted first; attention then reads the
+    ring's extent, ``min(pos + 1, length)`` positions (the window is the
+    ring's length, so no window is passed)."""
+    b = x.shape[0]
+    dh, zc = cfg.dh, cfg.norm_zero_centered
+    z = rms_norm(x, p.ln_attn, zero_centered=zc)
+    q = (z @ p.wq).reshape(b, 1, cfg.n_heads, dh).transpose(1, 2)
+    k = (z @ p.wk).reshape(b, 1, cfg.n_kv_heads, dh).transpose(1, 2)
+    v = (z @ p.wv).reshape(b, 1, cfg.n_kv_heads, dh).transpose(1, 2)
+    # [1] (a scalar position broadcasts over B) or [B]
+    if torch.is_tensor(pos):
+        posv = pos.to(torch.int32).reshape(-1)
+    else:
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv[:, None, None], cfg.rope_theta)
+    k = rope(k, posv[:, None, None], cfg.rope_theta)
+    _cache_insert(cfg, layer_cache, k, v, pos)
+    length = layer_cache["k"].shape[-2]
+    eff_len = torch.clamp(posv + 1, max=length).expand(b).contiguous()
+    o = decode_attention(q, layer_cache["k"], layer_cache["v"], eff_len,
+                         window=None, logit_cap=cfg.attn_logit_cap,
+                         k_scale=layer_cache.get("k_scale"),
+                         v_scale=layer_cache.get("v_scale"))
+    h = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * dh) @ p.wo
+    if cfg.post_norm:
+        h = rms_norm(h, p.ln_post_attn, zero_centered=zc)
+    x = x + h
+    z = rms_norm(x, p.ln_mlp, zero_centered=zc)
+    act = gelu_tanh if cfg.name.startswith("gemma") else F.silu
+    y = glu_apply(p.w_gate, p.w_in, p.w_out, z, act=act)
+    if cfg.post_norm:
+        y = rms_norm(y, p.ln_post_mlp, zero_centered=zc)
+    return x + y
+
+
+@torch.no_grad()
+def lm_decode_step(model: LM, cache: dict, tokens: torch.Tensor, pos, *,
+                   return_logits: bool = False):
+    """One greedy decode step: tokens [B, 1] int32 at ``pos`` (a scalar,
+    every row at one position, or a [B] int32 tensor, a position a row:
+    the continuous batcher's form). Updates ``cache`` in place and returns
+    the next tokens [B, 1] int32 (the first maximal logit), with
+    ``return_logits`` also the logits [B, V] in the model's dtype."""
+    cfg = model.cfg
+    x = model.embed[tokens[:, 0].to(torch.int64)][:, None, :].to(cfg.dtype)
+    if cfg.embed_scale:
+        # √d rounded to the model dtype, made on the device (no host copy)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.dtype,
+                           device=x.device)
+    for i, layer in enumerate(model.layers):
+        x = _decode_block(cfg, layer, x, layer_cache(cache, i), pos)
+    x = rms_norm(x, model.ln_final, zero_centered=cfg.norm_zero_centered)
+    logits = lm_head_logits(model, x[:, -1])
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    return (nxt, logits) if return_logits else nxt

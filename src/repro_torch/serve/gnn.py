@@ -56,7 +56,7 @@ from repro_torch.core.delta import EdgeDelta
 from repro_torch.core.graph import CSC, SENTINEL, next_pow2, resolve_device
 from repro_torch.core.sampling import DEFAULT_WINDOW
 from repro_torch.engine.service import apply_delta_jit
-from repro_torch.kernels import add_launch_counts, launch_counts
+from repro_torch.kernels import launch_counts
 from repro_torch.models.gnn import subgraph_batch
 
 from .request import Request
@@ -147,9 +147,9 @@ class GnnServeEngine(SlotEngineBase):
         seed_cap = next_pow2(seed_cap)
         n_slots = next_pow2(n_slots)
         super().__init__(n_slots=n_slots, row_cap=seed_cap, route=gnn_route,
+                         device=resolve_device(device),
                          feeder_depth=4 * n_slots,
                          pad_value=SENTINEL, admit_window=2e-3)
-        self.device = resolve_device(device)
         self.fanouts = fanouts
         self.seed_cap = seed_cap
         self.delta_cap = next_pow2(delta_cap)
@@ -177,9 +177,6 @@ class GnnServeEngine(SlotEngineBase):
                                     dtype=torch.int32, device=self.device)}
         self.slot_fn = build_slot_fn(fanouts, seed_cap, self.engine_cfg)
         self.step_fn = build_step(fanouts, seed_cap, self.engine_cfg)
-        self._graph = None  # the captured step (card only)
-        self._graph_launches: dict[str, int] = {}
-        self._bound: dict[str, int] | None = None  # the program's tensors
 
     def submit(self, seeds) -> Request:
         """Enqueue one inference request for ``seeds`` (node ids)."""
@@ -279,9 +276,9 @@ class GnnServeEngine(SlotEngineBase):
             len(wave), -1, 2)
         st["active"][slots] = 1
 
-    def _bindings(self) -> dict[str, int]:
-        """{name: data_ptr} of every tensor the step reads or writes: the
-        state, the graph, the features and the model's weights."""
+    def _bound_tensors(self) -> dict[str, torch.Tensor]:
+        """Every tensor the step reads or writes: the state, the graph,
+        the features and the model's weights."""
         csc = self.params["csc"]
         named = {"csc.ptr": csc.ptr, "csc.idx": csc.idx,
                  "csc.n_edges": csc.n_edges,
@@ -289,73 +286,10 @@ class GnnServeEngine(SlotEngineBase):
         named.update((f"gnn.{k}", t) for k, t in
                      self.params["gnn"].state_dict(keep_vars=True).items())
         named.update((f"state.{k}", t) for k, t in self.state.items())
-        return {k: t.data_ptr() for k, t in named.items()}
-
-    def _capture(self) -> None:
-        """The first step on the card: run eagerly on a side stream (the
-        warm-up: kernel builds, cuBLAS handles, allocator pools) with
-        ``torch.cuda.set_sync_debug_mode("error")``, so a host read that
-        would break the capture raises here; then capture the step once
-        into a CUDA graph on the engine's own pool. Capturing launches
-        nothing, so the kernel launches the wrappers counted meanwhile are
-        taken off the counters and kept as the graph's per-replay
-        counts. A prefetch producer thread launching meanwhile would put
-        its launches in that count, so a running one is refused."""
-        from repro_torch.engine.prefetch import active_producers
-        if active_producers():
-            raise RuntimeError(
-                "a prefetch producer is running: close it before the serve "
-                "step is captured")
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                self.step_fn(self.params, self.state)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
-                              stream=side, capture_error_mode="thread_local"):
-            self.step_fn(self.params, self.state)
-        after = launch_counts()
-        self._graph_launches = {k: after[k] - before[k] for k in after
-                                if after[k] != before[k]}
-        add_launch_counts({k: -n for k, n in self._graph_launches.items()})
-        self._graph = graph
-
-    def captured_launches(self) -> dict[str, int]:
-        """Kernel launches of one replay of the captured step (empty before
-        the capture and on the CPU)."""
-        return dict(self._graph_launches)
+        return named
 
     def _step(self) -> np.ndarray:
         """Run every slot; returns the [S, 1 + seed_cap] emission rows
-        (flag, predictions). The step clears the active flags itself. The
-        first step builds the step program (on the card its capture);
-        every later one runs it on the same tensors, or raises."""
-        if self._bound is None:
-            self._bound = self._bindings()
-            self._step_programs += 1
-            if self.device.type == "cuda":
-                self._capture()
-                return self.state["emission"].cpu().numpy()
-        else:
-            now = self._bindings()
-            moved = sorted(k for k in self._bound.keys() | now.keys()
-                           if self._bound.get(k) != now.get(k))
-            if moved:
-                raise RuntimeError(
-                    f"the step program reads {moved} at the addresses it "
-                    "was built on, and they were rebound since; write new "
-                    "values into those tensors in place")
-        if self._graph is None:
-            self.step_fn(self.params, self.state)
-        else:
-            self._graph.replay()
-            add_launch_counts(self._graph_launches)
+        (flag, predictions). The step clears the active flags itself."""
+        self._run_step()
         return self.state["emission"].cpu().numpy()

@@ -22,10 +22,11 @@ class RequestState(enum.Enum):
 
 @dataclasses.dataclass
 class Request:
-    """One serve request: a payload row (seed node ids for the GNN engine)
-    and what it may emit (``max_new``: 1 for a prediction, 0 for a control
-    request); ``tokens_out`` collects what the engine emits (one class id
-    per seed). A control request (a streamed graph update) rides the same
+    """One serve request: a payload row (a prompt's token ids for the LM
+    engine, seed node ids for the GNN engine) and what it may emit
+    (``max_new``: the new tokens' budget, 1 for a prediction, 0 for a
+    control request); ``tokens_out`` collects what the engine emits (the
+    generated tokens, or one class id per seed). A control request (a streamed graph update) rides the same
     FIFO with its ``payload`` (an ``EdgeDelta``); its row is a marker the
     feeder pads like any other and nothing reads."""
 
@@ -43,6 +44,13 @@ class Request:
     @property
     def prompt_len(self) -> int:
         return len(self.prompt)
+
+    @property
+    def admission_latency_s(self) -> float | None:
+        """Queue-to-slot latency (None until admitted)."""
+        if self.admit_t is None:
+            return None
+        return self.admit_t - self.enqueue_t
 
     @property
     def total_latency_s(self) -> float | None:

@@ -20,8 +20,15 @@ and advances the launch counters by its captured launches; so do the
 GAT, GatedGCN and MeshGraphNet steps, also under keysort selection, and
 their logits on the card are within 1e-4 of the CPU's; keysort and
 reservoir sampling on the card give the CPU's subgraphs; a streamed
-update is copied into the captured step's graph. Every test skips with
-a reason on a host without a card or nvcc.
+update is copied into the captured step's graph. The decode attention
+kernel is within its derived tolerance (``twin_tolerance``) of its twin
+at every cache dtype, q dtype, cap, window and length tried, gives the
+same bits twice and a slot's bits alone and beside other slots, and its
+tolerance rejects four planted faults; the LM ServeEngine served through
+its captured step gives the CPU's tokens (bf16 and int8 caches), counts
+two decode launches a layer a replay, and its replayed step equals the
+eager step bit for bit. Every test skips with a reason on a host without
+a card or nvcc.
 
 Run them on a machine with an H100:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1858,3 +1865,213 @@ def test_run_gnn_on_card_resumes_bit_for_bit(cuda, tmp_path):
     for (n, p), q in zip(m1.named_parameters(), m2.parameters()):
         assert torch.equal(p, q), n
     assert h2[-1]["loss"] < h2[0]["loss"]
+
+
+# ----------------------------------------------------- the decode kernel
+def _decode_inputs(dev, kv, b, h, hkv, s, dh, q_dtype, q_scale=1.0, seed=0):
+    """(q, k, v, k_scale, v_scale) on ``dev``: q [b, h, 1, dh] in
+    ``q_dtype``, a bf16 cache or an int8 one quantized from N(0, 1)."""
+    from repro_torch.models.attention import quantize_kv
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.randn((b, h, 1, dh), generator=g) * q_scale).to(q_dtype)
+    k, v = (torch.randn((b, hkv, s, dh), generator=g) for _ in range(2))
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return tuple(t.to(dev) for t in (q, k, v, ks, vs))
+    return (q.to(dev), k.to(torch.bfloat16).to(dev),
+            v.to(torch.bfloat16).to(dev), None, None)
+
+
+def _decode_ratio(got, want, tol):
+    diff = (got.double() - want.double()).abs()
+    return float(torch.where(diff == 0, 0.0, diff / tol).max())
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,window", [(None, None), (50.0, None),
+                                        (50.0, 48)])
+@pytest.mark.parametrize("b,h,hkv,s,dh", [(3, 4, 2, 40, 16),
+                                          (8, 16, 8, 1024, 256),
+                                          (2, 16, 8, 1000, 256),
+                                          (2, 8, 1, 300, 64)])
+def test_decode_kernel_within_its_tolerance_of_the_twin(cuda, kv, q_dtype,
+                                                        cap, window, b, h,
+                                                        hkv, s, dh):
+    """The decode kernel against ``decode_attention_plain`` on the same
+    card inputs, lengths from 1 to the cache's, within ``twin_tolerance``
+    (derived from float32 rounding); two launches bit-equal."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.models.attention import decode_attention_plain
+    q, k, v, ks, vs = _decode_inputs(cuda, kv, b, h, hkv, s, dh, q_dtype,
+                                     q_scale=8.0 if cap else 1.0)
+    lens = torch.tensor(([1, s, s // 2, s - 1, 7, 255, 256, 257] * b)[:b],
+                        dtype=torch.int32, device=cuda)
+    kw = dict(window=window, logit_cap=cap, k_scale=ks, v_scale=vs)
+    got = tda.decode_attention(q, k, v, lens, **kw)
+    again = tda.decode_attention(q, k, v, lens, **kw)
+    want = decode_attention_plain(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    assert _decode_ratio(got, want, tda.twin_tolerance(q, k, v, lens,
+                                                       **kw)) <= 1.0
+
+
+def test_decode_kernel_slot_is_independent_of_its_neighbours(cuda):
+    """A slot's output depends on its own cache rows and length only: the
+    same slot alone (batch 1) and beside 7 others with other caches and
+    lengths gives the same bits."""
+    from repro_torch.kernels import decode_attention as tda
+    q, k, v, ks, vs = _decode_inputs(cuda, "int8", 8, 16, 8, 1024, 256,
+                                     torch.bfloat16, seed=3)
+    lens = torch.tensor([700, 1, 1024, 33, 512, 256, 999, 2],
+                        dtype=torch.int32, device=cuda)
+    full = tda.decode_attention(q, k, v, lens, logit_cap=50.0, k_scale=ks,
+                                v_scale=vs)
+    for i in (0, 3, 7):
+        sl = slice(i, i + 1)
+        alone = tda.decode_attention(q[sl], k[sl], v[sl], lens[sl],
+                                     logit_cap=50.0, k_scale=ks[sl],
+                                     v_scale=vs[sl])
+        assert torch.equal(alone, full[sl]), i
+
+
+def test_decode_kernel_planted_faults_read_outside_the_tolerance(cuda):
+    """At gemma2-9b's heads on an int8 cache of 1,024 positions: the cap
+    left out and the dequantization widened without its bf16 rounding
+    (q × 8: scores where the cap acts), one position more and the next kv
+    head (q × 1) read outside ``twin_tolerance`` of the kernel."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.models import attention as ta
+    lens = torch.tensor([1, 300, 1023], dtype=torch.int32, device=cuda)
+    for q_scale, faults in ((8.0, ("no_cap", "dequant_f32")),
+                            (1.0, ("len_plus_1", "next_kv_head"))):
+        q, k, v, ks, vs = _decode_inputs(cuda, "int8", 3, 16, 8, 1024, 256,
+                                         torch.float32, q_scale=q_scale,
+                                         seed=11)
+        kw = dict(logit_cap=50.0, k_scale=ks, v_scale=vs)
+        got = tda.decode_attention(q, k, v, lens, **kw)
+        tol = tda.twin_tolerance(q, k, v, lens, **kw)
+        for fault in faults:
+            if fault == "no_cap":
+                bad = ta.decode_attention_plain(q, k, v, lens,
+                                                **{**kw, "logit_cap": None})
+            elif fault == "len_plus_1":
+                bad = ta.decode_attention_plain(q, k, v, lens + 1, **kw)
+            elif fault == "next_kv_head":
+                bad = ta.decode_attention_plain(
+                    q, k.roll(1, 1), v.roll(1, 1), lens, logit_cap=50.0,
+                    k_scale=ks.roll(1, 1), v_scale=vs.roll(1, 1))
+            else:  # int8 × scale widened without the bf16 rounding
+                bad = ta.decode_attention_plain(q, k.float() * ks,
+                                                v.float() * vs, lens,
+                                                logit_cap=50.0)
+            assert _decode_ratio(got, bad, tol) > 2.0, fault
+
+
+def test_decode_kernel_counts_two_launches_and_refuses(cuda):
+    from repro_torch.kernels import decode_attention as tda
+    q, k, v, ks, vs = _decode_inputs(cuda, "int8", 2, 4, 2, 40, 16,
+                                     torch.float32)
+    lens = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
+    before = tda.decode_attention.launches
+    tda.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+    assert tda.decode_attention.launches == before + 2
+    z = dict(device=cuda)
+    wide_k = torch.zeros((2, 2, 40, 512), dtype=torch.int8, **z)
+    wide_s = torch.zeros((2, 2, 40, 1), **z)
+    cases = {
+        "int8 without scales": (q, k, v, lens, {}),
+        "int64 lengths": (q, k, v, lens.long(), dict(k_scale=ks,
+                                                      v_scale=vs)),
+        "a float16 q": (q.half(), k, v, lens, dict(k_scale=ks, v_scale=vs)),
+        "a strided q": (torch.zeros((2, 4, 1, 32), **z)[..., :16], k, v,
+                        lens, dict(k_scale=ks, v_scale=vs)),
+        "9 query heads a kv head": (torch.zeros((2, 18, 1, 16), **z), k, v,
+                                    lens, dict(k_scale=ks, v_scale=vs)),
+        "dh 512": (torch.zeros((2, 2, 1, 512), **z), wide_k, wide_k, lens,
+                   dict(k_scale=wide_s, v_scale=wide_s)),
+    }
+    for what, (qq, kk, vv, ll, kw) in cases.items():
+        with pytest.raises(ValueError):
+            tda.decode_attention(qq, kk, vv, ll, **kw)
+            pytest.fail(what)
+    assert tda.decode_attention.launches == before + 2
+
+
+# ------------------------------------------------------ the LM serve engine
+def _lm_engine(dev, kv, n_slots=4):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_config("gemma2-9b", smoke=True),
+                              kv_cache_dtype=kv)
+    model = LM(cfg, seed=0, device="cpu").to(dev)
+    return ServeEngine(cfg, model, n_slots=n_slots, max_len=64,
+                       prompt_cap=16, device=dev)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_lm_engine_on_card_equals_cpu(cuda, kv):
+    """The smoke model served through the captured step on the card gives
+    the CPU engine's tokens; one step program; each replay counts the
+    decode kernel's two launches a layer."""
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, 256, int(rng.integers(1, 17))).tolist(),
+             int(rng.integers(1, 20))) for _ in range(9)]
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = _lm_engine(dev, kv)
+        reset_launch_counts()
+        for p, g in reqs:
+            eng.submit(p, g)
+        eng.close_submissions()
+        out[str(dev)] = {r.rid: r.tokens_out for r in eng.run()}
+        assert eng.step_cache_size() == 1
+        if dev != "cpu":
+            n = eng.stats.steps
+            assert eng.captured_launches() == {
+                "decode_attention": 2 * eng.cfg.n_layers}
+            assert launch_counts()["decode_attention"] == (
+                2 * eng.cfg.n_layers * n)
+    assert out["cpu"] == out[str(cuda)]
+
+
+def test_lm_replayed_step_equals_the_eager_step(cuda):
+    """The captured step replayed on a copy of the state equals the eager
+    step function run on the same state, bit for bit (tokens, positions,
+    cache, logits)."""
+    eng = _lm_engine(cuda, "int8")
+    for p in ([1, 2, 3], [9] * 12, [4]):
+        eng.submit(p, 5)
+    eng.close_submissions()
+    eng.run()  # warm-up and capture
+    eng.reopen()
+    eng.submit(list(range(1, 9)), 3)
+    eng.submit([7, 7], 4)
+    eng.close_submissions()
+    eng.run()
+
+    def snapshot():
+        flat = {k: v for k, v in eng.state.items() if k != "cache"}
+        for st, c in eng.state["cache"].items():
+            flat.update((f"{st}.{n}", t) for n, t in c.items())
+        return {k: v.clone() for k, v in flat.items()}
+
+    def restore(saved):
+        for k, v in saved.items():
+            if "." in k:
+                st, n = k.split(".")
+                eng.state["cache"][st][n].copy_(v)
+            else:
+                eng.state[k].copy_(v)
+    saved = snapshot()
+    logits = eng._run_step().clone()
+    replayed = snapshot()
+    restore(saved)
+    eager = eng.step_fn(eng.params, eng.state)
+    assert torch.equal(eager, logits)
+    for k, v in snapshot().items():
+        assert torch.equal(v, replayed[k]), k
+    assert eng.step_cache_size() == 1

@@ -60,6 +60,9 @@ def test_port_file_inventory():
                  "src/repro_torch/data/synthetic.py",
                  "src/repro_torch/serve/gnn.py",
                  "src/repro_torch/serve/slots.py",
+                 "src/repro_torch/serve/engine.py",
+                 "src/repro_torch/serve/scheduler.py",
+                 "src/repro_torch/kernels/decode_attention.py",
                  "src/repro_torch/serve/request.py",
                  "src/repro_torch/core/sampling.py",
                  "src/repro_torch/core/prng.py",
@@ -103,6 +106,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.ptr_scan\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.serve.engine\n"
         "import repro_torch.kernels.prefix_partition\n"
         "import repro_torch.models.transformer, repro_torch.launch.steps\n"
         "import repro_torch.launch.train, repro_torch.train.loop\n"
@@ -114,7 +119,7 @@ def test_importing_the_port_loads_no_jax():
         "          'meshgraphnet'):\n"
         "    get_config(a)\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
-        "assert len(kernel_wrappers()) == 17\n"
+        "assert len(kernel_wrappers()) == 18\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
