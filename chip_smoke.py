@@ -276,7 +276,9 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    Row 15 timed on the first global layer's inputs beside its bound (the
    live rows' int8 bytes and scales), the twin and
    ``scaled_dot_product_attention`` on the dequantized bf16 cache (no
-   cap: a near function). decode_32k's length: one step at position
+   cap: a near function), with the split kernel's registers, static
+   shared memory and spills and its SASS conversion and arithmetic
+   counts. decode_32k's length: one step at position
    32,767, batch 8, a random int8 cache of 25 GiB from the seed, timed
    and profiled, its first global layer's kernel timed and held against
    the twin on 2 slots. The ring: gemma2-9b cut to one (local, global)
@@ -481,6 +483,10 @@ LM_SERVE_TIMED = 20  # replays of the captured step timed
 LM_SERVE_KERNELS = ("decode_attention",)
 DECODE_KERNEL_RE = r"decode_(?:split|combine)_kernel"
 DECODE_LAUNCHES = 2  # a decode attention call: the splits, their combine
+# the split kernel's SASS read beside its row: conversions, the
+# dequantization's integer and float32 ops, local memory (spills)
+DECODE_SASS_OPS = ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "FMUL", "FADD",
+                   "FFMA", "LDL", "STL")
 # the decode kernel's planted faults, read on a layer's own inputs with a
 # float32 q: the cap and the dequantization's bf16 rounding at q x 8
 # (scores where a cap of 50 acts), one position more and the next kv head
@@ -860,10 +866,11 @@ def card_digit_rows(keys, vals, width, shift):
 
 
 def resource_usage(name, kernel):
-    """{function[<template arguments>]: {"registers", "stack", "local"}}
-    of each function whose name matches the regex ``kernel`` in built
-    library ``name``, from ``cuobjdump --dump-resource-usage`` (cached
-    builds too); LOCAL is where ptxas spills registers."""
+    """{function[<template arguments>]: {"registers", "stack", "shared",
+    "local"}} of each function whose name matches the regex ``kernel`` in
+    built library ``name``, from ``cuobjdump --dump-resource-usage``
+    (cached builds too); LOCAL is where ptxas spills registers, SHARED the
+    static shared memory (dynamic shared memory is the launch's)."""
     from repro_torch.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
@@ -872,11 +879,32 @@ def resource_usage(name, kernel):
                           capture_output=True, text=True, check=True).stdout
     out = {}
     for m in re.finditer(r"(" + kernel + r")(?:I(\w+?)E(?:Ev|v))?\S*:\s*\n"
-                         r"\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
-                         text):
+                         r"\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+                         r"LOCAL:(\d+)", text):
         key = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         out[key] = dict(registers=int(m.group(3)), stack=int(m.group(4)),
-                        local=int(m.group(5)))
+                        shared=int(m.group(5)), local=int(m.group(6)))
+    return out
+
+
+def sass_ops(name, kernel, ops):
+    """{mangled name: {op: instructions}} of each compiled function whose
+    name contains ``kernel`` in built library ``name``: the static count
+    of SASS instructions whose opcode is each of ``ops`` (with any
+    suffix, e.g. F2F counts F2F.BF16.F32), from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for block in sass.split("Function :")[1:]:
+        fn, body = block.split("\n", 1)
+        if kernel in fn:
+            out[fn.strip()] = {op: len(re.findall(
+                r"\*/\s+(?:@!?U?P\w+\s+)?" + op + r"\b[.\w]*", body))
+                for op in ops}
     return out
 
 
@@ -4791,6 +4819,10 @@ def decode_row(q, k, v, cl, kw, err):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
                 gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
+                ptxas=resource_usage("decode_attention",
+                                     "decode_split_kernel"),
+                sass=sass_ops("decode_attention", "decode_split_kernel",
+                              DECODE_SASS_OPS),
                 shape=f"B {b}, H {h} over Hkv {hkv}, dh {dh}, int8 cache of "
                       f"{s} positions, {live} live ({cl.tolist()}), {q.dtype}"
                       f" q, cap {kw['logit_cap']}; {nbytes / 1e6:.2f} MB "

@@ -6,9 +6,11 @@ reference computes ``decode_attention`` in jnp,
 on CUDA tensors and runs the plain twin,
 ``models.attention.decode_attention_plain`` (the reference's function),
 on CPU tensors. The kernel is flash-decoding: the cache is cut into fixed
-splits of ``SPLIT`` positions, one CTA a (split, slot, kv head) computes
-the split's float32 partial softmax for the kv head's query heads, and a
-second launch combines the splits in split order by the log-sum-exp rule
+splits of ``split_size(S)`` positions, one CTA a (split, slot, kv head,
+pair of query heads) streams the split's live k rows, then its v rows,
+through a ring in shared memory (``load_width`` bytes a copy) and computes
+the split's float32 partial softmax; a second launch combines the live
+splits in split order by the log-sum-exp rule
 (``models.attention.decode_attention_split`` is the same arithmetic in
 torch). An int8 cache is read through bf16, as the reference reads it. A
 slot's output depends on its own cache rows and length only. The two
@@ -26,7 +28,10 @@ from repro_torch.models.attention import (_group_q, decode_attention_plain,
 
 from . import _build, count_launch
 
-SPLIT = 256  # cache positions a CTA (csrc/decode_attention.cu kSplit)
+SPLIT = 256  # the least split: cache positions a CTA
+CHUNK = 64  # cache rows a ring stage (csrc/decode_attention.cu kChunk)
+MAX_SPLIT = 2048  # csrc/decode_attention.cu kMaxSplit
+TARGET_SPLITS = 32  # splits a (slot, head) from 8,192 positions to 65,536
 MAX_GROUP, MAX_DH = 8, 256  # query heads a kv head, head width
 Q_DTYPES = (torch.float32, torch.bfloat16)
 # cache positions a step of twin_tolerance's float64 spread sum takes (its
@@ -39,12 +44,31 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "decode_attention": (ctypes.c_int,
                          (_P, _I, _P, _P, _I, _P, _P, _P) + (_I,) * 7
-                         + (_I, _F, _F) + (_P,) * 5),
+                         + (_I, _F, _F, _I, _I) + (_P,) * 5),
 }
 
 
+def split_size(s: int) -> int:
+    """Cache positions a split for a cache of ``s`` positions: SPLIT up to
+    8,192 positions, then about TARGET_SPLITS splits (so that the
+    combine's partials stay a few % of the rows read), at most MAX_SPLIT;
+    a multiple of CHUNK. Never below SPLIT, so that ``twin_tolerance``'s
+    split term is never above ceil(s / SPLIT)."""
+    per = -(-s // (TARGET_SPLITS * CHUNK)) * CHUNK
+    return min(MAX_SPLIT, max(SPLIT, per))
+
+
 def n_splits(s: int) -> int:
-    return -(-s // SPLIT)
+    return -(-s // split_size(s))
+
+
+def load_width(k: torch.Tensor, v: torch.Tensor) -> int:
+    """The bytes a copy of the kernel moves from the cache: 16 where a
+    row's bytes and both caches' addresses allow it, else 4 or 1."""
+    row = k.shape[-1] * k.element_size()
+    return next(w for w in (16, 4, 1)
+                if row % w == 0 and k.data_ptr() % w == 0
+                and v.data_ptr() % w == 0)
 
 
 def _check_kernel_inputs(q, k, v, cache_len, k_scale, v_scale) -> None:
@@ -94,7 +118,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     over k, v [B, Hkv, S, dh] (bf16, or int8 with float32 scales
     [B, Hkv, S, 1]), the positions below ``cache_len`` [B] int32 (at least
     1; with ``window``, not below cache_len - window). On the card two
-    launches: the splits and their combine."""
+    launches: the splits and their combine. A cache view that is not
+    16-byte aligned, or rows of dh bytes not a multiple of 16, take
+    narrower copies (``load_width``)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       window=window, logit_cap=logit_cap,
@@ -121,7 +147,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         v_scale.data_ptr() if int8 else None, cache_len.data_ptr(), b, h,
         hkv, s, dh, int(window is not None), int(window or 0),
         int(logit_cap is not None), float(logit_cap or 0.0), dh ** -0.5,
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        split_size(s), load_width(k_cache, v_cache), m.data_ptr(),
+        l.data_ptr(), acc.data_ptr(), out.data_ptr(),
         _build.stream_of(q)), "decode_attention")
     return out
 

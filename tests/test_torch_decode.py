@@ -274,10 +274,94 @@ def test_split_form_within_tolerance_and_faults_outside(fault, q_scale):
     kw = dict(logit_cap=50.0, k_scale=ks, v_scale=vs)
     want = ta.decode_attention_plain(q, k, v, cl, **kw)
     tol = tda.twin_tolerance(q, k, v, cl, **kw)
-    split = ta.decode_attention_split(q, k, v, cl, split=tda.SPLIT, **kw)
+    split = ta.decode_attention_split(q, k, v, cl,
+                                      split=tda.split_size(1024), **kw)
     assert _ratio(split, want, tol) <= 1.0
     bad = _faulted(q, k, v, cl, ks, vs, fault)
     assert _ratio(bad, want, tol) > 2.0, fault
+
+
+@pytest.mark.parametrize("s", [1, 40, 300, 1024, 4096, 8192, 8193, 16384,
+                               32768, 65536, 131072, 1 << 20])
+def test_split_size_bounds_the_splits(s):
+    """A split is a multiple of the kernel's chunk within [SPLIT,
+    MAX_SPLIT]; a cache never has more splits than at SPLIT positions a
+    split (so ``twin_tolerance``'s split term never grows), and from
+    8,192 positions to 65,536 it has TARGET_SPLITS or fewer."""
+    split = tda.split_size(s)
+    assert split % tda.CHUNK == 0 and tda.SPLIT <= split <= tda.MAX_SPLIT
+    assert tda.n_splits(s) == -(-s // split) <= -(-s // tda.SPLIT)
+    if 8192 <= s <= 65536:
+        assert tda.n_splits(s) <= tda.TARGET_SPLITS
+    if s <= 8192:
+        assert split == tda.SPLIT
+
+
+@pytest.mark.parametrize("kv,dh,offset,want", [
+    ("int8", 256, 0, 16), ("int8", 256, 4, 4), ("int8", 256, 1, 1),
+    ("int8", 40, 0, 4), ("int8", 37, 0, 1), ("int8", 16, 0, 16),
+    ("bf16", 16, 0, 16), ("bf16", 256, 2, 4), ("bf16", 256, 1, 1),
+    ("bf16", 37, 0, 1)])
+def test_load_width_follows_rows_and_addresses(kv, dh, offset, want):
+    """The kernel's copy unit: 16 bytes where a row's bytes and both
+    caches' addresses allow it, else 4, else 1 (``offset`` elements into
+    a 16-byte aligned buffer)."""
+    dtype = torch.int8 if kv == "int8" else torch.bfloat16
+    shape = (2, 2, 5, dh)
+    n = int(np.prod(shape))
+    bufs = [torch.empty(n + 16, dtype=dtype) for _ in range(2)]
+    views = []
+    for buf in bufs:
+        pad = (-buf.data_ptr() % 16) // buf.element_size()
+        views.append(buf[pad + offset:pad + offset + n].view(shape))
+    assert tda.load_width(*views) == want
+    assert tda.load_width(views[0], views[0][:, :, :, :]) == want
+
+
+def _kernel_dequant(c, s):
+    """``csrc/decode_attention.cu``'s dequantization in float32 numpy
+    (IEEE round-to-nearest-even, as the kernel's _rn intrinsics): the
+    byte in the mantissa of 2^23 less 2^23 + 128, the product with the
+    scale, then round-to-nearest-even to bf16 on the bits (what
+    cvt.rn.bf16x2 does to a finite float32)."""
+    u = (c.astype(np.int32).astype(np.uint32) & 0xFF) ^ 0x80
+    f = (u | np.uint32(0x4B000000)).view(np.float32) - np.float32(8388736.0)
+    assert np.array_equal(f, c.astype(np.float32))
+    p = (f * s).astype(np.float32).view(np.uint32).astype(np.uint64)
+    r = (p + 0x7FFF + ((p >> 16) & 1)) & 0xFFFF0000
+    return r.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("scales", ["quantized", "binades", "edges"])
+def test_kernel_dequantization_is_the_references_bit_for_bit(scales):
+    """The kernel's dequantization (no I2F: the byte trick) equals the
+    reference's ``dequantize_kv`` (int8 × scale in float32, rounded to
+    bf16) and the port's bit for bit for every int8 value at scales from
+    quantize_kv of N(0, 1) rows, log-uniform over float32's normal range
+    (the reference's CPU flushes subnormal products to zero; quantize_kv's
+    least scale is 1e-8 / 127), and at its edges (the least normal scale,
+    the largest finite products)."""
+    rng = np.random.default_rng(7)
+    if scales == "quantized":
+        _, sc = ta.quantize_kv(torch.from_numpy(
+            rng.normal(size=(1, 1, 4096, 256)).astype(np.float32)))
+        s = sc.numpy().reshape(-1)
+    elif scales == "binades":
+        s = np.exp2(rng.uniform(-126, 120, 4096)).astype(np.float32)
+    else:
+        s = np.array([2.0 ** -126, 1e-8 / 127, 1 / 127, 1.0,
+                      3.0, 2.0 ** 119, np.finfo(np.float32).max / 128],
+                     dtype=np.float32)
+    c = np.arange(-128, 128, dtype=np.int8)
+    cc, ss = np.broadcast_arrays(c[None, :], s[:, None])
+    got = _kernel_dequant(cc, ss)
+    want = ja.dequantize_kv(jnp.asarray(cc), jnp.asarray(ss))
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  _j_np(want).view(np.uint32))
+    port = ta.dequantize_kv(torch.from_numpy(cc.copy()),
+                            torch.from_numpy(ss.copy()))
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  _np(port).view(np.uint32))
 
 
 # ------------------------------------------------------------- decode step

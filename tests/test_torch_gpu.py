@@ -23,8 +23,9 @@ reservoir sampling on the card give the CPU's subgraphs; a streamed
 update is copied into the captured step's graph. The decode attention
 kernel is within its derived tolerance (``twin_tolerance``) of its twin
 at every cache dtype, q dtype, cap, window and length tried, gives the
-same bits twice and a slot's bits alone and beside other slots, and its
-tolerance rejects four planted faults; the LM ServeEngine served through
+same bits twice and a slot's bits alone and beside other slots, its
+narrower copies of an unaligned cache give the bits of its 16-byte ones,
+and its tolerance rejects four planted faults; the LM ServeEngine served through
 its captured step gives the CPU's tokens (bf16 and int8 caches), counts
 two decode launches a layer a replay, and its replayed step equals the
 eager step bit for bit. Every test skips with a reason on a host without
@@ -1887,6 +1888,17 @@ def _decode_ratio(got, want, tol):
     return float(torch.where(diff == 0, 0.0, diff / tol).max())
 
 
+def _decode_edge_lens(s):
+    """Cache lengths at the decode kernel's edges for a cache of ``s``
+    positions: 1, a ring chunk and a split, each one less, equal and one
+    more, half the cache, one less than it and all of it."""
+    from repro_torch.kernels import decode_attention as tda
+    c, sp = tda.CHUNK, tda.split_size(s)
+    lens = (1, 7, c - 1, c, c + 1, sp - 1, sp, sp + 1, 2 * sp + 1,
+            s // 2, s - 1, s)
+    return sorted({n for n in lens if 1 <= n <= s})
+
+
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cap,window", [(None, None), (50.0, None),
@@ -1894,28 +1906,60 @@ def _decode_ratio(got, want, tol):
 @pytest.mark.parametrize("b,h,hkv,s,dh", [(3, 4, 2, 40, 16),
                                           (8, 16, 8, 1024, 256),
                                           (2, 16, 8, 1000, 256),
-                                          (2, 8, 1, 300, 64)])
+                                          (2, 8, 1, 300, 64),
+                                          (2, 4, 2, 200, 40),
+                                          (2, 4, 4, 130, 37),
+                                          (1, 16, 8, 16384, 256)])
 def test_decode_kernel_within_its_tolerance_of_the_twin(cuda, kv, q_dtype,
                                                         cap, window, b, h,
                                                         hkv, s, dh):
     """The decode kernel against ``decode_attention_plain`` on the same
-    card inputs, lengths from 1 to the cache's, within ``twin_tolerance``
-    (derived from float32 rounding); two launches bit-equal."""
+    card inputs, at every length of ``_decode_edge_lens`` (``b`` slots a
+    launch), within ``twin_tolerance`` (derived from float32 rounding);
+    two launches bit-equal. dh 40 and 37 take the narrower copies."""
     from repro_torch.kernels import decode_attention as tda
     from repro_torch.models.attention import decode_attention_plain
     q, k, v, ks, vs = _decode_inputs(cuda, kv, b, h, hkv, s, dh, q_dtype,
                                      q_scale=8.0 if cap else 1.0)
-    lens = torch.tensor(([1, s, s // 2, s - 1, 7, 255, 256, 257] * b)[:b],
-                        dtype=torch.int32, device=cuda)
     kw = dict(window=window, logit_cap=cap, k_scale=ks, v_scale=vs)
-    got = tda.decode_attention(q, k, v, lens, **kw)
-    again = tda.decode_attention(q, k, v, lens, **kw)
-    want = decode_attention_plain(q, k, v, lens, **kw)
-    torch.cuda.synchronize()
-    assert got.dtype == q.dtype and got.shape == q.shape
-    assert torch.equal(got, again)
-    assert _decode_ratio(got, want, tda.twin_tolerance(q, k, v, lens,
-                                                       **kw)) <= 1.0
+    edges = _decode_edge_lens(s)
+    for i in range(0, len(edges), b):
+        lens = torch.tensor((edges[i:i + b] * b)[:b], dtype=torch.int32,
+                            device=cuda)
+        got = tda.decode_attention(q, k, v, lens, **kw)
+        again = tda.decode_attention(q, k, v, lens, **kw)
+        want = decode_attention_plain(q, k, v, lens, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert torch.equal(got, again)
+        assert _decode_ratio(got, want, tda.twin_tolerance(
+            q, k, v, lens, **kw)) <= 1.0, lens.tolist()
+
+
+@pytest.mark.parametrize("kv,dh", [("int8", 256), ("bf16", 256),
+                                   ("bf16", 16)])
+def test_decode_kernel_narrow_copies_give_the_aligned_bits(cuda, kv, dh):
+    """The same cache copied 4 bytes and 1 element past a 16-byte
+    boundary: the kernel takes 4-byte and 1-byte copies there
+    (``load_width``) and gives the bits of the 16-byte copies."""
+    from repro_torch.kernels import decode_attention as tda
+    q, k, v, ks, vs = _decode_inputs(cuda, kv, 3, 16, 8, 300, dh,
+                                     torch.bfloat16, seed=5)
+    lens = torch.tensor([1, 129, 300], dtype=torch.int32, device=cuda)
+    kw = dict(logit_cap=50.0, k_scale=ks, v_scale=vs)
+    assert tda.load_width(k, v) == 16
+    want = tda.decode_attention(q, k, v, lens, **kw)
+
+    def shifted(t, offset):
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=cuda)
+        pad = (-buf.data_ptr() % 16) // t.element_size()
+        view = buf[pad + offset:pad + offset + t.numel()].view(t.shape)
+        return view.copy_(t)
+    for offset, width in ((4 // k.element_size(), 4), (1, 1)):
+        kk, vv = shifted(k, offset), shifted(v, offset)
+        assert tda.load_width(kk, vv) == width
+        assert torch.equal(tda.decode_attention(q, kk, vv, lens, **kw),
+                           want), width
 
 
 def test_decode_kernel_slot_is_independent_of_its_neighbours(cuda):

@@ -7,12 +7,13 @@ kernels and a MERGE_CFG convert cost; with ``--what digit``, what the
 global_radix digit pass, its whole sort and a SLICE_CFG convert cost;
 with ``--what serve``, what serving costs under both configurations; or,
 with ``--what scan``, what the pointer segment sum costs on the serve
-path's own pointers; or, with ``--what segsum``, what the dst-sorted
-segment sum and the prefix partition cost.
+path's own pointers; with ``--what segsum``, what the dst-sorted
+segment sum and the prefix partition cost; or, with ``--what decode``,
+what the decode attention kernel costs.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
       --order parent,change,change,parent \\
-      [--what kernels|digit|serve|scan|segsum]
+      [--what kernels|digit|serve|scan|segsum|decode]
 
 A tree is the root of a checkout (unpack an earlier commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Each turn is
@@ -93,6 +94,19 @@ them the tree's ``ptr_seg_sum`` on the same spans (its time and a
 checksum of its bits: the header move must keep both); and
 ``prefix_partition`` at 2^24 values, blocks 1024, 96, 1000 and 4100.
 
+``--what decode`` times, queued behind a device sleep, the tree's
+``decode_attention`` wrapper at gemma2-9b's heads (16 over 8, dh 256), a
+bf16 q and cap 50, on an int8 cache quantized from N(0, 1) drawn from
+``--seed``, at three shapes (``DECODE_SHAPES``): (a) the LM serve slice's
+cache (8 slots, 1,024 positions) at the live lengths a stream left in
+it, (b) decode_32k's length, 8 x 32,768 live, (c) a full local ring, 8 x
+4,096 live; beside each, its bound (the live rows' int8 bytes and
+scales, q, out), ``scaled_dot_product_attention`` on the dequantized
+bf16 cache (a boolean mask, no cap: a near function), a checksum of the
+output's bits, and its share of the tree's ``twin_tolerance`` against
+the twin (on the first slot only at 32k); and the tree's split kernel's
+registers, stack and spills (``cuobjdump --dump-resource-usage``).
+
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
 comparable only within one run.
@@ -111,6 +125,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernels of the rank epilogue (and the digit pass's rank_gather_kernel)
 # in a trace, by the names of this tree's and earlier trees' kernels
 RANK_KERNELS = r"(?:rank|rename)\w*_kernel(?:<\w+>)?"
+# (name, cache positions, live lengths) of --what decode; (a) the lengths
+# chip_smoke's 16-request LM serve stream left in its 8 x 1,024 cache
+DECODE_SHAPES = (("slice", 1024, (79, 112, 206, 389, 444, 326, 495, 260)),
+                 ("decode_32k", 32768, (32768,) * 8),
+                 ("ring_4096", 4096, (4096,) * 8))
 
 
 def turn(tree: str, seed: int, n_requests: int, reps: int) -> dict:
@@ -682,6 +701,72 @@ def turn_segsum(tree: str, seed: int) -> dict:
     return dict(tree=tree, fused=fused, **out)
 
 
+def turn_decode(tree: str, seed: int) -> dict:
+    """One tree's decode attention readings, in this process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.models.attention import (decode_attention_plain,
+                                              decode_mask, dequantize_kv,
+                                              quantize_kv)
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    _build.build(("decode_attention",))
+    h, hkv, dh = 16, 8, 256
+    out = dict(resources=cs.resource_usage("decode_attention",
+                                           "decode_split_kernel"))
+    for name, s, lens in DECODE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        b = len(lens)
+        q = torch.randn((b, h, 1, dh), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, ks = quantize_kv(torch.randn((b, hkv, s, dh), generator=g,
+                                        device=dev))
+        v, vs = quantize_kv(torch.randn((b, hkv, s, dh), generator=g,
+                                        device=dev))
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(logit_cap=50.0, k_scale=ks, v_scale=vs)
+
+        def kernel():
+            return tda.decode_attention(q, k, v, cl, **kw)
+        got = kernel()
+        n = 1 if s > 4096 else b
+        sub = dict(logit_cap=50.0, k_scale=ks[:n], v_scale=vs[:n])
+        want = decode_attention_plain(q[:n], k[:n], v[:n], cl[:n], **sub)
+        tol = tda.twin_tolerance(q[:n], k[:n], v[:n], cl[:n], **sub)
+        diff = (got[:n].double() - want.double()).abs()
+        share = float(torch.where(diff == 0, 0.0, diff / tol).max())
+        cs.check(share <= 1.0, f"{tree} {name}: the kernel within "
+                 f"twin_tolerance of the twin ({share})")
+        del want, tol, diff
+        ms = cs.cuda_ms(kernel)
+        kd, vd = (dequantize_kv(c, sc).repeat_interleave(h // hkv, 1)
+                  for c, sc in ((k, ks), (v, vs)))
+        mask = decode_mask(cl, s)[:, None, None, :]
+        lib_ms = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kd, vd, attn_mask=mask))
+        del kd, vd, k, v, ks, vs
+        live = int(torch.clamp(cl, max=s).sum())
+        nbytes = live * hkv * (2 * dh + 2 * 4) + 2 * q.numel() * 2
+        b_ms, b_by = cs.bound(nbytes, 4 * dh * (h // hkv) * live * hkv)
+        out[name] = dict(cache=s, lens=list(lens), ms=ms,
+                         share_of_bound=b_ms / ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms,
+                         share_of_tol=share,
+                         bits=int(got.view(torch.int16).to(torch.int64)
+                                  .sum()))
+        del got
+        torch.cuda.empty_cache()
+    return dict(tree=tree, **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[],
@@ -691,14 +776,15 @@ def main():
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--what", choices=("slice", "kernels", "digit", "serve",
-                                       "scan", "segsum"),
+                                       "scan", "segsum", "decode"),
                     default="slice",
                     help="the SLICE_CFG request and rank calls; the chunk "
                     "sort, the filter, the merge kernels and the MERGE_CFG "
                     "convert; the global_radix digit pass, sort and "
                     "SLICE_CFG convert; both configurations' serving; "
-                    "the pointer segment sum on the path's pointers; or "
-                    "the dst-sorted segment sum and the prefix partition")
+                    "the pointer segment sum on the path's pointers; "
+                    "the dst-sorted segment sum and the prefix partition; "
+                    "or the decode attention kernel")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
@@ -710,6 +796,7 @@ def main():
                if args.what == "serve" else
                turn_scan(tree, args.seed) if args.what == "scan" else
                turn_segsum(tree, args.seed) if args.what == "segsum" else
+               turn_decode(tree, args.seed) if args.what == "decode" else
                turn(tree, args.seed, args.requests, args.reps))
         print(json.dumps(dict(name=name, **out)), flush=True)
         return 0
