@@ -2,8 +2,10 @@
 """Drive the PyTorch + CUDA port's GNN serve paths (GraphSAGE under two
 routings, GAT, GatedGCN and MeshGraphNet, keysort and reservoir
 selection, graph updates through the captured step), its engine
-service, its sampled GNN training, its gemma2-9b prefill, its gemma2-9b
-LM serving and its gemma2-9b training step on one H100.
+service, its sampled GNN training, its gemma2-9b prefill, its LM
+serving (gemma2-9b, granite-moe-1b-a400m and codeqwen1.5-7b at full
+width, qwen1.5-32b and grok-1-314b with their depth cut) and its
+gemma2-9b training step on one H100.
 
   python3 chip_smoke.py
 
@@ -286,6 +288,33 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    cache of 8,192 positions (the local ring of 4,096 wraps), then the
    decode-step checks above on its cache. The smoke model served on the
    card gives the CPU's tokens, bf16 and int8 caches.
+9b. LM configs — for each of LM_CONFIG_RUNS, after the model before it
+   is freed: granite-moe-1b-a400m (24 layers, d 1024, 16 heads over 8, dh
+   64, 32 experts top-8, vocab 49,155, tied, bf16 cache) and
+   codeqwen1.5-7b (32 layers, d 4096, MHA 32 heads, dh 128, qkv bias,
+   vocab 92,416, bf16 cache) at full width and depth, qwen1.5-32b (MHA 40
+   heads, qkv bias, int8 cache) cut to 16 layers and grok-1-314b (48
+   heads over 8, 8 experts top-2, int8 cache) cut to 2, weights from the
+   seed (the qkv biases too, N(0, 0.5^2)). Launch counters to 0, one
+   prefill (8,192 tokens, 4,096 for the cut models; batch 1), counters
+   read: a flash launch a layer, no other kernel; a second prefill
+   bit-equal, finite logits; a third with each flash launch within one
+   bf16 ulp of the twin on its own inputs (each launch's share of the
+   tolerance printed); row 12 on the first layer's inputs beside its
+   bound, the twin and SDPA (the same function: no cap, no window); under
+   MoE a profiled prefill and the rank scan down the one-hot's leading
+   axis against the port's along its transpose (equal integers, timed).
+   Then the serve path of 9a
+   (``ServeEngine`` of 8 slots, 1,024 positions, 16 requests, counters to
+   0 and read: 2 decode launches a layer a step, one step program), its
+   replayed step timed and profiled; for the dense configs 2 requests
+   alone equal the stream's tokens (MoE capacity couples a step's slots,
+   in the reference too); the decode checks of 9a on the engine's cache
+   (each launch within ``twin_tolerance``; the step's logits with the
+   kernel against the twin's, the next kv head outside; the planted
+   faults the config has); row 15 on the first layer's inputs; for
+   granite and codeqwen decode_32k's length, one step at position 32,767
+   with its batch cut to 8 and 2, a random bf16 cache from the seed.
 10. LM backward kernels — flash_dq_kernel and flash_dkv_kernel against
    the twin ``flash_attention_bwd_plain`` on the forward kernel's own out
    and lse, at gemma2-9b's head shapes in bf16 with queries x
@@ -507,6 +536,25 @@ RING_PROMPT, RING_GEN, RING_MAX_LEN = 4200, 16, 8192
 # slots (the float64 tolerance of all 8 does not fit beside the cache)
 DECODE_32K_LEN, DECODE_32K_BATCH, DECODE_32K_CHECKED = 32768, 8, 2
 DECODE_32K_TIMED = 5  # decode steps timed on the host clock
+# phase 9b, the other LM configs through the prefill cell's model and the
+# ServeEngine of 9a (8 slots, 1,024 positions, 16 requests): (arch, layers
+# kept, None for the published depth; prefill tokens, batch 1; the
+# decode_32k step's batch, None for none; requests served alone to hold
+# slot independence, 0 under MoE, whose capacity couples a step's slots).
+# granite-moe-1b-a400m and codeqwen1.5-7b at full width and depth (the
+# prefill_32k cell cut to 8,192 tokens; decode_32k's batch of 128 cut to 8
+# and, codeqwen's 524,288 B of bf16 cache a position, 2); qwen1.5-32b and
+# grok-1-314b at full width, their depth cut to fit one card beside their
+# caches (64 layers of 70 GB and 629 GB of bf16 weights → 16 and 2)
+LM_CONFIG_ALONE = 2
+LM_CONFIG_RUNS = (("granite-moe-1b-a400m", None, 8192, 8, 0),
+                  ("codeqwen1.5-7b", None, 8192, 2, LM_CONFIG_ALONE),
+                  ("qwen1.5-32b", 16, 4096, None, LM_CONFIG_ALONE),
+                  ("grok-1-314b", 2, 4096, None, 0))
+# the qkv biases of codeqwen1.5-7b and qwen1.5-32b, which lm_init leaves
+# zero, drawn N(0, QKV_BIAS_STD^2) from the seed (the projections' outputs
+# are about N(0, 1))
+QKV_BIAS_STD = 0.5
 
 
 def log(*a):
@@ -4463,7 +4511,8 @@ def decode_fault(q, k, v, lens, kw, fault):
     if fault == "next_kv_head":
         return decode_attention_plain(
             q, k.roll(1, 1), v.roll(1, 1), lens, logit_cap=kw["logit_cap"],
-            k_scale=kw["k_scale"].roll(1, 1), v_scale=kw["v_scale"].roll(1, 1))
+            **{n: None if kw[n] is None else kw[n].roll(1, 1)
+               for n in ("k_scale", "v_scale")})
     return decode_attention_plain(q, k.float() * kw["k_scale"],
                                   v.float() * kw["v_scale"], lens,
                                   logit_cap=kw["logit_cap"])
@@ -4510,9 +4559,10 @@ def serve_lm(eng, reqs):
     return handles, dt
 
 
-def lm_serve_path(dev, seed):
-    """gemma2-9b at full width in a ServeEngine: a warm-up request (the
-    step captured), launch counters to 0, the 16 requests served, counters
+def lm_serve_path(dev, seed, model=None):
+    """An LM in a ServeEngine (gemma2-9b at full width, its weights from
+    the seed, unless ``model`` is given): a warm-up request (the step
+    captured), launch counters to 0, the 16 requests served, counters
     read."""
     import torch
     from repro_torch.configs import get_config
@@ -4523,8 +4573,9 @@ def lm_serve_path(dev, seed):
 
     out = {}
     t0 = time.perf_counter()
-    cfg = get_config(LM_ARCH)
-    model = LM(cfg, seed=seed, device=dev)
+    if model is None:
+        model = LM(get_config(LM_ARCH), seed=seed, device=dev)
+    cfg = model.cfg
     out["params"] = sum(p.numel() for p in model.parameters())
     out["weights_gib"] = torch.cuda.memory_allocated() / 2**30
     eng = ServeEngine(cfg, model, n_slots=LM_SERVE_SLOTS,
@@ -4632,10 +4683,10 @@ def lm_step_timing(eng, out):
           f"launches a replay counts ({eng.captured_launches()}): {trace}")
 
 
-def lm_slot_independence(eng, reqs, handles):
-    """The first LM_SERVE_ALONE requests, each served alone through the
-    same engine: the stream's tokens, bit for bit; still one program."""
-    for i in range(LM_SERVE_ALONE):
+def lm_slot_independence(eng, reqs, handles, n=LM_SERVE_ALONE):
+    """The first ``n`` requests, each served alone through the same
+    engine: the stream's tokens, bit for bit; still one program."""
+    for i in range(n):
         [alone], _ = serve_lm(eng, [reqs[i]])
         check(alone.tokens_out == handles[i].tokens_out,
               f"request {i} alone gives the stream's tokens")
@@ -4712,8 +4763,9 @@ def lm_decode_checks(eng, tag, extra):
     with every query head on the next kv head outside it; on the first
     local and global layers' inputs, with a float32 q and the lengths one
     less, the kernel within the tolerance and the four planted faults
-    outside it. Returns the first local and global layers' recorded
-    inputs."""
+    outside it (the cap's and the int8 cache's faults where the config
+    has a cap and an int8 cache). Returns the first two layers' recorded
+    inputs (gemma2: the first local and global layers)."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention as kernel
     from repro_torch.kernels.decode_attention import twin_tolerance
@@ -4738,8 +4790,8 @@ def lm_decode_checks(eng, tag, extra):
                        float((got.float() - want.float()).abs().max())))
         if len(saved) < 2:
             saved.append((q.clone(), k.clone(), v.clone(), cache_len.clone(),
-                          {**kw, "k_scale": kw["k_scale"].clone(),
-                           "v_scale": kw["v_scale"].clone()}))
+                          {n: t.clone() if torch.is_tensor(t) else t
+                           for n, t in kw.items()}))
         return got
     logits = step(checked)
     n_layers = eng.cfg.n_layers
@@ -4770,7 +4822,11 @@ def lm_decode_checks(eng, tag, extra):
         lens = torch.clamp(cl - 1, min=1)
         if lens.numel() > 1:
             lens[0] = 1
-        for scale, faults in ((DECODE_Q_SCALE, ("no_cap", "dequant_f32")),
+        # the cap's and the int8 cache's faults where the config has them
+        scaled = tuple(f for f, has in (("no_cap", kw["logit_cap"]),
+                                        ("dequant_f32", kw["k_scale"]))
+                       if has is not None)
+        for scale, faults in ((DECODE_Q_SCALE, scaled),
                               (1.0, ("len_plus_1", "next_kv_head"))):
             qf = q.float() * scale
             got = kernel(qf, k, v, lens, **kw)
@@ -4791,9 +4847,10 @@ def lm_decode_checks(eng, tag, extra):
 
 def decode_row(q, k, v, cl, kw, err):
     """Row 15 at these inputs (a layer's own): the kernel, the twin and
-    scaled_dot_product_attention on the dequantized bf16 cache with a
-    boolean mask (no cap: a near function), each timed; the bound from the
-    live positions' int8 bytes and scales, q read, the output written."""
+    scaled_dot_product_attention on the (dequantized) bf16 cache with a
+    boolean mask, each timed (without a cap SDPA on a bf16 cache is the
+    same function, else a near one); the bound from the live positions'
+    cache bytes (and int8 scales), q read, the output written."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention
@@ -4804,14 +4861,18 @@ def decode_row(q, k, v, cl, kw, err):
     ms = cuda_ms(lambda: decode_attention(q, k, v, cl, **kw))
     plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, cl, **kw),
                        iters=3, warmup=1)
-    kd, vd = (dequantize_kv(c, kw[f"{n}_scale"]).to(q.dtype)
-              .repeat_interleave(h // hkv, 1) for c, n in ((k, "k"), (v, "v")))
+    int8 = kw["k_scale"] is not None
+    kd, vd = ((dequantize_kv(c, kw[f"{n}_scale"]) if int8 else c)
+              .to(q.dtype).repeat_interleave(h // hkv, 1)
+              for c, n in ((k, "k"), (v, "v")))
     mask = decode_mask(cl, s)[:, None, None, :]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, kd, vd, attn_mask=mask))
     del kd, vd
     live = int(torch.clamp(cl, max=s).sum())
-    nbytes = live * hkv * (2 * dh + 2 * 4) + 2 * q.numel() * q.element_size()
+    row_bytes = 2 * dh * k.element_size() + (2 * 4 if int8 else 0)
+    nbytes = live * hkv * row_bytes + 2 * q.numel() * q.element_size()
+    exact = not int8 and kw["logit_cap"] is None
     b_ms, b_by = bound(nbytes, 4 * dh * (h // hkv) * live * hkv)
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
@@ -4823,11 +4884,14 @@ def decode_row(q, k, v, cl, kw, err):
                                      "decode_split_kernel"),
                 sass=sass_ops("decode_attention", "decode_split_kernel",
                               DECODE_SASS_OPS),
-                shape=f"B {b}, H {h} over Hkv {hkv}, dh {dh}, int8 cache of "
+                shape=f"B {b}, H {h} over Hkv {hkv}, dh {dh}, "
+                      f"{'int8' if int8 else 'bf16'} cache of "
                       f"{s} positions, {live} live ({cl.tolist()}), {q.dtype}"
                       f" q, cap {kw['logit_cap']}; {nbytes / 1e6:.2f} MB "
                       "(library: scaled_dot_product_attention on the "
-                      "dequantized bf16 cache, a boolean mask, no cap)")
+                      + ("bf16 cache, a boolean mask: the same function)"
+                         if exact else "dequantized bf16 cache, a boolean "
+                         "mask, no cap: a near function)"))
 
 
 def lm_smoke_serve(dev, seed, extra):
@@ -4894,12 +4958,13 @@ def lm_ring_phase(dev, seed, extra):
     torch.cuda.empty_cache()
 
 
-def decode_32k_phase(dev, seed, model, extra):
-    """One lm_decode_step at scalar position DECODE_32K_LEN - 1, batch
-    DECODE_32K_BATCH, the int8 cache random from the seed: the step timed
-    (host clock and profiler), the kernel on its first global layer's
-    inputs timed beside its bound, the twin and SDPA, and held against the
-    twin on DECODE_32K_CHECKED slots."""
+def decode_32k_phase(dev, seed, model, extra, batch=DECODE_32K_BATCH,
+                     tag="decode_32k"):
+    """One lm_decode_step at scalar position DECODE_32K_LEN - 1, ``batch``
+    rows, the cache random from the seed (int8 values and scales, or bf16
+    N(0, 1)): the step timed (host clock and profiler), the kernel on its
+    first layer of the full length timed beside its bound, the twin and
+    SDPA, and held against the twin on DECODE_32K_CHECKED slots."""
     import statistics
 
     import torch
@@ -4908,11 +4973,14 @@ def decode_32k_phase(dev, seed, model, extra):
     from repro_torch.models.attention import decode_attention_plain
     from repro_torch.models.transformer import lm_decode_step, make_cache
     cfg = model.cfg
-    b, pos = DECODE_32K_BATCH, DECODE_32K_LEN - 1
+    b, pos = batch, DECODE_32K_LEN - 1
     cache = make_cache(cfg, batch=b, max_len=DECODE_32K_LEN, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed + 32)
     for c in cache.values():
         for name in ("k", "v"):
+            if cfg.kv_cache_dtype != "int8":
+                c[name].normal_(generator=g)
+                continue
             c[name].random_(-127, 128, generator=g)
             c[f"{name}_scale"].uniform_(0.005, 0.03, generator=g)
     toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev,
@@ -4941,17 +5009,17 @@ def decode_32k_phase(dev, seed, model, extra):
     q, k, v, cl, kw = saved[0]
     got = kernel(q, k, v, cl, **kw)
     n = DECODE_32K_CHECKED
-    sub = {**kw, "k_scale": kw["k_scale"][:n], "v_scale": kw["v_scale"][:n]}
+    sub = {k_: t[:n] if torch.is_tensor(t) else t for k_, t in kw.items()}
     want = decode_attention_plain(q[:n], k[:n], v[:n], cl[:n], **sub)
     share = decode_ratio(got[:n], want, twin_tolerance(q[:n], k[:n], v[:n],
                                                        cl[:n], **sub))
     err = float((got[:n].float() - want.float()).abs().max())
     out["kernel_share_of_tol"] = share
-    check(share <= 1.0, f"decode_32k: the kernel within twin_tolerance of "
+    check(share <= 1.0, f"{tag}: the kernel within twin_tolerance of "
           f"the twin on {n} slots ({share})")
     del want, got
     out["row"] = decode_row(q, k, v, cl, kw, err)
-    extra["decode_32k"] = out
+    extra[tag] = out
     del cache, saved
     torch.cuda.empty_cache()
     return out
@@ -4979,6 +5047,296 @@ def lm_serve_phase(dev, seed, extra):
     lm_ring_phase(dev, seed, extra)
     lm_smoke_serve(dev, seed, extra)
     return out
+
+
+# ------------------------------------------------------------ phase 9b
+def flash_row(q, k, v, kw, err):
+    """Row 12 at these inputs (a prefill layer's own, bf16): the forward
+    kernel, the twin and scaled_dot_product_attention (causal; without a
+    cap or a window the same function), each timed; the bound from the
+    causal pairs' bf16 FLOPs or q, k, v read and the output written."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.attention import flash_attention_plain
+    b, h, seq, dh = q.shape
+    hkv = k.shape[1]
+    mask = dict(causal=True, window=kw["window"],
+                logit_cap=kw["logit_cap"], q_offset=0)
+    ms = cuda_ms(lambda: tfa._fwd_kernel(q, k, v, lse=False, **mask),
+                 iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                       iters=3, warmup=1)
+    k_rep = k.repeat_interleave(h // hkv, dim=1)
+    v_rep = v.repeat_interleave(h // hkv, dim=1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k_rep, v_rep, is_causal=True), iters=5, warmup=1)
+    del k_rep, v_rep
+    pairs = b * causal_pairs(seq, kw["window"])
+    flops = 4 * dh * pairs * h
+    b_ms, b_by = bound(2 * b * seq * dh * (2 * h + 2 * hkv), flops,
+                       BF16_FLOPS_PER_S)
+    exact = kw["window"] is None and kw["logit_cap"] is None
+    return dict(name="flash_attention_fwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:80",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                tflops=flops / (ms * 1e-3) / 1e12,
+                shape=f"B {b}, H {h} over Hkv {hkv}, dh {dh}, {seq} tokens, "
+                      f"{q.dtype}, causal, window {kw['window']}, cap "
+                      f"{kw['logit_cap']}; {flops:.3e} FLOPs (library: "
+                      "scaled_dot_product_attention, causal"
+                      + (": the same function)" if exact else
+                         ", no cap, no window: a near function)"))
+
+
+def rank_scan_row(dev, seed, pairs, experts):
+    """``moe_route``'s rank scan at a prefill's (token, expert) pairs: the
+    exclusive prefix sum of the [pairs, E] int32 one-hot down its leading
+    axis (the reference's form) against the same scan along the
+    transpose's last axis (the port's): equal integers, each timed. The
+    expert ids are random from the seed (the scan's work does not depend
+    on them)."""
+    import torch
+    from repro_torch.core.set_partition import prefix_sum
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, experts, (pairs,), generator=g, device=dev)
+    onehot = (ids[:, None] == torch.arange(experts, device=dev)[None, :]
+              ).to(torch.int32)
+
+    def leading():
+        return prefix_sum(onehot, axis=0, exclusive=True)
+
+    def transposed():
+        return prefix_sum(onehot.t().contiguous(), axis=1,
+                          exclusive=True).t()
+    check(torch.equal(leading(), transposed()),
+          f"the rank scan along the transpose equals the leading-axis scan "
+          f"at {pairs} pairs x {experts} experts")
+    return dict(pairs=pairs, experts=experts,
+                leading_ms=cuda_ms(leading, iters=3, warmup=1),
+                transposed_ms=cuda_ms(transposed, iters=20, warmup=3))
+
+
+def lm_config_prefill(dev, seed, model, seq, tag, extra):
+    """Launch counters to 0, one prefill of ``seq`` tokens (batch 1, tokens
+    from the seed), counters read; a second prefill for the bits and the
+    steady time; a third with each flash launch held against the twin on
+    its own inputs (within FLASH_RTOL / FLASH_ATOL), the first launch's
+    inputs kept for row 12; under MoE one more prefill profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer
+    from repro_torch.models.attention import flash_attention_plain
+
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, seq)).astype(np.int32)).to(dev)
+    out = dict(tokens=seq)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = transformer.lm_prefill(model, toks)
+    torch.cuda.synchronize()
+    out["first_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    again = transformer.lm_prefill(model, toks)
+    torch.cuda.synchronize()
+    out["steady_s"] = time.perf_counter() - t0
+    out["tokens_per_s"] = seq / out["steady_s"]
+    check(torch.equal(logits, again), f"{tag}: two prefills give the same "
+          "bits")
+    check(tuple(logits.shape) == (1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{tag}: finite prefill logits [1, {cfg.vocab}]")
+    check(out["launches"]["flash_attention_fwd"] == cfg.n_layers
+          and all(v == 0 for k, v in out["launches"].items()
+                  if k not in LM_KERNELS),
+          f"{tag}: {cfg.n_layers} flash launches in one prefill and no "
+          f"other kernel: {out['launches']}")
+
+    kernel_fn = transformer.flash_attention_bhsd
+    layers, first = [], []
+
+    def checked(q, k, v, **kw):
+        got = kernel_fn(q, k, v, **kw)
+        layers.append(flash_close(got, flash_attention_plain(q, k, v, **kw)))
+        if not first:
+            first.append((q.clone(), k.clone(), v.clone(), kw))
+        return got
+    transformer.flash_attention_bhsd = checked
+    try:
+        third = transformer.lm_prefill(model, toks)
+    finally:
+        transformer.flash_attention_bhsd = kernel_fn
+    err = max(e for _, e, _ in layers)
+    extra[f"{tag}_prefill_layers_max_abs_err"] = err
+    extra[f"{tag}_prefill_layers_share_of_tol"] = max(
+        sh for _, _, sh in layers)
+    # each launch's share of the tolerance in layer order: how close the
+    # new head shapes come to its edge
+    extra[f"{tag}_prefill_layers_shares"] = [round(sh, 4)
+                                             for _, _, sh in layers]
+    check(len(layers) == cfg.n_layers and all(ok for ok, _, _ in layers)
+          and torch.equal(third, logits),
+          f"{tag}: each of the prefill's {cfg.n_layers} flash launches "
+          f"within rtol {FLASH_RTOL} atol {FLASH_ATOL} of the twin on its "
+          f"own inputs ({len(layers)} checked, max {err}, "
+          f"{extra[f'{tag}_prefill_layers_share_of_tol']:.3f} of the "
+          "tolerance), the same bits")
+    del logits, again, third
+    if cfg.is_moe:  # where the MoE dispatch's time goes at full length
+        out["profile"] = dict(tokens=seq, **profile_call(
+            lambda: transformer.lm_prefill(model, toks), top=10))
+        out["rank_scan"] = rank_scan_row(dev, seed, seq * cfg.moe_top_k,
+                                         cfg.moe_experts)
+    q, k, v, kw = first[0]
+    out["row"] = flash_row(q, k, v, kw, err)
+    return out
+
+
+def lm_config_phase(dev, seed, arch, layers, seq, batch_32k, alone, extra):
+    """Phase 9b for one LM config (see LM_CONFIG_RUNS): the model built
+    from the seed at full width (its depth cut to ``layers`` when given),
+    the prefill path, the serve path of phase 9a with its step timing, a
+    profiled replay, slot independence on ``alone`` requests, the decode
+    checks and row 15 on the first layer's inputs, and decode_32k's
+    length at ``batch_32k`` rows. The model is freed after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    tag = "lm_" + arch.split("-")[0].replace(".", "")
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    out = dict(arch=arch, tag=tag, layers=cfg.n_layers,
+               published_layers=published, prefill_tokens=seq,
+               decode_32k_batch=batch_32k, served_alone=alone,
+               heads=f"{cfg.n_heads} over {cfg.n_kv_heads}, dh {cfg.dh}",
+               kv_cache=cfg.kv_cache_dtype, moe=cfg.is_moe,
+               qkv_bias=cfg.qkv_bias)
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed, device=dev)
+    if cfg.qkv_bias:  # lm_init's zero biases would leave the adds unseen
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        with torch.no_grad():
+            for blk in model.layers:
+                for b in (blk.bq, blk.bk, blk.bv):
+                    b.copy_(QKV_BIAS_STD * torch.randn(
+                        b.shape, generator=g, device=dev))
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+    out["prefill"] = lm_config_prefill(dev, seed, model, seq, tag, extra)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sout, eng, reqs, handles = lm_serve_path(dev, seed, model=model)
+    lm_step_timing(eng, sout)
+    if alone:
+        lm_slot_independence(eng, reqs, handles, alone)
+    saved = lm_decode_checks(eng, tag, extra)
+    q, k, v, cl, kw = saved[0]
+    sout["row"] = decode_row(q, k, v, cl, kw,
+                             extra[f"{tag}_layers_max_abs_err"])
+    out["serve"] = sout
+    del eng, saved, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    if batch_32k:
+        out["decode_32k"] = decode_32k_phase(dev, seed, model, extra,
+                                             batch=batch_32k,
+                                             tag=f"{tag}_decode_32k")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_lm_config(out, extra):
+    tag, pf, sv = out["tag"], out["prefill"], out["serve"]
+    cut = ("at its published depth" if out["layers"] == out["published_layers"]
+           else f"depth cut from {out['published_layers']} to "
+                f"{out['layers']} layers")
+    bias = (f"; qkv biases drawn N(0, {QKV_BIAS_STD}^2) from the seed"
+            if out["qkv_bias"] else "")
+    log(f"[{tag}] {out['arch']} at full width, {cut}: {out['params']:,} "
+        f"parameters ({out['weights_gib']:.2f} GiB), heads {out['heads']}, "
+        f"{out['kv_cache']} KV cache, MoE {out['moe']}{bias}; built in "
+        f"{out['build_s']:.2f}s")
+    log(f"[{tag}] prefill of 1 x {pf['tokens']} tokens (prefill_32k cut "
+        f"from 32 x 32,768): first {pf['first_s']:.3f}s, second "
+        f"{pf['steady_s']:.3f}s ({pf['tokens_per_s']:.1f} tokens/s); peak "
+        f"{pf['peak_mem_gib']:.2f} GiB; flash launches "
+        f"{pf['launches']['flash_attention_fwd']}; each within the bf16 "
+        f"tolerance of the twin (max "
+        f"{extra[f'{tag}_prefill_layers_max_abs_err']}, "
+        f"{extra[f'{tag}_prefill_layers_share_of_tol']:.3f} of it)")
+    shares = sorted(extra[f"{tag}_prefill_layers_shares"])
+    log(f"[{tag}] the flash launches' shares of the tolerance, in layer "
+        f"order: {extra[f'{tag}_prefill_layers_shares']}; min "
+        f"{shares[0]}, median {shares[len(shares) // 2]}, max {shares[-1]},"
+        f" {sum(sh >= 0.99 for sh in shares)} of {len(shares)} at 0.99 or "
+        "more")
+    log_row(f"flash_attention_fwd ({tag})", pf["row"])
+    if "profile" in pf:
+        log_profile(f"{tag} prefill profile", pf["profile"])
+        rs = pf["rank_scan"]
+        log(f"[{tag} prefill profile] moe_route's rank scan at "
+            f"{rs['pairs']} pairs x {rs['experts']} experts (int32 one-hot),"
+            f" one layer: down the leading axis {rs['leading_ms']:.4f} ms, "
+            f"along the transpose's last axis {rs['transposed_ms']:.4f} ms "
+            "(the port's), equal integers")
+    st = sv["serve"]
+    log(f"[{tag} serve] {st['requests']} requests ({st['prompt_tokens']} "
+        f"prompt tokens, {st['new_tokens']} new) through "
+        f"ServeEngine({LM_SERVE_SLOTS} slots, {LM_SERVE_MAX_LEN} positions, "
+        f"prompt_cap {LM_SERVE_PROMPT_CAP}; decode_32k cut from 128 x "
+        f"32,768), cache {sv['cache_gib']:.3f} GiB, in {st['steps']} steps, "
+        f"{st['wall_s']:.3f}s: {st['tok_s_processed']:.1f} tok/s processed, "
+        f"{st['tok_s_generated']:.1f} tok/s generated; admission latency "
+        f"p50 {st['admission_p50_ms']:.1f} ms p99 "
+        f"{st['admission_p99_ms']:.1f} ms; request latency p50 "
+        f"{st['latency_p50_ms']:.1f} ms p99 {st['latency_p99_ms']:.1f} ms; "
+        f"{st['step_programs']} step program; peak "
+        f"{sv['peak_alloc_gib']:.2f} GiB allocated, "
+        f"{sv['peak_reserved_gib']:.2f} GiB reserved; decode launches "
+        f"{sv['launches']['decode_attention']} "
+        f"({sv['captured_launches']} a replay)")
+    log(f"[{tag} serve] a replayed step: wall {sv['step_wall_ms']:.3f} ms "
+        f"(median of {LM_SERVE_TIMED}), device {sv['step_device_ms']:.3f} ms"
+        f" (mean of {LM_SERVE_TIMED} back to back); the counted run: "
+        f"{sv['stream_device_ms']:.1f} ms of steps on the device, busy share"
+        f" {sv['stream_busy_share']:.3f}")
+    log_profile(f"{tag} serve step profile", sv["step_profile"])
+    alone = (f"{out['served_alone']} requests alone == the stream's tokens"
+             if out["served_alone"] else "MoE: slots share the experts' "
+             "capacity, no slot-independence check")
+    log(f"[{tag} serve checks] {alone}; each decode launch within "
+        f"twin_tolerance (worst {extra[f'{tag}_layers_share_of_tol']:.4f} of"
+        f" it, max abs {extra[f'{tag}_layers_max_abs_err']}); step logits "
+        f"kernel vs twin {extra[f'{tag}_kernel_vs_twin_logit_max_abs_err']} "
+        f"(argmax equal {extra[f'{tag}_kernel_vs_twin_argmax_equal']}; next "
+        f"kv head {extra[f'{tag}_kernel_vs_kv_shift_logit_max_abs_err']}); "
+        f"planted faults, shares of the tolerance "
+        f"{extra[f'{tag}_fault_share_of_tol']}: ok")
+    log_row(f"decode_attention ({tag})", sv["row"])
+    if "decode_32k" in out:
+        d32 = out["decode_32k"]
+        log(f"[{tag} decode_32k] one step at position {DECODE_32K_LEN - 1}, "
+            f"batch {out['decode_32k_batch']} (cut from 128), cache "
+            f"{d32['cache_gib']:.2f} GiB: wall {d32['step_wall_ms']:.3f} ms "
+            f"(median of {DECODE_32K_TIMED}); kernel within "
+            f"{d32['kernel_share_of_tol']:.4f} of its tolerance")
+        log_profile(f"{tag} decode_32k step profile", d32["step_profile"])
+        log_row(f"decode_attention ({tag} decode_32k)", d32["row"])
 
 
 # ------------------------------------------------------------ phase 10
@@ -5892,6 +6250,23 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 9b. the other LM configs: prefill and serve at full width
+    cfg_outs = {}
+    for arch, layers, seq, b32, alone in LM_CONFIG_RUNS:
+        t0 = time.perf_counter()
+        cout = lm_config_phase(dev, args.seed, arch, layers, seq, b32, alone,
+                               extra)
+        log_lm_config(cout, extra)
+        log(f"[{cout['tag']}] phase done in {time.perf_counter() - t0:.1f}s")
+        cfg_outs[arch] = cout
+    rows.update({f"flash_attention_fwd ({o['tag']})": o["prefill"]["row"]
+                 for o in cfg_outs.values()})
+    rows.update({f"decode_attention ({o['tag']})": o["serve"]["row"]
+                 for o in cfg_outs.values()})
+    rows.update({f"decode_attention ({o['tag']} decode_32k)":
+                 o["decode_32k"]["row"] for o in cfg_outs.values()
+                 if "decode_32k" in o})
+
     # 10. the flash backward kernels
     bwd_rows, bwd_extra = lm_bwd_kernel_phase(dev, args.seed)
     extra.update(bwd_extra)
@@ -5973,11 +6348,19 @@ def main():
     check(all(v > 0 for v in launches.values()),
           f"all ten GNN kernels launched across the two paths: {launches}")
     launches.update({k: lout["launches"][k] + tout["launches"][k]
-                     + sout["launches"][k] for k in LM_KERNELS + TRAIN_KERNELS})
-    launches.update({k: lsout["launches"][k] for k in LM_SERVE_KERNELS})
+                     + sout["launches"][k]
+                     + sum(o["prefill"]["launches"][k]
+                           for o in cfg_outs.values())
+                     for k in LM_KERNELS + TRAIN_KERNELS})
+    launches.update({k: lsout["launches"][k]
+                     + sum(o["serve"]["launches"][k]
+                           for o in cfg_outs.values())
+                     for k in LM_SERVE_KERNELS})
     launches.update({k: sum(p["launches"][k] for p in [out, mout, sout, lout,
                                                        tout, lsout]
-                            + new_paths)
+                            + new_paths
+                            + [o[part] for o in cfg_outs.values()
+                               for part in ("prefill", "serve")])
                      for k in OFF_PATH_KERNELS})
     kernels = []
     for key in (SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + TRAIN_KERNELS
@@ -5991,7 +6374,7 @@ def main():
                        families=fouts, keysort=kout, reservoir=rout,
                        updates=uout, gnn_train=gout,
                        service=sout, lm_path=lout, lm_serve=lsout,
-                       train_path=tout,
+                       lm_configs=cfg_outs, train_path=tout,
                        extra=extra,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -3,12 +3,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
       --smoke --device cpu --requests 6
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --slots 8 --max-len 1024 --prompt-len 512
   PYTHONPATH=src python -m repro_torch.launch.serve --arch graphsage-reddit
   PYTHONPATH=src python -m repro_torch.launch.serve --arch graphsage-reddit \
       --smoke --device cpu --engine-cfg merge
 
-LM archs (gemma2-9b, the one LM layout the port has; the others come with
-ROADMAP.md A.7) submit ``--requests`` random-token requests of mixed
+LM archs (gemma2-9b, granite-moe-1b-a400m, codeqwen1.5-7b, qwen1.5-32b,
+grok-1-314b; the last two do not fit one card at full depth) submit
+``--requests`` random-token requests of mixed
 prompt lengths in [1, ``--prompt-len``] and budgets in [1, ``--gen``]
 (from ``--seed + 1``) to a ``ServeEngine`` (continuous batching over
 ``--slots`` slots, a KV cache of ``--max-len`` positions, the step

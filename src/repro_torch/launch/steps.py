@@ -1,6 +1,11 @@
 """Step cells of the port (the LM prefill and train cells and the GNN
 train cells of ``repro/launch/steps.py``).
 
+The prefill cell builds any of the five LM configurations (gemma2-9b,
+granite-moe-1b-a400m, codeqwen1.5-7b, qwen1.5-32b, grok-1-314b); LM
+training runs gemma2-9b, and the others wait for ROADMAP.md A.7's
+training half (``UNPORTED_TRAINING``).
+
 A cell is a built model plus an input batch made from a seed; calling its
 ``step`` runs one step. Meshes, shardings and compiled programs of the
 reference's cells have no counterpart here: the port runs on one card.
@@ -20,6 +25,21 @@ from repro_torch.models.gnn import (GNNConfig, GraphBatch, _GNN, gnn_loss,
 from repro_torch.models.transformer import LM, lm_loss, lm_prefill
 from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update
 
+# LM archs the port serves and does not train yet (dlrm-rm2, whose
+# substrate is unported, is refused by ``get_config``)
+UNPORTED_TRAINING = {
+    a: "LM training of this config is ROADMAP.md A.7's training half (A12)"
+    for a in ("granite-moe-1b-a400m", "codeqwen1.5-7b", "qwen1.5-32b",
+              "grok-1-314b")}
+
+
+def refuse_unported_training(arch_id: str) -> None:
+    """Raise ``NotImplementedError`` for an arch the port cannot train
+    yet, naming its roadmap item."""
+    if arch_id in UNPORTED_TRAINING:
+        raise NotImplementedError(f"training {arch_id} is not ported yet: "
+                                  f"{UNPORTED_TRAINING[arch_id]}")
+
 
 @dataclasses.dataclass
 class PrefillCell:
@@ -36,7 +56,7 @@ class PrefillCell:
 def lm_prefill_cell(arch_id: str, seq_len: int | None = None,
                     batch: int | None = None, device="cuda", seed: int = 0,
                     smoke: bool = False) -> PrefillCell:
-    """The ``prefill_32k`` cell of ``arch_id`` (32,768 tokens, batch 32
+    """The ``prefill_32k`` cell of LM ``arch_id`` (32,768 tokens, batch 32
     unless ``seq_len`` / ``batch`` cut it): the model with random weights
     from ``seed`` on ``device`` and uniform random tokens from ``seed``."""
     shape = LM_SHAPES["prefill_32k"]
@@ -113,7 +133,8 @@ def lm_train_cell(arch_id: str, n_layers: int | None = None,
     the reference cell's moments (bfloat16 when n_layers · d_model >
     200,000 or the layout is ``dp_only``, reckoned on the published
     configuration; float32 for gemma2-9b), zero state, and the tokens of
-    ``lm_batch(seed, 0, ...)``."""
+    ``lm_batch(seed, 0, ...)``. An arch in ``UNPORTED_TRAINING`` raises."""
+    refuse_unported_training(arch_id)
     shape = LM_SHAPES["train_4k"]
     seq_len = shape["seq_len"] if seq_len is None else seq_len
     batch = shape["global_batch"] if batch is None else batch

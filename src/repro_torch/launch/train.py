@@ -10,8 +10,10 @@
 Data → (GNN: the preprocessing engine samples a subgraph a step) → model
 → AdamW → checkpoint / restart through ``train.loop``; ``--fail-at``
 crashes the run at a step, and a second run with the same ``--ckpt-dir``
-resumes from the last commit. Recommender training waits for its slice:
-``main`` refuses a recsys arch.
+resumes from the last commit. Recommender training and the LM configs
+other than gemma2-9b wait for their slices: ``main`` refuses an LM arch
+in ``UNPORTED_TRAINING`` (``launch/steps.py``), and ``get_config``
+refuses dlrm-rm2.
 """
 from __future__ import annotations
 
@@ -24,16 +26,14 @@ from repro_torch.configs import get_config
 from repro_torch.core.graph import COO, resolve_device
 from repro_torch.data import synthetic
 from repro_torch.data.sampler import SampledDataset
-from repro_torch.launch.steps import gnn_train_step, lm_train_step
+from repro_torch.launch.steps import (gnn_train_step, lm_train_step,
+                                      refuse_unported_training)
 from repro_torch.models.gnn import GNNConfig, gnn_model
 from repro_torch.models.transformer import LM
 from repro_torch.train.loop import (FailureInjector, LoopConfig,
                                     default_ckpt_dir, train)
 from repro_torch.train.optim import AdamWConfig, adamw_init
 
-# archs the reference trains and the port does not yet
-UNPORTED_TRAINING = {"dlrm-rm2": "recommender training is ROADMAP.md A.8 "
-                                 "(A12)"}
 # (nodes, edges, features, classes, batch): the smoke graph, and Reddit's
 GNN_DATA = {True: (512, 4096, 32, 7, 32),
             False: (232_965, 114_615_892, 602, 41, 1024)}
@@ -106,7 +106,9 @@ def run_lm(arch: str, steps: int, smoke: bool, ckpt_dir: str | None,
     else the reference's 256 × 4,096), checkpointing into ``ckpt_dir``
     (default ``train.loop.default_ckpt_dir()``) and resuming from it;
     ``prefetch`` makes each batch a step ahead (on a side CUDA stream on
-    the card). Returns (model, AdamW state, metrics history)."""
+    the card). Returns (model, AdamW state, metrics history). An arch in
+    ``UNPORTED_TRAINING`` raises."""
+    refuse_unported_training(arch)
     cfg = get_config(arch, smoke=smoke)
     batch, seq = (4, 64) if smoke else (256, 4096)
     dev = resolve_device(device)
@@ -139,9 +141,7 @@ def main(argv=None):
                     help="inject a crash at this step (chaos drill)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.arch in UNPORTED_TRAINING:
-        raise NotImplementedError(f"training {args.arch} is not ported yet: "
-                                  f"{UNPORTED_TRAINING[args.arch]}")
+    refuse_unported_training(args.arch)
     cfg = get_config(args.arch, smoke=args.smoke)
     runner = run_gnn if isinstance(cfg, GNNConfig) else run_lm
     _, _, history = runner(args.arch, args.steps, args.smoke, args.ckpt_dir,

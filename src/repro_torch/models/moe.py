@@ -1,0 +1,138 @@
+"""Mixture-of-Experts layer with atomic-free token dispatch (port of
+``moe_init`` and ``moe_apply`` of ``repro/models/moe.py``).
+
+Token → expert dispatch is a set partition of the (token, expert) pairs
+by expert id: a pair's rank inside its expert's bucket is an exclusive
+prefix sum (``core.set_partition.prefix_sum``) over a one-hot of the
+expert ids, and the rank is the pair's capacity slot; pairs ranked at or
+past the capacity are dropped. The expert products run grouped,
+``[E, cap, d]`` against ``[E, d, d_ff]`` (``torch.bmm``), and the
+combine sums each token's k weighted rows over k (the pairs are
+token-major, so no scatter-add and no float atomics).
+
+Every shape is fixed by (T, E, k, cap) and nothing is read on the host,
+so the layer can run inside a captured decode step: a dropped pair is
+scattered into a spare row past ``E · cap`` that is thrown away (the
+reference's ``mode="drop"``), not masked out by a boolean index.
+
+Off a mesh the reference's ``moe_apply_local`` is ``moe_apply``, so the
+prefill and the decode step both call ``moe_apply``; the shard-local
+form (per-data-shard capacity groups) comes with the multi-device engine,
+ROADMAP.md A.9.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.set_partition import prefix_sum
+
+from .common import dense_init
+
+
+def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
+             n_experts: int, dtype=torch.float32,
+             device=None) -> dict[str, torch.Tensor]:
+    """The reference's tree: a float32 ``router`` [d, E] (1/√d), and
+    ``w_gate``, ``w_in`` [E, d, d_ff] (1/√d) and ``w_out`` [E, d_ff, d]
+    (1/√d_ff) in ``dtype``, each drawn in float32 by ``generator``."""
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w * scale).to(dtype)
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return {
+        "router": dense_init(generator, d_model, n_experts, torch.float32,
+                             device),
+        "w_gate": normal((n_experts, d_model, d_ff), s_in),
+        "w_in": normal((n_experts, d_model, d_ff), s_in),
+        "w_out": normal((n_experts, d_ff, d_model), s_out),
+    }
+
+
+def capacity(t: int, top_k: int, n_experts: int,
+             capacity_factor: float = 1.25) -> int:
+    """Slots an expert for ``t`` tokens (``moe.py:49``): at least 1."""
+    return max(int(capacity_factor * top_k * t / n_experts + 0.5), 1)
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, *, top_k: int,
+              cap: int) -> dict[str, torch.Tensor]:
+    """The dispatch of x [T, d] under the float32 ``router`` [d, E]:
+    ``probs`` [T, E] (softmax of the float32 logits), the top-k experts a
+    token ``top_e`` [T, k] (largest first, the lower expert first on a
+    tie, as ``jax.lax.top_k``) and their renormalized weights ``top_p``;
+    over the flat token-major pairs [T · k]: ``rank`` in the expert's
+    bucket, ``keep`` (rank < cap) and ``slot`` (expert · cap + rank, or
+    E · cap where dropped); and ``onehot`` [T · k, E] int32."""
+    e = router.shape[1]
+    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+    # a stable descending sort keeps equal probabilities in expert order
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :top_k], top_e[:, :top_k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    flat_e = top_e.reshape(-1)
+    onehot = (flat_e[:, None] == torch.arange(e, device=x.device)[None, :]
+              ).to(torch.int32)
+    # the exclusive prefix sum down the pairs, taken along the last axis
+    # of the transposed one-hot: the same integers, but torch scans a
+    # leading axis one column a thread on the card, serially down a
+    # prefill's T · k pairs
+    within = prefix_sum(onehot.t().contiguous(), axis=1, exclusive=True).t()
+    rank = (onehot * within).sum(dim=1)
+    keep = rank < cap
+    slot = torch.where(keep, flat_e * cap + rank,
+                       torch.full_like(flat_e, e * cap))
+    return dict(probs=probs, top_p=top_p, top_e=top_e, onehot=onehot,
+                rank=rank, keep=keep, slot=slot)
+
+
+def moe_apply(p, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [T, d] → (y [T, d] in x's dtype, the Switch aux loss, a float32
+    0-d tensor). ``p`` has the attributes ``router``, ``w_gate``, ``w_in``
+    and ``w_out`` (a block's ``MoE``). The model runs the reference's
+    default ``capacity_factor``; the argument lets the tests hold the
+    dropping and the non-dropping capacities against the reference's.
+
+    The combine rounds each weighted row to the model's dtype (the
+    reference's product), then sums a token's k rows in float32 and
+    rounds once: in float32 that is the reference's sum up to the order of
+    k additions; in bf16 it may differ from the reference's bf16
+    segment sum by a bf16 ulp of the sum a token."""
+    router, w_gate, w_in, w_out = p.router, p.w_gate, p.w_in, p.w_out
+    t, d = x.shape
+    e = w_in.shape[0]
+    cap = capacity(t, top_k, e, capacity_factor)
+    r = moe_route(router, x, top_k=top_k, cap=cap)
+    flat_t = torch.arange(t * top_k, device=x.device) // top_k
+
+    # scatter the token ids into the slots (dropped pairs into the spare
+    # row e · cap), then gather the rows: slots left empty read zeros
+    slot_token = torch.full((e * cap + 1,), t, dtype=torch.int64,
+                            device=x.device)
+    slot_token.scatter_(0, r["slot"].to(torch.int64), flat_t)
+    slot_token = slot_token[:e * cap]
+    valid = slot_token < t
+    xe = x[torch.clamp(slot_token, max=t - 1)]
+    xe = torch.where(valid[:, None], xe, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+    xe = xe.reshape(e, cap, d)
+
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)
+    ye = torch.bmm(h, w_out).reshape(e * cap, d)
+
+    rows = ye[torch.clamp(r["slot"], max=e * cap - 1).to(torch.int64)]
+    rows = torch.where(r["keep"][:, None], rows,
+                       torch.zeros((), dtype=ye.dtype, device=x.device))
+    weighted = rows * r["top_p"].reshape(-1, 1).to(rows.dtype)
+    y = weighted.reshape(t, top_k, d).to(torch.float32).sum(dim=1)
+
+    f = (r["onehot"] * r["keep"][:, None]).to(torch.float32).mean(dim=0) * (
+        t * top_k / max(t, 1))
+    pe = r["probs"].mean(dim=0)
+    aux = e * torch.sum(f * pe) / top_k
+    return y.to(x.dtype), aux

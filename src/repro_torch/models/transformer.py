@@ -1,35 +1,40 @@
 """LM-family transformer, the prefill, training and decode paths (port of
 ``LMConfig``, the forward, ``lm_loss`` and the decode step of
-``repro/models/transformer.py``) for gemma2-style alternating local /
+``repro/models/transformer.py``): dense GQA / MHA blocks, MoE blocks
+(``models.moe``), ``qkv_bias``, and gemma2-style alternating local /
 global layers.
 
 ``LM`` is an ``nn.Module`` whose weights keep the reference's layout
-(``x @ W`` with ``W`` shaped [d_in, d_out]). The reference stacks the
-local and the global layers as ``[n_layers / 2, ...]`` trees and scans
-over (local, global) pairs; here ``LM.layers`` lists the layers in the
-order they run, local first in each pair. ``load_reference_lm_params``
-carries a reference ``lm_init`` tree into the module and
-``load_reference_opt_state`` a reference AdamW state into the port's.
-Every layer's attention is ``kernels.flash_attention.flash_attention_bhsd``:
-the flash kernels on the card, their plain twins on the CPU, with the
-kernels' backward under autograd. With ``cfg.remat`` each (local, global)
-pair is recomputed in the backward (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint(pair)``.
+(``x @ W`` with ``W`` shaped [d_in, d_out]). ``LM.layers`` lists the
+layers in the order they run, whatever tree the reference keeps them
+in: gemma2's ``local`` / ``global`` stacks of ``[n_layers / 2, ...]``
+(scanned as (local, global) pairs, local first), the stacked ``blocks``
+tree of ``[n_layers, ...]`` (``scan_layers=True``) or the unrolled
+``blocks_list`` (``scan_layers=False``). A block holds its gated MLP's
+``w_gate``, ``w_in``, ``w_out``, or under MoE a ``moe`` submodule
+(``router``, ``w_gate``, ``w_in``, ``w_out``), and with ``qkv_bias``
+the biases ``bq``, ``bk``, ``bv``. ``load_reference_lm_params`` carries
+a reference ``lm_init`` tree of any of the three layouts into the
+module and ``load_reference_opt_state`` a reference AdamW state into the
+port's. Every layer's attention is
+``kernels.flash_attention.flash_attention_bhsd``: the flash kernels on
+the card, their plain twins on the CPU, with the kernels' backward under
+autograd. With ``cfg.remat`` each (local, global) pair, or each layer of
+the other layouts, is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+Only gemma2's local layers have a sliding window. ``lm_trunk`` returns
+the sum of the MoE layers' aux losses (0 for dense models).
 
 Decode (``lm_decode_step``) runs one token a batch row through every
 layer against a KV cache (``make_cache``: the reference's dict, ``local``
-/ ``global`` stacked ``[n_layers / 2, B, Hkv, S, dh]``, int8 with float32
-scales when ``cfg.kv_cache_dtype`` is ``"int8"``, else bf16, whatever
-``cfg.dtype`` is). A local layer's cache is a ring of ``min(window,
-max_len)`` positions. The cache is updated in place, with device-side
-index writes only, so a decode step can be captured as a CUDA graph; its
-attention is ``kernels.decode_attention.decode_attention`` (the kernel on
-the card, the plain twin on the CPU).
-
-Branches gemma2 does not take raise ``NotImplementedError``: MoE blocks,
-the unrolled ``blocks_list`` and stacked ``blocks`` layouts (configs
-without ``local_global``) and ``qkv_bias`` come with the LM configs of
-ROADMAP.md A.7.
+/ ``global`` stacked ``[n_layers / 2, B, Hkv, S, dh]`` for gemma2,
+``blocks`` stacked ``[n_layers, B, Hkv, S, dh]`` otherwise; int8 with
+float32 scales when ``cfg.kv_cache_dtype`` is ``"int8"``, else bf16,
+whatever ``cfg.dtype`` is). A local layer's cache is a ring of
+``min(window, max_len)`` positions. The cache is updated in place, with
+device-side index writes only, so a decode step can be captured as a
+CUDA graph; its attention is ``kernels.decode_attention.decode_attention``
+(the kernel on the card, the plain twin on the CPU).
 """
 from __future__ import annotations
 
@@ -49,9 +54,7 @@ from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from .attention import quantize_kv, rope
 from .common import (cross_entropy, dense_init, embed_init, gelu_tanh,
                      glu_apply, glu_init, rms_norm, softcap)
-
-_UNPORTED = ("is not ported yet (ROADMAP.md A.7: the LMConfig branches "
-             "other than gemma2's)")
+from .moe import moe_apply, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,24 +95,24 @@ class LMConfig:
         return self.moe_experts > 0
 
 
-def _check_ported(cfg: LMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE blocks ({cfg.name}) {_UNPORTED}")
-    if cfg.qkv_bias:
-        raise NotImplementedError(f"qkv_bias ({cfg.name}) {_UNPORTED}")
-    if not cfg.local_global:
-        layout = "stacked 'blocks'" if cfg.scan_layers else "'blocks_list'"
-        raise NotImplementedError(
-            f"the {layout} layer layout ({cfg.name}) {_UNPORTED}")
-
-
 def _norm(cfg: LMConfig, device) -> nn.Parameter:
     fill = torch.zeros if cfg.norm_zero_centered else torch.ones
     return nn.Parameter(fill((cfg.d_model,), dtype=cfg.dtype, device=device))
 
 
+class MoE(nn.Module):
+    """A block's MoE weights (``moe_init``'s tree)."""
+
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+        super().__init__()
+        for name, w in moe_init(generator, cfg.d_model, cfg.d_ff,
+                                cfg.moe_experts, cfg.dtype, device).items():
+            setattr(self, name, nn.Parameter(w))
+
+
 class Block(nn.Module):
-    """One pre-norm block (``_block_init``'s tree, ``mlp`` flattened)."""
+    """One pre-norm block (``_block_init``'s tree, ``mlp`` flattened;
+    ``moe`` a submodule)."""
 
     def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
         super().__init__()
@@ -124,16 +127,26 @@ class Block(nn.Module):
         self.wo = dense(cfg.n_heads * dh, d)
         self.ln_attn = _norm(cfg, device)
         self.ln_mlp = _norm(cfg, device)
+        if cfg.qkv_bias:
+            for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads)):
+                setattr(self, name, nn.Parameter(torch.zeros(
+                    (n * dh,), dtype=dt, device=device)))
         if cfg.post_norm:
             self.ln_post_attn = _norm(cfg, device)
             self.ln_post_mlp = _norm(cfg, device)
-        for name, w in glu_init(generator, d, cfg.d_ff, dt, device).items():
-            setattr(self, name, nn.Parameter(w))
+        if cfg.is_moe:
+            self.moe = MoE(cfg, generator, device)
+        else:
+            for name, w in glu_init(generator, d, cfg.d_ff, dt,
+                                    device).items():
+                setattr(self, name, nn.Parameter(w))
 
 
 class LM(nn.Module):
     """The transformer of ``lm_init``: ``embed``, the layers in run order
-    (local, global, local, ...), ``ln_final`` and, untied, ``lm_head``.
+    (gemma2: local, global, local, ...), ``ln_final`` and, untied,
+    ``lm_head``.
 
     Random init draws N(0, 1/d_in) weights and a N(0, 0.02²) embedding
     (the reference's scales) in float32 from one generator seeded with
@@ -145,44 +158,67 @@ class LM(nn.Module):
 
     def __init__(self, cfg: LMConfig, seed: int = 0, device="cuda"):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         device = resolve_device(device)
         g = torch.Generator(device=device).manual_seed(seed)
         self.embed = nn.Parameter(embed_init(g, cfg.vocab, cfg.d_model,
                                              cfg.dtype, device))
+        # gemma2 runs n_layers // 2 (local, global) pairs
+        depth = 2 * (cfg.n_layers // 2) if cfg.local_global else cfg.n_layers
         self.layers = nn.ModuleList(
-            Block(cfg, g, device) for _ in range(2 * (cfg.n_layers // 2)))
+            Block(cfg, g, device) for _ in range(depth))
         self.ln_final = _norm(cfg, device)
         self.lm_head = None if cfg.tied_embed else nn.Parameter(
             dense_init(g, cfg.d_model, cfg.vocab, cfg.dtype, device))
 
     def window(self, i: int) -> int | None:
-        """Layer i's sliding window: local layers (even i) have one."""
-        return self.cfg.sliding_window if i % 2 == 0 else None
+        """Layer i's sliding window: gemma2's local layers (even i) have
+        one, no other layer."""
+        if self.cfg.local_global and i % 2 == 0:
+            return self.cfg.sliding_window
+        return None
 
     def forward(self, tokens: torch.Tensor):
         return lm_forward(self, tokens)
 
 
+def _block_leaf(block_tree, path: list[str]):
+    """The leaf of one block's tree (or of a stack of them) at the port's
+    parameter path: ``moe.<name>`` under ``moe``, a dense block's
+    ``w_gate`` / ``w_in`` / ``w_out`` under ``mlp``, the rest by name."""
+    if path[0] == "moe":
+        return block_tree["moe"][path[1]]
+    if path[0].startswith("w_"):
+        return block_tree["mlp"][path[0]]
+    return block_tree[path[0]]
+
+
 def reference_leaf(model: LM, tree, name: str) -> np.ndarray:
     """The array of the reference ``lm_init``-shaped tree ``tree``
-    (``embed``, ``ln_final``, ``local`` / ``global`` stacked
-    ``[n_layers / 2, ...]`` with the MLP under ``mlp``, ``lm_head`` when
-    untied) that holds the port's parameter ``name``."""
-    if "blocks" in tree or "blocks_list" in tree:
-        raise NotImplementedError(f"the stacked layer layouts {_UNPORTED}")
+    (``embed``, ``ln_final``, ``lm_head`` when untied, and the layers:
+    ``local`` / ``global`` stacked ``[n_layers / 2, ...]``, ``blocks``
+    stacked ``[n_layers, ...]`` or the list ``blocks_list``, each block
+    with its MLP under ``mlp`` or ``moe``) that holds the port's
+    parameter ``name``."""
     if ("lm_head" in tree) != (model.lm_head is not None):
         raise ValueError("lm_head presence differs")
     if not name.startswith("layers."):
         return np.asarray(tree[name])
-    _, i, leaf = name.split(".")
+    _, i, *path = name.split(".")
     i = int(i)
-    stack = tree["local" if i % 2 == 0 else "global"]
-    if np.asarray(stack["wq"]).shape[0] != len(model.layers) // 2:
+    n = len(model.layers)
+    if "blocks_list" in tree:
+        if len(tree["blocks_list"]) != n:
+            raise ValueError("layer count differs")
+        return np.asarray(_block_leaf(tree["blocks_list"][i], path))
+    if "blocks" in tree:
+        stack, depth, at = tree["blocks"], n, i
+    else:
+        stack = tree["local" if i % 2 == 0 else "global"]
+        depth, at = n // 2, i // 2
+    if np.asarray(stack["wq"]).shape[0] != depth:
         raise ValueError("stack depth differs")
-    src = stack["mlp"][leaf] if leaf.startswith("w_") else stack[leaf]
-    return np.asarray(src)[i // 2]
+    return np.asarray(_block_leaf(stack, path))[at]
 
 
 def _put(dst: torch.Tensor, src) -> None:
@@ -215,12 +251,32 @@ def load_reference_opt_state(model: LM, state: dict, ref_state) -> dict:
 
 
 # ------------------------------------------------------------------ forward
+def _qkv(cfg: LMConfig, p: Block, x):
+    """The projections of x [B, S, d], with their biases under
+    ``qkv_bias``: q [B, H, S, dh], k and v [B, Hkv, S, dh]."""
+    b, s, _ = x.shape
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return (q.reshape(b, s, cfg.n_heads, cfg.dh).transpose(1, 2),
+            k.reshape(b, s, cfg.n_kv_heads, cfg.dh).transpose(1, 2),
+            v.reshape(b, s, cfg.n_kv_heads, cfg.dh).transpose(1, 2))
+
+
+def _mlp(cfg: LMConfig, p: Block, z):
+    """The block's MLP on z [B, S, d]: (y, the MoE aux loss or None)."""
+    if cfg.is_moe:
+        b, s, d = z.shape
+        y, aux = moe_apply(p.moe, z.reshape(b * s, d), top_k=cfg.moe_top_k)
+        return y.reshape(b, s, d), aux
+    act = gelu_tanh if cfg.name.startswith("gemma") else F.silu
+    return glu_apply(p.w_gate, p.w_in, p.w_out, z, act=act), None
+
+
 def _attn(cfg: LMConfig, p: Block, x, positions, *, window=None):
     b, s, _ = x.shape
     dh = cfg.dh
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, dh).transpose(1, 2)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
+    q, k, v = _qkv(cfg, p, x)
     q = rope(q, positions[None, None, :], cfg.rope_theta)
     k = rope(k, positions[None, None, :], cfg.rope_theta)
     o = flash_attention_bhsd(q, k, v.contiguous(), causal=True,
@@ -231,34 +287,36 @@ def _attn(cfg: LMConfig, p: Block, x, positions, *, window=None):
 
 
 def _block(cfg: LMConfig, p: Block, x, positions, *, window=None):
+    """One block: (x out, the MoE aux loss or None)."""
     zc = cfg.norm_zero_centered
     h, _, _ = _attn(cfg, p, rms_norm(x, p.ln_attn, zero_centered=zc),
                     positions, window=window)
     if cfg.post_norm:
         h = rms_norm(h, p.ln_post_attn, zero_centered=zc)
     x = x + h
-    z = rms_norm(x, p.ln_mlp, zero_centered=zc)
-    act = gelu_tanh if cfg.name.startswith("gemma") else F.silu
-    y = glu_apply(p.w_gate, p.w_in, p.w_out, z, act=act)
+    y, aux = _mlp(cfg, p, rms_norm(x, p.ln_mlp, zero_centered=zc))
     if cfg.post_norm:
         y = rms_norm(y, p.ln_post_mlp, zero_centered=zc)
-    return x + y
+    return x + y, aux
 
 
-def _pair(model: LM, i: int, x, positions):
-    """Layers i and i + 1, a (local, global) pair: the reference's scan
-    body ``pair``."""
-    for j in (i, i + 1):
-        x = _block(model.cfg, model.layers[j], x, positions,
-                   window=model.window(j))
-    return x
+def _span(model: LM, i: int, n: int, x, positions, aux):
+    """Layers i .. i + n - 1 (the reference's scan body: a (local,
+    global) pair, or one layer), with the aux losses added to ``aux``."""
+    for j in range(i, i + n):
+        x, a = _block(model.cfg, model.layers[j], x, positions,
+                      window=model.window(j))
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def lm_trunk(model: LM, tokens: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] → (hidden [B, S, d] after the final norm, aux loss).
-    With ``cfg.remat`` and autograd on, each pair keeps only its input
-    and is recomputed in the backward."""
+    """tokens [B, S] → (hidden [B, S, d] after the final norm, the float32
+    sum of the layers' MoE aux losses). With ``cfg.remat`` and autograd
+    on, each scan body (a pair for gemma2, else a layer) keeps only its
+    input and is recomputed in the backward."""
     cfg = model.cfg
     s = tokens.shape[1]
     x = model.embed[tokens.to(torch.int64)].to(cfg.dtype)
@@ -266,12 +324,15 @@ def lm_trunk(model: LM, tokens: torch.Tensor
         # the reference rounds √d to the model dtype (60.0 in bf16 at 3584)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
     positions = torch.arange(s, device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(0, len(model.layers), 2):
-        x = (checkpoint(_pair, model, i, x, positions, use_reentrant=False)
-             if remat else _pair(model, i, x, positions))
+    n = 2 if cfg.local_global else 1
+    for i in range(0, len(model.layers), n):
+        x, aux = (checkpoint(_span, model, i, n, x, positions, aux,
+                             use_reentrant=False)
+                  if remat else _span(model, i, n, x, positions, aux))
     x = rms_norm(x, model.ln_final, zero_centered=cfg.norm_zero_centered)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def lm_head_logits(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -287,7 +348,7 @@ def lm_forward(model: LM, tokens: torch.Tensor
 
 
 def lm_loss(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy (+ 0.01 × the MoE aux loss, 0 here)."""
+    """Next-token cross entropy (+ 0.01 × the MoE aux loss)."""
     logits, aux = lm_forward(model, tokens)
     loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
     return loss + 0.01 * aux
@@ -304,19 +365,19 @@ def lm_prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
 # -------------------------------------------------------------------- decode
 def make_cache(cfg: LMConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    """Zeroed KV cache, the reference's dict: ``{"local": ..., "global":
-    ...}``, each ``{"k", "v"}`` [n_layers / 2, batch, Hkv, length, dh]
-    (int8 with float32 ``"k_scale"``, ``"v_scale"`` [..., length, 1] when
-    ``cfg.kv_cache_dtype`` is ``"int8"``, else bf16); a local layer's
-    length is ``min(sliding_window, max_len)`` (a ring), a global layer's
-    ``max_len``."""
-    _check_ported(cfg)
+    """Zeroed KV cache, the reference's dict: for gemma2 ``{"local": ...,
+    "global": ...}``, each ``{"k", "v"}`` [n_layers / 2, batch, Hkv,
+    length, dh], a local layer's length ``min(sliding_window, max_len)``
+    (a ring), a global layer's ``max_len``; otherwise ``{"blocks": ...}``
+    of [n_layers, batch, Hkv, max_len, dh]. int8 with float32
+    ``"k_scale"``, ``"v_scale"`` [..., length, 1] when
+    ``cfg.kv_cache_dtype`` is ``"int8"``, else bf16."""
     dev = resolve_device(device)
     int8 = cfg.kv_cache_dtype == "int8"
     qdt = torch.int8 if int8 else torch.bfloat16
 
-    def kv(length):
-        shape = (cfg.n_layers // 2, batch, cfg.n_kv_heads, length, cfg.dh)
+    def kv(depth, length):
+        shape = (depth, batch, cfg.n_kv_heads, length, cfg.dh)
         c = {"k": torch.zeros(shape, dtype=qdt, device=dev),
              "v": torch.zeros(shape, dtype=qdt, device=dev)}
         if int8:
@@ -325,13 +386,17 @@ def make_cache(cfg: LMConfig, batch: int, max_len: int,
                                       device=dev)
         return c
 
-    return {"local": kv(min(cfg.sliding_window, max_len)),
-            "global": kv(max_len)}
+    if not cfg.local_global:
+        return {"blocks": kv(cfg.n_layers, max_len)}
+    return {"local": kv(cfg.n_layers // 2, min(cfg.sliding_window, max_len)),
+            "global": kv(cfg.n_layers // 2, max_len)}
 
 
 def layer_cache(cache: dict, i: int) -> dict:
-    """Layer i's views of ``cache`` (layer i runs in stack ``local`` for
-    even i, ``global`` for odd i, at depth i // 2)."""
+    """Layer i's views of ``cache``: depth i of ``blocks``, or for gemma2
+    depth i // 2 of ``local`` (even i) or ``global`` (odd i)."""
+    if "blocks" in cache:
+        return {name: t[i] for name, t in cache["blocks"].items()}
     stack = cache["local" if i % 2 == 0 else "global"]
     return {name: t[i // 2] for name, t in stack.items()}
 
@@ -368,10 +433,7 @@ def _decode_block(cfg: LMConfig, p: Block, x, layer_cache: dict, pos):
     ring's length, so no window is passed)."""
     b = x.shape[0]
     dh, zc = cfg.dh, cfg.norm_zero_centered
-    z = rms_norm(x, p.ln_attn, zero_centered=zc)
-    q = (z @ p.wq).reshape(b, 1, cfg.n_heads, dh).transpose(1, 2)
-    k = (z @ p.wk).reshape(b, 1, cfg.n_kv_heads, dh).transpose(1, 2)
-    v = (z @ p.wv).reshape(b, 1, cfg.n_kv_heads, dh).transpose(1, 2)
+    q, k, v = _qkv(cfg, p, rms_norm(x, p.ln_attn, zero_centered=zc))
     # [1] (a scalar position broadcasts over B) or [B]
     if torch.is_tensor(pos):
         posv = pos.to(torch.int32).reshape(-1)
@@ -390,9 +452,7 @@ def _decode_block(cfg: LMConfig, p: Block, x, layer_cache: dict, pos):
     if cfg.post_norm:
         h = rms_norm(h, p.ln_post_attn, zero_centered=zc)
     x = x + h
-    z = rms_norm(x, p.ln_mlp, zero_centered=zc)
-    act = gelu_tanh if cfg.name.startswith("gemma") else F.silu
-    y = glu_apply(p.w_gate, p.w_in, p.w_out, z, act=act)
+    y, _ = _mlp(cfg, p, rms_norm(x, p.ln_mlp, zero_centered=zc))
     if cfg.post_norm:
         y = rms_norm(y, p.ln_post_mlp, zero_centered=zc)
     return x + y

@@ -18,6 +18,11 @@ stats, the step program and the run loop come from
 * **The slot cache.** One ``make_cache`` buffer of ``n_slots`` rows; each
   slot attends its own positions below its length, so a reused slot needs
   no reset (stale rows sit at or past its position and are never read).
+* **Any LM config.** gemma2-9b, granite-moe-1b-a400m, codeqwen1.5-7b,
+  qwen1.5-32b and grok-1-314b (``configs``). Under MoE the experts'
+  capacity comes from the step's tokens, one a slot, idle slots included
+  (``models.moe``), so, as in the reference, a request's tokens may
+  depend on its neighbours; dense configs keep every slot independent.
 * **The step captured, one step in flight.** The state (cache, positions,
   prompts, prompt lengths, last tokens, active flags, emitted tokens) is
   static device tensors written in place; admission writes a wave's rows

@@ -28,8 +28,13 @@ narrower copies of an unaligned cache give the bits of its 16-byte ones,
 and its tolerance rejects four planted faults; the LM ServeEngine served through
 its captured step gives the CPU's tokens (bf16 and int8 caches), counts
 two decode launches a layer a replay, and its replayed step equals the
-eager step bit for bit. Every test skips with a reason on a host without
-a card or nvcc.
+eager step bit for bit. At the other LM configs' heads: the bf16 flash
+forward at 16 over 8, dh 64 and 32 over 32, dh 128 (no cap, no window,
+ragged lengths) within one bf16 ulp; the decode kernel on a bf16 cache
+at those heads and an int8 one at 40 over 40 and 48 over 8, dh 128,
+within ``twin_tolerance``; granite-moe's smoke engine captured once (its
+MoE dispatch reads nothing on the host), its tokens the CPU engine's.
+Every test skips with a reason on a host without a card or nvcc.
 
 Run them on a machine with an H100:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -2119,3 +2124,100 @@ def test_lm_replayed_step_equals_the_eager_step(cuda):
     for k, v in snapshot().items():
         assert torch.equal(v, replayed[k]), k
     assert eng.step_cache_size() == 1
+
+
+# ------------------------------------------- the other LM configs' shapes
+# (H, Hkv, dh) of granite-moe-1b-a400m (16 over 8, dh 64) and
+# codeqwen1.5-7b (MHA, 32 over 32, dh 128): bf16, no cap, no window
+NEW_LM_FLASH_HEADS = [(16, 8, 64), (32, 32, 128)]
+
+
+@pytest.mark.parametrize("sq,skv,q_offset", RAGGED)
+@pytest.mark.parametrize("h,hkv,dh", NEW_LM_FLASH_HEADS)
+def test_flash_kernel_at_the_new_lm_head_shapes(cuda, h, hkv, dh, sq, skv,
+                                                q_offset):
+    """The bf16 forward at granite's and codeqwen's heads, causal with no
+    cap or window, at ragged lengths, within one bf16 ulp of the twin; two
+    launches bit-equal."""
+    q, k, v = _qkv(sq + dh + h, 1, h, hkv, sq, skv, dh, torch.bfloat16)
+    kw = dict(causal=True, q_offset=q_offset)
+    got, want = _flash_both(cuda, q, k, v, **kw)
+    again = tfa.flash_attention_bhsd(q.to(cuda), k.to(cuda), v.to(cuda),
+                                     **kw)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, again.cpu())
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv,h,hkv,dh", [("bf16", 16, 8, 64),
+                                         ("bf16", 32, 32, 128),
+                                         ("int8", 40, 40, 128),
+                                         ("int8", 48, 8, 128)])
+def test_decode_kernel_at_the_new_lm_head_shapes(cuda, kv, h, hkv, dh,
+                                                 q_dtype):
+    """The decode kernel at granite's and codeqwen's heads on a bf16 cache
+    (no cap), and at qwen1.5-32b's (MHA, 40 heads) and grok-1's (48 over
+    8) on an int8 one, at every length of ``_decode_edge_lens`` over a
+    1,024-position cache, within ``twin_tolerance`` of the twin; two
+    launches bit-equal."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.models.attention import decode_attention_plain
+    b, s = 4, 1024
+    q, k, v, ks, vs = _decode_inputs(cuda, kv, b, h, hkv, s, dh, q_dtype,
+                                     seed=h + dh)
+    kw = dict(logit_cap=None, k_scale=ks, v_scale=vs)
+    edges = _decode_edge_lens(s)
+    for i in range(0, len(edges), b):
+        lens = torch.tensor((edges[i:i + b] * b)[:b], dtype=torch.int32,
+                            device=cuda)
+        got = tda.decode_attention(q, k, v, lens, **kw)
+        again = tda.decode_attention(q, k, v, lens, **kw)
+        want = decode_attention_plain(q, k, v, lens, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _decode_ratio(got, want, tda.twin_tolerance(
+            q, k, v, lens, **kw)) <= 1.0, lens.tolist()
+
+
+def test_moe_engine_captures_one_step_and_equals_cpu(cuda, monkeypatch):
+    """granite-moe's smoke config served through the captured step: the
+    step (its MoE dispatch included) is captured once (the warm-up runs
+    under ``set_sync_debug_mode("error")``, so a host read raises), each
+    replay counts two decode launches a layer, and, with admission made
+    synchronous on both engines (MoE capacity couples a step's slots), the
+    tokens are the CPU engine's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import feeder
+    poll = feeder.AdmissionFeeder.poll
+
+    def synchronous(self, timeout=None):
+        while not self.done:
+            got = poll(self, timeout=0.01)
+            if got is not None:
+                return got
+        return None
+    monkeypatch.setattr(feeder.AdmissionFeeder, "poll", synchronous)
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab, int(rng.integers(1, 17))).tolist(),
+             int(rng.integers(1, 20))) for _ in range(9)]
+    out = {}
+    for dev in ("cpu", cuda):
+        model = LM(cfg, seed=0, device="cpu").to(dev)
+        eng = ServeEngine(cfg, model, n_slots=4, max_len=64, prompt_cap=16,
+                          device=dev)
+        reset_launch_counts()
+        for p, g in reqs:
+            eng.submit(p, g)
+        eng.close_submissions()
+        out[str(dev)] = {r.rid: r.tokens_out for r in eng.run()}
+        assert eng.step_cache_size() == 1
+        if dev != "cpu":
+            assert eng.captured_launches() == {
+                "decode_attention": 2 * cfg.n_layers}
+            assert launch_counts()["decode_attention"] == (
+                2 * cfg.n_layers * eng.stats.steps)
+    assert out["cpu"] == out[str(cuda)]

@@ -114,10 +114,11 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.engine, repro_torch.core.reconfig\n"
         "import repro_torch.core.delta, repro_torch.core.sampling\n"
         "import repro_torch.models.gnn, repro_torch.serve.slots\n"
-        "from repro_torch.configs import get_config\n"
-        "for a in ('graphsage-reddit', 'gat-cora', 'gatedgcn',\n"
-        "          'meshgraphnet'):\n"
-        "    get_config(a)\n"
+        "import repro_torch.models.moe, repro_torch.configs.base\n"
+        "from repro_torch.configs import ARCHS, UNPORTED, get_config\n"
+        "for a in ARCHS:\n"
+        "    if a not in UNPORTED:\n"
+        "        get_config(a), get_config(a, smoke=True)\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
         "assert len(kernel_wrappers()) == 18\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

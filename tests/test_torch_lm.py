@@ -5,7 +5,10 @@ bites, with the reference's ``lm_init`` parameters carried over by
 ``load_reference_lm_params``. ``lm_forward`` logits and ``lm_prefill``
 agree within 1e-5 in float32 with equal argmax; the shared components
 (``rms_norm``, ``softcap``, the gated MLP) within the same bound; the
-unported LMConfig branches raise. Token ids come from a numpy seed."""
+loader refuses a tree of another depth or shape. The other LMConfig
+branches (MoE, ``qkv_bias``, the ``blocks`` and ``blocks_list`` layouts)
+are held in ``test_torch_lm_configs.py``. Token ids come from a numpy
+seed."""
 import dataclasses
 
 import numpy as np
@@ -104,21 +107,13 @@ def test_lm_prefill_matches_reference_bf16():
                                rtol=0, atol=0.05)
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(moe_experts=4, moe_top_k=2), "MoE"),
-    (dict(qkv_bias=True), "qkv_bias"),
-    (dict(local_global=False), "stacked 'blocks'"),
-    (dict(local_global=False, scan_layers=False), "'blocks_list'")])
-def test_unported_branches_raise(change, match):
-    cfg = dataclasses.replace(get_config("gemma2-9b", smoke=True), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        tt.LM(cfg, device="cpu")
-
-
 def test_loader_refuses_stacked_tree_and_wrong_shapes():
     model = tt.LM(get_config("gemma2-9b", smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tt.load_reference_lm_params(model, {"blocks": {}})
+    stacked = jax.tree.map(np.asarray, jt.lm_init(
+        dataclasses.replace(j_smoke(), local_global=False, n_layers=3),
+        jax.random.PRNGKey(0)))
+    with pytest.raises(ValueError, match="depth"):
+        tt.load_reference_lm_params(model, stacked)
     params = jax.tree.map(np.asarray, jt.lm_init(
         dataclasses.replace(j_smoke(), d_ff=64), jax.random.PRNGKey(0)))
     with pytest.raises(ValueError, match="shape"):

@@ -9,8 +9,13 @@ immediate reuse; a pipelined run routes step k - 1 after step k was
 launched and gives no token to a slot's next occupant; EOS retires early
 (taken from the port's own sequential tokens); the step reads no tensor
 value on the host and refuses rebound tensors; the CLI serves the smoke
-config on the CPU. Tokens are compared exactly: greedy argmax over float32
-logits, the same function on both sides."""
+config on the CPU. The other LM configs: granite-moe's smoke engine (MoE
+blocks, whose expert capacity couples a step's slots, in the reference
+too) gives the reference ``ServeEngine``'s tokens on one stream, both
+admitting synchronously; codeqwen's (MHA, qkv_bias) equals its batch-1
+loop and the reference's; the MoE step reads no tensor value on the host;
+the CLI serves every LM smoke config. Tokens are compared exactly: greedy
+argmax over float32 logits, the same function on both sides."""
 import dataclasses
 import os
 import subprocess
@@ -23,8 +28,12 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.configs.gemma2_9b import smoke_config as j_smoke  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
+from repro.serve import feeder as j_feeder  # noqa: E402
+from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
+from repro_torch.serve import feeder as t_feeder  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.feeder import PreparedAdmission  # noqa: E402
@@ -32,6 +41,7 @@ from repro_torch.serve.request import Request  # noqa: E402
 from repro_torch.serve.scheduler import NO_TOKEN, Scheduler  # noqa: E402
 
 from test_torch_lm import _port_cfg  # noqa: E402
+from test_torch_lm_configs import randomized  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 J_CFGS = {kv: dataclasses.replace(j_smoke(), kv_cache_dtype=kv)
@@ -328,3 +338,147 @@ def test_cli_serves_the_smoke_config_on_the_cpu():
     assert any("tok/s" in line and "1 step program" in line
                for line in lines), r.stdout
     assert any(line.startswith("admission latency p50=") for line in lines)
+
+
+# ------------------------------------------------- the other LM configs
+def _other(arch, seed=0):
+    """(reference config, its params with seeded biases and norm scales,
+    the port's model of them)."""
+    jcfg = jconfigs.get_config(arch, smoke=True)
+    params = randomized(jcfg, jt.lm_init(jcfg, jax.random.PRNGKey(seed)),
+                        seed)
+    model = tt.LM(_port_cfg(jcfg), seed=seed, device="cpu")
+    tt.load_reference_lm_params(model, jax.tree.map(np.asarray, params))
+    return jcfg, params, model
+
+
+def _synchronous_polls(monkeypatch):
+    """Both packages' admission feeders made synchronous: a poll waits for
+    the next prepared request until the stream is over, so a run admits
+    whenever a slot is free, whatever the threads' timing, and two engines
+    see the same slots at every step."""
+    for mod in (j_feeder, t_feeder):
+        poll = mod.AdmissionFeeder.poll
+
+        def synchronous(self, timeout=None, poll=poll):
+            while not self.done:
+                got = poll(self, timeout=0.01)
+                if got is not None:
+                    return got
+            return None
+        monkeypatch.setattr(mod.AdmissionFeeder, "poll", synchronous)
+
+
+def test_moe_engine_gives_the_reference_engines_tokens(monkeypatch):
+    """granite-moe's smoke config (8 experts, top-4): a step's slots share
+    the experts' capacity (cap = int(1.25 * 4 * 4 / 8 + 0.5) = 3 at 4
+    slots), so a request's tokens depend on its neighbours, idle slots
+    included, in the reference as here: the port's engine is held against
+    the reference's ServeEngine on the same stream and slot count, not
+    against a batch-1 loop."""
+    _synchronous_polls(monkeypatch)
+    jcfg, params, model = _other("granite-moe-1b-a400m")
+    rng = np.random.default_rng(11)
+    reqs = [(rng.integers(0, jcfg.vocab,
+                          int(rng.integers(1, 9))).tolist(),
+             int(rng.integers(1, 7))) for _ in range(7)]
+    kw = dict(n_slots=4, max_len=32, prompt_cap=8)
+    eng = ServeEngine(model.cfg, model, device="cpu", **kw)
+    _, completed = _serve(eng, reqs)
+    jeng = JServeEngine(jcfg, params, **kw)
+    _, jcompleted = _serve(jeng, reqs)
+    got = {r.rid: r.tokens_out for r in completed}
+    want = {r.rid: r.tokens_out for r in jcompleted}
+    assert got == want
+    assert [len(got[i]) for i in range(len(reqs))] == [g for _, g in reqs]
+    assert eng.stats.steps == jeng.stats.steps
+    assert eng.step_cache_size() == 1
+
+
+def _sequential_model(model, reqs, max_len=32):
+    """The port's batch-1 loop on ``model``."""
+    outs = []
+    for prompt, max_new in reqs:
+        cache = tt.make_cache(model.cfg, batch=1, max_len=max_len,
+                              device="cpu")
+        for i, t in enumerate(prompt):
+            tok = tt.lm_decode_step(model, cache, torch.tensor(
+                [[t]], dtype=torch.int32), i)
+        out = [int(tok[0, 0])]
+        for i in range(max_new - 1):
+            tok = tt.lm_decode_step(model, cache, tok, len(prompt) + i)
+            out.append(int(tok[0, 0]))
+        outs.append(out)
+    return outs
+
+
+def _reference_model(jcfg, params, reqs, max_len=32):
+    """The reference's batch-1 loop."""
+    dec = jax.jit(lambda p, c, t, pos: jt.lm_decode_step(jcfg, p, c, t,
+                                                         pos))
+    outs = []
+    for prompt, max_new in reqs:
+        cache = jt.make_cache(jcfg, batch=1, max_len=max_len)
+        for i, t in enumerate(prompt):
+            tok, cache = dec(params, cache, jnp.array([[t]], jnp.int32),
+                             jnp.int32(i))
+        out = [int(tok[0, 0])]
+        for i in range(max_new - 1):
+            tok, cache = dec(params, cache, tok, jnp.int32(len(prompt) + i))
+            out.append(int(tok[0, 0]))
+        outs.append(out)
+    return outs
+
+
+def test_dense_engine_of_another_config_equals_its_batch1_loop():
+    """codeqwen's smoke config (MHA, qkv_bias, the stacked cache): every
+    request's tokens are the port's batch-1 loop's and the reference's,
+    whatever its slot neighbours do."""
+    jcfg, params, model = _other("codeqwen1.5-7b", seed=1)
+    rng = np.random.default_rng(12)
+    reqs = [(rng.integers(0, jcfg.vocab,
+                          int(rng.integers(1, 9))).tolist(),
+             int(rng.integers(1, 7))) for _ in range(6)]
+    eng = ServeEngine(model.cfg, model, n_slots=2, max_len=32,
+                      prompt_cap=8, device="cpu")
+    assert list(eng.state["cache"]) == ["blocks"]
+    _, completed = _serve(eng, reqs)
+    want = _sequential_model(model, reqs)
+    assert want == _reference_model(jcfg, params, reqs)
+    assert {r.rid: r.tokens_out for r in completed} == dict(enumerate(want))
+
+
+def test_moe_step_reads_no_tensor_value_on_the_host(monkeypatch):
+    """granite-moe's step (the MoE dispatch included) brings no tensor
+    value to the host and builds no tensor from host data."""
+    _, _, model = _other("granite-moe-1b-a400m")
+    eng = ServeEngine(model.cfg, model, n_slots=2, max_len=32,
+                      prompt_cap=8, device="cpu")
+    eng._admit_many([(0, _prep(0, plen=3)), (1, _prep(1, plen=1))])
+
+    def refuse(*a, **k):
+        raise AssertionError("host read of a tensor value inside the step")
+    for name in ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
+                 "__float__", "__index__", "nonzero"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "nonzero", refuse)
+    eng.step_fn(eng.params, eng.state)
+    monkeypatch.undo()
+    assert eng.state["pos"].tolist() == [1, 1]
+    assert eng.state["emitted"].tolist()[1] != NO_TOKEN
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "codeqwen1.5-7b",
+                                  "qwen1.5-32b", "grok-1-314b"])
+def test_cli_serves_each_lm_smoke_config(arch):
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--device", "cpu", "--requests", "3", "--gen", "4"],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert sum(line.startswith("req") for line in lines) == 3
+    assert any("tok/s" in line and "1 step program" in line
+               for line in lines), r.stdout
