@@ -4,8 +4,10 @@ routings, GAT, GatedGCN and MeshGraphNet, keysort and reservoir
 selection, graph updates through the captured step), its engine
 service, its sampled GNN training, its gemma2-9b prefill, its LM
 serving (gemma2-9b, granite-moe-1b-a400m and codeqwen1.5-7b at full
-width, qwen1.5-32b and grok-1-314b with their depth cut) and its
-gemma2-9b training step on one H100.
+width, qwen1.5-32b and grok-1-314b with their depth cut), its LM
+training (gemma2-9b, codeqwen1.5-7b and qwen1.5-32b depth-cut,
+granite-moe-1b-a400m at full width) and its dlrm-rm2 recommender
+(trained, served and retrieving at full width) on one H100.
 
   python3 chip_smoke.py
 
@@ -352,6 +354,33 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    model's step on the card against the CPU; ``launch/train.run_lm`` on
    the card, crashed at a step and resumed from its checkpoint, against
    an uninterrupted run.
+12b. LM train configs — for each of LM_TRAIN_RUNS: the ``train_4k``
+   cell at full width (granite-moe-1b-a400m at full depth with the
+   largest batch of LM_TRAIN_BATCHES whose reckoned peak,
+   ``reckoned_train_gib``, stays under LM_TRAIN_PEAK_GIB; codeqwen1.5-7b
+   cut to 16 layers, qwen1.5-32b to 4, one sequence), counters to 0,
+   LM_TRAIN_STEPS AdamW steps with each of the first step's backward
+   launches against the twin, counters read (2 forward, 1 dq, 1 dk/dv a
+   layer, no other kernel); finite losses, the first near ln(vocab); the
+   peak. granite also: the step's gradients against the twin backward's
+   (two planted faults outside), two steps from one saved state
+   bit-equal, a profiled step, ``run_lm`` on its smoke config crashed
+   and resumed bit-equal. Then rows 12, 13a, 13b at each config's head
+   shapes and 4,096 tokens. grok-1-314b is held on the CPU: one layer
+   reckons above LM_TRAIN_CARD_GIB.
+12c. recsys — dlrm-rm2 at full width (26 float32 tables of 1,000,000 x
+   64 drawn on the card; AdamW, float32 moments): the train_batch cell's
+   lookup layout (``models/dlrm.py`` ``lookup_layout``, SLICE_CFG) equal
+   to a stable ``torch.sort`` bit for bit; counters to 0, RECSYS_STEPS
+   steps (4 digit_hist, 4 digit_scatter, 1 rank_search, 1 span sum a
+   step and no other kernel), a profiled step; one step's table gradient
+   within ``twin_tolerance`` of the plain route (``GatherRows`` with the
+   twin's sum), the span sum, the digit pass and the rank search timed
+   at this path's shapes, autograd through ``index_select`` timed beside
+   it; serve_p99, serve_bulk and retrieval_cand timed, retrieval's top
+   100 against a stable sort of the same scores; ``run_recsys`` with the
+   tables cut to RECSYS_RESUME_VOCAB rows crashed and resumed bit-equal;
+   the smoke model's step card vs CPU.
 13. report — every kernel of each path launched in its run; the kernels
    JSON line (all eighteen; digit_partition_hist, digit_rank_gather,
    prefix_partition and filter_tree_lookup with 0 launches), then the last line ``{"ok": true, "device": {...}}``.
@@ -4267,8 +4296,14 @@ TRACE_OF_WRAPPER = {"digit_hist": "digit_hist_kernel",
                     "chunk_sort": "chunk_sort_kernel",
                     "segment_sum_sorted": "segment_sum_kernel"}
 # spin kernels (torch.cuda._sleep) that begin and end every profiled
-# call's trace
+# call's trace: TRACE_TAIL short ones and one of TRACE_GUARD_CYCLES
+# (about 50 ms at the H100's 1.98 GHz) on each side of the call
 TRACE_TAIL, TRACE_TAIL_KERNEL = 256, "spin_kernel"
+TRACE_GUARD_CYCLES = 100_000_000
+# each profiled call's short guard spins kept before and after the call,
+# and how far its last kernel's end lies past its last host event's end,
+# in µs (negative: before it)
+TRACE_CLOCK = []
 # a request's or a step's trace: those kernels by name, and every copy
 # kernel as one ("copy": the transposing copies of the port's earlier
 # pointer segment sum were ones)
@@ -4289,24 +4324,51 @@ def profile_call(fn, top=8, kernels=None, ops=None, owners=None):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # the first kernel records can miss too (read once on an H100: a
-        # train step's first two span sums in a run of the whole script):
-        # a head of spin kernels, a 10 ms one last, left out as the tail is
+        # kernel records next to either end of a trace can miss, more
+        # the longer the process has run (read on an H100: a train
+        # step's first two span sums; the last 2 segment or span sums of
+        # a 4-replay run; behind a tail of 256 short spins alone, an
+        # eager slot_fn's last 2 segment-bounds and 2 segment sums; with
+        # the 50 ms spins, the first 1 to 286 of 2,048 short head spins
+        # and never a record nearer the call): a head and a tail of spin
+        # kernels, each with a 50 ms one next to the call, left out below
         for _ in range(TRACE_TAIL):
             torch.cuda._sleep(1000)
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(TRACE_GUARD_CYCLES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        # the trace's last kernel records can miss a profiler stopped right
-        # after a replayed graph (read: the last 2 segment or span sums of
-        # a 4-replay run): a tail of spin kernels, left out below
+        torch.cuda._sleep(TRACE_GUARD_CYCLES)
         for _ in range(TRACE_TAIL):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if TRACE_TAIL_KERNEL not in e.key]
+    averages = prof.key_averages()
+    ends, spins = {}, []
+    for e in prof.events():
+        ends[e.device_type] = max(ends.get(e.device_type, 0.0),
+                                  e.time_range.end)
+        if e.device_type == DeviceType.CUDA and TRACE_TAIL_KERNEL in e.name:
+            spins.append(e.time_range)
+    lead_us = (ends[DeviceType.CUDA] - ends[DeviceType.CPU]
+               if DeviceType.CUDA in ends else None)
+    # the short guard spins kept before the first long one and after the
+    # last (None when a long one is missing)
+    longs = sorted((t for t in spins if t.elapsed_us() > 1000),
+                   key=lambda t: t.start)
+    head = tail = None
+    if len(longs) == 2:
+        head = sum(1 for t in spins if t.end <= longs[0].start)
+        tail = sum(1 for t in spins if t.start >= longs[1].end)
+    TRACE_CLOCK.append([head, tail, lead_us])
+    if (head, tail, len(spins)) != (TRACE_TAIL, TRACE_TAIL,
+                                    2 * (TRACE_TAIL + 1)):
+        log(f"[profile] the trace kept {len(spins)} of the "
+            f"{2 * (TRACE_TAIL + 1)} guard spins ({head} short ones "
+            f"before the call, {tail} after); its last kernel ends "
+            f"{lead_us} µs past its last host event")
+    events = [e for e in averages if TRACE_TAIL_KERNEL not in e.key]
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events]
     # an op's own device time is its kernels' time: sum the kernels alone
     device_ms = sum(e.self_device_time_total for e in events
@@ -4329,6 +4391,7 @@ def profile_call(fn, top=8, kernels=None, ops=None, owners=None):
                 by[e.name] = by.get(e.name, 0) + 1
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
+                guard_spins_kept=len(spins),
                 **({} if owners is None else dict(owners=launched_by)),
                 top=[dict(name=k[:120], device_ms=t, count=c)
                      for k, t, c in rows[:top]],
@@ -5741,12 +5804,9 @@ def train_checks(dev, seed, cell, extra):
     smoke model's step card against CPU and ``run_lm``'s
     fail-and-resume on the card."""
     import copy
-    import shutil
-    import tempfile
 
     import torch
     from repro_torch.kernels import flash_attention as tfa
-    from repro_torch.launch import train as tlaunch
     from repro_torch.launch.steps import lm_train_cell, lm_train_step
     from repro_torch.models.attention import flash_attention_bwd_plain
     from repro_torch.models.transformer import lm_loss
@@ -5865,11 +5925,22 @@ def train_checks(dev, seed, cell, extra):
           f"({extra['train_smoke_card_vs_cpu']})")
     del model_d, state_d
 
-    # launch/train.run_lm on the card: a crash at step RUN_LM_FAIL_AT and a
-    # resume from the last checkpoint against an uninterrupted run
+    extra["run_lm_resume"] = run_lm_resume(dev, seed, LM_ARCH, exact=False)
+
+
+def run_lm_resume(dev, seed, arch, exact=True):
+    """``launch/train.run_lm`` on ``arch``'s smoke config on the card: a
+    crash at step RUN_LM_FAIL_AT and a resume from the last checkpoint
+    against an uninterrupted run, in a temp dir; ``exact``: the history
+    and the parameters bit-equal, else the losses within rtol 1e-6."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train as tlaunch
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        kw = dict(arch=LM_ARCH, steps=RUN_LM_STEPS, smoke=True,
+        kw = dict(arch=arch, steps=RUN_LM_STEPS, smoke=True,
                   fail_at=None, seed=seed, device=dev)
         try:
             tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "a"),
@@ -5878,18 +5949,820 @@ def train_checks(dev, seed, cell, extra):
             check("injected failure" in str(e), f"run_lm failed: {e}")
         else:
             check(False, "run_lm did not stop at the injected failure")
-        _, _, resumed = tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "a"), **kw)
-        _, _, clean = tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "b"), **kw)
+        m1, _, resumed = tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "a"),
+                                        **kw)
+        m2, _, clean = tlaunch.run_lm(ckpt_dir=os.path.join(tmp, "b"), **kw)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tail = [h for h in clean if h["step"] >= resumed[0]["step"]]
-    extra["run_lm_resume"] = dict(resumed=resumed, clean=clean,
-                                  bit_equal=resumed == tail)
-    check(resumed[0]["step"] > 0 and len(resumed) == len(tail) and all(
-        r["step"] == c["step"] and abs(r["loss"] - c["loss"])
-        <= 1e-6 * abs(c["loss"]) for r, c in zip(resumed, tail)),
-        f"run_lm resumed at step {resumed[0]['step']} gives the "
-        f"uninterrupted run's history within rtol 1e-6: {resumed} vs {tail}")
+    same = all(torch.equal(p, q) for p, q in zip(m1.parameters(),
+                                                 m2.parameters()))
+    out = dict(resumed=resumed, clean=clean,
+               bit_equal=resumed == tail and same)
+    check(resumed[0]["step"] > 0 and len(resumed) == len(tail) and (
+        out["bit_equal"] if exact else all(
+            r["step"] == c["step"] and abs(r["loss"] - c["loss"])
+            <= 1e-6 * abs(c["loss"]) for r, c in zip(resumed, tail))),
+        f"run_lm ({arch}) resumed at step {resumed[0]['step']} gives the "
+        f"uninterrupted run's " + ("bits" if exact else
+                                   "history within rtol 1e-6")
+        + f": {resumed} vs {tail}")
+    return out
+
+
+# ------------------------------------------------------------ phase 12b
+# LM training of the other configs (A.7's training half): (arch, layers
+# kept or None for the published depth, tokens a sequence, sequences a
+# step or None for the largest of LM_TRAIN_BATCHES whose reckoned peak
+# stays under LM_TRAIN_PEAK_GIB, the full checks). granite-moe-1b-a400m at
+# full width and depth (train_4k's batch of 256 cut); codeqwen1.5-7b cut
+# to 16 of 32 layers and qwen1.5-32b to 4 of 64 (their bf16 weights and
+# grads and their moments beside one sequence's activations); grok-1-314b
+# is held on the CPU only (``LM_TRAIN_CARD_GIB``: one layer's 6.5e9
+# parameters with their grads, bf16 moments and AdamW's float32
+# temporaries of its expert leaf reckon above the card)
+LM_TRAIN_RUNS = (("granite-moe-1b-a400m", None, 4096, None, True),
+                 ("codeqwen1.5-7b", 16, 4096, 1, False),
+                 ("qwen1.5-32b", 4, 4096, 1, False))
+LM_TRAIN_BATCHES = (1, 2, 4, 8, 16)
+LM_TRAIN_PEAK_GIB = 60
+LM_TRAIN_STEPS = 3
+# what the reckoning may reach on the card (80 GiB less the context and
+# the allocator's slack)
+LM_TRAIN_CARD_GIB = 72
+LM_TRAIN_GROK = ("grok-1-314b", 1, 1024)
+
+
+def lm_param_count(cfg):
+    """(parameters, the largest leaf's elements) of ``cfg``'s LM."""
+    d, dh, h, hkv = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    attn = d * dh * (2 * h + 2 * hkv) + (dh * (h + 2 * hkv)
+                                         if cfg.qkv_bias else 0)
+    mlp = (d * cfg.moe_experts + 3 * cfg.moe_experts * d * cfg.d_ff
+           if cfg.is_moe else 3 * d * cfg.d_ff)
+    norms = (4 if cfg.post_norm else 2) * d
+    embed = cfg.vocab * d * (1 if cfg.tied_embed else 2)
+    leaf = max(cfg.vocab * d, (cfg.moe_experts or 1) * d * cfg.d_ff)
+    return cfg.n_layers * (attn + mlp + norms) + embed + d, leaf
+
+
+def lm_train_grok_cfg():
+    """grok-1-314b's published config cut to LM_TRAIN_GROK's layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_TRAIN_GROK[0]),
+                               n_layers=LM_TRAIN_GROK[1])
+
+
+def reckoned_train_gib(cfg, seq, batch, mom_bytes):
+    """An LM train step's reckoned peak, GiB: bf16 weights and grads and
+    the moments; AdamW's four float32 temporaries of the largest leaf; a
+    sequence's float32 logits three times over and its bf16 ones once (14
+    B a logit), each layer's bf16 input kept for the recompute, and one
+    layer's recompute, 24 B a token and unit of its widest activation
+    (under MoE the k · 1.25 slots a token of d_ff)."""
+    n, leaf = lm_param_count(cfg)
+    wide = max(cfg.d_model, cfg.d_ff * (cfg.moe_top_k * 1.25
+                                         if cfg.is_moe else 1))
+    act = seq * (14 * cfg.vocab + 2 * cfg.n_layers * cfg.d_model + 24 * wide)
+    return (n * (4 + 2 * mom_bytes) + 16 * leaf + batch * act) / 2**30
+
+
+def flash_vs_float64(q, k, v, cap, got, want, heads=2):
+    """Shares of the one-bf16-ulp tolerance (``flash_close``) that the
+    kernel's and the twin's outputs reach against a float64 causal (and
+    capped) attention, on the ``heads`` query heads where the two differ
+    most against that tolerance: {"kernel", "twin", "heads"}."""
+    import torch
+    g = q.shape[1] // k.shape[1]
+    seq, dh = q.shape[2], q.shape[3]
+    d = (got.float() - want.float()).abs() / (
+        FLASH_ATOL + FLASH_RTOL * want.float().abs())
+    worst = d[0].amax(dim=(1, 2)).argsort(descending=True)[:heads].tolist()
+    pos = torch.arange(seq, device=q.device)
+    live = pos[:, None] >= pos[None, :]
+    out = {"kernel": 0.0, "twin": 0.0, "heads": worst}
+    for h in worst:
+        s = (q[0, h].double() * dh ** -0.5) @ k[0, h // g].double().T
+        if cap is not None:
+            s = cap * torch.tanh(s / cap)
+        ref = torch.softmax(torch.where(live, s, -1e30), -1) @ v[
+            0, h // g].double()
+        del s
+        for name, o in (("kernel", got), ("twin", want)):
+            out[name] = max(out[name], flash_close(o[0, h], ref)[2])
+    return out
+
+
+def train_kernel_rows(dev, seed, cfg, seq, tag):
+    """Rows 12, 13a and 13b at ``cfg``'s head shapes (bf16, B 1, ``seq``
+    tokens, causal, the config's cap, no window; queries × FLASH_Q_SCALE):
+    the forward with lse and the float32 out, dq and dk/dv, each held
+    against the twin (the forward within one bf16 ulp, the backward within
+    BWD_RTOL / BWD_ATOL), then timed beside the twin and the library
+    (scaled_dot_product_attention and its backward, causal, GQA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.attention import (flash_attention_bwd_plain,
+                                              flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    h, hkv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.attn_logit_cap
+    q, k, v, dout = (torch.randn(s, generator=g, device=dev).to(cfg.dtype)
+                     for s in ((1, h, seq, dh), (1, hkv, seq, dh),
+                               (1, hkv, seq, dh), (1, h, seq, dh)))
+    q = (q.float() * FLASH_Q_SCALE).to(cfg.dtype)
+    mask = dict(causal=True, window=None, logit_cap=cap, q_offset=0)
+    out, lse, out_f32 = tfa._fwd_kernel(q, k, v, lse=True, **mask)
+    want_o = flash_attention_plain(q, k, v, kv_block=512, **mask)
+    _, fwd_err, fwd_share = flash_close(out, want_o)
+    witness = None
+    if fwd_share > 1.0:
+        # past one ulp of the twin: hold both against a float64 witness on
+        # the heads that read worst before calling it a kernel fault
+        witness = flash_vs_float64(q, k, v, cap, out, want_o)
+    args = (q, k, v, out_f32, lse, dout)
+    got = tfa.flash_attention_bwd(*args, **mask)
+    want = flash_attention_bwd_plain(*args, **mask)
+    ok, bwd_err, share = grads_close(got, want)
+    check((fwd_share <= 1.0 or witness["kernel"] <= 1.0) and ok,
+          f"{tag}: the forward within one bf16 ulp of the twin "
+          f"({fwd_share:.3f} of it; of a float64 witness: {witness}) and "
+          f"dq, dk, dv within the backward's tolerance ({share:.3f})")
+    fwd_ms = cuda_ms(lambda: tfa._fwd_kernel(q, k, v, lse=True, **mask),
+                     iters=5, warmup=1)
+    delta = torch.sum(dout.float() * out_f32, dim=-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    bwd = dict(
+        dq=cuda_ms(lambda: tfa.flash_dq(q, k, v, dout, lse, delta, dq,
+                                        **mask), iters=5, warmup=1),
+        dkv=cuda_ms(lambda: tfa.flash_dkv(q, k, v, dout, lse, delta, dk, dv,
+                                          **mask), iters=5, warmup=1))
+    fwd_plain = cuda_ms(lambda: flash_attention_plain(q, k, v, kv_block=512,
+                                                      **mask), iters=2,
+                        warmup=1)
+    bwd_plain = cuda_ms(lambda: flash_attention_bwd_plain(*args, **mask),
+                        iters=2, warmup=1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=5, warmup=1)
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                       enable_gqa=True)
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+        o, (qs, ks, vs), dout, retain_graph=True), iters=5, warmup=1)
+    pairs = causal_pairs(seq) * h
+    elt = q.element_size()
+    qkv = elt * seq * dh * (2 * h + 2 * hkv)
+    shape = (f"B 1, H {h} over Hkv {hkv}, dh {dh}, {seq} tokens, bf16, q x "
+             f"{FLASH_Q_SCALE}, causal, cap {cap}")
+    rows = {}
+    for key, ms, flops, nbytes, plain, lib, err in (
+            ("flash_attention_fwd", fwd_ms, 4 * dh * pairs,
+             qkv + 4 * seq * h + 4 * seq * h * dh, fwd_plain, fwd_lib,
+             fwd_err),
+            ("flash_attention_bwd_dq", bwd["dq"], 6 * dh * pairs,
+             qkv + 8 * seq * h, bwd_plain, bwd_lib, bwd_err),
+            ("flash_attention_bwd_dkv", bwd["dkv"], 8 * dh * pairs,
+             qkv + 8 * seq * h + 2 * elt * seq * dh * hkv, bwd_plain,
+             bwd_lib, bwd_err)):
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        src = ("flash_attention.cu" if key.endswith("fwd")
+               else "flash_attention_bwd.cu")
+        line = {"flash_attention_fwd": 80, "flash_attention_bwd_dq": 193,
+                "flash_attention_bwd_dkv": 229}[key]
+        rows[f"{key} ({tag})"] = dict(
+            name=key, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib,
+            tflops=flops / (ms * 1e-3) / 1e12,
+            shape=f"{shape}; {flops:.3e} FLOPs" + (
+                " (with lse and the float32 out; library: "
+                "scaled_dot_product_attention, causal, GQA)"
+                if key.endswith("fwd") else " (plain: the twin of both "
+                "kernels; library: the backward of "
+                "scaled_dot_product_attention, all of dq, dk, dv)"))
+    del q, k, v, dout, out, lse, out_f32, got, want, o, qs, ks, vs, delta
+    del dq, dk, dv
+    return rows, dict(fwd_share_of_tol=fwd_share, bwd_share_of_tol=share,
+                      fwd_vs_float64=witness)
+
+
+def lm_train_config_phase(dev, seed, arch, layers, seq, batch, full, extra):
+    """One LM config's training on the card: the train_4k cell (cut to
+    ``layers`` and ``batch`` sequences of ``seq`` tokens; the batch by the
+    reckoning when None), launch counters to 0, LM_TRAIN_STEPS AdamW steps
+    with each of the first step's backward launches held against the twin
+    on its own inputs, counters read; the losses; the peak. With ``full``:
+    the step's gradients against the same step with the twin backward
+    (and two planted faults), two steps from one saved state bit-equal,
+    and one step profiled. Then rows 12, 13a, 13b at its head shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import lm_train_cell, train_moments_dtype
+    from repro_torch.models.attention import flash_attention_bwd_plain
+
+    base = get_config(arch)
+    cfg = base if layers is None else dataclasses.replace(base,
+                                                          n_layers=layers)
+    mom_bytes = torch.finfo(train_moments_dtype(base)).bits // 8
+    reckon = {b: reckoned_train_gib(cfg, seq, b, mom_bytes)
+              for b in LM_TRAIN_BATCHES}
+    if batch is None:
+        batch = max(b for b, gib in reckon.items()
+                    if gib <= LM_TRAIN_PEAK_GIB)
+    tag = f"{arch} train" + (f" {layers}L" if layers else "")
+    out = dict(tag=tag, arch=arch, layers=cfg.n_layers, seq=seq,
+               batch=batch, reckoned_gib=reckon[batch],
+               reckoned_by_batch=reckon)
+    check(reckon[batch] <= LM_TRAIN_CARD_GIB,
+          f"{tag}: the reckoned peak {reckon[batch]:.1f} GiB fits the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = lm_train_cell(arch, n_layers=layers, seq_len=seq, batch=batch,
+                         device=dev, seed=seed)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in cell.model.parameters())
+    check(out["params"] == lm_param_count(cfg)[0],
+          f"{tag}: {out['params']} parameters as reckoned "
+          f"({lm_param_count(cfg)[0]})")
+    out["state_gib"] = torch.cuda.memory_allocated() / 2**30
+    out["moments"] = str(cell.opt_cfg.mom_dtype)
+
+    real_bwd = tfa.flash_attention_bwd
+    shares = []
+
+    def checked(*a, **kw):
+        got = real_bwd(*a, **kw)
+        shares.append(grads_close(got, flash_attention_bwd_plain(*a, **kw)))
+        return got
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for i in range(LM_TRAIN_STEPS):
+        tfa.flash_attention_bwd = checked if i == 0 else real_bwd
+        try:
+            t0 = time.perf_counter()
+            m = cell.step()
+            torch.cuda.synchronize()
+        finally:
+            tfa.flash_attention_bwd = real_bwd
+        out["steps"].append(dict(seconds=time.perf_counter() - t0,
+                                 **{k: float(v) for k, v in m.items()}))
+    out["launches"] = launch_counts()
+    out["peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    out["steady_s"] = out["steps"][-1]["seconds"]
+    out["tokens_per_s"] = batch * seq / out["steady_s"]
+    out["bwd_max_abs_err"] = max(e for _, e, _ in shares)
+    out["bwd_share_of_tol"] = max(sh for _, _, sh in shares)
+    n = cfg.n_layers
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n}
+    check(len(shares) == n and all(ok for ok, _, _ in shares),
+          f"{tag}: each of the first step's {n} backward launches within "
+          f"the kernel tolerance of the twin on its own inputs "
+          f"({len(shares)} checked, {out['bwd_share_of_tol']:.3f} of it)")
+    check(all(out["launches"][k] == LM_TRAIN_STEPS * v
+              for k, v in want.items())
+          and all(v == 0 for k, v in out["launches"].items()
+                  if k not in want),
+          f"{tag}: {want} launches a step and no other kernel: "
+          f"{out['launches']} in {LM_TRAIN_STEPS} steps")
+    ln_v = math.log(cfg.vocab)
+    first = out["steps"][0]["loss"]
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              for s in out["steps"]) and ln_v <= first <= ln_v + 2,
+          f"{tag}: finite losses and grad norms, the first near "
+          f"ln({cfg.vocab}) = {ln_v:.2f}: {out['steps']}")
+    if full:
+        lm_train_full_checks(cell, tag, out)
+        out["run_lm_resume"] = run_lm_resume(dev, seed, arch)
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, out["kernel_shares"] = train_kernel_rows(dev, seed, cfg, seq, tag)
+    out["rows"] = rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_full_checks(cell, tag, out):
+    """On the cell's own tokens: the step's gradients with the kernels
+    against the same step with the twin backward in every layer, and with
+    the twin's two planted faults; two steps from one saved state (the
+    parameters and the moments copied to the host and back) bit-equal;
+    one step profiled."""
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.attention import flash_attention_bwd_plain
+    from repro_torch.models.transformer import lm_loss
+
+    model, tokens = cell.model, cell.tokens
+
+    def grads(bwd):
+        real = tfa.flash_attention_bwd
+        tfa.flash_attention_bwd = bwd
+        try:
+            for p in model.parameters():
+                p.grad = None
+            loss = lm_loss(model, tokens)
+            loss.backward()
+        finally:
+            tfa.flash_attention_bwd = real
+        g = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), g
+
+    def twin(fault=None):
+        def fn(q, k, v, o, lse, dout, **kw):
+            if fault == "group_missing_a_head":
+                dout = dout.clone()
+                grp = q.shape[1] // k.shape[1]
+                dout[:, grp - 1::grp] = 0
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                                   **kw)
+            if fault == "next_kv_head":
+                dk, dv = dk.roll(1, dims=1), dv.roll(1, dims=1)
+            return dq, dk, dv
+        return fn
+
+    loss_k, g_k = grads(tfa.flash_attention_bwd)
+    loss_t, g_t = grads(twin())
+
+    def rel_l2(got):
+        return {n: float((got[n].float() - g_t[n].float()).norm()
+                         / g_t[n].float().norm().clamp(min=1e-30))
+                for n in g_t}
+    errs = rel_l2(g_k)
+    worst = max(errs, key=errs.get)
+    del g_k
+    faults = {}
+    for fault in ("next_kv_head", "group_missing_a_head"):
+        _, g_f = grads(twin(fault))
+        faults[fault] = max(rel_l2(g_f).values())
+        del g_f
+    del g_t
+    out["kernel_vs_twin_worst_rel_l2"] = [worst, errs[worst]]
+    out["fault_worst_rel_l2"] = faults
+    check(abs(loss_k - loss_t) <= 1e-6 * abs(loss_t)
+          and errs[worst] <= TRAIN_GRAD_TOL < min(faults.values()),
+          f"{tag}: the step's gradients with the kernels within relative L2 "
+          f"{TRAIN_GRAD_TOL} of the twin backward's (worst {worst}: "
+          f"{errs[worst]}), every planted fault outside ({faults}); loss "
+          f"{loss_k} vs {loss_t}")
+
+    # two steps from one saved state
+    state = {n: p.detach() for n, p in model.named_parameters()}
+    state.update({f"{k}.{n}": t for k in ("m", "v")
+                  for n, t in cell.opt_state[k].items()})
+    saved = {n: t.to("cpu", copy=True) for n, t in state.items()}
+    step0 = cell.opt_state["step"].clone()
+    results = []
+    for _ in range(2):
+        with torch.no_grad():
+            for n, t in state.items():
+                t.copy_(saved[n])
+        cell.opt_state["step"].copy_(step0)
+        m = cell.step()
+        results.append(({n: t.to("cpu", copy=True) for n, t in state.items()},
+                        float(m["loss"]), float(m["grad_norm"])))
+    (a, la, ga), (b, lb, gb) = results
+    same = [n for n in a if torch.equal(a[n], b[n])]
+    out["two_steps_bit_equal"] = len(same) == len(a) and (la, ga) == (lb, gb)
+    check(out["two_steps_bit_equal"],
+          f"{tag}: two steps from one saved state give the same bits "
+          f"({len(same)} of {len(a)} tensors equal; loss {la} / {lb}, grad "
+          f"norm {ga} / {gb})")
+    del saved, results, a, b
+    out["profile"] = dict(tokens=tokens.numel(),
+                          **profile_call(cell.step, top=16))
+
+
+def log_lm_train_config(out):
+    tag = out["tag"]
+    log(f"[{tag}] {out['params']:,} parameters, {out['layers']} layers, "
+        f"{out['batch']} x {out['seq']} tokens a step (reckoned peak "
+        f"{out['reckoned_gib']:.1f} GiB; by batch "
+        f"{ {b: round(v, 1) for b, v in out['reckoned_by_batch'].items()} }),"
+        f" {out['moments']} moments, {out['state_gib']:.2f} GiB of state, "
+        f"built in {out['setup_s']:.2f}s")
+    for i, st in enumerate(out["steps"]):
+        log(f"[{tag}] step {i}: {st['seconds']:.3f}s, loss {st['loss']}, "
+            f"grad_norm {st['grad_norm']}, lr {st['lr']}")
+    log(f"[{tag}] steady {out['steady_s']:.3f}s ({out['tokens_per_s']:.1f} "
+        f"tokens/s); peak {out['peak_allocated_gib']:.2f} GiB allocated, "
+        f"{out['peak_reserved_gib']:.2f} GiB reserved; launches "
+        f"{out['launches']}; first step's backward launches vs the twin: "
+        f"max {out['bwd_max_abs_err']}, {out['bwd_share_of_tol']:.3f} of "
+        "the tolerance")
+    if "profile" in out:
+        log(f"[{tag}] gradients vs the twin backward's: worst "
+            f"{out['kernel_vs_twin_worst_rel_l2']}, faults "
+            f"{out['fault_worst_rel_l2']}; two steps from one state "
+            f"bit-equal: {out['two_steps_bit_equal']}; run_lm (smoke) "
+            f"resumed == uninterrupted bit for bit: "
+            f"{out['run_lm_resume']['bit_equal']}")
+        log_profile(f"{tag} profile", out["profile"])
+    for key, r in out["rows"].items():
+        log_row(key, r)
+
+
+# ------------------------------------------------------------ phase 12c
+# the recommender substrate (A.8): dlrm-rm2 at full width (26 tables of
+# 1,000,000 rows x 64, float32), train_batch's 65,536 samples a step,
+# RECSYS_STEPS AdamW steps; serve_p99 (512) and serve_bulk (262,144) and
+# retrieval_cand (1 query against 1,000,000 candidates, top 100), each
+# timed over RECSYS_TIMED calls. Crash and resume: run_recsys with the
+# tables cut to RECSYS_RESUME_VOCAB rows (a full-width commit writes 26.6
+# GB), checkpoints at 10 and RECSYS_RESUME_STEPS, a crash at
+# RECSYS_RESUME_FAIL_AT
+RECSYS_ARCH = "dlrm-rm2"
+RECSYS_STEPS, RECSYS_TIMED = 3, 5
+RECSYS_RESUME_VOCAB, RECSYS_RESUME_STEPS, RECSYS_RESUME_FAIL_AT = (
+    1 << 16, 12, 11)
+RECSYS_KERNELS = ("digit_hist", "digit_scatter", "rank_search",
+                  "ptr_seg_sum")
+
+
+def span_sum_share(got, want, ptr, x, rows, chunk=1 << 21):
+    """The largest share of ``kernels.ptr_scan.twin_tolerance(ptr, x,
+    rows)`` that |got − want| reaches, taken a chunk of rows at a time (the
+    tolerance of a 26,000,000-row output does not fit beside it in
+    float64): the same bound, (2 len + 4) U_c a row."""
+    import torch
+    p = ptr.to(torch.int64)
+    lim = int(p[-1])
+    msgs = x.index_select(0, rows[:lim].to(torch.int64).clamp(
+        0, x.shape[0] - 1)).double()
+    m = torch.cumsum(msgs, dim=0).abs().amax(dim=0)
+    _, exp = torch.frexp(2 * m)
+    ulp = torch.where(m > 0, torch.ldexp(torch.ones_like(m), exp - 24),
+                      torch.zeros_like(m))
+    del msgs
+    share, worst = 0.0, 0.0
+    for i in range(0, got.shape[0], chunk):
+        hi = min(i + chunk, got.shape[0])
+        seg = (p[i + 1:hi + 1] - p[i:hi]).double()
+        tol = (2 * seg + 4)[:, None] * ulp[None, :]
+        err = (got[i:hi].double() - want[i:hi].double()).abs()
+        worst = max(worst, float(err.max()))
+        share = max(share, float((err / tol.clamp_min(1e-300)).max()))
+    return share, worst
+
+
+def recsys_phase(dev, seed, extra):
+    """dlrm-rm2 on the card: the train cell, its batch's lookup layout
+    against a stable ``torch.sort`` bit for bit, launch counters to 0,
+    RECSYS_STEPS steps (each: the layout's digit passes and rank search,
+    the table gradient's span sum), counters read, a profiled step; one
+    step's table gradient against the plain route's (``GatherRows`` with
+    the twin's sum) within ``twin_tolerance``, and against the library
+    route's time (autograd through ``index_select``); rows 1b, 3 and 14
+    at this path's shapes; the serve and retrieval cells timed, retrieval
+    against a stable sort of the same scores; ``run_recsys`` crashed and
+    resumed against a clean run; the smoke model's step card vs CPU."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.ordering import _bits_for
+    from repro_torch.kernels import launch_counts, ptr_scan
+    from repro_torch.kernels import reindex_epilogue as tre
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.radix_sort import global_radix_schedule
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import dlrm as td
+
+    cfg = get_config(RECSYS_ARCH)
+    f, v = cfg.n_sparse, cfg.vocab_size
+    out = dict(rows={})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = tsteps._recsys_cell(RECSYS_ARCH, "train_batch", device=dev,
+                               seed=seed)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    model = cell.model
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["state_gib"] = torch.cuda.memory_allocated() / 2**30
+    dense, idx, labels = cell.inputs
+    b = idx.shape[0]
+
+    # the batch's lookup layout against a stable sort, bit for bit
+    layout = td.lookup_layout(idx, v)
+    sk, order = torch.sort(layout.keys, stable=True)
+    targets = torch.arange(f * v + 1, dtype=torch.int32, device=dev)
+    want_ptr = torch.searchsorted(sk, targets)
+    check(torch.equal(layout.rev_perm.to(torch.int64), order)
+          and torch.equal(layout.rev_ptr.to(torch.int64), want_ptr),
+          f"the lookup layout of {layout.keys.numel()} keys over {f * v} "
+          "rows equals a stable torch.sort and its searchsorted pointers")
+    out["lookups"] = layout.keys.numel()
+    out["distinct_rows"] = int(torch.unique(layout.keys).numel())
+    out["row0_share"] = float((idx == 0).float().mean())
+    out["layout_ms"] = cuda_ms(lambda: td.lookup_layout(idx, v), iters=5,
+                               warmup=1)
+    out["layout_library_ms"] = cuda_ms(lambda: torch.searchsorted(
+        torch.sort(layout.keys, stable=True).values, targets), iters=5,
+        warmup=1)
+    # rows 1b and 3 at this path's shapes: a 7-bit pass over the lookups'
+    # (key, position) pairs, the pointer build's rank search
+    pos = torch.arange(out["lookups"], dtype=torch.int32, device=dev)
+    for key, r in card_digit_rows(layout.keys, pos, 7, 0).items():
+        r["shape"] = "dlrm-rm2 train_batch's lookups: " + r["shape"]
+        out["rows"][f"{key} (dlrm-rm2 layout)"] = r
+    sk32 = sk.to(torch.int32)
+    got = tre.rank_fn(sk32, targets)
+    check(torch.equal(got.to(torch.int64), want_ptr),
+          "the rank search's pointers equal searchsorted's")
+    r_ms, r_by = bound(4 * (2 * targets.numel() + sk32.numel()), 0)
+    out["rows"]["rank_search (dlrm-rm2 layout)"] = dict(
+        name="rank_search", route="cuda",
+        source="src/repro_torch/csrc/reindex_epilogue.cu",
+        replaces="src/repro/kernels/reindex_epilogue.py:57", max_abs_err=0,
+        ms=cuda_ms(lambda: tre.rank_fn(sk32, targets), iters=5),
+        plain_ms=cuda_ms(lambda: tre._unrolled_rank(sk32, targets, "left"),
+                         iters=2, warmup=1),
+        bound_ms=r_ms, bound_by=r_by,
+        library_ms=cuda_ms(lambda: torch.searchsorted(sk32, targets),
+                           iters=5),
+        shape=f"{targets.numel()} queries (every table row) over "
+              f"{sk32.numel()} sorted keys; bytes: queries, keys and output "
+              "once; library: searchsorted")
+    del sk, order, want_ptr, got, sk32, pos
+
+    # counted steps
+    passes = len(global_radix_schedule(_bits_for(f * v), RADIX_BITS))
+    want = {"digit_hist": passes, "digit_scatter": passes, "rank_search": 1,
+            "ptr_seg_sum": 1}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for i in range(RECSYS_STEPS):
+        t0 = time.perf_counter()
+        m = cell.step()
+        torch.cuda.synchronize()
+        out["steps"].append(dict(seconds=time.perf_counter() - t0,
+                                 **{k: float(x) for k, x in m.items()}))
+        if i == 0:
+            out["launches_first_step"] = launch_counts()
+    out["launches"] = launch_counts()
+    out["peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    out["steady_s"] = out["steps"][-1]["seconds"]
+    out["samples_per_s"] = b / out["steady_s"]
+    check(all(out["launches_first_step"][k] == n for k, n in want.items())
+          and all(out["launches"][k] == RECSYS_STEPS * n
+                  for k, n in want.items())
+          and all(n == 0 for k, n in out["launches"].items()
+                  if k not in want),
+          f"{want} launches a step and no other kernel: "
+          f"{out['launches_first_step']} in the first, {out['launches']} in "
+          f"{RECSYS_STEPS}")
+    first = out["steps"][0]["loss"]
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              for s in out["steps"]) and abs(first - math.log(2)) <= 0.5,
+          f"finite losses and grad norms, the first near ln 2: "
+          f"{out['steps']}")
+    out["profile"] = dict(samples=b, **profile_call(cell.step, top=12))
+
+    # one step's table gradient, kernel route against the plain route
+    cell.opt_state = None  # the moments' 13.3 GB make room for two grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = ptr_scan.ptr_seg_sum
+
+    def table_grad(fn):
+        calls = []
+
+        def recording(*args):
+            calls.append(args)
+            return fn(*args)
+        recording.launches = real.launches
+        ptr_scan.ptr_seg_sum = recording
+        try:
+            for p in model.parameters():
+                p.grad = None
+            loss = td.dlrm_loss(model, dense, idx, labels, layout)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            ptr_scan.ptr_seg_sum = real
+            if fn is real:
+                real.launches = recording.launches
+        g = model.tables.grad
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), g, calls
+    loss_k, g_k, calls = table_grad(real)
+    loss_p, g_p, calls_p = table_grad(ptr_scan._ptr_seg_sum_plain)
+    check(len(calls) == len(calls_p) == 1 and torch.equal(calls[0][1],
+                                                          calls_p[0][1]),
+          "one span sum a backward, on the same upstream gradient in both "
+          "routes")
+    rev_ptr, gout, rows = calls[0][:3]
+    share, err = span_sum_share(g_k.view(f * v, -1), g_p.view(f * v, -1),
+                                rev_ptr, gout, rows)
+    out["table_grad"] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                             max_abs_err=err, share_of_tolerance=share)
+    check(loss_k == loss_p and share <= 1.0,
+          f"the step's table gradient within twin_tolerance of the plain "
+          f"route's ({share:.4f} of it, max error {err})")
+    del g_k, g_p, calls_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    # row 14 at this path's shape, and the lookup's routes: the port's
+    # (GatherRows: index_select, then the span sum over the layout)
+    # against autograd through index_select (index_add_'s float atomics)
+    again = real(rev_ptr, gout, rows)
+    check(torch.equal(again, real(rev_ptr, gout, rows)),
+          "the table gradient's span sum gives the same bits twice")
+    del again
+    n_rows, d = f * v, gout.shape[1]
+    lim = int(rev_ptr[-1])
+    keys64 = layout.keys.to(torch.int64)
+    s_ms, s_by = bound(4 * (lim * d + lim + n_rows + 1 + n_rows * d),
+                       lim * d)
+    out["rows"]["ptr_seg_sum (dlrm-rm2 table gradient)"] = dict(
+        name="ptr_seg_sum", route="cuda",
+        source="src/repro_torch/csrc/ptr_scan.cu",
+        replaces="src/repro/models/gnn.py:80 (_ptr_seg_sum in jnp, no "
+                 "Pallas call)", max_abs_err=err,
+        ms=cuda_ms(lambda: real(rev_ptr, gout, rows), iters=5, warmup=1),
+        plain_ms=cuda_ms(lambda: ptr_scan._ptr_seg_sum_plain(
+            rev_ptr, gout, rows), iters=2, warmup=1),
+        bound_ms=s_ms, bound_by=s_by,
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (n_rows, d), device=dev).index_add_(0, keys64, gout), iters=5,
+            warmup=1),
+        shape=f"[{lim}, {d}] gradient rows through rev_perm into "
+              f"{n_rows} table rows ({out['distinct_rows']} live); "
+              "library: index_add_ into zeros")
+    flat = model.tables.view(n_rows, d)
+
+    def port_route():
+        return torch.autograd.grad(td.GatherRows.apply(
+            flat, keys64, layout.rev_ptr, layout.rev_perm), flat, gout)
+
+    def library_route():
+        return torch.autograd.grad(flat.index_select(0, keys64), flat, gout)
+    out["lookup_port_ms"] = cuda_ms(port_route, iters=5, warmup=1)
+    out["lookup_library_ms"] = cuda_ms(library_route, iters=5, warmup=1)
+    del calls, rev_ptr, gout, rows, keys64, flat, layout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving and retrieval on the same model
+    torch.cuda.reset_peak_memory_stats()
+    for shape in ("serve_p99", "serve_bulk"):
+        sc = tsteps._recsys_cell(RECSYS_ARCH, shape, device=dev, seed=seed,
+                                 model=model)
+        logits = sc.step()
+        n = sc.inputs[1].shape[0]
+        check(tuple(logits.shape) == (n,) and bool(
+            torch.isfinite(logits).all()), f"{shape}: {n} finite logits")
+        ms = cuda_ms(sc.step, iters=RECSYS_TIMED, warmup=1)
+        out[shape] = dict(batch=n, ms=ms, predictions_per_s=n / ms * 1e3)
+        del sc, logits
+    rc = tsteps._recsys_cell(RECSYS_ARCH, "retrieval_cand", device=dev,
+                             seed=seed, model=model)
+    top, ix = rc.step()
+    d1, uidx, cidx = rc.inputs
+    n = cidx.shape[0]
+    with torch.no_grad():
+        scores = td.dlrm_forward(model, d1.expand(n, -1), torch.cat(
+            [uidx.expand(n, -1, -1), cidx], dim=1)).cpu().numpy()
+    order = np.argsort(-scores, kind="stable")[:top.shape[0]]
+    check(np.array_equal(ix.cpu().numpy(), order)
+          and np.array_equal(top.cpu().numpy(), scores[order]),
+          f"retrieval's top {top.shape[0]} of {n} equals a stable sort of "
+          "the same scores")
+    ms = cuda_ms(rc.step, iters=RECSYS_TIMED, warmup=1)
+    out["retrieval"] = dict(candidates=n, top_k=int(top.shape[0]), ms=ms,
+                            candidates_per_s=n / ms * 1e3,
+                            ties_in_top=int(len(order) - len(set(
+                                scores[order].tolist()))))
+    out["serve_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del rc, top, ix, scores, cell, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run_recsys: a crash and a resume against an uninterrupted run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recsys_")
+    kw = dict(arch=RECSYS_ARCH, steps=RECSYS_RESUME_STEPS, smoke=False,
+              seed=seed, device=dev, vocab_size=RECSYS_RESUME_VOCAB,
+              log_every=1)
+    try:
+        t0 = time.perf_counter()
+        try:
+            tlaunch.run_recsys(ckpt_dir=os.path.join(tmp, "a"),
+                               fail_at=RECSYS_RESUME_FAIL_AT, **kw)
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"run_recsys failed: {e}")
+        else:
+            check(False, "run_recsys did not stop at the injected failure")
+        m1, _, resumed = tlaunch.run_recsys(ckpt_dir=os.path.join(tmp, "a"),
+                                            fail_at=None, **kw)
+        m2, _, clean = tlaunch.run_recsys(ckpt_dir=os.path.join(tmp, "b"),
+                                          fail_at=None, **kw)
+        out["resume_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    start = resumed[0]["step"]
+    same = all(torch.equal(p, q) for p, q in zip(m1.parameters(),
+                                                 m2.parameters()))
+    out["resume"] = dict(resumed_at=start, resumed=resumed,
+                         clean_losses=[h["loss"] for h in clean],
+                         bit_equal=same and resumed == clean[start:])
+    check(start == 10 and out["resume"]["bit_equal"],
+          f"run_recsys resumed at step {start} ends with the uninterrupted "
+          f"run's bits and history: {resumed} vs {clean[start:]}")
+    del m1, m2
+
+    # the smoke model's train step: card against CPU, float32
+    small = tsteps._recsys_cell(RECSYS_ARCH, "train_batch", device="cpu",
+                                seed=seed, smoke=True, batch=256)
+    model_d = copy.deepcopy(small.model).to(dev)
+    state_d = {key: ({n: t.to(dev, copy=True)
+                      for n, t in small.opt_state[key].items()}
+                     if key != "step" else small.opt_state[key].clone())
+               for key in small.opt_state}
+    batch_d = tuple(t.to(dev) for t in small.inputs)
+    loss_c = td.dlrm_loss(small.model, *small.inputs)
+    loss_c.backward()
+    grads_c = {n: p.grad.clone() for n, p in small.model.named_parameters()}
+    loss_d = td.dlrm_loss(model_d, *batch_d)
+    loss_d.backward()
+    g_err = max(float((p.grad.cpu() - grads_c[n]).abs().max()
+                      / grads_c[n].abs().max().clamp(min=1e-30))
+                for n, p in model_d.named_parameters())
+    for mdl in (small.model, model_d):
+        for p in mdl.parameters():
+            p.grad = None
+    m_c = small.step()
+    tsteps.recsys_train_step(model_d, small.opt_cfg, state_d, batch_d)
+    p_err = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(model_d.parameters(),
+                                small.model.parameters()))
+    out["smoke_card_vs_cpu"] = dict(
+        loss=abs(float(loss_d.detach()) - float(loss_c.detach())),
+        grad_err_over_max=g_err, param_max_abs_err=p_err)
+    check(out["smoke_card_vs_cpu"]["loss"] <= 1e-5 and g_err <= 1e-4
+          and p_err <= 2 * m_c["lr"] + 1e-6,
+          f"smoke recsys step card vs CPU: {out['smoke_card_vs_cpu']}")
+    extra["recsys_table_grad"] = out["table_grad"]
+    return out
+
+
+def log_recsys(out):
+    log(f"[recsys] {RECSYS_ARCH} at full width: {out['params']:,} "
+        f"parameters, {out['state_gib']:.2f} GiB with the AdamW moments, "
+        f"built in {out['setup_s']:.2f}s; a batch's {out['lookups']} lookups"
+        f" hit {out['distinct_rows']} rows ({out['row0_share']:.3f} of them "
+        f"row 0); layout {out['layout_ms']:.3f} ms (torch.sort + "
+        f"searchsorted {out['layout_library_ms']:.3f} ms)")
+    for i, st in enumerate(out["steps"]):
+        log(f"[recsys] step {i}: {st['seconds']:.4f}s, loss {st['loss']}, "
+            f"grad_norm {st['grad_norm']}, lr {st['lr']}")
+    log(f"[recsys] steady step {out['steady_s'] * 1e3:.2f} ms "
+        f"({out['samples_per_s']:.1f} samples/s); peak "
+        f"{out['peak_allocated_gib']:.2f} GiB allocated, "
+        f"{out['peak_reserved_gib']:.2f} GiB reserved; launches "
+        f"{out['launches']}")
+    log_profile("recsys step profile", out["profile"])
+    log(f"[recsys] table gradient vs the plain route: {out['table_grad']}; "
+        f"the lookup's forward + backward: port {out['lookup_port_ms']:.3f} "
+        f"ms (the layout apart), autograd through index_select "
+        f"{out['lookup_library_ms']:.3f} ms")
+    for shape in ("serve_p99", "serve_bulk"):
+        r = out[shape]
+        log(f"[recsys] {shape}: {r['batch']} samples in {r['ms']:.3f} ms, "
+            f"{r['predictions_per_s']:.1f} predictions/s")
+    r = out["retrieval"]
+    log(f"[recsys] retrieval: 1 query against {r['candidates']} candidates, "
+        f"top {r['top_k']}, {r['ms']:.3f} ms ({r['candidates_per_s']:.1f} "
+        f"candidates/s) == a stable sort of the scores; peak "
+        f"{out['serve_peak_allocated_gib']:.2f} GiB")
+    log(f"[recsys] run_recsys with {RECSYS_RESUME_VOCAB}-row tables "
+        f"resumed at step {out['resume']['resumed_at']} == uninterrupted "
+        f"(bit-equal: {out['resume']['bit_equal']}) in "
+        f"{out['resume_s']:.1f}s; losses {out['resume']['clean_losses']}; "
+        f"smoke card vs CPU {out['smoke_card_vs_cpu']}")
+    for key, r in out["rows"].items():
+        log_row(key, r)
 
 
 # ------------------------------------------------------------------ main
@@ -6337,10 +7210,37 @@ def main():
         f"uninterrupted (bit-equal: {extra['run_lm_resume']['bit_equal']}): "
         "ok")
     del tcell
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12b. LM training of the other configs
+    train_outs = {}
+    for arch, layers, seq, batch, full in LM_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        tco = lm_train_config_phase(dev, args.seed, arch, layers, seq, batch,
+                                    full, extra)
+        log_lm_train_config(tco)
+        rows.update(tco["rows"])
+        log(f"[{tco['tag']}] phase done in {time.perf_counter() - t0:.1f}s")
+        train_outs[arch] = tco
+    grok_gib = reckoned_train_gib(lm_train_grok_cfg(), LM_TRAIN_GROK[2], 1,
+                                  2)
+    log(f"[{LM_TRAIN_GROK[0]} train] held on the CPU: one layer at "
+        f"{LM_TRAIN_GROK[2]} tokens reckons {grok_gib:.1f} GiB, past the "
+        f"{LM_TRAIN_CARD_GIB} GiB the card allows")
+
+    # 12c. the recommender substrate
+    t0 = time.perf_counter()
+    dout = recsys_phase(dev, args.seed, extra)
+    log_recsys(dout)
+    rows.update(dout["rows"])
+    log(f"[recsys] phase done in {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[extra] {json.dumps(extra)}")
 
     # 13. report
-    new_paths = list(fouts.values()) + [kout, rout, uout, gout]
+    new_paths = list(fouts.values()) + [kout, rout, uout, gout, dout]
     launches = {k: out["launches"][k] + mout["launches"][k]
                 + sout["launches"][k]
                 + sum(p["launches"][k] for p in new_paths)
@@ -6351,6 +7251,7 @@ def main():
                      + sout["launches"][k]
                      + sum(o["prefill"]["launches"][k]
                            for o in cfg_outs.values())
+                     + sum(o["launches"][k] for o in train_outs.values())
                      for k in LM_KERNELS + TRAIN_KERNELS})
     launches.update({k: lsout["launches"][k]
                      + sum(o["serve"]["launches"][k]
@@ -6358,7 +7259,7 @@ def main():
                      for k in LM_SERVE_KERNELS})
     launches.update({k: sum(p["launches"][k] for p in [out, mout, sout, lout,
                                                        tout, lsout]
-                            + new_paths
+                            + new_paths + list(train_outs.values())
                             + [o[part] for o in cfg_outs.values()
                                for part in ("prefill", "serve")])
                      for k in OFF_PATH_KERNELS})
@@ -6375,7 +7276,8 @@ def main():
                        updates=uout, gnn_train=gout,
                        service=sout, lm_path=lout, lm_serve=lsout,
                        lm_configs=cfg_outs, train_path=tout,
-                       extra=extra,
+                       lm_train_configs=train_outs, recsys=dout,
+                       extra=extra, trace_clock=TRACE_CLOCK,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(smi)
@@ -6458,6 +7360,8 @@ def log_profile(tag, prof):
     what = (f"one replayed step of {prof['slots']} slots, {prof['seeds']} "
             "seeds" if "slots" in prof
             else f"one request of {prof['seeds']} seeds" if "seeds" in prof
+            else f"one train step of {prof['samples']} samples"
+            if "samples" in prof
             else "one convert" if "convert" in tag
             else f"one decode step of {prof['tokens']} rows" if "decode" in tag
             or "serve" in tag

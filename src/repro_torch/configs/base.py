@@ -4,9 +4,7 @@ architecture the reference registers, its shape cells and per-cell skips.
 Each ``configs/<module>.py`` exposes ``config()`` (the published numbers)
 and ``smoke_config()`` (a small variant of the same family for CPU tests);
 ``launch/steps.py`` turns (arch, shape) into a cell. The registry keeps
-the reference's ids, families, shapes, skips and notes; an architecture
-whose substrate is not ported yet is registered all the same and
-``get_config`` names its roadmap item.
+the reference's ids, families, shapes, skips and notes.
 """
 from __future__ import annotations
 
@@ -54,11 +52,6 @@ class ArchSpec:
 
 ARCHS: dict[str, ArchSpec] = {}
 
-# architectures registered whose substrate the port does not have yet
-UNPORTED = {"dlrm-rm2": "the recommender substrate is ROADMAP.md A.8 "
-                        "(A12)"}
-
-
 def _reg(spec: ArchSpec):
     ARCHS[spec.id] = spec
 
@@ -103,12 +96,8 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 def get_config(arch_id: str, smoke: bool = False) -> Any:
     """The config of ``arch_id`` (its smoke variant with ``smoke``); an
-    unknown id raises ``KeyError``, a registered one the port does not
-    run yet ``NotImplementedError`` naming its roadmap item."""
+    unknown id raises ``KeyError``."""
     spec = ARCHS[arch_id]
-    if arch_id in UNPORTED:
-        raise NotImplementedError(f"{arch_id} is not ported yet: "
-                                  f"{UNPORTED[arch_id]}")
     mod = importlib.import_module(f"repro_torch.configs.{spec.module}")
     return mod.smoke_config() if smoke else mod.config()
 

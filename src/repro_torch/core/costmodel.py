@@ -72,6 +72,15 @@ class EngineConfig:
                 f"{ridx}{'_pl' if self.use_pallas else ''}")
 
 
+# The two routed configurations the port runs on the card: global_radix
+# sorts on the digit-pass kernels with the fused rank epilogue, and
+# chunked_merge sorts on the chunk-sort and merge kernels with the
+# unfused set-count pointer build
+SLICE_CFG = EngineConfig(use_pallas=True, sort_strategy="global_radix",
+                         reindex_strategy="fused")
+MERGE_CFG = EngineConfig(use_pallas=True, sort_strategy="chunked_merge",
+                         reindex_strategy="unfused")
+
 # The resource budget analog of the paper's 70:30 UPE:SCR split: the
 # product of width × lanes is bounded.
 UPE_BUDGET = 4096 * 64

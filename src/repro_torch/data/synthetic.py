@@ -1,10 +1,10 @@
-"""Synthetic data generators (port of the LM and graph parts of
-``repro/data/synthetic.py``): deterministic functions of (seed, step), in
-numpy, bit-identical to the reference's.
+"""Synthetic data generators (port of ``repro/data/synthetic.py``):
+deterministic functions of (seed, step), in numpy, bit-identical to the
+reference's.
 
 Determinism is the fault-tolerance contract: ``batch_fn(step)`` returns
 the same batch after a restart, so nothing about data order lives in
-process state. The DLRM generator waits for its slice.
+process state.
 """
 from __future__ import annotations
 
@@ -41,3 +41,16 @@ def batch_nodes(seed: int, step: int, batch: int,
     """``batch`` distinct seed nodes [batch] int32 for ``step``."""
     rng = _rng(seed, step)
     return rng.choice(n_nodes, size=batch, replace=False).astype(np.int32)
+
+
+def dlrm_batch(seed: int, step: int, batch: int, n_dense: int,
+               n_sparse: int, hot: int, vocab: int):
+    """A recommender batch: (dense [batch, n_dense] float32 normal,
+    indices [batch, n_sparse, hot] int32 from a Zipf(1.5) law clipped into
+    [0, vocab) (a power law's duplication), labels [batch] float32 0 / 1)."""
+    rng = _rng(seed, step)
+    dense = rng.normal(size=(batch, n_dense)).astype(np.float32)
+    raw = rng.zipf(1.5, size=(batch, n_sparse, hot))
+    idx = np.minimum(raw - 1, vocab - 1).astype(np.int32)
+    labels = rng.integers(0, 2, size=(batch,)).astype(np.float32)
+    return dense, idx, labels

@@ -52,16 +52,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import pipeline
-from repro_torch.core.costmodel import EngineConfig
+from repro_torch.core.costmodel import MERGE_CFG, SLICE_CFG
 from repro_torch.core.graph import next_pow2, resolve_device, synthetic_coo
 from repro_torch.models.gnn import gnn_model
 from repro_torch.models.transformer import LM, LMConfig
 from repro_torch.serve import GnnServeEngine, ServeEngine
 
-SLICE_CFG = EngineConfig(use_pallas=True, sort_strategy="global_radix",
-                         reindex_strategy="fused")
-MERGE_CFG = EngineConfig(use_pallas=True, sort_strategy="chunked_merge",
-                         reindex_strategy="unfused")
 # --engine-cfg → (engine configuration, GNNConfig.use_pallas_agg)
 ENGINE_CFGS = {"slice": (SLICE_CFG, False), "merge": (MERGE_CFG, True)}
 

@@ -1,10 +1,10 @@
-"""Step cells of the port (the LM prefill and train cells and the GNN
-train cells of ``repro/launch/steps.py``).
+"""Step cells of the port (the LM prefill and train cells, the GNN train
+cells and the recommender cells of ``repro/launch/steps.py``).
 
-The prefill cell builds any of the five LM configurations (gemma2-9b,
-granite-moe-1b-a400m, codeqwen1.5-7b, qwen1.5-32b, grok-1-314b); LM
-training runs gemma2-9b, and the others wait for ROADMAP.md A.7's
-training half (``UNPORTED_TRAINING``).
+The prefill and train cells build any of the five LM configurations
+(gemma2-9b, granite-moe-1b-a400m, codeqwen1.5-7b, qwen1.5-32b,
+grok-1-314b); the recommender cells build dlrm-rm2 at each of the four
+``RECSYS_SHAPES``.
 
 A cell is a built model plus an input batch made from a seed; calling its
 ``step`` runs one step. Meshes, shardings and compiled programs of the
@@ -17,28 +17,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs import GNN_SHAPES, LM_SHAPES, get_config
+from repro_torch.configs import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+                                 get_config)
 from repro_torch.core.graph import resolve_device
-from repro_torch.data.synthetic import lm_batch
+from repro_torch.data.synthetic import dlrm_batch, lm_batch
+from repro_torch.models.dlrm import (DLRM, dlrm_forward, dlrm_loss,
+                                     dlrm_retrieval)
 from repro_torch.models.gnn import (GNNConfig, GraphBatch, _GNN, gnn_loss,
                                     gnn_model)
 from repro_torch.models.transformer import LM, lm_loss, lm_prefill
 from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update
-
-# LM archs the port serves and does not train yet (dlrm-rm2, whose
-# substrate is unported, is refused by ``get_config``)
-UNPORTED_TRAINING = {
-    a: "LM training of this config is ROADMAP.md A.7's training half (A12)"
-    for a in ("granite-moe-1b-a400m", "codeqwen1.5-7b", "qwen1.5-32b",
-              "grok-1-314b")}
-
-
-def refuse_unported_training(arch_id: str) -> None:
-    """Raise ``NotImplementedError`` for an arch the port cannot train
-    yet, naming its roadmap item."""
-    if arch_id in UNPORTED_TRAINING:
-        raise NotImplementedError(f"training {arch_id} is not ported yet: "
-                                  f"{UNPORTED_TRAINING[arch_id]}")
 
 
 @dataclasses.dataclass
@@ -108,6 +96,15 @@ def gnn_train_step(model: _GNN, opt_cfg: AdamWConfig, opt_state: dict,
                        opt_state)
 
 
+def train_moments_dtype(cfg) -> torch.dtype:
+    """The AdamW moments' dtype of an LM train cell (the reference's
+    rule): bfloat16 when n_layers · d_model > 200,000 or the train layout
+    is ``dp_only``, else float32."""
+    big = cfg.n_layers * cfg.d_model > 200_000
+    return (torch.bfloat16 if big or cfg.train_layout == "dp_only"
+            else torch.float32)
+
+
 @dataclasses.dataclass
 class TrainCell:
     arch_id: str
@@ -132,17 +129,14 @@ def lm_train_cell(arch_id: str, n_layers: int | None = None,
     the model with random weights from ``seed`` on ``device``, AdamW with
     the reference cell's moments (bfloat16 when n_layers · d_model >
     200,000 or the layout is ``dp_only``, reckoned on the published
-    configuration; float32 for gemma2-9b), zero state, and the tokens of
-    ``lm_batch(seed, 0, ...)``. An arch in ``UNPORTED_TRAINING`` raises."""
-    refuse_unported_training(arch_id)
+    configuration: granite-moe-1b-a400m, qwen1.5-32b and grok-1-314b;
+    float32 for gemma2-9b and codeqwen1.5-7b), zero state, and the tokens
+    of ``lm_batch(seed, 0, ...)``."""
     shape = LM_SHAPES["train_4k"]
     seq_len = shape["seq_len"] if seq_len is None else seq_len
     batch = shape["global_batch"] if batch is None else batch
     base = get_config(arch_id, smoke=smoke)
-    big = base.n_layers * base.d_model > 200_000
-    opt_cfg = AdamWConfig(mom_dtype=torch.bfloat16
-                          if big or base.train_layout == "dp_only"
-                          else torch.float32)
+    opt_cfg = AdamWConfig(mom_dtype=train_moments_dtype(base))
     cfg = base if n_layers is None else dataclasses.replace(
         base, n_layers=n_layers)
     dev = resolve_device(device)
@@ -258,3 +252,72 @@ def _gnn_cell(arch_id: str, shape_name: str, device="cuda", seed: int = 0,
     opt_state = adamw_init(dict(model.named_parameters()))
     batch = _gnn_batch(_gnn_batch_specs(cfg, dims), dims, seed, dev)
     return GnnTrainCell(arch_id, shape_name, model, opt_cfg, opt_state, batch)
+
+
+# ============================================================== recsys cells
+def recsys_train_step(model: DLRM, opt_cfg: AdamWConfig, opt_state: dict,
+                      batch: tuple) -> dict:
+    """One training step of ``dlrm_loss`` on ``batch`` = (dense, idx,
+    labels) (the reference cell's ``train_step``): ``{"loss",
+    "grad_norm", "lr"}``. The table's gradient is the span sum over the
+    batch's lookup layout, built inside the loss."""
+    return _train_step(model, lambda: dlrm_loss(model, *batch), opt_cfg,
+                       opt_state)
+
+
+@dataclasses.dataclass
+class RecsysCell:
+    arch_id: str
+    shape_name: str
+    model: DLRM
+    # train: (dense, idx, labels); serve: (dense, idx); retrieval: (dense,
+    # user idx, candidate idx); on the model's device
+    inputs: tuple
+    opt_cfg: AdamWConfig | None = None
+    opt_state: dict | None = None  # train.optim.adamw_init's (train only)
+
+    def step(self):
+        """One step of the cell's kind: a train step's ``{"loss",
+        "grad_norm", "lr"}``, a serve step's logits [B], or retrieval's
+        (top scores, candidate indices)."""
+        kind = RECSYS_SHAPES[self.shape_name]["kind"]
+        if kind == "train":
+            return recsys_train_step(self.model, self.opt_cfg,
+                                     self.opt_state, self.inputs)
+        if kind == "serve":
+            with torch.no_grad():
+                return dlrm_forward(self.model, *self.inputs)
+        return dlrm_retrieval(self.model, *self.inputs)
+
+
+# the candidates' own sparse fields in a retrieval cell (the last ones)
+RETRIEVAL_CAND_FIELDS = 2
+
+
+def _recsys_cell(arch_id: str, shape_name: str, device="cuda", seed: int = 0,
+                 smoke: bool = False, batch: int | None = None,
+                 model: DLRM | None = None) -> RecsysCell:
+    """The ``RECSYS_SHAPES[shape_name]`` cell of ``arch_id``: ``model`` (or
+    a new one with random weights from ``seed`` on ``device``) and inputs
+    from ``dlrm_batch(seed, 0, ...)`` of the shape's batch (``batch`` cuts
+    it; for retrieval, the candidate count). Train cells hold AdamW at the
+    reference cell's defaults with zero state. A retrieval cell scores the
+    first row's dense features and first F − 2 fields against every row's
+    last 2 fields."""
+    cfg = get_config(arch_id, smoke=smoke)
+    d = RECSYS_SHAPES[shape_name]
+    dev = resolve_device(device)
+    model = DLRM(cfg, seed=seed, device=dev) if model is None else model
+    n = batch if batch is not None else (
+        d["n_candidates"] if d["kind"] == "retrieval" else d["batch"])
+    dense, idx, labels = (torch.from_numpy(a).to(dev) for a in dlrm_batch(
+        seed, 0, n, cfg.n_dense, cfg.n_sparse, cfg.hot, cfg.vocab_size))
+    if d["kind"] == "train":
+        opt_cfg = AdamWConfig()
+        return RecsysCell(arch_id, shape_name, model, (dense, idx, labels),
+                          opt_cfg, adamw_init(dict(model.named_parameters())))
+    if d["kind"] == "serve":
+        return RecsysCell(arch_id, shape_name, model, (dense, idx))
+    f_user = cfg.n_sparse - RETRIEVAL_CAND_FIELDS
+    return RecsysCell(arch_id, shape_name, model,
+                      (dense[:1], idx[:1, :f_user], idx[:, f_user:]))

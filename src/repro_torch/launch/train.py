@@ -5,15 +5,15 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-reddit \
       --smoke --steps 8 --device cpu    # the kernels' plain twins
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b \
-      --smoke --steps 8                 # LM training
+      --smoke --steps 8                 # LM training (any LM config)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
+      --smoke --device cpu              # recommender training
 
-Data → (GNN: the preprocessing engine samples a subgraph a step) → model
-→ AdamW → checkpoint / restart through ``train.loop``; ``--fail-at``
-crashes the run at a step, and a second run with the same ``--ckpt-dir``
-resumes from the last commit. Recommender training and the LM configs
-other than gemma2-9b wait for their slices: ``main`` refuses an LM arch
-in ``UNPORTED_TRAINING`` (``launch/steps.py``), and ``get_config``
-refuses dlrm-rm2.
+Data → (GNN: the preprocessing engine samples a subgraph a step;
+recommender: the batch's lookups sorted into their transposed layout) →
+model → AdamW → checkpoint / restart through ``train.loop``;
+``--fail-at`` crashes the run at a step, and a second run with the same
+``--ckpt-dir`` resumes from the last commit.
 """
 from __future__ import annotations
 
@@ -22,12 +22,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_arch, get_config
 from repro_torch.core.graph import COO, resolve_device
 from repro_torch.data import synthetic
 from repro_torch.data.sampler import SampledDataset
 from repro_torch.launch.steps import (gnn_train_step, lm_train_step,
-                                      refuse_unported_training)
+                                      recsys_train_step)
+from repro_torch.models.dlrm import DLRM
 from repro_torch.models.gnn import GNNConfig, gnn_model
 from repro_torch.models.transformer import LM
 from repro_torch.train.loop import (FailureInjector, LoopConfig,
@@ -106,9 +107,7 @@ def run_lm(arch: str, steps: int, smoke: bool, ckpt_dir: str | None,
     else the reference's 256 × 4,096), checkpointing into ``ckpt_dir``
     (default ``train.loop.default_ckpt_dir()``) and resuming from it;
     ``prefetch`` makes each batch a step ahead (on a side CUDA stream on
-    the card). Returns (model, AdamW state, metrics history). An arch in
-    ``UNPORTED_TRAINING`` raises."""
-    refuse_unported_training(arch)
+    the card). Returns (model, AdamW state, metrics history)."""
     cfg = get_config(arch, smoke=smoke)
     batch, seq = (4, 64) if smoke else (256, 4096)
     dev = resolve_device(device)
@@ -130,6 +129,42 @@ def run_lm(arch: str, steps: int, smoke: bool, ckpt_dir: str | None,
                  failure=FailureInjector(fail_at))
 
 
+def run_recsys(arch: str, steps: int, smoke: bool, ckpt_dir: str | None,
+               fail_at: int | None, seed: int = 0, device="cuda",
+               vocab_size: int | None = None, log_every: int = 10):
+    """Train recommender ``arch`` for ``steps`` steps on ``dlrm_batch``
+    batches (64 with ``smoke``, else 65,536), AdamW at lr 1e-3,
+    checkpointing every max(steps // 4, 10) steps into ``ckpt_dir``
+    (default ``train.loop.default_ckpt_dir()``) and resuming from it;
+    ``vocab_size`` cuts the tables' rows (the indices clip into the cut).
+    Returns (model, AdamW state, metrics history)."""
+    cfg = get_config(arch, smoke=smoke)
+    if vocab_size is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+    batch = 64 if smoke else 65536
+    dev = resolve_device(device)
+    model = DLRM(cfg, seed=seed, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    opt = adamw_init(dict(model.named_parameters()))
+
+    def step_fn(model, opt, batch):
+        return model, opt, recsys_train_step(model, opt_cfg, opt, batch)
+
+    def batch_fn(step):
+        return tuple(torch.from_numpy(a).to(dev) for a in synthetic.dlrm_batch(
+            seed, step, batch, cfg.n_dense, cfg.n_sparse, cfg.hot,
+            cfg.vocab_size))
+
+    loop_cfg = LoopConfig(total_steps=steps, ckpt_every=max(steps // 4, 10),
+                          ckpt_dir=ckpt_dir or default_ckpt_dir(),
+                          log_every=log_every)
+    return train(loop_cfg, step_fn, model, opt, batch_fn,
+                 failure=FailureInjector(fail_at))
+
+
+RUNNERS = {"gnn": run_gnn, "lm": run_lm, "recsys": run_recsys}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -141,9 +176,7 @@ def main(argv=None):
                     help="inject a crash at this step (chaos drill)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    refuse_unported_training(args.arch)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    runner = run_gnn if isinstance(cfg, GNNConfig) else run_lm
+    runner = RUNNERS[get_arch(args.arch).family]
     _, _, history = runner(args.arch, args.steps, args.smoke, args.ckpt_dir,
                            args.fail_at, device=args.device)
     for h in history:

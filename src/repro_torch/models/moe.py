@@ -8,7 +8,8 @@ expert ids, and the rank is the pair's capacity slot; pairs ranked at or
 past the capacity are dropped. The expert products run grouped,
 ``[E, cap, d]`` against ``[E, d, d_ff]`` (``torch.bmm``), and the
 combine sums each token's k weighted rows over k (the pairs are
-token-major, so no scatter-add and no float atomics).
+token-major, so no scatter-add and no float atomics); the backward of the
+tokens' gather into their slots sums a token's k slot rows the same way.
 
 Every shape is fixed by (T, E, k, cap) and nothing is read on the host,
 so the layer can run inside a captured decode step: a dropped pair is
@@ -89,6 +90,28 @@ def moe_route(router: torch.Tensor, x: torch.Tensor, *, top_k: int,
                 rank=rank, keep=keep, slot=slot)
 
 
+class _SlotRows(torch.autograd.Function):
+    """The slots' token rows: x [T, d] → [S, d], slot i reading row
+    slot_token[i] (T for an empty slot: a zero row). The gradient of token
+    t is the sum of its k pairs' slot rows (``slot`` [T · k], S where
+    dropped: a zero), summed over k in token-major order: no scatter-add,
+    so the same bits on every run (a float scatter-add is not
+    deterministic on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, slot_token, slot, top_k):
+        ctx.save_for_backward(slot)
+        ctx.top_k = top_k
+        return F.pad(x, (0, 0, 0, 1)).index_select(0, slot_token)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        rows = F.pad(g, (0, 0, 0, 1)).index_select(0, slot)
+        gx = rows.view(-1, ctx.top_k, g.shape[1]).sum(dim=1)
+        return gx, None, None, None
+
+
 def moe_apply(p, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -115,12 +138,8 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     slot_token = torch.full((e * cap + 1,), t, dtype=torch.int64,
                             device=x.device)
     slot_token.scatter_(0, r["slot"].to(torch.int64), flat_t)
-    slot_token = slot_token[:e * cap]
-    valid = slot_token < t
-    xe = x[torch.clamp(slot_token, max=t - 1)]
-    xe = torch.where(valid[:, None], xe, torch.zeros((), dtype=x.dtype,
-                                                     device=x.device))
-    xe = xe.reshape(e, cap, d)
+    xe = _SlotRows.apply(x, slot_token[:e * cap], r["slot"].to(torch.int64),
+                         top_k).reshape(e, cap, d)
 
     h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)
     ye = torch.bmm(h, w_out).reshape(e * cap, d)

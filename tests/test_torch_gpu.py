@@ -2221,3 +2221,95 @@ def test_moe_engine_captures_one_step_and_equals_cpu(cuda, monkeypatch):
             assert launch_counts()["decode_attention"] == (
                 2 * cfg.n_layers * eng.stats.steps)
     assert out["cpu"] == out[str(cuda)]
+
+
+# ------------------------------------- LM training configs, the recommender
+@pytest.mark.parametrize("hot", [1, 2])
+def test_gather_rows_backward_on_a_zipf_batch_within_the_twin(cuda, hot):
+    """A dlrm-rm2-shaped lookup (26 tables of 50,000 rows, D 64, 8,192
+    samples from ``dlrm_batch``'s Zipf law, 38% of a field's lookups on
+    row 0): the layout equals a stable ``torch.sort``; the table gradient
+    through ``GatherRows`` (one span-sum launch) within
+    ``ptr_scan.twin_tolerance`` of the twin's sum of the same rows, the
+    same bits on a second backward, and within the same tolerance of the
+    dedup lookup's two sums."""
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.kernels import ptr_scan
+    from repro_torch.models import dlrm as td
+    f, v, d, b = 26, 50_000, 64, 8192
+    _, idx, _ = dlrm_batch(3, 0, b, 13, f, hot, v)
+    idx = torch.from_numpy(idx).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(hot)
+    tables = torch.randn((f, v, d), generator=g, device=cuda)
+    up = torch.randn((b, f, d), generator=g, device=cuda)
+    layout = td.lookup_layout(idx, v)
+    sk, order = torch.sort(layout.keys, stable=True)
+    assert torch.equal(layout.rev_perm.long(), order)
+    assert torch.equal(layout.rev_ptr.long(), torch.searchsorted(
+        sk, torch.arange(f * v + 1, device=cuda, dtype=torch.int32)))
+    grads = []
+    for bag in (td.embedding_bag, td.embedding_bag, td.embedding_bag_dedup):
+        t = tables.clone().requires_grad_()
+        reset_launch_counts()
+        (bag(t, idx, layout) * up).sum().backward()
+        torch.cuda.synchronize()
+        assert launch_counts()["ptr_seg_sum"] == (
+            2 if bag is td.embedding_bag_dedup else 1)
+        grads.append(t.grad.view(f * v, d))
+    assert torch.equal(grads[0], grads[1])
+    rows_g = up.transpose(0, 1)[:, :, None, :].expand(f, b, hot, d)
+    x = rows_g.reshape(-1, d).contiguous()
+    want = ptr_scan._ptr_seg_sum_plain(layout.rev_ptr, x, layout.rev_perm)
+    tol = ptr_scan.twin_tolerance(layout.rev_ptr, x, layout.rev_perm)
+    for got in (grads[0], grads[2]):
+        assert bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen1.5-32b"])
+def test_lm_config_smoke_train_step_on_card_equals_cpu(cuda, arch):
+    """The smoke train cell of an MoE and a qkv-bias config (codeqwen's
+    smoke dh of 12 has no flash instantiation; float32, 2 x 64
+    tokens, remat on): one forward a layer and its recompute, one dq and
+    one dk/dv launch a layer; the loss within 1e-5 of the CPU's; every
+    gradient within 1e-4 of the CPU's largest value; the parameters after
+    one AdamW step within 2 lr + 1e-6; a second step from the same state
+    gives the same bits."""
+    import copy
+    from repro_torch.launch.steps import lm_train_cell, lm_train_step
+    from repro_torch.models.transformer import lm_loss
+    cell = lm_train_cell(arch, seq_len=64, batch=2, device="cpu",
+                         smoke=True)
+    cell.model.cfg = dataclasses.replace(cell.model.cfg, remat=True)
+    model = copy.deepcopy(cell.model).to(cuda)
+
+    def state_on_card():
+        return {"m": {n: t.to(cuda, copy=True)
+                      for n, t in cell.opt_state["m"].items()},
+                "v": {n: t.to(cuda, copy=True)
+                      for n, t in cell.opt_state["v"].items()},
+                "step": cell.opt_state["step"].clone()}
+    state = state_on_card()
+    tokens = cell.tokens.to(cuda)
+    lm_loss(cell.model, cell.tokens).backward()
+    reset_launch_counts()
+    lm_loss(model, tokens).backward()
+    torch.cuda.synchronize()
+    n = model.cfg.n_layers
+    counts = launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"]) == (2 * n, n, n)
+    for (name, p), q in zip(model.named_parameters(),
+                            cell.model.parameters()):
+        assert float((p.grad.cpu() - q.grad).abs().max()) <= (
+            1e-4 * float(q.grad.abs().max().clamp(min=1e-30))), name
+    start, start_state = copy.deepcopy(model), state_on_card()
+    want = cell.step()
+    got = lm_train_step(model, cell.opt_cfg, state, tokens)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5
+    for (name, p), q in zip(model.named_parameters(),
+                            cell.model.parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= (
+            2 * want["lr"] + 1e-6), name
+    lm_train_step(start, cell.opt_cfg, start_state, tokens)
+    for (name, p), q in zip(model.named_parameters(), start.parameters()):
+        assert torch.equal(p, q), name

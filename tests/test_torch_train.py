@@ -414,10 +414,12 @@ def test_run_lm_resumes_after_injected_failure(tmp_path):
 
 def test_gnn_and_recsys_training_name_their_roadmap_items(tmp_path,
                                                           capsys):
-    """GNN training is ported (``main`` runs ``run_gnn``); recommender
-    training still raises, naming its ROADMAP item."""
+    """GNN and recommender training are ported: ``main`` runs ``run_gnn``
+    and ``run_recsys`` (dlrm-rm2's smoke config, its default 50 steps)."""
     tlaunch.main(["--arch", "graphsage-reddit", "--smoke", "--steps", "2",
-                  "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+                  "--device", "cpu", "--ckpt-dir", str(tmp_path / "g")])
     assert "'step': 1" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.8.*A12"):
-        tlaunch.main(["--arch", "dlrm-rm2", "--smoke", "--device", "cpu"])
+    tlaunch.main(["--arch", "dlrm-rm2", "--smoke", "--device", "cpu",
+                  "--ckpt-dir", str(tmp_path / "r")])
+    out = capsys.readouterr().out
+    assert "'step': 0" in out and "'step': 49" in out
