@@ -5,9 +5,10 @@ selection, graph updates through the captured step), its engine
 service, its sampled GNN training, its gemma2-9b prefill, its LM
 serving (gemma2-9b, granite-moe-1b-a400m and codeqwen1.5-7b at full
 width, qwen1.5-32b and grok-1-314b with their depth cut), its LM
-training (gemma2-9b, codeqwen1.5-7b and qwen1.5-32b depth-cut,
-granite-moe-1b-a400m at full width) and its dlrm-rm2 recommender
-(trained, served and retrieving at full width) on one H100.
+training (gemma2-9b, codeqwen1.5-7b, qwen1.5-32b and grok-1-314b
+depth-cut, granite-moe-1b-a400m at full width), its dlrm-rm2 recommender
+(trained, served and retrieving at full width) and its multi-device
+engine (rank by rank, and on NCCL at world 1) on one H100.
 
   python3 chip_smoke.py
 
@@ -366,8 +367,7 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    (two planted faults outside), two steps from one saved state
    bit-equal, a profiled step, ``run_lm`` on its smoke config crashed
    and resumed bit-equal. Then rows 12, 13a, 13b at each config's head
-   shapes and 4,096 tokens. grok-1-314b is held on the CPU: one layer
-   reckons above LM_TRAIN_CARD_GIB.
+   shapes and 4,096 tokens.
 12c. recsys — dlrm-rm2 at full width (26 float32 tables of 1,000,000 x
    64 drawn on the card; AdamW, float32 moments): the train_batch cell's
    lookup layout (``models/dlrm.py`` ``lookup_layout``, SLICE_CFG) equal
@@ -381,8 +381,52 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
    100 against a stable sort of the same scores; ``run_recsys`` with the
    tables cut to RECSYS_RESUME_VOCAB rows crashed and resumed bit-equal;
    the smoke model's step card vs CPU.
-13. report — every kernel of each path launched in its run; the kernels
-   JSON line (all eighteen; digit_partition_hist, digit_rank_gather,
+13. the multi-device engine — the collectives at world sizes above 1
+   are held on the CPU only (gloo groups in the tests: one card cannot
+   hold two NCCL ranks); here every stage runs rank by rank in one
+   process, and the real entry points on NCCL at world 1.
+   a. sharded convert: Reddit's 2^27 COO under SLICE_CFG and MERGE_CFG
+      at worlds 2 and 4 (``engine/shard.py`` ``shard_convert_ranks``:
+      each rank's sorted run and pointer block, the cross-rank merge
+      rounds), counters to 0 first; each stage timed, the launches read;
+      bit-equal to single-device ``convert``; a 1,024-seed (25, 10)
+      sample on it equal to the sample on ``convert``'s CSC.
+   b. the decode kernel's partial mode at gemma2-9b's decode_32k shapes
+      (8 slots, 16 query heads over 8 KV heads, dh 256, 32,768 int8
+      positions, cap 50; one slot's cache short enough that whole slices
+      are dead), counters to 0, the sequence cut into 2 and 4 slices
+      (``dist/collectives.py`` ``sharded_decode_attention_seq_ranks``),
+      counters read: each slice's partial against its twin on
+      MESH_DECODE_CHECKED's slots (the live normalised output within
+      ``twin_tolerance``, m within the scores' bound, a dead slice (-inf,
+      0, 0)), the combined output against the dense kernel within
+      ``twin_tolerance`` on every slot; the head split (2 and 4 groups)
+      bit-equal to the dense kernel; the partial mode's row.
+   c. NCCL at world 1 (``launch/mesh.py`` ``make_local_mesh("cuda")``,
+      made before 9a, whose gemma2-9b engine is served again with
+      ``mesh=``: the same tokens, one captured step program; at world 1
+      the engine holds no cache shard and issues no collective, so the
+      shard path runs apart: one decode step of that model with the
+      cache cut into 2 and 4 ranks' slices, the ranks in turn, each
+      layer's owned-position inserts bit-equal to the whole-cache
+      insert, its combined attention within ``twin_tolerance`` of the
+      dense kernel, the logits within DECODE_PATH_TOL of the whole-cache
+      step's):
+      ``PreprocService(mesh)`` and ``launch/steps.py``
+      ``preprocess_cells(mesh)`` at Reddit's size equal to the pipeline;
+      ``compressed_psum_tree`` over a gradient tree of granite-moe's
+      shapes bit-equal to quantize then dequantize, twice;
+      ``moe_apply_local`` (``moe_apply`` on one rank) and
+      ``moe_apply_groups`` at 8 x 4,096 granite tokens in 2 and 4 groups
+      against ``moe_apply`` on each group.
+   d. grok-1-314b trained on the card: ``train_4k``'s cell cut to
+      LM_TRAIN_GROK (one layer, 1,024 tokens) through the sliced AdamW
+      when its reckoned peak stays under LM_TRAIN_PEAK_GIB (else the
+      reckoning is printed and it stays on the CPU): 12b's steps and
+      checks, the peak against the reckoning, two steps from one saved
+      state bit-equal.
+14. report — every kernel of each path launched in its run; the kernels
+   JSON line (all nineteen; digit_partition_hist, digit_rank_gather,
    prefix_partition and filter_tree_lookup with 0 launches), then the last line ``{"ok": true, "device": {...}}``.
 
 Weights and data are random, made from ``--seed``. Details go to
@@ -5021,6 +5065,18 @@ def lm_ring_phase(dev, seed, extra):
     torch.cuda.empty_cache()
 
 
+def fill_cache(cache, cfg, g):
+    """A cache made random by the generator ``g``: int8 values and scales
+    in [0.005, 0.03), or bf16 N(0, 1)."""
+    for c in cache.values():
+        for name in ("k", "v"):
+            if cfg.kv_cache_dtype != "int8":
+                c[name].normal_(generator=g)
+                continue
+            c[name].random_(-127, 128, generator=g)
+            c[f"{name}_scale"].uniform_(0.005, 0.03, generator=g)
+
+
 def decode_32k_phase(dev, seed, model, extra, batch=DECODE_32K_BATCH,
                      tag="decode_32k"):
     """One lm_decode_step at scalar position DECODE_32K_LEN - 1, ``batch``
@@ -5039,13 +5095,7 @@ def decode_32k_phase(dev, seed, model, extra, batch=DECODE_32K_BATCH,
     b, pos = batch, DECODE_32K_LEN - 1
     cache = make_cache(cfg, batch=b, max_len=DECODE_32K_LEN, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed + 32)
-    for c in cache.values():
-        for name in ("k", "v"):
-            if cfg.kv_cache_dtype != "int8":
-                c[name].normal_(generator=g)
-                continue
-            c[name].random_(-127, 128, generator=g)
-            c[f"{name}_scale"].uniform_(0.005, 0.03, generator=g)
+    fill_cache(cache, cfg, g)
     toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev,
                          dtype=torch.int32)
     out = dict(cache_gib=sum(t.numel() * t.element_size()
@@ -5088,13 +5138,16 @@ def decode_32k_phase(dev, seed, model, extra, batch=DECODE_32K_BATCH,
     return out
 
 
-def lm_serve_phase(dev, seed, extra):
-    """Phase 9a: the LM serve path and its checks (see the docstring)."""
+def lm_serve_phase(dev, seed, extra, mesh=None):
+    """Phase 9a: the LM serve path and its checks (see the docstring);
+    with ``mesh``, 13c's serve on it."""
     import torch
     out, eng, reqs, handles = lm_serve_path(dev, seed)
     lm_step_timing(eng, out)
     lm_slot_independence(eng, reqs, handles)
     lm_batch1_check(eng, reqs, extra)
+    if mesh is not None:
+        lm_mesh_serve(eng, seed, reqs, handles, mesh, out)
     saved = lm_decode_checks(eng, "lm_decode", extra)
     q, k, v, cl, kw = saved[1]  # the first global layer
     out["row"] = decode_row(q, k, v, cl, kw,
@@ -5978,9 +6031,8 @@ def run_lm_resume(dev, seed, arch, exact=True):
 # full width and depth (train_4k's batch of 256 cut); codeqwen1.5-7b cut
 # to 16 of 32 layers and qwen1.5-32b to 4 of 64 (their bf16 weights and
 # grads and their moments beside one sequence's activations); grok-1-314b
-# is held on the CPU only (``LM_TRAIN_CARD_GIB``: one layer's 6.5e9
-# parameters with their grads, bf16 moments and AdamW's float32
-# temporaries of its expert leaf reckon above the card)
+# trains in phase 13d (one layer, ``LM_TRAIN_GROK``) where its reckoned
+# peak stays under LM_TRAIN_PEAK_GIB
 LM_TRAIN_RUNS = (("granite-moe-1b-a400m", None, 4096, None, True),
                  ("codeqwen1.5-7b", 16, 4096, 1, False),
                  ("qwen1.5-32b", 4, 4096, 1, False))
@@ -6013,18 +6065,37 @@ def lm_train_grok_cfg():
                                n_layers=LM_TRAIN_GROK[1])
 
 
+def largest_slice(cfg):
+    """Elements of the largest slice AdamW updates at once: the largest
+    leaf cut as ``train/optim.py`` ``leaf_slices`` cuts it (grok-1's
+    expert leaf [8, 6144, 32768]: one expert)."""
+    from repro_torch.train.optim import SLICE_ELEMS, leaf_slices
+    d, e = cfg.d_model, cfg.moe_experts or 1
+    shapes = [(cfg.vocab, d)] + ([(e, d, cfg.d_ff)] if cfg.is_moe
+                                 else [(d, cfg.d_ff)])
+    out = 0
+    for shape in shapes:
+        sl = leaf_slices(shape, SLICE_ELEMS)[0]
+        rows = shape[0] if sl is None else sl.stop - sl.start
+        out = max(out, rows * math.prod(shape[1:]))
+    return out
+
+
 def reckoned_train_gib(cfg, seq, batch, mom_bytes):
     """An LM train step's reckoned peak, GiB: bf16 weights and grads and
-    the moments; AdamW's four float32 temporaries of the largest leaf; a
-    sequence's float32 logits three times over and its bf16 ones once (14
-    B a logit), each layer's bf16 input kept for the recompute, and one
-    layer's recompute, 24 B a token and unit of its widest activation
-    (under MoE the k · 1.25 slots a token of d_ff)."""
-    n, leaf = lm_param_count(cfg)
+    the moments; AdamW's four float32 temporaries of the largest slice it
+    updates at once (``largest_slice``; the global norm reads each leaf
+    in place and adds none); a sequence's float32 logits three
+    times over and its bf16 ones once (14 B a logit), each layer's bf16
+    input kept for the recompute, and one layer's recompute, 24 B a token
+    and unit of its widest activation (under MoE the k · 1.25 slots a
+    token of d_ff)."""
+    n, _ = lm_param_count(cfg)
     wide = max(cfg.d_model, cfg.d_ff * (cfg.moe_top_k * 1.25
                                          if cfg.is_moe else 1))
     act = seq * (14 * cfg.vocab + 2 * cfg.n_layers * cfg.d_model + 24 * wide)
-    return (n * (4 + 2 * mom_bytes) + 16 * leaf + batch * act) / 2**30
+    return (n * (4 + 2 * mom_bytes) + 16 * largest_slice(cfg)
+            + batch * act) / 2**30
 
 
 def flash_vs_float64(q, k, v, cap, got, want, heads=2):
@@ -6147,7 +6218,8 @@ def train_kernel_rows(dev, seed, cfg, seq, tag):
                       fwd_vs_float64=witness)
 
 
-def lm_train_config_phase(dev, seed, arch, layers, seq, batch, full, extra):
+def lm_train_config_phase(dev, seed, arch, layers, seq, batch, full, extra,
+                          two_steps=False):
     """One LM config's training on the card: the train_4k cell (cut to
     ``layers`` and ``batch`` sequences of ``seq`` tokens; the batch by the
     reckoning when None), launch counters to 0, LM_TRAIN_STEPS AdamW steps
@@ -6155,7 +6227,8 @@ def lm_train_config_phase(dev, seed, arch, layers, seq, batch, full, extra):
     on its own inputs, counters read; the losses; the peak. With ``full``:
     the step's gradients against the same step with the twin backward
     (and two planted faults), two steps from one saved state bit-equal,
-    and one step profiled. Then rows 12, 13a, 13b at its head shapes."""
+    and one step profiled; with ``two_steps`` only the two steps. Then
+    rows 12, 13a, 13b at its head shapes."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as tfa
@@ -6242,6 +6315,8 @@ def lm_train_config_phase(dev, seed, arch, layers, seq, batch, full, extra):
     if full:
         lm_train_full_checks(cell, tag, out)
         out["run_lm_resume"] = run_lm_resume(dev, seed, arch)
+    elif two_steps:
+        two_steps_bit_equal(cell, tag, out, digest=True)
     del cell
     gc.collect()
     torch.cuda.empty_cache()
@@ -6318,7 +6393,37 @@ def lm_train_full_checks(cell, tag, out):
           f"{errs[worst]}), every planted fault outside ({faults}); loss "
           f"{loss_k} vs {loss_t}")
 
-    # two steps from one saved state
+    two_steps_bit_equal(cell, tag, out)
+    out["profile"] = dict(tokens=tokens.numel(),
+                          **profile_call(cell.step, top=16))
+
+
+DIGEST_CHUNK = 1 << 26
+
+
+def bits_digest(t):
+    """Two int64 sums over a tensor's bits, on its device in chunks: the
+    plain sum and one weighted by position (mod 65521, plus 1)."""
+    import torch
+    flat = t.detach().reshape(-1)
+    flat = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    a = b = 0
+    for i in range(0, flat.numel(), DIGEST_CHUNK):
+        x = flat[i:i + DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(i, i + x.numel(), device=x.device) % 65521 + 1
+        a += int(x.sum())
+        b += int((x * w).sum())
+    return a, b
+
+
+def two_steps_bit_equal(cell, tag, out, digest=False):
+    """Two steps from one saved state (the parameters and the moments
+    copied to the host and back) give the same bits: every tensor equal,
+    or with ``digest`` (a state too large to hold twice more on the host)
+    every tensor's ``bits_digest`` equal."""
+    import torch
+    model = cell.model
     state = {n: p.detach() for n, p in model.named_parameters()}
     state.update({f"{k}.{n}": t for k in ("m", "v")
                   for n, t in cell.opt_state[k].items()})
@@ -6331,18 +6436,20 @@ def lm_train_full_checks(cell, tag, out):
                 t.copy_(saved[n])
         cell.opt_state["step"].copy_(step0)
         m = cell.step()
-        results.append(({n: t.to("cpu", copy=True) for n, t in state.items()},
+        results.append(({n: bits_digest(t) if digest else
+                         t.to("cpu", copy=True) for n, t in state.items()},
                         float(m["loss"]), float(m["grad_norm"])))
     (a, la, ga), (b, lb, gb) = results
-    same = [n for n in a if torch.equal(a[n], b[n])]
+    same = [n for n in a if (a[n] == b[n] if digest
+                             else torch.equal(a[n], b[n]))]
     out["two_steps_bit_equal"] = len(same) == len(a) and (la, ga) == (lb, gb)
+    out["two_steps_by"] = "bits_digest" if digest else "every bit"
     check(out["two_steps_bit_equal"],
           f"{tag}: two steps from one saved state give the same bits "
-          f"({len(same)} of {len(a)} tensors equal; loss {la} / {lb}, grad "
-          f"norm {ga} / {gb})")
+          f"({len(same)} of {len(a)} tensors equal"
+          f"{' by their bits digest' if digest else ''}; loss {la} / {lb}, "
+          f"grad norm {ga} / {gb})")
     del saved, results, a, b
-    out["profile"] = dict(tokens=tokens.numel(),
-                          **profile_call(cell.step, top=16))
 
 
 def log_lm_train_config(out):
@@ -6766,6 +6873,622 @@ def log_recsys(out):
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------ phase 13
+# the multi-device engine, rank by rank on one card: worlds of the sharded
+# convert and of the sequence-sharded decode; the sample on the sharded
+# CSC (the reference's shard_preprocess fanouts); decode_32k's slots, the
+# last two short (lengths below a slice: whole slices dead); the MoE
+# groups at granite's 8 x 4,096 train tokens
+MESH_WORLDS = (2, 4)
+MESH_SEEDS, MESH_FANOUTS = 1024, (25, 10)
+MESH_DECODE_LENS = (32768,) * 6 + (9000, 100)
+# the slots whose slices are held against the twin (a full cache, one
+# with a dead slice at world 4, one with dead slices at 2 and 4); the
+# combined output is held on every slot
+MESH_DECODE_CHECKED = (0, 6, 7)
+MESH_HEAD_SPLITS = (2, 4)
+MESH_KERNELS = ("decode_attention_partial",)
+MOE_LOCAL_TOKENS, MOE_LOCAL_GROUPS = 8 * 4096, (2, 4)
+# 13c's rank-by-rank decode step of 9a's engine (LM_SERVE_SLOTS slots of
+# LM_SERVE_MAX_LEN positions): a position a slot, on both sides of the
+# slice edges at worlds 2 and 4 (slices of 512 and 256), so that every
+# rank owns some slot's insert and short slots leave whole slices dead
+MESH_STEP_POS = (0, 255, 256, 511, 512, 700, 1022, 1023)
+COMPRESS_ARCH = "granite-moe-1b-a400m"
+
+
+def timed_stages(module, names):
+    """Wrap ``module``'s functions ``names`` to add each call's time (a
+    synchronise after it) to a dict; returns (the dict, the restore)."""
+    import torch
+    real = {n: getattr(module, n) for n in names}
+    spent = {n: 0.0 for n in names}
+
+    def wrap(n):
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            got = real[n](*a, **kw)
+            torch.cuda.synchronize()
+            spent[n] += time.perf_counter() - t0
+            return got
+        return fn
+    for n in names:
+        setattr(module, n, wrap(n))
+
+    def restore():
+        for n in names:
+            setattr(module, n, real[n])
+    return spent, restore
+
+
+def same_sub(a, b):
+    import torch
+    return (torch.equal(a.csc.ptr, b.csc.ptr)
+            and torch.equal(a.csc.idx, b.csc.idx)
+            and torch.equal(a.order, b.order)
+            and int(a.n_sub_nodes) == int(b.n_sub_nodes))
+
+
+def mesh_convert_phase(dev, seed, coo):
+    """13a: the sharded convert rank by rank at Reddit's 2^27 COO."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline, prng
+    from repro_torch.core.costmodel import MERGE_CFG
+    from repro_torch.engine import shard
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import SLICE_CFG
+    out = {}
+    seeds = torch.from_numpy(np.random.default_rng(seed + 13).choice(
+        REDDIT["nodes"], MESH_SEEDS, replace=False).astype(np.int32)).to(dev)
+    key = prng.PRNGKey(seed + 13)
+    for tag, cfg in (("slice", SLICE_CFG), ("merge", MERGE_CFG)):
+        want = pipeline.convert(coo, cfg, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pipeline.convert(coo, cfg, device=dev)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        want_sub = pipeline.sample_subgraph(want, seeds, MESH_FANOUTS, key,
+                                            cfg)
+        for world in MESH_WORLDS:
+            spent, restore = timed_stages(
+                shard, ("local_sorted_run", "merge_runs", "pointer_block"))
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                csc = shard.shard_convert_ranks(coo, cfg, world)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts().items() if v}
+            equal = (torch.equal(csc.ptr, want.ptr)
+                     and torch.equal(csc.idx, want.idx))
+            check(equal, f"13a {tag} world {world}: the rank-by-rank "
+                  "sharded convert equals convert bit for bit")
+            sub = pipeline.sample_subgraph(csc, seeds, MESH_FANOUTS, key,
+                                           cfg)
+            check(same_sub(sub, want_sub),
+                  f"13a {tag} world {world}: the {MESH_SEEDS}-seed "
+                  f"{MESH_FANOUTS} sample on the sharded CSC equals the "
+                  "sample on convert's")
+            out[f"{tag} world {world}"] = dict(
+                wall_s=wall, single_convert_s=single_s,
+                stage_s=dict(spent), launches=launches, bit_equal=equal,
+                sample_edges=int(sub.csc.n_edges))
+            del csc, sub
+        del want, want_sub
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def partial_bounds(q, k, cl, kw):
+    """(the scores' bound for m, [B, Hkv, G, 1]) of a slice: twice the
+    largest score's float32 error, dh·u·Σ|q_d k_d| + 4u|score|, over the
+    live positions, and 8u of |m| (``twin_tolerance``'s E)."""
+    import torch
+    from repro_torch.models.attention import (_group_q, decode_mask,
+                                              dequantize_kv)
+    u = 2.0 ** -24
+    b, h, _, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if kw.get("k_scale") is not None:
+        k = dequantize_kv(k, kw["k_scale"])
+    qg = (_group_q(q, hkv).float() * dh ** -0.5).double()
+    kf = k.double()
+    sc = torch.einsum("bkgqd,bkcd->bkgqc", qg, kf)
+    cap = kw.get("logit_cap")
+    if cap is not None:
+        sc = cap * torch.tanh(sc / cap)
+    err = dh * u * torch.einsum("bkgqd,bkcd->bkgqc", qg.abs(), kf.abs()) + (
+        4 * u * sc.abs())
+    mask = decode_mask(cl, s)[:, None, None, None, :]
+    m = torch.where(mask, sc, -math.inf).amax(dim=-1)
+    return 2 * torch.where(mask, err, 0.0).amax(dim=-1) + 8 * u * m.abs()
+
+
+def partial_row(q, k, v, cl, kw, err):
+    """The partial mode's row at one slice of the world-2 cut: the kernel,
+    its twin and SDPA on the dequantized bf16 slice with a boolean mask (a
+    near function: the normalised output, no (m, l)), each timed; the
+    bound from the live rows' bytes (and int8 scales), q read, (m, l, acc)
+    written."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partial, decode_partial_plain)
+    from repro_torch.models.attention import decode_mask, dequantize_kv
+    b, h, _, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    ms = cuda_ms(lambda: decode_attention_partial(q, k, v, cl, **kw))
+    plain_ms = cuda_ms(lambda: decode_partial_plain(q, k, v, cl, **kw),
+                       iters=3, warmup=1)
+    kd, vd = (dequantize_kv(c, kw[f"{n}_scale"]).to(q.dtype)
+              .repeat_interleave(h // hkv, 1) for c, n in ((k, "k"),
+                                                           (v, "v")))
+    mask = decode_mask(cl, s)[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kd, vd, attn_mask=mask))
+    del kd, vd
+    live = int(torch.clamp(cl, 0, s).sum())
+    nbytes = (live * hkv * (2 * dh + 2 * 4) + q.numel() * q.element_size()
+              + b * h * (2 + dh) * 4)
+    b_ms, b_by = bound(nbytes, 4 * dh * (h // hkv) * live * hkv)
+    return dict(name="decode_attention_partial", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/models/attention.py:240",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
+                shape=f"one slice of 2: B {b}, H {h} over Hkv {hkv}, dh "
+                      f"{dh}, int8 cache of {s} positions, {live} live "
+                      f"({cl.tolist()}), {q.dtype} q, cap "
+                      f"{kw['logit_cap']}; {nbytes / 1e6:.2f} MB (library: "
+                      "scaled_dot_product_attention on the dequantized "
+                      "bf16 slice, a boolean mask, no cap: a near "
+                      "function, normalised, no (m, l))")
+
+
+def mesh_decode_phase(dev, seed, extra):
+    """13b: the partial mode at decode_32k's shapes, the sequence cut into
+    2 and 4 slices and the heads into 2 and 4 groups, rank by rank."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import (
+        sharded_decode_attention_seq_ranks)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_partial, decode_partial_plain,
+        twin_tolerance)
+    cfg = get_config(LM_ARCH)
+    b, h, hkv, dh = (len(MESH_DECODE_LENS), cfg.n_heads, cfg.n_kv_heads,
+                     cfg.dh)
+    s = DECODE_32K_LEN
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    k = torch.randint(-127, 128, (b, hkv, s, dh), generator=g, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (b, hkv, s, dh), generator=g, device=dev,
+                      dtype=torch.int8)
+    ks, vs = (torch.empty((b, hkv, s, 1), device=dev).uniform_(
+        0.005, 0.03, generator=g) for _ in range(2))
+    q = (torch.randn((b, h, 1, dh), generator=g, device=dev)
+         * DECODE_Q_SCALE).to(torch.bfloat16)
+    cl = torch.tensor(MESH_DECODE_LENS, dtype=torch.int32, device=dev)
+    kw = dict(logit_cap=cfg.attn_logit_cap, k_scale=ks, v_scale=vs)
+    out = {}
+
+    # the path: counters to 0, the sequence-sharded decode at each world
+    reset_launch_counts()
+    combined = {w: sharded_decode_attention_seq_ranks(q, k, v, cl, w, **kw)
+                for w in MESH_WORLDS}
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    want_l = 2 * sum(MESH_WORLDS)
+    check(out["launches"]["decode_attention_partial"] == want_l
+          and all(n == 0 for name, n in out["launches"].items()
+                  if name != "decode_attention_partial"),
+          f"13b: {want_l} partial-mode launches (2 a slice) and no other "
+          f"kernel: {out['launches']}")
+    dense = decode_attention(q, k, v, cl, **kw)
+    idx = torch.tensor(MESH_DECODE_CHECKED, device=dev)
+
+    def pick(t):
+        return t.index_select(0, idx)
+    # the tolerance a slot at a time (its float64 cache is 1 GiB a slot)
+    tol = torch.cat([twin_tolerance(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], cl[i:i + 1],
+        logit_cap=kw["logit_cap"], k_scale=ks[i:i + 1],
+        v_scale=vs[i:i + 1]) for i in range(b)])
+    for w, got in combined.items():
+        share = decode_ratio(got, dense, tol)
+        out[f"combined_world_{w}_share_of_tol"] = share
+        check(share <= 1.0 and not torch.isnan(got).any(),
+              f"13b: the {w}-slice combine within twin_tolerance of the "
+              f"dense kernel on all {b} slots ({share}) and no NaN")
+    del tol
+
+    # each slice against its twin, on the checked slots
+    worst = {"m": 0.0, "out": 0.0}
+    err = 0.0
+    for w in MESH_WORLDS:
+        s_l = s // w
+        for r in range(w):
+            sl = slice(r * s_l, (r + 1) * s_l)
+            kr, vr = k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+            kwr = dict(kw, k_scale=ks[:, :, sl].contiguous(),
+                       v_scale=vs[:, :, sl].contiguous())
+            lr = torch.clamp(cl - r * s_l, 0, s_l).to(torch.int32)
+            m, l, acc = decode_attention_partial(q, kr, vr, lr, **kwr)
+            subr = {n: pick(t) if torch.is_tensor(t) else t
+                    for n, t in kwr.items()}
+            pm, pl_, pacc = decode_partial_plain(pick(q), pick(kr),
+                                                 pick(vr), pick(lr), **subr)
+            m, l, acc = pick(m), pick(l), pick(acc)
+            live = pick(lr) > 0
+            dead = ~live
+            check(bool(torch.all(m[dead] == -math.inf))
+                  and bool(torch.all(l[dead] == 0))
+                  and bool(torch.all(acc[dead] == 0)),
+                  f"13b: world {w} rank {r}: a dead slice gives (-inf, 0, 0)")
+            if not live.any():
+                continue
+            lv = live.nonzero()[:, 0]
+            mt = partial_bounds(pick(q)[lv], pick(kr)[lv], pick(lr)[lv],
+                                {n: t[lv] if torch.is_tensor(t) else t
+                                 for n, t in subr.items()})
+            m_share = decode_ratio(m[lv], pm[lv], mt)
+            o = (acc / l[..., None])[lv].reshape(len(lv), h, 1, dh)
+            po = (pacc / pl_[..., None])[lv].reshape(len(lv), h, 1, dh)
+            otol = twin_tolerance(pick(q)[lv].float(), pick(kr)[lv],
+                                  pick(vr)[lv], pick(lr)[lv],
+                                  logit_cap=kw["logit_cap"],
+                                  k_scale=subr["k_scale"][lv],
+                                  v_scale=subr["v_scale"][lv])
+            o_share = decode_ratio(o, po, otol)
+            err = max(err, float((o - po).abs().max()))
+            worst["m"] = max(worst["m"], m_share)
+            worst["out"] = max(worst["out"], o_share)
+            check(m_share <= 1.0 and o_share <= 1.0,
+                  f"13b: world {w} rank {r}: the slice's m within the "
+                  f"scores' bound ({m_share}) and its normalised output "
+                  f"within twin_tolerance ({o_share}) of the twin")
+            del kr, vr, kwr
+    out["slice_worst_share"] = worst
+
+    # the head split: each group of KV heads alone, then concatenated
+    for n in MESH_HEAD_SPLITS:
+        hl, gq = hkv // n, h // hkv
+        parts = []
+        for r in range(n):
+            hs = slice(r * hl, (r + 1) * hl)
+            qr = q.reshape(b, hkv, gq, dh)[:, hs].reshape(b, hl * gq, 1, dh)
+            parts.append(decode_attention(
+                qr.contiguous(), k[:, hs].contiguous(),
+                v[:, hs].contiguous(), cl, logit_cap=kw["logit_cap"],
+                k_scale=ks[:, hs].contiguous(),
+                v_scale=vs[:, hs].contiguous()))
+        same = torch.equal(torch.cat(parts, dim=1), dense)
+        out[f"head_split_{n}_bit_equal"] = same
+        check(same, f"13b: the head split in {n} groups equals the dense "
+              "kernel bit for bit")
+    s_l = s // 2
+    kw0 = dict(kw, k_scale=ks[:, :, :s_l].contiguous(),
+               v_scale=vs[:, :, :s_l].contiguous())
+    out["row"] = partial_row(q, k[:, :, :s_l].contiguous(),
+                             v[:, :, :s_l].contiguous(),
+                             torch.clamp(cl, 0, s_l).to(torch.int32), kw0,
+                             err)
+    extra["mesh_decode"] = {k_: v_ for k_, v_ in out.items() if k_ != "row"}
+    del k, v, ks, vs, dense, combined
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_step_ranks(eng, seed, out):
+    """13c, inside 9a: one decode step of the engine's model at
+    MESH_STEP_POS on a random cache, every cache stack cut into each of
+    MESH_WORLDS ranks' sequence slices and the ranks run in turn (the
+    mesh engine's step at that world, the all-reduces folded in one
+    process): ``lm_decode_step`` through each stack's ``CacheShard``;
+    each layer's insert made rank by rank (``models/transformer.py``
+    ``_cache_insert`` with each rank's ``CacheShard`` on its slice, only
+    the owned positions written) and held bit for bit against the
+    whole-cache insert of the same k and v; each layer's combined
+    attention (``sharded_decode_attention_seq_ranks``) within
+    ``twin_tolerance`` of the dense kernel; counters to 0 first, 2
+    partial-mode launches a rank and layer; the step's logits within
+    DECODE_PATH_TOL of the whole-cache step's, its tokens the same where
+    the margin clears that."""
+    import torch
+    from repro_torch.dist.collectives import (
+        sharded_decode_attention_seq_ranks)
+    from repro_torch.kernels import (add_launch_counts, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      twin_tolerance)
+    from repro_torch.models import transformer as tt
+    model, cfg, dev = eng.params, eng.cfg, eng.device
+    n_layers = len(model.layers)
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    cache = tt.make_cache(cfg, batch=eng.n_slots, max_len=eng.max_len,
+                          device=dev)
+    fill_cache(cache, cfg, g)
+    pos = torch.tensor(MESH_STEP_POS, dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab, (eng.n_slots, 1), generator=g,
+                         device=dev, dtype=torch.int32)
+
+    def clone(c):
+        return {st: {n: t.clone() for n, t in v.items()}
+                for st, v in c.items()}
+    _, want = tt.lm_decode_step(model, clone(cache), toks, pos,
+                                return_logits=True)
+    want = want.float()
+    real = tt._cache_insert
+    res = {}
+    t0 = time.perf_counter()
+    for world in MESH_WORLDS:
+        seen = dict(inserts=0, insert_equal=True, attn_calls=0,
+                    attn_share=0.0)
+
+        def insert(cfg_, lc, k, v, p_, shard=None):
+            ref = {n: t.clone() for n, t in lc.items()}
+            real(cfg_, ref, k, v, p_)
+            s_l = shard.length // world
+            for r in range(world):
+                view = {n: t[:, :, r * s_l:(r + 1) * s_l]
+                        for n, t in lc.items()}
+                real(cfg_, view, k, v, p_,
+                     tt.CacheShard(shard.length, r * s_l, 0, None))
+            seen["inserts"] += 1
+            seen["insert_equal"] &= all(torch.equal(lc[n], ref[n])
+                                        for n in lc)
+
+        def attn(q, k, v, cl, *, window=None, logit_cap=None, k_scale=None,
+                 v_scale=None):
+            kw = dict(logit_cap=logit_cap, k_scale=k_scale, v_scale=v_scale)
+            got = sharded_decode_attention_seq_ranks(q, k, v, cl, world,
+                                                     **kw)
+            path = launch_counts()  # the comparison's launches not counted
+            tol = twin_tolerance(q, k, v, cl, **kw)
+            share = decode_ratio(got, decode_attention(q, k, v, cl, **kw),
+                                 tol)
+            reset_launch_counts()
+            add_launch_counts(path)
+            seen["attn_calls"] += 1
+            seen["attn_share"] = max(seen["attn_share"], share)
+            return got
+
+        c = clone(cache)
+        shards = {st: tt.CacheShard(t["k"].shape[3], 0, 0, attn)
+                  for st, t in c.items()}
+        tt._cache_insert = insert
+        reset_launch_counts()
+        try:
+            nxt, logits = tt.lm_decode_step(model, c, toks, pos,
+                                            return_logits=True,
+                                            shards=shards)
+            torch.cuda.synchronize()
+        finally:
+            tt._cache_insert = real
+        launches = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+        logits = logits.float()
+        err = float((logits - want).abs().max())
+        top = torch.topk(want, 2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > DECODE_PATH_TOL
+        same = bool(torch.all((logits.argmax(-1) == want.argmax(-1))
+                              | ~clear))
+        res[world] = dict(seen, launches=launches, logit_max_abs_err=err,
+                          tokens_compared=int(clear.sum()), same_tokens=same)
+        want_l = 2 * world * n_layers
+        check(seen["inserts"] == n_layers and seen["insert_equal"],
+              f"13c: world {world}: every layer's insert made rank by rank "
+              "through CacheShard equals the whole-cache insert bit for bit")
+        check(seen["attn_calls"] == n_layers and seen["attn_share"] <= 1.0,
+              f"13c: world {world}: every layer's combined attention within "
+              f"twin_tolerance of the dense kernel ({seen['attn_share']})")
+        check(launches == {"decode_attention_partial": want_l},
+              f"13c: world {world}: {want_l} partial-mode launches and no "
+              f"other kernel in the step: {launches}")
+        check(err <= DECODE_PATH_TOL and same,
+              f"13c: world {world}: the rank-by-rank step's logits within "
+              f"{DECODE_PATH_TOL} of the whole-cache step's ({err}), the "
+              f"same tokens on the {int(clear.sum())} slots whose margin "
+              "clears it")
+        del c, logits
+    res["seconds"] = time.perf_counter() - t0
+    out["mesh_step_ranks"] = res
+    del cache, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_mesh_serve(eng, seed, reqs, handles, mesh, out):
+    """13c, inside 9a: the same requests served by a ServeEngine of the
+    same model with ``mesh`` (NCCL at world 1): the same tokens, one
+    captured step program. At world 1 the mesh engine holds no cache
+    shard and issues no collective (its step is the single-device one);
+    ``lm_step_ranks`` runs the shard path rank by rank."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    meng = ServeEngine(eng.cfg, eng.params, n_slots=eng.n_slots,
+                       max_len=eng.max_len, prompt_cap=eng.prompt_cap,
+                       mesh=mesh, device=eng.device)
+    serve_lm(meng, [([1, 2, 3], 2)])
+    got, dt = serve_lm(meng, reqs)
+    same = [h.tokens_out for h in got] == [h.tokens_out for h in handles]
+    out["mesh_serve"] = dict(wall_s=dt, same_tokens=same,
+                             step_programs=meng.step_cache_size(),
+                             shards=sorted(meng.shards))
+    check(same and meng.step_cache_size() == 1,
+          "13c: ServeEngine(mesh=) at world 1 serves the same tokens as "
+          f"without a mesh in one captured step program "
+          f"({meng.step_cache_size()})")
+    del meng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_step_ranks(eng, seed, out)
+
+
+def mesh_entry_phase(dev, seed, mesh, coo):
+    """13c: the real entry points on the NCCL world-1 mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline, prng
+    from repro_torch.dist.hints import layout
+    from repro_torch.engine import PreprocService
+    from repro_torch.launch.serve import SLICE_CFG
+    from repro_torch.launch.steps import (PREPROCESS_FANOUTS,
+                                          PREPROCESS_SEEDS, preprocess_cells)
+    from repro_torch.models.moe import (moe_apply, moe_apply_groups,
+                                        moe_apply_local, moe_init)
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.compress import (compressed_psum_tree, dequantize,
+                                            quantize_ef, zeros_like_error)
+    out = {"mesh": str(mesh), "backend": torch.distributed.get_backend()}
+    seeds = torch.from_numpy(np.random.default_rng(seed + 14).choice(
+        REDDIT["nodes"], PREPROCESS_SEEDS, replace=False).astype(
+            np.int32)).to(dev)
+    key = prng.PRNGKey(seed + 14)
+
+    # the service on the mesh (dp 1: the single-device table)
+    t0 = time.perf_counter()
+    sub = PreprocService(PREPROCESS_FANOUTS, mesh=mesh).preprocess(
+        coo, seeds, key, cfg=SLICE_CFG)
+    torch.cuda.synchronize()
+    out["service_s"] = time.perf_counter() - t0
+    want = pipeline.preprocess(coo, seeds, PREPROCESS_FANOUTS, key,
+                               SLICE_CFG, device=dev)
+    check(same_sub(sub, want), "13c: PreprocService(mesh) at Reddit size "
+          "equals pipeline.preprocess")
+
+    # the paper-technique steps over the mesh
+    conv, samp, e2e = preprocess_cells(mesh)
+    from repro_torch.core.costmodel import EngineConfig
+    ecfg = EngineConfig(w_upe=8192, n_upe=0)
+    steps = {}
+    t0 = time.perf_counter()
+    csc = conv.step(coo)
+    torch.cuda.synchronize()
+    steps[conv.arch_id] = time.perf_counter() - t0
+    ref = pipeline.convert(coo, ecfg, device=dev)
+    check(torch.equal(csc.ptr, ref.ptr) and torch.equal(csc.idx, ref.idx),
+          "13c: preprocess_cells' convert equals pipeline.convert")
+    t0 = time.perf_counter()
+    a = samp.step(csc, seeds, key)
+    torch.cuda.synchronize()
+    steps[samp.arch_id] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = e2e.step(coo, seeds, key)
+    torch.cuda.synchronize()
+    steps[e2e.arch_id] = time.perf_counter() - t0
+    check(same_sub(a, b), "13c: preprocess_cells' sample on the converted "
+          "CSC equals its end-to-end step")
+    out["preprocess_cells_s"] = steps
+    del csc, ref, a, b, sub, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int8 all-reduce over a gradient tree of granite's shapes
+    gcfg = get_config(COMPRESS_ARCH)
+    model = LM(gcfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    grads = {n: (torch.randn(p.shape, generator=gen, device=dev) * 1e-3)
+             .to(p.dtype) for n, p in model.named_parameters()}
+    del model
+    errs = zeros_like_error(grads)
+    want_err = zeros_like_error(grads)
+    group = mesh.get_group("data")
+    t0 = time.perf_counter()
+    equal = True
+    for _ in range(2):
+        red, errs = compressed_psum_tree(grads, errs, group)
+        for n, g in grads.items():
+            q, scale, e = quantize_ef(g, want_err[n])
+            equal &= torch.equal(red[n], dequantize(q, scale).to(g.dtype))
+            equal &= torch.equal(errs[n], e)
+            want_err[n] = e
+    torch.cuda.synchronize()
+    out["compress"] = dict(leaves=len(grads),
+                           elements=sum(g.numel() for g in grads.values()),
+                           seconds=time.perf_counter() - t0, bit_equal=equal)
+    check(equal, "13c: compressed_psum_tree on NCCL at world 1 equals "
+          "quantize then dequantize, values and error buffers, twice")
+    del grads, errs, want_err, red
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # shard-local MoE at granite's train tokens
+    from types import SimpleNamespace
+    w = SimpleNamespace(**moe_init(torch.Generator(device=dev).manual_seed(
+        seed + 16), gcfg.d_model, gcfg.d_ff, gcfg.moe_experts, gcfg.dtype,
+        dev))
+    x = torch.randn((MOE_LOCAL_TOKENS, gcfg.d_model), generator=gen,
+                    device=dev).to(gcfg.dtype)
+    k = gcfg.moe_top_k
+    with torch.no_grad(), layout(mesh):
+        y1, aux1 = moe_apply_local(w, x, top_k=k)
+        y0, aux0 = moe_apply(w, x, top_k=k)
+        check(torch.equal(y1, y0) and torch.equal(aux1, aux0),
+              "13c: moe_apply_local on one rank is moe_apply")
+        moe = {}
+        for n in MOE_LOCAL_GROUPS:
+            t0 = time.perf_counter()
+            y, aux = moe_apply_groups(w, x, n, top_k=k)
+            torch.cuda.synchronize()
+            per = [moe_apply(w, xg, top_k=k)[0] for xg in x.chunk(n)]
+            same = torch.equal(y, torch.cat(per))
+            moe[n] = dict(seconds=time.perf_counter() - t0, aux=float(aux),
+                          y_equal=same)
+            check(same and math.isfinite(float(aux)),
+                  f"13c: moe_apply_groups in {n} groups: each group's y "
+                  "equals moe_apply on its tokens; a finite aux")
+    out["moe_local"] = moe
+    return out
+
+
+def grok_train_phase(dev, seed, extra):
+    """13d: grok-1-314b's one-layer train cell on the card, when its
+    reckoned peak stays under LM_TRAIN_PEAK_GIB."""
+    arch, layers, seq = LM_TRAIN_GROK
+    gib = reckoned_train_gib(lm_train_grok_cfg(), seq, 1, 2)
+    if gib > LM_TRAIN_PEAK_GIB:
+        log(f"[{arch} train] held on the CPU: one layer at {seq} tokens "
+            f"reckons {gib:.1f} GiB, past {LM_TRAIN_PEAK_GIB} GiB")
+        return None
+    out = lm_train_config_phase(dev, seed, arch, layers, seq, 1, False,
+                                extra, two_steps=True)
+    log_lm_train_config(out)
+    log(f"[{out['tag']}] peak {out['peak_allocated_gib']:.2f} GiB allocated "
+        f"({out['peak_reserved_gib']:.2f} reserved) against the reckoned "
+        f"{out['reckoned_gib']:.2f} GiB; two steps from one saved state "
+        f"bit-equal ({out['two_steps_by']}): {out['two_steps_bit_equal']}")
+    return out
+
+
+def log_mesh(aout, dout, cout, mserve, mstep):
+    for key, r in aout.items():
+        log(f"[mesh convert] {key}: bit-equal {r['bit_equal']}, wall "
+            f"{r['wall_s']:.3f}s (single-device convert "
+            f"{r['single_convert_s']:.3f}s), stages {r['stage_s']}, "
+            f"launches {r['launches']}, sample edges {r['sample_edges']}")
+    log(f"[mesh decode] launches {dout['launches']}; combined shares of "
+        "twin_tolerance "
+        f"{ {k: v for k, v in dout.items() if k.startswith('combined')} }; "
+        f"slices' worst shares {dout['slice_worst_share']}; head splits "
+        f"bit-equal { {k: v for k, v in dout.items() if 'head' in k} }")
+    log_row("decode_attention_partial", dout["row"])
+    log(f"[mesh nccl] {cout['mesh']} ({cout['backend']}): service "
+        f"{cout['service_s']:.3f}s, preprocess_cells "
+        f"{cout['preprocess_cells_s']}, compress {cout['compress']}, moe "
+        f"{cout['moe_local']}; ServeEngine(mesh=) {mserve}")
+    log(f"[mesh step] a decode step rank by rank (worlds {MESH_WORLDS}): "
+        f"{mstep}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7115,8 +7838,11 @@ def main():
     torch.cuda.empty_cache()
 
     # 9a. the LM serve path: gemma2-9b at full width through ServeEngine
+    # (and again on the NCCL world-1 mesh of phase 13c)
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh("cuda")
     t0 = time.perf_counter()
-    lsout = lm_serve_phase(dev, args.seed, extra)
+    lsout = lm_serve_phase(dev, args.seed, extra, mesh=mesh)
     rows["decode_attention"] = lsout["row"]
     log_lm_serve(lsout, extra)
     log(f"[lm serve] phase done in {time.perf_counter() - t0:.1f}s")
@@ -7223,11 +7949,6 @@ def main():
         rows.update(tco["rows"])
         log(f"[{tco['tag']}] phase done in {time.perf_counter() - t0:.1f}s")
         train_outs[arch] = tco
-    grok_gib = reckoned_train_gib(lm_train_grok_cfg(), LM_TRAIN_GROK[2], 1,
-                                  2)
-    log(f"[{LM_TRAIN_GROK[0]} train] held on the CPU: one layer at "
-        f"{LM_TRAIN_GROK[2]} tokens reckons {grok_gib:.1f} GiB, past the "
-        f"{LM_TRAIN_CARD_GIB} GiB the card allows")
 
     # 12c. the recommender substrate
     t0 = time.perf_counter()
@@ -7237,9 +7958,33 @@ def main():
     log(f"[recsys] phase done in {time.perf_counter() - t0:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 13. the multi-device engine (rank by rank; NCCL at world 1)
+    from repro_torch.core.graph import synthetic_coo
+    t0 = time.perf_counter()
+    coo = synthetic_coo(REDDIT["nodes"], REDDIT["edges"], CONVERT_CAP,
+                        args.seed, device=dev)
+    aout = mesh_convert_phase(dev, args.seed, coo)
+    dout13 = mesh_decode_phase(dev, args.seed, extra)
+    rows["decode_attention_partial"] = dout13["row"]
+    cout = mesh_entry_phase(dev, args.seed, mesh, coo)
+    del coo
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_mesh(aout, dout13, cout, lsout["mesh_serve"],
+             lsout["mesh_step_ranks"])
+    log(f"[mesh] 13a-c done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    grok = grok_train_phase(dev, args.seed, extra)
+    if grok is not None:
+        rows.update(grok["rows"])
+        log(f"[{grok['tag']}] phase done in {time.perf_counter() - t0:.1f}s")
+    mout13 = dict(convert=aout, decode=dout13, nccl=cout, grok_train=grok)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[extra] {json.dumps(extra)}")
 
-    # 13. report
+    # 14. report
     new_paths = list(fouts.values()) + [kout, rout, uout, gout, dout]
     launches = {k: out["launches"][k] + mout["launches"][k]
                 + sout["launches"][k]
@@ -7257,6 +8002,7 @@ def main():
                      + sum(o["serve"]["launches"][k]
                            for o in cfg_outs.values())
                      for k in LM_SERVE_KERNELS})
+    launches.update({k: dout13["launches"][k] for k in MESH_KERNELS})
     launches.update({k: sum(p["launches"][k] for p in [out, mout, sout, lout,
                                                        tout, lsout]
                             + new_paths + list(train_outs.values())
@@ -7265,7 +8011,7 @@ def main():
                      for k in OFF_PATH_KERNELS})
     kernels = []
     for key in (SLICE_KERNELS + MERGE_KERNELS + LM_KERNELS + TRAIN_KERNELS
-                + LM_SERVE_KERNELS + OFF_PATH_KERNELS):
+                + LM_SERVE_KERNELS + MESH_KERNELS + OFF_PATH_KERNELS):
         r = {k: v for k, v in rows[key].items() if k != "shape"}
         r["launches"] = launches[key]
         kernels.append(r)
@@ -7277,8 +8023,10 @@ def main():
                        service=sout, lm_path=lout, lm_serve=lsout,
                        lm_configs=cfg_outs, train_path=tout,
                        lm_train_configs=train_outs, recsys=dout,
+                       multi_device=mout13,
                        extra=extra, trace_clock=TRACE_CLOCK,
                        seconds=time.perf_counter() - t_start), f, indent=1)
+    torch.distributed.destroy_process_group()  # phase 13c's NCCL group
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernel_launches": launches}))

@@ -47,6 +47,14 @@
 // repro/dist/collectives.py and divides by max(l, 1e-30). So a slot's bits
 // depend on its own cache rows and length only, and no float atomic is
 // used.
+//
+// Partial mode (decode_attention_partial, a rank's sequence slice of a
+// cache cut over ranks): the combine writes the slice's float32 (m, l,
+// acc) — the largest score, the exponentials' sum, and the unnormalised
+// p . v — for the ranks' own log-sum-exp combine
+// (dist/collectives.py sharded_decode_attention_seq). A slot whose slice
+// holds no live position (cache_len 0) gives m = -inf, l = 0, acc = 0,
+// which every combine weighs by exp(-inf) = 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -435,15 +443,19 @@ decode_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
 
 // one CTA a (slot, query head), a thread a column: the live splits
 // combined in split order, out = sum acc e^(m - M) / max(sum l e^(m - M),
-// 1e-30); a slot with no live position reads 0
-template <typename QT>
+// 1e-30); a slot with no live position reads 0. kPartial: out is the
+// float32 sum acc e^(m - M) itself, and m_out, l_out get M and sum l
+// e^(m - M) (-inf and 0 with no live position)
+template <typename OT, bool kPartial>
 __global__ void decode_combine_kernel(const float* __restrict__ m_part,
                                       const float* __restrict__ l_part,
                                       const float* __restrict__ acc_part,
                                       const int32_t* __restrict__ cache_len,
                                       int H, int S, int has_window,
                                       int window, int split, int n_splits,
-                                      int dh, QT* __restrict__ out) {
+                                      int dh, OT* __restrict__ out,
+                                      float* __restrict__ m_out,
+                                      float* __restrict__ l_out) {
   const size_t bh = blockIdx.x;
   const int d = threadIdx.x;
   const int len = cache_len[bh / H];
@@ -453,6 +465,9 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_part,
   if (d >= dh) return;
   if (lo >= hi) {
     narrow(out + bh * dh + d, 0.f);
+    if constexpr (kPartial) {
+      if (d == 0) m_out[bh] = __int_as_float(0xff800000), l_out[bh] = 0.f;
+    }
     return;
   }
   const int i0 = lo / split, i1 = (hi - 1) / split;
@@ -466,7 +481,12 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_part,
     l_sum += l[i] * corr;
     acc += acc_part[(bh * n_splits + i) * dh + d] * corr;
   }
-  narrow(out + bh * dh + d, acc / fmaxf(l_sum, 1e-30f));
+  if constexpr (kPartial) {
+    out[bh * dh + d] = acc;
+    if (d == 0) m_out[bh] = mg, l_out[bh] = l_sum;
+  } else {
+    narrow(out + bh * dh + d, acc / fmaxf(l_sum, 1e-30f));
+  }
 }
 
 template <typename QT, typename KVT, int VEC>
@@ -474,8 +494,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int32_t* len,
                    int B, int H, int Hkv, int S, int dh, int has_window,
                    int window, int has_cap, float cap, float scale, int split,
-                   float* m, float* l, float* acc, void* out,
-                   cudaStream_t st) {
+                   float* m, float* l, float* acc, void* out, float* m_out,
+                   float* l_out, cudaStream_t st) {
   const int n_splits = (S + split - 1) / split;
   const int stride = (dh * (int)sizeof(KVT) + 15) / 16 * 16;
   const int smem = kStages * kChunk * stride + kG * split * 4;
@@ -505,10 +525,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<QT>,
+  if (m_out)
+    return cudaLaunchKernelEx(&cfg, decode_combine_kernel<float, true>,
+                              (const float*)m, (const float*)l,
+                              (const float*)acc, len, H, S, has_window,
+                              window, split, n_splits, dh,
+                              static_cast<float*>(out), m_out, l_out);
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<QT, false>,
                             (const float*)m, (const float*)l,
                             (const float*)acc, len, H, S, has_window, window,
-                            split, n_splits, dh, static_cast<QT*>(out));
+                            split, n_splits, dh, static_cast<QT*>(out),
+                            (float*)nullptr, (float*)nullptr);
 }
 
 template <typename QT, typename KVT>
@@ -517,18 +544,63 @@ cudaError_t launch_vec(int vec, const void* q, const void* k, const void* v,
                        int B, int H, int Hkv, int S, int dh, int has_window,
                        int window, int has_cap, float cap, float scale,
                        int split, float* m, float* l, float* acc, void* out,
-                       cudaStream_t st) {
+                       float* m_out, float* l_out, cudaStream_t st) {
   if (vec == 16)
     return launch<QT, KVT, 16>(q, k, v, ks, vs, len, B, H, Hkv, S, dh,
                                has_window, window, has_cap, cap, scale, split,
-                               m, l, acc, out, st);
+                               m, l, acc, out, m_out, l_out, st);
   if (vec == 4)
     return launch<QT, KVT, 4>(q, k, v, ks, vs, len, B, H, Hkv, S, dh,
                               has_window, window, has_cap, cap, scale, split,
-                              m, l, acc, out, st);
+                              m, l, acc, out, m_out, l_out, st);
   return launch<QT, KVT, 1>(q, k, v, ks, vs, len, B, H, Hkv, S, dh,
                             has_window, window, has_cap, cap, scale, split, m,
-                            l, acc, out, st);
+                            l, acc, out, m_out, l_out, st);
+}
+
+}  // namespace
+
+namespace {
+
+cudaError_t run(const void* q, int q_bf16, const void* k, const void* v,
+                int kv_int8, const void* k_scale, const void* v_scale,
+                const void* cache_len, int B, int H, int Hkv, int S, int dh,
+                int has_window, int window, int has_cap, float cap,
+                float scale, int split, int vec, void* m_part, void* l_part,
+                void* acc_part, void* out, float* m_out, float* l_out,
+                void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || dh <= 0) return cudaSuccess;
+  if (H % Hkv || H / Hkv > kMaxG || dh > kMaxDh || B * Hkv > 65535 ||
+      split < kChunk || split > kMaxSplit || split % kChunk)
+    return cudaErrorInvalidValue;
+  const uintptr_t bytes = (uintptr_t)dh * (kv_int8 ? 1 : 2);
+  if ((vec != 16 && vec != 4 && vec != 1) ||
+      (((uintptr_t)k | (uintptr_t)v | bytes) % (uintptr_t)vec))
+    return cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int32_t* len = static_cast<const int32_t*>(cache_len);
+  float* m = static_cast<float*>(m_part);
+  float* l = static_cast<float*>(l_part);
+  float* acc = static_cast<float*>(acc_part);
+  if (q_bf16 && kv_int8)
+    return launch_vec<__nv_bfloat16, int8_t>(
+        vec, q, k, v, ks, vs, len, B, H, Hkv, S, dh, has_window, window,
+        has_cap, cap, scale, split, m, l, acc, out, m_out, l_out, st);
+  if (q_bf16)
+    return launch_vec<__nv_bfloat16, __nv_bfloat16>(
+        vec, q, k, v, nullptr, nullptr, len, B, H, Hkv, S, dh, has_window,
+        window, has_cap, cap, scale, split, m, l, acc, out, m_out, l_out,
+        st);
+  if (kv_int8)
+    return launch_vec<float, int8_t>(vec, q, k, v, ks, vs, len, B, H, Hkv, S,
+                                     dh, has_window, window, has_cap, cap,
+                                     scale, split, m, l, acc, out, m_out,
+                                     l_out, st);
+  return launch_vec<float, __nv_bfloat16>(
+      vec, q, k, v, nullptr, nullptr, len, B, H, Hkv, S, dh, has_window,
+      window, has_cap, cap, scale, split, m, l, acc, out, m_out, l_out, st);
 }
 
 }  // namespace
@@ -551,39 +623,24 @@ extern "C" int decode_attention(const void* q, int q_bf16, const void* k,
                                 int split, int vec, void* m_part,
                                 void* l_part, void* acc_part, void* out,
                                 void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || dh <= 0) return 0;
-  if (H % Hkv || H / Hkv > kMaxG || dh > kMaxDh || B * Hkv > 65535 ||
-      split < kChunk || split > kMaxSplit || split % kChunk)
-    return (int)cudaErrorInvalidValue;
-  const uintptr_t bytes = (uintptr_t)dh * (kv_int8 ? 1 : 2);
-  if ((vec != 16 && vec != 4 && vec != 1) ||
-      (((uintptr_t)k | (uintptr_t)v | bytes) % (uintptr_t)vec))
-    return (int)cudaErrorMisalignedAddress;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int32_t* len = static_cast<const int32_t*>(cache_len);
-  float* m = static_cast<float*>(m_part);
-  float* l = static_cast<float*>(l_part);
-  float* acc = static_cast<float*>(acc_part);
-  cudaError_t e;
-  if (q_bf16 && kv_int8)
-    e = launch_vec<__nv_bfloat16, int8_t>(vec, q, k, v, ks, vs, len, B, H,
-                                          Hkv, S, dh, has_window, window,
-                                          has_cap, cap, scale, split, m, l,
-                                          acc, out, st);
-  else if (q_bf16)
-    e = launch_vec<__nv_bfloat16, __nv_bfloat16>(
-        vec, q, k, v, nullptr, nullptr, len, B, H, Hkv, S, dh, has_window,
-        window, has_cap, cap, scale, split, m, l, acc, out, st);
-  else if (kv_int8)
-    e = launch_vec<float, int8_t>(vec, q, k, v, ks, vs, len, B, H, Hkv, S,
-                                  dh, has_window, window, has_cap, cap, scale,
-                                  split, m, l, acc, out, st);
-  else
-    e = launch_vec<float, __nv_bfloat16>(vec, q, k, v, nullptr, nullptr, len,
-                                         B, H, Hkv, S, dh, has_window, window,
-                                         has_cap, cap, scale, split, m, l,
-                                         acc, out, st);
-  return (int)e;
+  return (int)run(q, q_bf16, k, v, kv_int8, k_scale, v_scale, cache_len, B,
+                  H, Hkv, S, dh, has_window, window, has_cap, cap, scale,
+                  split, vec, m_part, l_part, acc_part, out, nullptr,
+                  nullptr, stream);
+}
+
+// Partial mode: decode_attention's arguments with no window, cache_len
+// each at least 0, and in place of out the slice's float32 partials: m, l
+// [B * H] and acc [B * H * dh] (unnormalised). Two launches.
+extern "C" int decode_attention_partial(
+    const void* q, int q_bf16, const void* k, const void* v, int kv_int8,
+    const void* k_scale, const void* v_scale, const void* cache_len, int B,
+    int H, int Hkv, int S, int dh, int has_cap, float cap, float scale,
+    int split, int vec, void* m_part, void* l_part, void* acc_part,
+    void* m_out, void* l_out, void* acc_out, void* stream) {
+  return (int)run(q, q_bf16, k, v, kv_int8, k_scale, v_scale, cache_len, B,
+                  H, Hkv, S, dh, 0, 0, has_cap, cap, scale, split, vec,
+                  m_part, l_part, acc_part, acc_out,
+                  static_cast<float*>(m_out), static_cast<float*>(l_out),
+                  stream);
 }

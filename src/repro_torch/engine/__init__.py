@@ -1,10 +1,12 @@
 """repro_torch.engine — the preprocessing engine as a service (port of
-``repro/engine``, without the sharded engine, ``ROADMAP.md`` A.9).
+``repro/engine``).
 
 * ``service``  — ``PreprocService``: workload profiling, Table-I
   cost-model scoring of the configuration library, pow2 buckets, and
   dispatch through one module-level table keyed by (entry point,
   ``EngineConfig.key``, input shapes).
+* ``shard``    — the sharded engine: conversion cut over a mesh's
+  data-parallel ranks, bit-identical to the single-device pipeline.
 * ``prefetch`` — double buffering: batch ``i + 1`` is made while the
   consumer works on batch ``i``, on a side CUDA stream on the card.
 

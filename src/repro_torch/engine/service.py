@@ -192,8 +192,9 @@ class PreprocService:
 
     One instance a workload stream; every instance shares the module-level
     dispatch table. Dispatches run on the device that holds their inputs.
-    A ``mesh`` whose data-parallel extent is above 1 is refused: the
-    sharded engine is not ported (``ROADMAP.md`` A.9).
+    With a ``mesh`` whose data-parallel extent is above 1, ``preprocess``
+    runs the sharded engine (``engine.shard.jit_shard_preprocess``):
+    every rank calls it with the same inputs and gets the same subgraph.
     """
 
     def __init__(self, fanouts: tuple[int, ...],
@@ -202,10 +203,6 @@ class PreprocService:
                  mesh=None,
                  switch_threshold: float = 1.5,
                  reconfig_cost_s: float = RECONFIG_S_PARTIAL):
-        if _dp_size(mesh) > 1:
-            raise NotImplementedError(
-                "a mesh with a data-parallel extent above 1 needs the "
-                "sharded engine, which is not ported (ROADMAP.md, A.9)")
         self.fanouts = tuple(fanouts)
         self.library = library or bitstream_library()
         self.cal = cal or Calibration()
@@ -262,6 +259,10 @@ class PreprocService:
         bn_b = bucket_batch(seeds)
         cfg = cfg or self.select(coo_b, int(bn_b.shape[0]))
         self._account(cfg, (coo_b.capacity, int(bn_b.shape[0])))
+        if _dp_size(self.mesh) > 1:
+            from .shard import jit_shard_preprocess
+            return jit_shard_preprocess(self.mesh)(coo_b, bn_b, self.fanouts,
+                                                   key, cfg)
         return preprocess_jit(coo_b, bn_b, self.fanouts, key, cfg)
 
     def sample_batched(self, csc, seed_rows, keys,

@@ -40,10 +40,11 @@ def kernel_wrappers():
     pointer segment sum ptr_seg_sum), the flash
     attention forward of the LM prefill and training paths, its two
     backward kernels (training), the decode attention of the LM serve
-    path, and the four kernels no path runs
+    path and its partial mode (a sequence slice of a cache cut over
+    ranks), and the four kernels no path runs
     (digit_partition_hist and digit_rank_gather, the reference's digit
     pass one to one; prefix_partition, filter_tree_lookup)."""
-    from .decode_attention import decode_attention
+    from .decode_attention import decode_attention, decode_attention_partial
     from .flash_attention import flash_attention_bhsd, flash_dkv, flash_dq
     from .merge import fused_merge_rounds, merge_rung
     from .prefix_partition import prefix_partition
@@ -66,6 +67,7 @@ def kernel_wrappers():
             "flash_attention_bwd_dq": flash_dq,
             "flash_attention_bwd_dkv": flash_dkv,
             "decode_attention": decode_attention,
+            "decode_attention_partial": decode_attention_partial,
             "prefix_partition": prefix_partition,
             "filter_tree_lookup": filter_tree_lookup}
 

@@ -15,6 +15,14 @@ splits in split order by the log-sum-exp rule
 torch). An int8 cache is read through bf16, as the reference reads it. A
 slot's output depends on its own cache rows and length only. The two
 agree within float32 rounding (``twin_tolerance``), not bit for bit.
+
+``decode_attention_partial`` is the kernel's partial mode, for a rank's
+sequence slice of a cache cut over ranks: the same two launches, the
+combine writing the slice's float32 (m, l, acc) — the largest score, the
+sum of the exponentials and the unnormalised p · v — in place of the
+output; a slot whose slice holds no live position (length 0) gives
+(-inf, 0, 0). Its twin is ``models.attention.decode_attention_partial``
+with such slots set so.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.models import attention
 from repro_torch.models.attention import (_group_q, decode_attention_plain,
                                           decode_mask, dequantize_kv)
 
@@ -45,6 +54,9 @@ _SIGNATURES = {
     "decode_attention": (ctypes.c_int,
                          (_P, _I, _P, _P, _I, _P, _P, _P) + (_I,) * 7
                          + (_I, _F, _F, _I, _I) + (_P,) * 5),
+    "decode_attention_partial": (ctypes.c_int,
+                                 (_P, _I, _P, _P, _I, _P, _P, _P) + (_I,) * 6
+                                 + (_F, _F, _I, _I) + (_P,) * 7),
 }
 
 
@@ -154,6 +166,70 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+def decode_partial_plain(q, k_cache, v_cache, cache_len, *, logit_cap=None,
+                         k_scale=None, v_scale=None):
+    """The partial mode's twin: ``models.attention.decode_attention_partial``
+    over the positions below ``cache_len`` (int8 read through bf16), a
+    slot with none of them set to (-inf, 0, 0)."""
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale)
+        v_cache = dequantize_kv(v_cache, v_scale)
+    m, l, acc = attention.decode_attention_partial(
+        q, k_cache, v_cache, decode_mask(cache_len, k_cache.shape[2]),
+        logit_cap=logit_cap)
+    dead = (cache_len <= 0)[:, None, None, None]
+    return (m.masked_fill(dead, -math.inf), l.masked_fill(dead, 0.0),
+            acc.masked_fill(dead[..., None], 0.0))
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cache_len: torch.Tensor,
+                             *, logit_cap: float | None = None,
+                             k_scale: torch.Tensor | None = None,
+                             v_scale: torch.Tensor | None = None):
+    """The partial softmax of q [B, H, 1, dh] over the positions below
+    ``cache_len`` [B] int32 (0 allowed) of a cache slice k, v [B, Hkv, S,
+    dh]: float32 (m [B, Hkv, G, 1], l [B, Hkv, G, 1], acc [B, Hkv, G, 1,
+    dh]), the shapes of ``models.attention.decode_attention_partial``. On
+    the card two launches (the splits, the combine in partial mode)."""
+    if q.device.type == "cpu":
+        return decode_partial_plain(q, k_cache, v_cache, cache_len,
+                                    logit_cap=logit_cap, k_scale=k_scale,
+                                    v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check_kernel_inputs(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+    b, h, _, dh = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    ns = n_splits(s)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty((b * h * ns,), **f32)
+    l_part = torch.empty((b * h * ns,), **f32)
+    acc_part = torch.empty((b * h * ns * dh,), **f32)
+    m = torch.empty((b, hkv, g, 1), **f32)
+    l = torch.empty((b, hkv, g, 1), **f32)
+    acc = torch.empty((b, hkv, g, 1, dh), **f32)
+    int8 = k_scale is not None
+    count_launch(decode_attention_partial, 2)
+    _build.check(_build.load("decode_attention", _SIGNATURES)
+                 .decode_attention_partial(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
+        v_cache.data_ptr(), int(int8),
+        k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None, cache_len.data_ptr(), b, h,
+        hkv, s, dh, int(logit_cap is not None), float(logit_cap or 0.0),
+        dh ** -0.5, split_size(s), load_width(k_cache, v_cache),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _build.stream_of(q)),
+        "decode_attention_partial")
+    return m, l, acc
+
+
+decode_attention_partial.launches = 0
 
 
 def _softcap64(x, cap):

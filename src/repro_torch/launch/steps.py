@@ -1,5 +1,6 @@
 """Step cells of the port (the LM prefill and train cells, the GNN train
-cells and the recommender cells of ``repro/launch/steps.py``).
+cells, the recommender cells and the preprocessing engine's steps of
+``repro/launch/steps.py``).
 
 The prefill and train cells build any of the five LM configurations
 (gemma2-9b, granite-moe-1b-a400m, codeqwen1.5-7b, qwen1.5-32b,
@@ -7,12 +8,15 @@ grok-1-314b); the recommender cells build dlrm-rm2 at each of the four
 ``RECSYS_SHAPES``.
 
 A cell is a built model plus an input batch made from a seed; calling its
-``step`` runs one step. Meshes, shardings and compiled programs of the
-reference's cells have no counterpart here: the port runs on one card.
+``step`` runs one step. ``preprocess_cells(mesh)`` gives the engine's
+three steps over a ``torch.distributed`` mesh (``engine.shard``); the
+reference's compiled programs and shardings of the model cells have no
+counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -321,3 +325,57 @@ def _recsys_cell(arch_id: str, shape_name: str, device="cuda", seed: int = 0,
     f_user = cfg.n_sparse - RETRIEVAL_CAND_FIELDS
     return RecsysCell(arch_id, shape_name, model,
                       (dense[:1], idx[:1, :f_user], idx[:, f_user:]))
+
+
+# ===================================================== paper-technique cells
+# Reddit in a pow2 COO, a 1,024-seed minibatch, two hops of 15 and 10
+PREPROCESS_NODES = 232_965
+PREPROCESS_EDGES = 114_615_892
+PREPROCESS_CAPACITY = 1 << 27
+PREPROCESS_SEEDS = 1024
+PREPROCESS_FANOUTS = (15, 10)
+
+
+class PreprocStep(NamedTuple):
+    arch_id: str
+    shape_name: str
+    step: object
+    note: str
+
+
+def preprocess_cells(mesh) -> list[PreprocStep]:
+    """The AutoGNN engine itself as three steps over ``mesh``, at the
+    ``PREPROCESS_*`` sizes under ``EngineConfig(w_upe=8192, n_upe=0)``:
+
+    * autognn-convert / reddit: ``step(coo)``, the conversion cut over
+      the dp ranks (``engine.shard.shard_convert``);
+    * autognn-sample / reddit-minibatch: ``step(csc, batch_nodes, key)``,
+      Selecting and Reindexing of the 1,024 seeds with the graph whole on
+      every rank (the reference places the batch over dp; here every
+      rank computes the whole subgraph, the result the placement leaves
+      unchanged);
+    * autognn-preprocess / reddit-e2e: ``step(coo, batch_nodes, key)``,
+      the whole sharded workflow (``engine.shard.shard_preprocess``).
+    """
+    from repro_torch.core.costmodel import EngineConfig
+    from repro_torch.core.pipeline import sample_subgraph
+    from repro_torch.engine.shard import shard_convert, shard_preprocess
+    ecfg = EngineConfig(w_upe=8192, n_upe=0)
+    fan = PREPROCESS_FANOUTS
+
+    def convert_step(coo):
+        return shard_convert(mesh, coo, ecfg)
+
+    def sample_step(csc, batch_nodes, key):
+        return sample_subgraph(csc, batch_nodes, fan, key, ecfg)
+
+    def e2e_step(coo, batch_nodes, key):
+        return shard_preprocess(mesh, coo, batch_nodes, fan, key, ecfg)
+
+    return [PreprocStep("autognn-convert", "reddit", convert_step,
+                        "COO→CSC conversion, edges cut over dp "
+                        "(engine.shard)"),
+            PreprocStep("autognn-sample", "reddit-minibatch", sample_step,
+                        "Selecting+Reindexing of the minibatch"),
+            PreprocStep("autognn-preprocess", "reddit-e2e", e2e_step,
+                        "the whole sharded workflow (engine.shard)")]

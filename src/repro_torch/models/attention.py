@@ -24,6 +24,8 @@ import functools
 
 import torch
 
+from repro_torch.dist.groups import Reduce
+
 from .common import softcap as _softcap
 
 NEG_INF = -1e30
@@ -284,18 +286,19 @@ def decode_attention_partial(q, k_cache, v_cache, valid_mask, *,
     return _partial(sc, v_cache, valid_mask)
 
 
-def combine_partials(parts) -> torch.Tensor:
-    """The log-sum-exp combine of (m, l, acc) partials, in their order
-    (``dist/collectives.py``'s rule): out = Σ acc·e^(m − M) / max(Σ
-    l·e^(m − M), 1e-30), M the largest m."""
-    mg = parts[0][0]
-    for m, _, _ in parts[1:]:
-        mg = torch.maximum(mg, m)
-    l_sum = acc_sum = 0.0
-    for m, l, acc in parts:
-        corr = torch.exp(m - mg)
-        l_sum = l_sum + l * corr
-        acc_sum = acc_sum + acc * corr[..., None]
+def combine_partials(parts, reduce=None) -> torch.Tensor:
+    """The log-sum-exp combine of (m, l, acc) partials (the reference's
+    rule, ``repro/dist/collectives.py``): out = Σ acc·e^(m − M) / max(Σ
+    l·e^(m − M), 1e-30), M the largest m. ``reduce``
+    (``dist.groups.Reduce``) takes the max and the sums: None folds
+    ``parts`` in their order in this process; on a process group
+    ``parts`` is this rank's one partial, all-reduced over it."""
+    red = reduce or Reduce()
+    mg = red.max([m for m, _, _ in parts])
+    corr = [torch.exp(m - mg) for m, _, _ in parts]
+    l_sum = red.sum([l * c for (_, l, _), c in zip(parts, corr)])
+    acc_sum = red.sum([acc * c[..., None]
+                       for (_, _, acc), c in zip(parts, corr)])
     return acc_sum / torch.clamp(l_sum[..., None], min=1e-30)
 
 

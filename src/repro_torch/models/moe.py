@@ -16,10 +16,13 @@ so the layer can run inside a captured decode step: a dropped pair is
 scattered into a spare row past ``E · cap`` that is thrown away (the
 reference's ``mode="drop"``), not masked out by a boolean index.
 
-Off a mesh the reference's ``moe_apply_local`` is ``moe_apply``, so the
-prefill and the decode step both call ``moe_apply``; the shard-local
-form (per-data-shard capacity groups) comes with the multi-device engine,
-ROADMAP.md A.9.
+``moe_apply_local`` is the reference's shard-local dispatch (GShard-style
+per-data-shard capacity groups): a data-parallel rank holds its own
+tokens, and they are its group, so its capacity and ranks come from its
+tokens alone and no dispatch crosses a rank; only the aux loss's means
+(f and P) are all-reduced over the dp group. With no mesh, or a dp
+extent of 1, it is ``moe_apply``. The forward routes through it, the
+decode step through ``moe_apply``, as the reference.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.set_partition import prefix_sum
+from repro_torch.dist.groups import Reduce, dp_group
+from repro_torch.dist.hints import _current_mesh, mesh_info
+from repro_torch.dist.sharding import _axes_size
 
 from .common import dense_init
 
@@ -112,20 +118,9 @@ class _SlotRows(torch.autograd.Function):
         return gx, None, None, None
 
 
-def moe_apply(p, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [T, d] → (y [T, d] in x's dtype, the Switch aux loss, a float32
-    0-d tensor). ``p`` has the attributes ``router``, ``w_gate``, ``w_in``
-    and ``w_out`` (a block's ``MoE``). The model runs the reference's
-    default ``capacity_factor``; the argument lets the tests hold the
-    dropping and the non-dropping capacities against the reference's.
-
-    The combine rounds each weighted row to the model's dtype (the
-    reference's product), then sums a token's k rows in float32 and
-    rounds once: in float32 that is the reference's sum up to the order of
-    k additions; in bf16 it may differ from the reference's bf16
-    segment sum by a bf16 ulp of the sum a token."""
+def _moe(p, x: torch.Tensor, top_k: int, capacity_factor: float):
+    """(y, f, P): the layer's output and its aux loss's per-expert kept
+    share f (× k) and mean probability P over x's tokens."""
     router, w_gate, w_in, w_out = p.router, p.w_gate, p.w_in, p.w_out
     t, d = x.shape
     e = w_in.shape[0]
@@ -152,6 +147,67 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
 
     f = (r["onehot"] * r["keep"][:, None]).to(torch.float32).mean(dim=0) * (
         t * top_k / max(t, 1))
-    pe = r["probs"].mean(dim=0)
-    aux = e * torch.sum(f * pe) / top_k
-    return y.to(x.dtype), aux
+    return y.to(x.dtype), f, r["probs"].mean(dim=0)
+
+
+def moe_apply(p, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [T, d] → (y [T, d] in x's dtype, the Switch aux loss, a float32
+    0-d tensor). ``p`` has the attributes ``router``, ``w_gate``, ``w_in``
+    and ``w_out`` (a block's ``MoE``). The model runs the reference's
+    default ``capacity_factor``; the argument lets the tests hold the
+    dropping and the non-dropping capacities against the reference's.
+
+    The combine rounds each weighted row to the model's dtype (the
+    reference's product), then sums a token's k rows in float32 and
+    rounds once: in float32 that is the reference's sum up to the order of
+    k additions; in bf16 it may differ from the reference's bf16
+    segment sum by a bf16 ulp of the sum a token."""
+    y, f, pe = _moe(p, x, top_k, capacity_factor)
+    e = f.shape[0]
+    return y, e * torch.sum(f * pe) / top_k
+
+
+def _moe_groups(p, groups: list, reduce: Reduce, n: int, top_k: int,
+                capacity_factor: float):
+    """The capacity groups this process holds (``groups``, token blocks)
+    each dispatched alone: (their y in order, the aux loss of f and P
+    averaged over all ``n`` groups by ``reduce``, differentiable in P)."""
+    outs = [_moe(p, x, top_k, capacity_factor) for x in groups]
+    f = reduce.sum([o[1].detach() for o in outs])
+    pe = reduce.sum([o[2] for o in outs], grad=True)
+    e = f.shape[0]
+    return [o[0] for o in outs], e * torch.sum((f / n) * (pe / n)) / top_k
+
+
+def moe_apply_local(p, x: torch.Tensor, *, top_k: int,
+                    capacity_factor: float = 1.25
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shard-local dispatch: x [T_l, d] is this data-parallel rank's
+    tokens, one capacity group of ``max(int(cf · k · T_l / E + 0.5), 1)``
+    slots an expert, ranked within the group; y is ``moe_apply``'s on the
+    group. The aux loss takes f and P averaged over the dp group's ranks
+    (the reference's means over every group's tokens, all groups of one
+    size): an all-reduce of each. With no mesh in ``dist.hints.layout``,
+    or a dp extent of 1, ``moe_apply``."""
+    mesh = _current_mesh()
+    dp = mesh_info()[0]
+    n = 1 if mesh is None else _axes_size(mesh, dp)
+    if n <= 1:
+        return moe_apply(p, x, top_k=top_k, capacity_factor=capacity_factor)
+    (y,), aux = _moe_groups(p, [x], Reduce(dp_group(mesh, dp)), n, top_k,
+                            capacity_factor)
+    return y, aux
+
+
+def moe_apply_groups(p, x: torch.Tensor, n_groups: int, *, top_k: int,
+                     capacity_factor: float = 1.25
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply_local`` at a dp extent of ``n_groups`` run in this
+    process: x [T, d] cut into ``n_groups`` contiguous groups of tokens,
+    each dispatched alone, f and P folded over the groups in order (the
+    same body, ``Reduce`` with no group)."""
+    ys, aux = _moe_groups(p, list(x.chunk(n_groups)), Reduce(), n_groups,
+                          top_k, capacity_factor)
+    return torch.cat(ys), aux

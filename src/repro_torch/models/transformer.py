@@ -34,7 +34,15 @@ whatever ``cfg.dtype`` is). A local layer's cache is a ring of
 ``min(window, max_len)`` positions. The cache is updated in place, with
 device-side index writes only, so a decode step can be captured as a
 CUDA graph; its attention is ``kernels.decode_attention.decode_attention``
-(the kernel on the card, the plain twin on the CPU).
+(the kernel on the card, the plain twin on the CPU). On a mesh a rank may
+hold a shard of a cache stack (``CacheShard``: a slice of its positions
+and of its KV heads); the insert then writes only the positions the rank
+owns, and the stack's ``attn_fn`` (``dist.collectives
+.seq_sharded_decode_attn_fn``) combines the ranks' slices.
+
+Under MoE the forward routes through ``models.moe.moe_apply_local`` (a
+data-parallel rank's tokens are its own capacity group; ``moe_apply``
+with no mesh), the decode step through ``moe_apply``, as the reference.
 """
 from __future__ import annotations
 
@@ -54,7 +62,7 @@ from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from .attention import quantize_kv, rope
 from .common import (cross_entropy, dense_init, embed_init, gelu_tanh,
                      glu_apply, glu_init, rms_norm, softcap)
-from .moe import moe_apply, moe_init
+from .moe import moe_apply, moe_apply_local, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,11 +271,14 @@ def _qkv(cfg: LMConfig, p: Block, x):
             v.reshape(b, s, cfg.n_kv_heads, cfg.dh).transpose(1, 2))
 
 
-def _mlp(cfg: LMConfig, p: Block, z):
-    """The block's MLP on z [B, S, d]: (y, the MoE aux loss or None)."""
+def _mlp(cfg: LMConfig, p: Block, z, *, local: bool = True):
+    """The block's MLP on z [B, S, d]: (y, the MoE aux loss or None).
+    ``local`` routes MoE through ``moe_apply_local`` (the forward), else
+    ``moe_apply`` (the decode step)."""
     if cfg.is_moe:
         b, s, d = z.shape
-        y, aux = moe_apply(p.moe, z.reshape(b * s, d), top_k=cfg.moe_top_k)
+        moe = moe_apply_local if local else moe_apply
+        y, aux = moe(p.moe, z.reshape(b * s, d), top_k=cfg.moe_top_k)
         return y.reshape(b, s, d), aux
     act = gelu_tanh if cfg.name.startswith("gemma") else F.silu
     return glu_apply(p.w_gate, p.w_in, p.w_out, z, act=act), None
@@ -392,30 +403,68 @@ def make_cache(cfg: LMConfig, batch: int, max_len: int,
             "global": kv(cfg.n_layers // 2, max_len)}
 
 
+def layer_stack(cache: dict, i: int) -> str:
+    """The name of the cache stack that holds layer i."""
+    if "blocks" in cache:
+        return "blocks"
+    return "local" if i % 2 == 0 else "global"
+
+
 def layer_cache(cache: dict, i: int) -> dict:
     """Layer i's views of ``cache``: depth i of ``blocks``, or for gemma2
     depth i // 2 of ``local`` (even i) or ``global`` (odd i)."""
-    if "blocks" in cache:
-        return {name: t[i] for name, t in cache["blocks"].items()}
-    stack = cache["local" if i % 2 == 0 else "global"]
-    return {name: t[i // 2] for name, t in stack.items()}
+    depth = i if "blocks" in cache else i // 2
+    return {name: t[depth] for name, t in cache[layer_stack(cache, i)]
+            .items()}
 
 
-def _cache_insert(cfg: LMConfig, layer_cache: dict, k, v, pos) -> None:
+@dataclasses.dataclass(frozen=True)
+class CacheShard:
+    """A rank's shard of one cache stack of ``length`` positions: the
+    positions from ``pos0`` and the KV heads from ``head0`` (as many as
+    its tensors hold), attended by ``attn_fn`` (``q, k, v, cache_len, *,
+    window, logit_cap, k_scale, v_scale``; global lengths)."""
+    length: int
+    pos0: int
+    head0: int
+    attn_fn: object
+
+
+def _cache_insert(cfg: LMConfig, layer_cache: dict, k, v, pos,
+                  shard: CacheShard | None = None) -> None:
     """Write one token's k, v [B, Hkv, 1, dh] at ``pos`` into the layer's
     cache views, in place: at ``pos % length`` (a ring when the cache is
     shorter than the positions). ``pos`` is a scalar (every row at one
     position) or a [B] tensor (a position a row): row b is written at its
     own slot by one index write on device indices (no host read, so it can
     be captured). int8 caches store ``quantize_kv``'s values and scales,
-    bf16 caches ``k.to(bfloat16)``, whatever the model's dtype."""
-    length = layer_cache["k"].shape[-2]
+    bf16 caches ``k.to(bfloat16)``, whatever the model's dtype. With a
+    ``shard`` the views hold its positions and heads: a row's position is
+    written only where the rank owns it (elsewhere the view keeps its
+    values)."""
     if cfg.kv_cache_dtype == "int8":
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
         updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         updates = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    if shard is not None:
+        hkv_l, s_l = layer_cache["k"].shape[1], layer_cache["k"].shape[2]
+        rows = torch.arange(k.shape[0], device=k.device)
+        if torch.is_tensor(pos):
+            posv = pos.reshape(-1).to(torch.int64).expand(k.shape[0])
+        else:
+            posv = torch.full((k.shape[0],), pos, dtype=torch.int64,
+                              device=k.device)
+        local = posv % shard.length - shard.pos0
+        own = ((local >= 0) & (local < s_l))[:, None, None]
+        at = torch.clamp(local, 0, s_l - 1)
+        for name, u in updates.items():
+            u = u[:, shard.head0:shard.head0 + hkv_l, 0]
+            view = layer_cache[name]
+            view[rows, :, at] = torch.where(own, u, view[rows, :, at])
+        return
+    length = layer_cache["k"].shape[-2]
     if not torch.is_tensor(pos):
         for name, u in updates.items():
             layer_cache[name][:, :, pos % length] = u[:, :, 0]
@@ -426,11 +475,13 @@ def _cache_insert(cfg: LMConfig, layer_cache: dict, k, v, pos) -> None:
         layer_cache[name][rows, :, slot] = u[:, :, 0]
 
 
-def _decode_block(cfg: LMConfig, p: Block, x, layer_cache: dict, pos):
+def _decode_block(cfg: LMConfig, p: Block, x, layer_cache: dict, pos,
+                  shard: CacheShard | None = None):
     """One token through one block: x [B, 1, d]; ``pos`` a scalar or a [B]
     tensor. The new k, v are inserted first; attention then reads the
     ring's extent, ``min(pos + 1, length)`` positions (the window is the
-    ring's length, so no window is passed)."""
+    ring's length, so no window is passed); with a ``shard``, through its
+    ``attn_fn``."""
     b = x.shape[0]
     dh, zc = cfg.dh, cfg.norm_zero_centered
     q, k, v = _qkv(cfg, p, rms_norm(x, p.ln_attn, zero_centered=zc))
@@ -441,18 +492,20 @@ def _decode_block(cfg: LMConfig, p: Block, x, layer_cache: dict, pos):
         posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = rope(q, posv[:, None, None], cfg.rope_theta)
     k = rope(k, posv[:, None, None], cfg.rope_theta)
-    _cache_insert(cfg, layer_cache, k, v, pos)
-    length = layer_cache["k"].shape[-2]
+    _cache_insert(cfg, layer_cache, k, v, pos, shard)
+    length = layer_cache["k"].shape[-2] if shard is None else shard.length
     eff_len = torch.clamp(posv + 1, max=length).expand(b).contiguous()
-    o = decode_attention(q, layer_cache["k"], layer_cache["v"], eff_len,
-                         window=None, logit_cap=cfg.attn_logit_cap,
-                         k_scale=layer_cache.get("k_scale"),
-                         v_scale=layer_cache.get("v_scale"))
+    attn = decode_attention if shard is None else shard.attn_fn
+    o = attn(q, layer_cache["k"], layer_cache["v"], eff_len, window=None,
+             logit_cap=cfg.attn_logit_cap,
+             k_scale=layer_cache.get("k_scale"),
+             v_scale=layer_cache.get("v_scale"))
     h = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * dh) @ p.wo
     if cfg.post_norm:
         h = rms_norm(h, p.ln_post_attn, zero_centered=zc)
     x = x + h
-    y, _ = _mlp(cfg, p, rms_norm(x, p.ln_mlp, zero_centered=zc))
+    y, _ = _mlp(cfg, p, rms_norm(x, p.ln_mlp, zero_centered=zc),
+                local=False)
     if cfg.post_norm:
         y = rms_norm(y, p.ln_post_mlp, zero_centered=zc)
     return x + y
@@ -460,20 +513,25 @@ def _decode_block(cfg: LMConfig, p: Block, x, layer_cache: dict, pos):
 
 @torch.no_grad()
 def lm_decode_step(model: LM, cache: dict, tokens: torch.Tensor, pos, *,
-                   return_logits: bool = False):
+                   return_logits: bool = False,
+                   shards: dict[str, CacheShard] | None = None):
     """One greedy decode step: tokens [B, 1] int32 at ``pos`` (a scalar,
     every row at one position, or a [B] int32 tensor, a position a row:
     the continuous batcher's form). Updates ``cache`` in place and returns
     the next tokens [B, 1] int32 (the first maximal logit), with
-    ``return_logits`` also the logits [B, V] in the model's dtype."""
+    ``return_logits`` also the logits [B, V] in the model's dtype.
+    ``shards`` maps a cache stack's name to the rank's ``CacheShard`` of
+    it (a stack not named is whole)."""
     cfg = model.cfg
     x = model.embed[tokens[:, 0].to(torch.int64)][:, None, :].to(cfg.dtype)
     if cfg.embed_scale:
         # √d rounded to the model dtype, made on the device (no host copy)
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.dtype,
                            device=x.device)
+    shards = shards or {}
     for i, layer in enumerate(model.layers):
-        x = _decode_block(cfg, layer, x, layer_cache(cache, i), pos)
+        x = _decode_block(cfg, layer, x, layer_cache(cache, i), pos,
+                          shards.get(layer_stack(cache, i)))
     x = rms_norm(x, model.ln_final, zero_centered=cfg.norm_zero_centered)
     logits = lm_head_logits(model, x[:, -1])
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

@@ -35,8 +35,21 @@ stats, the step program and the run loop come from
   for one cycle (``scheduler.Scheduler``). On the CPU the same step runs
   eagerly.
 
-A mesh (the reference's sequence-sharded cache) raises: the multi-device
-engine is ROADMAP.md A.9.
+* **On a mesh** (a ``torch.distributed`` ``DeviceMesh``; every rank runs
+  an engine over the same request stream): each rank holds the model and
+  the slot state whole and its shard of the cache
+  (``dist.sharding.lm_cache_shardings(seq_sharded=True)``: a stack's
+  positions over the dp ranks where they divide, its KV heads over
+  ``model``). A new token's k and v are written only by the rank that owns
+  its position, and the attention combines the ranks' slices
+  (``dist.collectives.seq_sharded_decode_attn_fn``). Rank 0's admissions
+  are broadcast, so every rank takes the same steps and issues the same
+  collectives in the same order (``slots.AdmissionAgreement``). At world
+  1 no stack is cut: the engine holds no shard, issues no collective and
+  its step is the single-device one, captured on the card as without a
+  mesh. Above world 1 on the card the step would be captured with its
+  NCCL collectives inside; that has not run (one card holds one NCCL
+  rank). A gloo mesh runs the step eagerly, on the CPU.
 """
 from __future__ import annotations
 
@@ -44,21 +57,27 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import next_pow2, resolve_device
-from repro_torch.models.transformer import LM, lm_decode_step, make_cache
+from repro_torch.dist.collectives import seq_sharded_decode_attn_fn
+from repro_torch.dist.groups import check_mesh, dp_rank, model_rank
+from repro_torch.dist.sharding import Shard, lm_cache_shardings, local_shape
+from repro_torch.models.transformer import (LM, CacheShard, lm_decode_step,
+                                            make_cache)
 
 from .request import Request
 from .scheduler import NO_TOKEN
-from .slots import SlotEngineBase, ServeStats, deactivate_update
+from .slots import (AdmissionAgreement, SlotEngineBase, ServeStats,
+                    deactivate_update)
 
 __all__ = ["ServeEngine", "ServeStats", "build_step"]
 
 
-def build_step(prompt_cap: int):
+def build_step(prompt_cap: int, shards: dict | None = None):
     """The one step program, ``step(model, state) -> logits [S, V]``: the
     input token of every slot (its next prompt token or its last output),
     one decode step at the slots' positions, the slot state advanced in
     place. ``state["emitted"]`` [S] gets each slot's new token where it is
-    active and past its prompt, ``NO_TOKEN`` elsewhere."""
+    active and past its prompt, ``NO_TOKEN`` elsewhere. ``shards``: the
+    rank's ``CacheShard`` of each cut cache stack (on a mesh)."""
 
     def step(model: LM, state: dict) -> torch.Tensor:
         with torch.no_grad():
@@ -68,7 +87,8 @@ def build_step(prompt_cap: int):
             prompt_tok = torch.gather(state["prompt"], 1, idx[:, None])[:, 0]
             inp = torch.where(in_prompt, prompt_tok, state["last_tok"])
             nxt, logits = lm_decode_step(model, state["cache"], inp[:, None],
-                                         pos, return_logits=True)
+                                         pos, return_logits=True,
+                                         shards=shards)
             tok = nxt[:, 0]
             active = state["active"]
             new_pos = torch.where(active, pos + 1, pos)
@@ -91,16 +111,19 @@ class ServeEngine(SlotEngineBase):
     end the stream, ``run()`` to serve it: each request retires with its
     greedy tokens in ``Request.tokens_out`` (at most ``max_new``; none past
     ``eos_id``). ``model`` is a ``models.transformer.LM`` of ``cfg`` on
-    ``device`` (a missing card raises)."""
+    ``device`` (a missing card raises). ``mesh``: a ``DeviceMesh`` over an
+    initialized process group, of ``device``'s type (the module's
+    docstring)."""
 
     def __init__(self, cfg, model: LM, *, n_slots: int = 8,
                  max_len: int = 128, prompt_cap: int | None = None,
                  mesh=None, eos_id: int | None = None,
                  feeder_depth: int = 2, device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "serving on a mesh (the sequence-sharded KV cache) is not "
-                "ported yet (ROADMAP.md A.9: the multi-device engine)")
+            check_mesh(mesh)
+            if mesh.device_type != resolve_device(device).type:
+                raise ValueError(f"a {mesh.device_type} mesh serving on "
+                                 f"{device}")
         if cfg != model.cfg:
             raise ValueError("cfg is not the model's configuration")
         self.cfg = cfg
@@ -113,9 +136,13 @@ class ServeEngine(SlotEngineBase):
                          feeder_depth=feeder_depth, pipeline_steps=True)
         self.prompt_cap = prompt_cap
         self.eos_id = eos_id
+        self.mesh = mesh
         self.params = model.to(self.device)
+        self.shards: dict[str, CacheShard] = {}
         self.state = self._init_state()
-        self.step_fn = build_step(prompt_cap)
+        self.step_fn = build_step(prompt_cap, self.shards)
+        if mesh is not None and mesh.size() > 1:
+            self._agree = AdmissionAgreement(self.device)
         # the emitted tokens' two host buffers, each behind an event
         card = self.device.type == "cuda"
         self._host = [torch.empty((self.n_slots,), dtype=torch.int32,
@@ -132,8 +159,7 @@ class ServeEngine(SlotEngineBase):
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
         return {
-            "cache": make_cache(self.cfg, batch=s, max_len=self.max_len,
-                                device=dev),
+            "cache": self._make_cache(),
             "pos": zeros(s),
             "prompt": zeros(s, self.prompt_cap),
             "prompt_len": zeros(s),
@@ -142,6 +168,33 @@ class ServeEngine(SlotEngineBase):
             "emitted": torch.full((s,), NO_TOKEN, dtype=torch.int32,
                                   device=dev),
         }
+
+    def _make_cache(self) -> dict:
+        """The slot cache; on a mesh this rank's shard of each stack (its
+        ``CacheShard`` in ``self.shards``)."""
+        if self.mesh is None:
+            return make_cache(self.cfg, batch=self.n_slots,
+                              max_len=self.max_len, device=self.device)
+        whole = make_cache(self.cfg, batch=self.n_slots,
+                           max_len=self.max_len, device="meta")
+        pls = lm_cache_shardings(self.mesh, whole, seq_sharded=True)
+        cache = {}
+        for stack, c in whole.items():
+            cache[stack] = {
+                name: torch.zeros(local_shape(t.shape, self.mesh,
+                                              pls[stack][name]),
+                                  dtype=t.dtype, device=self.device)
+                for name, t in c.items()}
+            pl = pls[stack]["k"]
+            length, hkv = c["k"].shape[3], c["k"].shape[2]
+            s_l, h_l = cache[stack]["k"].shape[3], cache[stack]["k"].shape[2]
+            if Shard(3) in pl or Shard(2) in pl:
+                self.shards[stack] = CacheShard(
+                    length, dp_rank(self.mesh) * s_l if Shard(3) in pl
+                    else 0, model_rank(self.mesh) * h_l if Shard(2) in pl
+                    else 0, seq_sharded_decode_attn_fn(
+                        self.mesh, seq_len=length, kv_heads=hkv))
+        return cache
 
     def _bound_tensors(self) -> dict[str, torch.Tensor]:
         """The model's weights, the cache and the slot state."""

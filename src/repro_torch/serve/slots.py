@@ -34,6 +34,13 @@ request (a streamed graph update) is held when admission reaches it;
 nothing queued behind it is polled until the engine is quiescent (no slot
 active, nothing in flight) and the held request was applied, so every
 later request sees its effect and no earlier one does.
+
+On a mesh of several ranks every rank runs the loop over the same
+request stream, and every rank must take the same steps (each step
+issues the same collectives): rank 0 admits as above and broadcasts how
+many it seated and whether the stream is over
+(``AdmissionAgreement``); the other ranks seat as many from their own
+feeders and follow its word.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import add_launch_counts, launch_counts
 
@@ -66,6 +74,23 @@ def deactivate_update(state: dict, slot: int) -> dict:
     only tensor it touches is the shared ``"active"`` [S] row)."""
     state["active"][slot] = 0
     return state
+
+
+class AdmissionAgreement:
+    """Rank 0's admission decisions over the world: ``agree(n, done)``
+    broadcasts rank 0's (n, done) and returns it on every rank (a tensor
+    on ``device``, whose type the backend takes)."""
+
+    def __init__(self, device):
+        self.lead = dist.get_rank() == 0
+        self.device = device
+
+    def __call__(self, n: int, done: bool) -> tuple[int, bool]:
+        t = torch.tensor([n, int(done)], dtype=torch.int64,
+                         device=self.device)
+        dist.broadcast(t, src=0)
+        n, done = t.tolist()
+        return n, bool(done)
 
 
 class SlotEngineBase:
@@ -95,6 +120,10 @@ class SlotEngineBase:
         self._bound: dict[str, int] | None = None  # the program's tensors
         # a prepared control request, held until the engine is quiescent
         self._held_prep = None
+        # on a mesh of several ranks: rank 0's admissions, which every rank
+        # takes (AdmissionAgreement), and its stream-over flag
+        self._agree = None
+        self._stream_done = False
 
     # ----------------------------------------------------- cache discipline
     def step_cache_size(self) -> int:
@@ -245,7 +274,9 @@ class SlotEngineBase:
         request ends the wave: it is held, and nothing is polled past it
         until it was applied."""
         wave = []
-        while self.scheduler.has_free_slot and self._held_prep is None:
+        lead = self._agree is None or self._agree.lead
+        while lead and self.scheduler.has_free_slot \
+                and self._held_prep is None:
             prep = feeder.poll(timeout=timeout)
             if prep is None:
                 break
@@ -253,6 +284,17 @@ class SlotEngineBase:
                 self._held_prep = prep
                 break
             wave.append((self.scheduler.admit(prep), prep))
+        if self._agree is not None:
+            n, self._stream_done = self._agree(len(wave), feeder.done)
+            while len(wave) < n:  # rank 0 seated n: take the same n
+                prep = feeder.poll(timeout=1.0)
+                if prep is not None:
+                    wave.append((self.scheduler.admit(prep), prep))
+                elif feeder.done:
+                    raise RuntimeError(
+                        f"rank 0 seated {n} requests, this rank's stream "
+                        f"ended after {len(wave)}: the ranks' request "
+                        "streams differ")
         if wave:
             self._admit_many(wave)
             self.stats.admitted += len(wave)
@@ -264,6 +306,11 @@ class SlotEngineBase:
             self.stats.retired += 1
             self.stats.tokens_generated += len(req.tokens_out)
             completed.append(req)
+
+    def _feeder_done(self, feeder: AdmissionFeeder) -> bool:
+        """The stream is over (on a mesh of several ranks: rank 0's word at
+        the last admission)."""
+        return feeder.done if self._agree is None else self._stream_done
 
     # ------------------------------------------------------------- the loop
     def run(self) -> list[Request]:
@@ -280,7 +327,7 @@ class SlotEngineBase:
                 self._try_admit(feeder)
                 if (self._admit_window and self.scheduler.n_active
                         and self.scheduler.has_free_slot
-                        and not feeder.done):
+                        and not self._feeder_done(feeder)):
                     # give the feeder one bounded wait to fill the wave
                     self._try_admit(feeder, timeout=self._admit_window)
                 if self.scheduler.n_active == 0:
@@ -294,7 +341,7 @@ class SlotEngineBase:
                         # admit what was queued behind it
                         self._apply_held(completed)
                         continue
-                    if feeder.done:
+                    if self._feeder_done(feeder):
                         break
                     self._try_admit(feeder, timeout=0.05)
                     continue

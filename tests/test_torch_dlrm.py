@@ -315,9 +315,27 @@ def test_compression_error_buffers_and_the_all_reduce():
     assert {n: (tuple(t.shape), t.dtype) for n, t in errs.items()} == {
         "a": ((3, 2), torch.float32), "b": ((4,), torch.float32)}
     assert all(not t.any() for t in errs.values())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tcomp.compressed_psum_tree(grads, errs, "pod")
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # the all-reduce on a world-1 gloo group (a spawned rank): quantize
+    # then dequantize, the error buffers quantize_ef's, twice over
+    from torch_dist_worker import run_ranks
+    rng = np.random.default_rng(4)
+    g = {"f32_a": rng.normal(size=(1, 5, 7)).astype(np.float32),
+         "bf16_b": torch.from_numpy(rng.normal(size=(1, 13)).astype(
+             np.float32)).to(torch.bfloat16).float().numpy()}
+    (out,) = run_ranks("compress", {"grads": g}, (1,), ("data",))
+    want_err = {k: torch.zeros(a.shape[1:]) for k, a in g.items()}
+    for red, errs in out[:2]:
+        for k, a in g.items():
+            t = torch.from_numpy(a[0]).to(torch.bfloat16 if k == "bf16_b"
+                                          else torch.float32)
+            q, scale, e = tcomp.quantize_ef(t, want_err[k])
+            np.testing.assert_array_equal(red[k], _np(
+                tcomp.dequantize(q, scale).to(t.dtype).float()))
+            np.testing.assert_array_equal(errs[k], _np(e))
+            want_err[k] = e
+    for k in g:
+        np.testing.assert_array_equal(out[2][k], out[0][0][k])
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcomp.make_compressed_allreduce(None, None)
 
 

@@ -79,7 +79,14 @@ def test_port_file_inventory():
                  "src/repro_torch/engine/prefetch.py",
                  "src/repro_torch/models/dlrm.py",
                  "src/repro_torch/configs/dlrm_rm2.py",
-                 "src/repro_torch/train/compress.py"):
+                 "src/repro_torch/train/compress.py",
+                 "src/repro_torch/dist/__init__.py",
+                 "src/repro_torch/dist/sharding.py",
+                 "src/repro_torch/dist/hints.py",
+                 "src/repro_torch/dist/groups.py",
+                 "src/repro_torch/dist/collectives.py",
+                 "src/repro_torch/engine/shard.py",
+                 "src/repro_torch/launch/mesh.py"):
         assert must in names, must
 
 
@@ -119,11 +126,13 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.gnn, repro_torch.serve.slots\n"
         "import repro_torch.models.moe, repro_torch.configs.base\n"
         "import repro_torch.models.dlrm, repro_torch.train.compress\n"
+        "import repro_torch.dist, repro_torch.dist.collectives\n"
+        "import repro_torch.engine.shard, repro_torch.launch.mesh\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "for a in ARCHS:\n"
         "    get_config(a), get_config(a, smoke=True)\n"
         "from repro_torch.kernels import _build, kernel_wrappers\n"
-        "assert len(kernel_wrappers()) == 18\n"
+        "assert len(kernel_wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -318,7 +318,7 @@ def test_submit_guards_and_unported_mesh():
     with pytest.raises(ValueError, match="out of range"):
         eng.submit([CFG.vocab], 1)
     m = MODELS["bf16"]
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeEngine(m.cfg, m, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="prompt_cap"):
         ServeEngine(m.cfg, m, max_len=8, prompt_cap=16, device="cpu")

@@ -101,7 +101,8 @@ def test_remat_gives_equal_bits_and_recomputes_each_layer_once(
         return wrapped
     monkeypatch.setattr(tt, "flash_attention_bhsd",
                         counted(tt.flash_attention_bhsd, "attn"))
-    monkeypatch.setattr(tt, "moe_apply", counted(tt.moe_apply, "moe"))
+    monkeypatch.setattr(tt, "moe_apply_local",
+                        counted(tt.moe_apply_local, "moe"))
     toks = _tokens(256, seed=2)
     runs = []
     for remat in (False, True):
@@ -163,8 +164,8 @@ def test_lm_loss_with_dropped_pairs_matches_the_reference(arch, monkeypatch):
     in every layer): ``lm_loss`` and every gradient."""
     monkeypatch.setattr(jt, "moe_apply_local", functools.partial(
         jm.moe_apply_local, capacity_factor=DROPPING))
-    monkeypatch.setattr(tt, "moe_apply", functools.partial(
-        tm.moe_apply, capacity_factor=DROPPING))
+    monkeypatch.setattr(tt, "moe_apply_local", functools.partial(
+        tm.moe_apply_local, capacity_factor=DROPPING))
     jcfg = _jcfg(arch, remat=True)
     params, model = _pair(jcfg, seed=3)
     _check_against_reference(jcfg, params, model, _tokens(jcfg.vocab,

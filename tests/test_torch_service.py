@@ -306,11 +306,33 @@ def _mesh(names, sizes):
                            size=lambda i: sizes[i])
 
 
-def test_a_data_parallel_mesh_names_the_sharded_engine():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ts.PreprocService((2,), mesh=_mesh(("data", "model"), (2, 1)))
-    ts.PreprocService((2,), mesh=_mesh(("data", "model"), (1, 4)))
-    ts.PreprocService((2,), mesh=None)
+def test_a_data_parallel_mesh_names_the_sharded_engine(monkeypatch):
+    """dp 2 routes preprocess through the shard engine's entry point for
+    the mesh (``jit_shard_preprocess``, here recorded); a mesh with no dp
+    extent, and no mesh, through the single-device table."""
+    import repro_torch.engine.shard as tsh
+    calls = []
+
+    def entry(mesh):
+        def fn(coo, bn, fanouts, key, cfg):
+            calls.append((mesh, coo.capacity, tuple(bn.shape), fanouts,
+                          key, cfg.key))
+            return "sharded"
+        return fn
+
+    monkeypatch.setattr(tsh, "jit_shard_preprocess", entry)
+    tc, _ = _graph(seed=2, e=300, cap=1000)
+    key = prng.PRNGKey(4)
+    cfg = tcm.EngineConfig()
+    dp2 = _mesh(("data", "model"), (2, 1))
+    got = ts.PreprocService((2,), mesh=dp2).preprocess(
+        tc, torch.arange(5, dtype=torch.int32), key, cfg=cfg)
+    assert got == "sharded"
+    assert calls == [(dp2, 1024, (8,), (2,), key, cfg.key)]
+    for mesh in (_mesh(("data", "model"), (1, 4)), None):
+        sub = ts.PreprocService((2,), mesh=mesh).preprocess(
+            tc, torch.arange(5, dtype=torch.int32), key, cfg=cfg)
+        assert sub != "sharded" and len(calls) == 1
 
 
 def test_submit_update_still_names_the_serve_half_of_delta_updates():
