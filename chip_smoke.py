@@ -425,7 +425,28 @@ Phases, in order; any failure exits non-zero and nothing is wrapped in a
       reckoning is printed and it stays on the CPU): 12b's steps and
       checks, the peak against the reckoning, two steps from one saved
       state bit-equal.
-14. report — every kernel of each path launched in its run; the kernels
+14. the analysis (``src/repro_torch/analysis``, the baselines, the dry
+   run):
+   a. ``checker.check_all(grid="smoke", device="cuda")`` under both
+      routings: every contract's census on the card, the launch
+      counters' change equal to the launches the kernel scopes declared
+      and, where a contract prices them, to the cost model's; under
+      ``use_pallas`` every convert, shard and delta case launches.
+   b. Reddit's 2^27 COO: ``convert_xla`` (the paper's GPU baseline: two
+      stable ``torch.sort``s and ``searchsorted``) bit-equal to
+      ``convert`` under SLICE_CFG and MERGE_CFG, the three timed
+      (``cuda_ms``); one 1,024-seed (15, 10) ``preprocess_xla_baseline``
+      request equal to ``preprocess`` under SLICE_CFG with keysort
+      selection, timed beside it and beside SLICE_CFG's own request.
+   c. one Reddit convert under each config in a census: its launches
+      equal ``costmodel.convert_launch_count`` and PERF.md's launch
+      columns (6 + 6 digit passes and a rank search; 2 chunk sorts, 2
+      fused merges, 22 rungs and a set count), the counters equal.
+      One ``convert_xla`` under ``torch.profiler``: its ops by device
+      time.
+   d. the dry run (``launch/dryrun.py``) over all 40 cells and the
+      engine's 3 on meta on the described (16, 16) mesh, one line a cell.
+15. report — every kernel of each path launched in its run; the kernels
    JSON line (all nineteen; digit_partition_hist, digit_rank_gather,
    prefix_partition and filter_tree_lookup with 0 launches), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -7982,9 +8003,14 @@ def main():
     mout13 = dict(convert=aout, decode=dout13, nccl=cout, grok_train=grok)
     gc.collect()
     torch.cuda.empty_cache()
+    # 14. the analysis: census contracts, baselines, launch census, dry run
+    t0 = time.perf_counter()
+    anout = analysis_phase(dev, args.seed)
+    log_analysis(anout)
+    log(f"[analysis] phase done in {time.perf_counter() - t0:.1f}s")
     log(f"[extra] {json.dumps(extra)}")
 
-    # 14. report
+    # 15. report
     new_paths = list(fouts.values()) + [kout, rout, uout, gout, dout]
     launches = {k: out["launches"][k] + mout["launches"][k]
                 + sout["launches"][k]
@@ -8023,7 +8049,7 @@ def main():
                        service=sout, lm_path=lout, lm_serve=lsout,
                        lm_configs=cfg_outs, train_path=tout,
                        lm_train_configs=train_outs, recsys=dout,
-                       multi_device=mout13,
+                       multi_device=mout13, analysis=anout,
                        extra=extra, trace_clock=TRACE_CLOCK,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     torch.distributed.destroy_process_group()  # phase 13c's NCCL group
@@ -8035,6 +8061,163 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+ANALYSIS_SEEDS, ANALYSIS_FANOUTS = 1024, (15, 10)
+# PERF.md's launch columns of one Reddit convert (rows 1b, 3; 5, 7, 7b, 8)
+REDDIT_CONVERT_LAUNCHES = {
+    "slice": {"digit_hist": 6, "digit_scatter": 6, "rank_search": 1},
+    "merge": {"chunk_sort": 2, "fused_merge": 2, "merge_rung": 22,
+              "set_count_less": 2}}
+
+
+def analysis_phase(dev, seed):
+    """14: the census contracts on the card, the GPU baselines at Reddit
+    scale, the Reddit converts' launch census and the dry run."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import checker, contracts
+    from repro_torch.analysis.census import census
+    from repro_torch.configs import all_cells
+    from repro_torch.core import pipeline, prng
+    from repro_torch.core.costmodel import (MERGE_CFG, SLICE_CFG, Workload,
+                                            convert_launch_count)
+    from repro_torch.core.graph import synthetic_coo
+    from repro_torch.launch import dryrun
+    out = {}
+
+    # (a) the smoke contracts on the card, both routings
+    t0 = time.perf_counter()
+    rep = checker.check_all(grid="smoke", device=dev)
+    check(rep.ok, "14a: the census contracts hold on the card: "
+          + "; ".join(map(str, rep.violations)))
+    bad = [r for r in rep.runs if r["launch_delta"] != r["launches"]]
+    check(not bad, f"14a: the launch counters moved as the kernel scopes "
+          f"declared on every run: {bad}")
+    idle = [r["label"] for r in rep.runs if r["use_pallas"] and r[
+        "contract"] in ("convert", "shard", "delta_update")
+        and "xla_sort" not in r["label"] and not r["launch_delta"]]
+    check(not idle, f"14a: every routed convert, shard and delta case "
+          f"launched kernels: {idle}")
+    out["contracts"] = dict(checks=rep.checks, groups=rep.groups,
+                            runs=len(rep.runs),
+                            launches=sum(sum(r["launch_delta"].values())
+                                         for r in rep.runs),
+                            seconds=time.perf_counter() - t0)
+
+    # (b) the baselines at Reddit scale
+    coo = synthetic_coo(REDDIT["nodes"], REDDIT["edges"], CONVERT_CAP, seed,
+                        device=dev)
+    base = pipeline.convert_xla(coo, device=dev)
+    times = {"convert_xla_ms": cuda_ms(
+        lambda: pipeline.convert_xla(coo, device=dev), iters=3, warmup=2)}
+    for tag, cfg in (("slice", SLICE_CFG), ("merge", MERGE_CFG)):
+        csc = pipeline.convert(coo, cfg, device=dev)
+        check(torch.equal(csc.ptr, base.ptr) and torch.equal(csc.idx,
+                                                             base.idx),
+              f"14b: convert_xla's CSC is bit-equal to {tag}'s at 2^27")
+        del csc
+        times[f"convert_{tag}_ms"] = cuda_ms(
+            lambda cfg=cfg: pipeline.convert(coo, cfg, device=dev),
+            iters=3, warmup=2)
+    del base
+    out["convert_xla_profile"] = profile_call(
+        lambda: pipeline.convert_xla(coo, device=dev), top=8)
+    seeds = torch.from_numpy(np.random.default_rng(seed + 14).choice(
+        REDDIT["nodes"], ANALYSIS_SEEDS, replace=False).astype(np.int32)
+    ).to(dev)
+    key = prng.PRNGKey(seed + 14)
+    keysort = dataclasses.replace(SLICE_CFG, selection="keysort")
+    got = pipeline.preprocess_xla_baseline(coo, seeds, ANALYSIS_FANOUTS, key,
+                                           device=dev)
+    want = pipeline.preprocess(coo, seeds, ANALYSIS_FANOUTS, key, keysort,
+                               device=dev)
+    e = got.csc.idx.shape[0]
+    check(torch.equal(got.csc.ptr, want.csc.ptr)
+          and torch.equal(got.order, want.order)
+          and torch.equal(got.csc.idx, want.csc.idx[:e])
+          and int(got.n_sub_nodes) == int(want.n_sub_nodes),
+          "14b: the baseline's 1,024-seed request equals preprocess under "
+          "SLICE_CFG with keysort selection")
+    out["request_sub_nodes"] = int(got.n_sub_nodes)
+    out["request_sub_edges"] = int(got.csc.n_edges)
+    del got, want
+    for tag, fn in (
+            ("preprocess_xla_baseline", lambda: pipeline.
+             preprocess_xla_baseline(coo, seeds, ANALYSIS_FANOUTS, key,
+                                     device=dev)),
+            ("preprocess_slice_keysort", lambda: pipeline.preprocess(
+                coo, seeds, ANALYSIS_FANOUTS, key, keysort, device=dev)),
+            ("preprocess_slice", lambda: pipeline.preprocess(
+                coo, seeds, ANALYSIS_FANOUTS, key, SLICE_CFG, device=dev))):
+        times[f"{tag}_ms"] = cuda_ms(fn, iters=3, warmup=2)
+    out["times"] = times
+
+    # (c) the Reddit converts' launch census
+    w = Workload(n=REDDIT["nodes"], e=CONVERT_CAP)
+    out["convert_census"] = {}
+    for tag, cfg in (("slice", SLICE_CFG), ("merge", MERGE_CFG)):
+        with census(dev) as c:
+            pipeline.convert(coo, cfg, device=dev)
+        model = convert_launch_count(cfg, w, cfg.sort_strategy, "cuda")
+        case = contracts.Case(
+            "convert", f"reddit {tag}", cfg, w, cfg.sort_strategy, (),
+            contracts.convert_expectation(cfg, w, cfg.sort_strategy))
+        vios = checker.evaluate_census(c, case)
+        check(not vios, f"14c: the {tag} Reddit convert's census: "
+              + "; ".join(map(str, vios)))
+        check(dict(c.launches) == c.launch_delta == model
+              == REDDIT_CONVERT_LAUNCHES[tag],
+              f"14c: the {tag} Reddit convert launched {c.launch_delta}, "
+              f"its scopes declared {dict(c.launches)}, the model prices "
+              f"{model}, PERF.md's columns say "
+              f"{REDDIT_CONVERT_LAUNCHES[tag]}")
+        out["convert_census"][tag] = dict(
+            launches=c.launch_delta, calls=dict(c.calls),
+            ops_outside=sum(c.ops.values()), sorts=c.sort_count)
+    del coo
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the dry run on meta
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    records = dryrun.run(all_cells(), True, ["single"],
+                         out=lambda s: log(f"[dryrun] {s}"))
+    status = {}
+    for r in records:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    check(status == {"ok": 39, "skipped": 4}
+          and torch.cuda.memory_allocated() == before,
+          f"14d: the dry run built every cell on meta, the reference's 4 "
+          f"skipped, nothing allocated on the card: {status}")
+    out["dryrun"] = dict(status=status, seconds=time.perf_counter() - t0)
+    return out
+
+
+def log_analysis(out):
+    c, t = out["contracts"], out["times"]
+    log(f"[analysis] smoke contracts on the card (both routings): "
+        f"{c['checks']} checks over {c['groups']} groups, {c['runs']} "
+        f"censuses, {c['launches']} kernel launches, counters == scopes, "
+        f"no violation; {c['seconds']:.1f}s")
+    log(f"[analysis] Reddit 2^27 convert: convert_xla "
+        f"{t['convert_xla_ms']:.3f} ms, SLICE_CFG {t['convert_slice_ms']:.3f}"
+        f" ms, MERGE_CFG {t['convert_merge_ms']:.3f} ms (bit-equal CSCs)")
+    log_profile("convert_xla profile", out["convert_xla_profile"])
+    log(f"[analysis] one {ANALYSIS_SEEDS}-seed {ANALYSIS_FANOUTS} request "
+        f"with its convert ({out['request_sub_nodes']} subgraph nodes, "
+        f"{out['request_sub_edges']} edges): preprocess_xla_baseline "
+        f"{t['preprocess_xla_baseline_ms']:.3f} ms, SLICE_CFG + keysort "
+        f"{t['preprocess_slice_keysort_ms']:.3f} ms (equal subgraph), "
+        f"SLICE_CFG {t['preprocess_slice_ms']:.3f} ms")
+    for tag, r in out["convert_census"].items():
+        log(f"[analysis] {tag} Reddit convert census: launches "
+            f"{r['launches']}, wrapper calls {r['calls']}, "
+            f"{r['ops_outside']} aten ops outside the scopes, {r['sorts']} "
+            "native sorts: == convert_launch_count == PERF.md's columns")
+    log(f"[analysis] dry run on meta: {out['dryrun']['status']} in "
+        f"{out['dryrun']['seconds']:.1f}s")
 
 
 def log_lm_serve(out, extra):

@@ -17,8 +17,15 @@ rebuild. Every term is the reference's own arithmetic, so it returns the
 reference's floats bit for bit. The default ``Calibration`` is the
 reference's CPU-measured one, so ``auto`` picks what the reference picks;
 ``chip_smoke.py``'s service phase fits one on the H100 but does not make
-it the default. The reference's HLO while-op censuses have no torch
-counterpart and are not ported.
+it the default.
+
+The census side (``analysis/contracts.py``): the reference counts the
+XLA ``while`` ops of each compiled path; here ``*_launch_count`` give the
+kernel launches of a path under ``use_pallas``, by ``kernel_wrappers()``
+name, derived from the functions the path dispatches with (the card's
+digit schedule, the chunk sort's sub-chunks, the merge ladder's split).
+``delta_sort_op_count`` and ``shard_collective_bytes_budget`` are the
+reference's arithmetic.
 """
 from __future__ import annotations
 
@@ -497,3 +504,179 @@ def choose_config(w: Workload, library: list[EngineConfig] | None = None,
     return dataclasses.replace(
         best, sort_strategy=resolve_sort_strategy(best, w, cal),
         reindex_strategy=resolve_reindex_strategy(best, q, cap, cal))
+
+
+# ---------------------------------------------------------------------------
+# The census side: kernel launches a path makes under ``use_pallas``, by
+# ``kernels.kernel_wrappers()`` name. ``device`` is the route: on the card
+# the global_radix sort runs the card's digit schedule
+# (``kernels/radix_sort.py`` ``global_radix_schedule``), on the CPU the
+# twins run the reference's passes of ``radix_bits``. Nothing here imports
+# a kernel module at import time.
+# ---------------------------------------------------------------------------
+
+def _add(out: dict, name: str, n: int = 1) -> dict:
+    if n:
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def _merge_launches(out: dict, n: int, run: int, fan_in: int,
+                    fused: bool = True) -> dict:
+    """``ordering.merge_rounds`` from runs of ``run``: the fused merge
+    takes the rungs whose super-block fits (``kernels/merge.py``
+    ``_round_fan_ins``), one merge rung a rung after them."""
+    from repro_torch.kernels.merge import DEFAULT_MAX_BLOCK, _round_fan_ins
+    if fused and run < n:
+        fans = _round_fan_ins(n, run, DEFAULT_MAX_BLOCK, fan_in)
+        if fans:
+            _add(out, "fused_merge")
+            run *= math.prod(fans)
+    return _add(out, "merge_rung", len(merge_round_fan_ins(n, run, fan_in)))
+
+
+def _global_sort_launches(out: dict, cfg: EngineConfig, n: int,
+                          key_bound: int, has_vals: bool, strategy: str,
+                          device: str, chunk: int | None = None) -> dict:
+    """One ``ordering.stable_sort_by_key`` of ``n`` elements under
+    ``strategy`` with the config's kernels."""
+    if not n or strategy == "xla_sort":
+        return out
+    key_bits = _bits_for(key_bound)
+    if strategy == "global_radix":
+        from repro_torch.kernels.radix_sort import global_radix_schedule
+        passes = (len(global_radix_schedule(key_bits, cfg.radix_bits))
+                  if device == "cuda"
+                  else max(1, -(-key_bits // cfg.radix_bits)))
+        _add(out, "digit_hist", passes)
+        return _add(out, "digit_scatter", passes)
+    from repro_torch.kernels.radix_sort import widest_sub_chunk
+    chunk = min(cfg.w_upe if chunk is None else chunk, n)
+    sub = widest_sub_chunk(chunk, has_vals)
+    _add(out, "chunk_sort")
+    _add(out, "merge_rung", int(sub < chunk))
+    return _merge_launches(out, n, chunk, cfg.merge_fan_in)
+
+
+def _ordering_sorts(cfg: EngineConfig, n_nodes: int):
+    """(key bound, payload?) of each global sort of an edge Ordering: one
+    packed keys-only sort, or two with a payload."""
+    if sort_pass_count(cfg, Workload(n=n_nodes, e=1)) == 1:
+        bits = _bits_for(n_nodes)
+        return [((n_nodes << bits) | n_nodes, False)]
+    return [(n_nodes, True)] * 2
+
+
+def sort_launch_count(cfg: EngineConfig, w: Workload,
+                      strategy: str | None = None,
+                      device: str = "cuda") -> dict[str, int]:
+    """Kernel launches of the edge Ordering (``ordering.edge_ordering``
+    under ``pipeline.convert``'s routing), by wrapper name: none without
+    ``use_pallas``; per global sort, ``digit_hist`` and ``digit_scatter``
+    once a digit pass (global_radix), or one ``chunk_sort`` (with one
+    ``merge_rung`` when the chunk is sorted as sub-chunks,
+    ``widest_sub_chunk``), one ``fused_merge`` and the ladder's remaining
+    rungs (chunked_merge); xla_sort launches nothing."""
+    out: dict[str, int] = {}
+    if not cfg.use_pallas:
+        return out
+    strategy = strategy or resolve_sort_strategy(cfg, w)
+    e = next_pow2(w.e)
+    for bound, has_vals in _ordering_sorts(cfg, w.n):
+        _global_sort_launches(out, cfg, e, bound, has_vals, strategy, device)
+    return out
+
+
+def _pointer_launches(out: dict, cfg: EngineConfig, w: Workload,
+                      blocks: int = 1) -> dict:
+    """The pointer build, ``blocks`` target blocks: one ``rank_search``
+    each when ``pointer_reindex_strategy`` resolves it fused, else one
+    ``set_count_less`` each (a tile sort and a count: two launches)."""
+    if pointer_reindex_strategy(cfg, w) == "fused":
+        return _add(out, "rank_search", blocks)
+    return _add(out, "set_count_less", 2 * blocks)
+
+
+def convert_launch_count(cfg: EngineConfig, w: Workload,
+                         strategy: str | None = None,
+                         device: str = "cuda") -> dict[str, int]:
+    """Kernel launches of ``pipeline.convert``: the Ordering's
+    (``sort_launch_count``) and the pointer build's."""
+    out = sort_launch_count(cfg, w, strategy, device)
+    return _pointer_launches(out, cfg, w) if cfg.use_pallas else out
+
+
+def delta_launch_count(cfg: EngineConfig, w: Workload, d_cap: int,
+                       strategy: str | None = None,
+                       device: str = "cuda") -> dict[str, int]:
+    """Kernel launches of ``pipeline.apply_delta``'s merge path: the two
+    delta streams' sorts on the pow2 delta bucket (under
+    ``resolve_delta_sort_strategy``), the event zip on the merge rung, two
+    rank passes always fused, and ``DELTA_RANK_PASSES`` more when
+    ``delta_epilogue_strategy`` resolves fused."""
+    from .delta import DELTA_RANK_PASSES
+    out: dict[str, int] = {}
+    if not cfg.use_pallas:
+        return out
+    wd = delta_workload(w, d_cap)
+    if strategy is None:
+        strategy = resolve_delta_sort_strategy(cfg, wd)
+    for _stream in range(2):
+        for bound, has_vals in _ordering_sorts(
+                dataclasses.replace(cfg, sort_mode="auto"), w.n):
+            _global_sort_launches(out, cfg, d_cap, bound, has_vals,
+                                  strategy, device)
+    _add(out, "merge_rung")
+    fused = delta_epilogue_strategy(cfg, w, d_cap) == "fused"
+    return _add(out, "rank_search", 2 + (DELTA_RANK_PASSES if fused else 0))
+
+
+def shard_convert_launch_count(cfg: EngineConfig, w: Workload, n_dev: int,
+                               strategy: str | None = None,
+                               device: str = "cuda") -> dict[str, int]:
+    """Kernel launches of ``engine.shard.shard_convert_ranks`` at a world
+    of ``n_dev`` (every rank's share run in one process): per global sort,
+    each rank's span sorted to one run, then the cross-rank rungs
+    (fan-in 2, the merge rung); each rank's pointer block. Where the
+    buffer cannot be cut (``_shardable``), ``convert_launch_count``."""
+    from repro_torch.engine.shard import _shardable
+    e = next_pow2(w.e)
+    if not _shardable(e, n_dev):
+        return convert_launch_count(cfg, w, strategy, device)
+    out: dict[str, int] = {}
+    if not cfg.use_pallas:
+        return out
+    strategy = strategy or resolve_sort_strategy(cfg, w)
+    local = e // n_dev
+    for bound, has_vals in _ordering_sorts(cfg, w.n):
+        for _rank in range(n_dev):
+            _global_sort_launches(out, cfg, local, bound, has_vals,
+                                  strategy, device)
+        _merge_launches(out, e, local, 2, fused=False)
+    return _pointer_launches(out, cfg, w, blocks=n_dev)
+
+
+def delta_sort_op_count(cfg: EngineConfig, w: Workload, d_cap: int,
+                        strategy: str | None = None,
+                        cal: Calibration | None = None) -> int:
+    """Native sorts of the delta merge (the reference's arithmetic): the
+    two delta sorts' passes under xla_sort plus the one event-zip rung,
+    a native sort in the reference (under ``use_pallas`` the port zips on
+    the merge-rung kernel instead)."""
+    wd = delta_workload(w, d_cap)
+    if strategy is None:
+        strategy = resolve_delta_sort_strategy(cfg, wd, cal)
+    return 2 * sort_op_count(cfg, wd, strategy) + 1
+
+
+def shard_collective_bytes_budget(cfg: EngineConfig, w: Workload,
+                                  n_dev: int) -> float:
+    """Ceiling on the sharded convert's collective bytes (the reference's
+    arithmetic): one int32 stream all-gathered a cross-rank merge round a
+    global sort (two with the two-pass payload), times 2 of slack for the
+    pointer blocks' gather."""
+    passes = sort_pass_count(cfg, w)
+    streams = 1 if passes == 1 else 2
+    e = next_pow2(w.e)
+    rounds = max(1, len(merge_round_fan_ins(e, e // max(1, n_dev), 2)))
+    return 2.0 * passes * streams * rounds * 4.0 * e

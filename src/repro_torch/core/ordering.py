@@ -11,7 +11,8 @@ runs under a strategy:
   (``merge_rounds``; the fused-merge kernel takes the first rungs through
   ``merge_fn``, the merge-rung kernel the rest through ``rung_fn``). An
   element's slot in a merged run is its own index plus its rank in every
-  sibling run, earlier runs winning ties.
+  sibling run, earlier runs winning ties; each slot then reads its element
+  by gathers (no scatter, the reference's rule).
 * ``"global_radix"`` — merge-free LSD radix sort: each digit pass
   stable-partitions the whole array through the tiled two-level router
   (``set_partition.tiled_digit_sources``); ``radix_sort_fn`` takes the
@@ -19,9 +20,12 @@ runs under a strategy:
   scatter kernels on their own digit schedule).
 * ``"xla_sort"`` — the platform's native sort, here ``torch.sort``.
 
-All three give the same output. Sentinel handling: keys are clipped to
-``key_bound`` (one past any valid key) before sorting so the radix width
-stays ``bits(key_bound)``, and restored to SENTINEL afterwards.
+All three give the same output. ``edge_ordering_xla`` is the paper's
+GPU baseline: two library sorts, no hand-written kernel.
+
+Sentinel handling: keys are clipped to ``key_bound`` (one past any valid
+key) before sorting so the radix width stays ``bits(key_bound)``, and
+restored to SENTINEL afterwards.
 """
 from __future__ import annotations
 
@@ -70,20 +74,36 @@ def _rank_rows(sorted_rows: torch.Tensor, queries: torch.Tensor,
                               right=right)
 
 
+def _slot_sources(pos: torch.Tensor, n: int):
+    """The inverse-rank router of a merge (a search a slot, then gathers;
+    no scatter): for every output slot j < n, with ``pos`` [..., run] the
+    strictly increasing slots one run's elements land at, (j; cnt: how
+    many of them land at or before j; ia: the one j would read; hit:
+    whether it lands at j). Where none lands at or before j, ia is 0 and
+    pos[0] > j: no hit."""
+    j = torch.arange(n, device=pos.device)
+    cnt = _rank_rows(pos, j.expand(pos.shape[:-1] + (n,)), True)
+    ia = (cnt - 1).clamp_(min=0)
+    return j, cnt, ia, pos.gather(-1, ia) == j
+
+
 def merge_sorted(a_keys, a_vals, b_keys, b_vals):
     """Stable merge of two sorted runs along the last axis (any equal
-    leading batch axes); A wins ties. Each element lands at its own index
-    plus its rank in the other run — a permutation, written by one scatter
-    per run. ``a_vals``/``b_vals`` both None merges the keys alone."""
+    leading batch axes); A wins ties. Element i of A lands at i plus its
+    rank in B; slot j reads A where one lands there, else B at j less the
+    A elements before it — two gathers by the inverse permutation, as the
+    reference relocates. ``a_vals``/``b_vals`` both None merges the keys
+    alone."""
     la, lb = a_keys.shape[-1], b_keys.shape[-1]
-    dev = a_keys.device
-    pos_a = torch.arange(la, device=dev) + _rank_rows(b_keys, a_keys, False)
-    pos_b = torch.arange(lb, device=dev) + _rank_rows(a_keys, b_keys, True)
-    shape = a_keys.shape[:-1] + (la + lb,)
+    if not (la and lb):
+        return ((a_keys, a_vals) if lb == 0 else (b_keys, b_vals))
+    pos_a = _rank_rows(b_keys, a_keys, False).add_(
+        torch.arange(la, device=a_keys.device))
+    j, cnt, ia, from_a = _slot_sources(pos_a, la + lb)
+    ib = torch.sub(j, cnt).clamp_(0, lb - 1)
 
     def place(a, b):
-        out = torch.empty(shape, dtype=a.dtype, device=dev)
-        return out.scatter_(-1, pos_a, a).scatter_(-1, pos_b, b)
+        return torch.where(from_a, a.gather(-1, ia), b.gather(-1, ib))
 
     return (place(a_keys, b_keys),
             None if a_vals is None else place(a_vals, b_vals))
@@ -94,23 +114,27 @@ def merge_sorted_k(kr: torch.Tensor, vr: torch.Tensor | None):
     k. ``kr`` [..., k, run] (``vr`` the same, or None); earlier runs win
     ties, so the output equals folding ``merge_sorted`` left to right. The
     slot of element i of run r is i plus its rank in every sibling run
-    (right against earlier runs, left against later ones)."""
+    (right against earlier runs, left against later ones); each slot reads
+    the run that lands there (``_slot_sources``: gathers, no scatter)."""
     k, run = kr.shape[-2:]
-    pos = []
+    if k == 2:  # the two-way merge needs half the searches
+        return merge_sorted(kr[..., 0, :], None if vr is None else
+                            vr[..., 0, :], kr[..., 1, :],
+                            None if vr is None else vr[..., 1, :])
+    n = k * run
+    out_k = torch.zeros(kr.shape[:-2] + (n,), dtype=kr.dtype,
+                        device=kr.device)
+    out_v = None if vr is None else torch.zeros_like(out_k, dtype=vr.dtype)
     for r in range(k):
         p = torch.arange(run, device=kr.device)
         for s in range(k):
             if s != r:
                 p = p + _rank_rows(kr[..., s, :], kr[..., r, :], s < r)
-        pos.append(p)
-    pos = torch.stack(pos, dim=-2).flatten(-2)
-    shape = kr.shape[:-2] + (k * run,)
-
-    def place(x):
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
-        return out.scatter_(-1, pos, x.flatten(-2))
-
-    return place(kr), None if vr is None else place(vr)
+        _, _, ia, hit = _slot_sources(p, n)
+        out_k = torch.where(hit, kr[..., r, :].gather(-1, ia), out_k)
+        if vr is not None:
+            out_v = torch.where(hit, vr[..., r, :].gather(-1, ia), out_v)
+    return out_k, out_v
 
 
 def _chunk_sort(keys, vals, chunk: int, key_bits: int, radix_bits: int):
@@ -294,3 +318,14 @@ def edge_ordering(coo: COO, chunk: int | None = None, radix_bits: int = 4,
     dst2, src2 = sort_fn(dst1, src1, bound)
     src2 = torch.where(dst2 == SENTINEL, sen, src2)
     return COO(dst=dst2, src=src2, n_edges=coo.n_edges, n_nodes=coo.n_nodes)
+
+
+def edge_ordering_xla(coo: COO) -> COO:
+    """The comparison-sort baseline (what DGL on a GPU does): the edges
+    ordered by (dst, src), as ``jnp.lexsort((src, dst))`` orders them — a
+    stable ``torch.sort`` by src, then a stable one by dst. SENTINEL pads
+    sort last."""
+    src1, by_src = torch.sort(coo.src, stable=True)
+    dst2, by_dst = torch.sort(coo.dst[by_src], stable=True)
+    return COO(dst=dst2, src=src1[by_dst], n_edges=coo.n_edges,
+               n_nodes=coo.n_nodes)

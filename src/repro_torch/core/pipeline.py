@@ -19,7 +19,7 @@ from .costmodel import (EngineConfig, Workload, delta_epilogue_strategy,
 from .delta import EdgeDelta, delta_merge, rebuild_coo
 from .graph import (COO, CSC, SENTINEL, Subgraph, next_pow2, pad_to,
                     resolve_device, take)
-from .ordering import edge_ordering, stable_sort_by_key
+from .ordering import edge_ordering, edge_ordering_xla, stable_sort_by_key
 from .reindexing import build_reindex_map, reindex_edges
 from .reshaping import build_pointer_array, data_reshaping
 from .sampling import sample_khop
@@ -54,6 +54,7 @@ def kernel_fns(cfg: EngineConfig) -> KernelFns:
     a CPU tensor."""
     kf = _KERNEL_FNS.get(cfg.key)
     if kf is None:
+        # repro: allow-scatter-write — a host dict of closures, no tensor
         kf = _KERNEL_FNS[cfg.key] = _build_kernel_fns(cfg)
     return kf
 
@@ -96,6 +97,24 @@ def convert(coo: COO, cfg: EngineConfig | None = None, device="cuda",
     ptr_fused = pointer_reindex_strategy(cfg, w) == "fused"
     return data_reshaping(sorted_coo, count_fn=count_fn, unroll=ptr_fused,
                           rank_fn=kf.rank_fn if ptr_fused else None)
+
+
+def _node_pointers(sorted_dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """ptr[v] = the first slot of dst v in the sorted column, by the
+    library's binary search (the baselines' Reshaping)."""
+    targets = torch.arange(n_nodes + 1, dtype=torch.int32,
+                           device=sorted_dst.device)
+    return torch.searchsorted(sorted_dst, targets).to(torch.int32)
+
+
+def convert_xla(coo: COO, device="cuda") -> CSC:
+    """The baseline conversion, on ``device``: ``edge_ordering_xla``'s two
+    library sorts, then ``torch.searchsorted`` for the pointers. No
+    hand-written kernel runs; it equals :func:`convert` bit for bit."""
+    coo = coo.to(resolve_device(device))
+    sorted_coo = edge_ordering_xla(coo)
+    return CSC(ptr=_node_pointers(sorted_coo.dst, coo.n_nodes),
+               idx=sorted_coo.src, n_edges=coo.n_edges, n_nodes=coo.n_nodes)
 
 
 def apply_delta(csc: CSC, delta: EdgeDelta, cfg: EngineConfig | None = None,
@@ -255,6 +274,25 @@ def preprocess(coo: COO, batch_nodes, fanouts: tuple[int, ...], key,
     csc = convert(coo, cfg, device=dev)
     seeds = torch.as_tensor(batch_nodes, dtype=torch.int32).to(dev)
     return sample_subgraph(csc, seeds, fanouts, key, cfg)
+
+
+def preprocess_xla_baseline(coo: COO, batch_nodes, fanouts: tuple[int, ...],
+                            key, device="cuda") -> Subgraph:
+    """The paper's GPU baseline of the whole workflow, on ``device``:
+    :func:`convert_xla`, keysort selection, the reindex map's library sort,
+    and the subgraph's CSC by the same two sorts and ``searchsorted``."""
+    dev = resolve_device(device)
+    csc = convert_xla(coo, device=dev)
+    seeds = torch.as_tensor(batch_nodes, dtype=torch.int32).to(dev)
+    nodes, e_dst, e_src = sample_khop(csc, seeds, fanouts, key,
+                                      selection="keysort")
+    n_cap = nodes.shape[0]
+    rmap = build_reindex_map(nodes)
+    sub = edge_ordering_xla(reindex_edges(rmap, e_dst, e_src,
+                                          n_nodes_cap=n_cap))
+    sub_csc = CSC(ptr=_node_pointers(sub.dst, n_cap), idx=sub.src,
+                  n_edges=sub.n_edges, n_nodes=n_cap)
+    return Subgraph(csc=sub_csc, order=rmap.order, n_sub_nodes=rmap.n_unique)
 
 
 def gather_features(sub: Subgraph, features: torch.Tensor) -> torch.Tensor:

@@ -163,11 +163,14 @@ def reindex_serial_oracle(vids) -> tuple:
     """Hash-map style sequential numbering (the tests' oracle)."""
     seen: dict[int, int] = {}
     order = []
+    # repro: allow-host-numpy-in-jit — the tests' serial oracle runs on
+    # the host by design
     for v in np.asarray(vids):
         v = int(v)
         if v == SENTINEL:
             continue
         if v not in seen:
+            # repro: allow-scatter-write — a host dict (the oracle)
             seen[v] = len(order)
             order.append(v)
     return seen, order

@@ -43,8 +43,11 @@ def build_pointer_array_serial(sorted_dst: torch.Tensor,
     or past ``n_nodes`` are skipped. Returns the same int32 pointer array
     as ``build_pointer_array``, on ``sorted_dst``'s device."""
     hist = [0] * n_nodes
+    # repro: allow-traced-if — the serial baseline scans on the host by
+    # design
     for d in sorted_dst.tolist():
         if d < n_nodes:
+            # repro: allow-scatter-write — a host list (the baseline)
             hist[d] += 1
     ptr = [0]
     for h in hist:

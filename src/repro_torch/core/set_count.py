@@ -80,6 +80,14 @@ def rank_in_sorted(sorted_arr: torch.Tensor, queries: torch.Tensor,
     return lo
 
 
+def searchsorted_oracle(sorted_arr: torch.Tensor, targets: torch.Tensor,
+                        side: str = "left") -> torch.Tensor:
+    """The library's binary search, the oracle the tests hold the
+    compare-reduce paths against (int32)."""
+    return torch.searchsorted(sorted_arr, targets,
+                              right=side == "right").to(torch.int32)
+
+
 def rank_in_sorted2(sorted_a: torch.Tensor, sorted_b: torch.Tensor,
                     query_a: torch.Tensor, query_b: torch.Tensor,
                     side: str = "left", unroll: bool = False) -> torch.Tensor:

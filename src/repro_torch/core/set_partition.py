@@ -110,24 +110,28 @@ def partition_tiles(digit: torch.Tensor, n_buckets: int
     Returns (local_src [T, tile], lbase [T, B]): ``local_src[t, s]`` is the
     in-tile position of the element landing in slot s, which is what
     ``digit_relocation_sources`` gives per tile (the inverse of the unique
-    stable-partition permutation), computed here by one scatter of each
-    element's destination instead of a bisection per slot.
+    stable-partition permutation). Gather-only, as the reference relocates:
+    slot s of bucket b at rank r holds the first position whose inclusive
+    count of b reaches r + 1, found by one search a slot in the tile's
+    counts laid out bucket-major, ``b · (tile + 1) + count`` (ascending;
+    the counts scanned along the last axis, which the card scans in
+    parallel), its bucket by one search a slot in ``lbase``.
     """
     t, tile = digit.shape
-    d = digit.to(torch.int64)
-    onehot = torch.zeros((t, tile, n_buckets), dtype=torch.int32,
-                         device=digit.device)
-    onehot.scatter_(2, d[:, :, None], 1)
-    incl = torch.cumsum(onehot, dim=1, dtype=torch.int32)
-    counts = incl[:, -1, :]  # [T, B]
+    dev = digit.device
+    buckets = torch.arange(n_buckets, dtype=torch.int32, device=dev)
+    keys = torch.cumsum(digit[:, None, :] == buckets[:, None], dim=2,
+                        dtype=torch.int32)  # [T, B, tile]
+    counts = keys[:, :, -1]
     lbase = torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
-    rank = incl.gather(2, d[:, :, None])[:, :, 0] - 1
-    dest = (lbase.gather(1, d) + rank).to(torch.int64)
-    local_src = torch.empty((t, tile), dtype=torch.int32, device=digit.device)
-    pos = torch.arange(tile, dtype=torch.int32,
-                       device=digit.device).expand(t, tile)
-    local_src.scatter_(1, dest, pos)
-    return local_src, lbase
+    keys += (buckets * (tile + 1))[:, None]
+    slot = torch.arange(tile, dtype=torch.int32, device=dev).expand(t, tile)
+    b = torch.searchsorted(lbase, slot.contiguous(), right=True,
+                           out_int32=True) - 1
+    rank = slot - lbase.gather(1, b.to(torch.int64))
+    at = torch.searchsorted(keys.view(t, n_buckets * tile),
+                            b * (tile + 1) + rank + 1)
+    return (at - b.to(torch.int64) * tile).to(torch.int32), lbase
 
 
 def tiled_digit_sources(digit: torch.Tensor, n_buckets: int,

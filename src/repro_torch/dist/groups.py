@@ -12,8 +12,14 @@ mesh whose default process group is not initialized, raises.
 all-reduces this rank's value; with no group one process holds every
 rank's value and folds them in rank order (how one card runs the ranks
 in turn). A sharded body is written once over it.
+
+Every collective here (and the rank-by-rank gather of ``engine/shard.py``,
+which stands in for one) tells ``note_collective`` its kind and operand
+bytes, which a census (``analysis/census.py``) on this thread records.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.distributed as dist
@@ -22,6 +28,23 @@ import torch.distributed.nn.functional as dist_fn
 from .sharding import _axes_size, axis_names, dp_axes
 
 _DP_GROUPS: dict = {}
+_RECORDER = threading.local()
+
+
+def set_collective_recorder(recorder) -> object:
+    """Make ``recorder(kind, nbytes)`` hear every collective this thread
+    issues (None: none); returns the one it replaces."""
+    old = getattr(_RECORDER, "fn", None)
+    _RECORDER.fn = recorder
+    return old
+
+
+def note_collective(kind: str, t: torch.Tensor) -> None:
+    """One collective of ``kind`` ("all-gather", "all-reduce") on this
+    rank's operand ``t``: its bytes go to the thread's recorder, if any."""
+    fn = getattr(_RECORDER, "fn", None)
+    if fn is not None:
+        fn(kind, t.numel() * t.element_size())
 
 
 def check_mesh(mesh) -> None:
@@ -86,6 +109,7 @@ def model_group(mesh):
 def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's tensors ``t`` (one shape) concatenated along ``dim`` in
     group-rank order."""
+    note_collective("all-gather", t)
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
@@ -102,6 +126,7 @@ class Reduce:
         self.group = group
 
     def _fold(self, ts, op):
+        note_collective("all-reduce", ts[0])
         out = ts[0]
         for t in ts[1:]:
             out = op(out, t)
@@ -111,6 +136,7 @@ class Reduce:
         if self.group is None:
             return self._fold(ts, torch.maximum)
         (t,) = ts
+        note_collective("all-reduce", t)
         t = t.detach().clone()
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
@@ -119,6 +145,7 @@ class Reduce:
         if self.group is None:
             return self._fold(ts, torch.add)
         (t,) = ts
+        note_collective("all-reduce", t)
         if grad:
             return dist_fn.all_reduce(t, group=self.group)
         t = t.detach().clone()

@@ -99,6 +99,11 @@ def apply_delta_jit(csc, delta: EdgeDelta, cfg: EngineConfig | None = None,
                                 out_capacity=out_capacity)
 
 
+def convert_cache_size() -> int:
+    """Entries behind ``convert_jit``."""
+    return _entries("convert")
+
+
 def preprocess_cache_size() -> int:
     """Entries behind ``preprocess_jit`` (what the zero-recompile checks
     hold still)."""

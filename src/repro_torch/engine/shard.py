@@ -47,7 +47,7 @@ from repro_torch.core.ordering import (DEFAULT_CHUNK, _bits_for, _chunk_sort,
                                        merge_rounds, stable_sort_by_key)
 from repro_torch.core.set_count import rank_in_sorted
 from repro_torch.dist.groups import (all_gather_cat, check_device, dp_group,
-                                     dp_rank)
+                                     dp_rank, note_collective)
 from repro_torch.dist.sharding import _axes_size, dp_axes
 
 
@@ -76,6 +76,9 @@ class _Gather:
     def __call__(self, fn):
         if self.group is None:
             shares = [fn(r) for r in range(self.n)]
+            for t in shares[0]:
+                if t is not None:
+                    note_collective("all-gather", t)
             return tuple(None if s[0] is None else torch.cat(list(s))
                          for s in zip(*shares))
         return tuple(None if t is None else all_gather_cat(t, self.group)

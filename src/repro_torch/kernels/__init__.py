@@ -1,11 +1,18 @@
 """Hand-written Hopper kernels (``csrc/*.cu``) and their plain-torch twins.
 
 Every wrapper takes its plain twin only for a tensor that lies on the CPU;
-on a CUDA tensor it launches the kernel or raises. Each wrapper carries a
-``launches`` counter that only the kernel branch bumps (``count_launch``);
-a replayed CUDA graph adds the launches captured in it
-(``add_launch_counts``). The counters are bumped under one lock: a
-prefetcher's producer thread launches kernels beside the consumer.
+on a CUDA tensor it launches the kernel or raises. Each wrapper enters
+``kernel_scope(name, wrapper, launches)`` on both branches, ``launches``
+being how many kernels the call launches on the card; the scope is the
+one owner of that number. The kernel branch launches when
+``scope.launches`` is non-zero and calls ``scope.launched()``, which adds
+it to the wrapper's ``launches`` counter; a census
+(``analysis/census.py``) reads the same number from the scope to count
+the call on the CPU as on the card and tells the ops issued inside (a
+twin's, or the wrapper's own allocations) from the path's own. A replayed
+CUDA graph adds the launches captured in it (``add_launch_counts``). The
+counters are bumped under one lock: a prefetcher's producer thread
+launches kernels beside the consumer.
 """
 from __future__ import annotations
 
@@ -14,12 +21,57 @@ import threading
 import torch
 
 _COUNT_LOCK = threading.Lock()
+# this thread's open kernel scopes (names, innermost last) and the census
+# recording it, if any
+_SCOPE = threading.local()
 
 
 def count_launch(fn, n: int = 1) -> None:
     """Add ``n`` to wrapper ``fn``'s launch counter, under the lock."""
     with _COUNT_LOCK:
         fn.launches += n
+
+
+class kernel_scope:
+    """``with kernel_scope(name, wrapper, launches) as scope:`` around a
+    wrapper call's work, on either branch; the kernel branch calls
+    ``scope.launched()`` where it launches. Costs a list push and pop when
+    no census records."""
+
+    __slots__ = ("name", "wrapper", "launches")
+
+    def __init__(self, name: str, wrapper, launches: int = 1):
+        self.name, self.wrapper, self.launches = name, wrapper, int(launches)
+
+    def launched(self) -> None:
+        """Count this call's launches on the wrapper's counter."""
+        count_launch(self.wrapper, self.launches)
+
+    def __enter__(self):
+        stack = _SCOPE.__dict__.setdefault("stack", [])
+        stack.append(self.name)
+        recorder = _SCOPE.__dict__.get("recorder")
+        if recorder is not None:
+            recorder(self.name, self.launches)
+        return self
+
+    def __exit__(self, *exc):
+        _SCOPE.stack.pop()
+        return False
+
+
+def current_kernel_scope() -> str | None:
+    """The innermost kernel scope open on this thread, or None."""
+    stack = _SCOPE.__dict__.get("stack")
+    return stack[-1] if stack else None
+
+
+def set_scope_recorder(recorder) -> object:
+    """Make ``recorder(name, launches)`` hear every kernel scope this
+    thread enters (None: none); returns the one it replaces."""
+    old = _SCOPE.__dict__.get("recorder")
+    _SCOPE.recorder = recorder
+    return old
 
 
 def refuse_detached(name: str, x, instead: str) -> None:

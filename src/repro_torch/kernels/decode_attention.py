@@ -35,7 +35,7 @@ from repro_torch.models import attention
 from repro_torch.models.attention import (_group_q, decode_attention_plain,
                                           decode_mask, dequantize_kv)
 
-from . import _build, count_launch
+from . import _build, kernel_scope
 
 SPLIT = 256  # the least split: cache positions a CTA
 CHUNK = 64  # cache rows a ring stage (csrc/decode_attention.cu kChunk)
@@ -133,36 +133,37 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     launches: the splits and their combine. A cache view that is not
     16-byte aligned, or rows of dh bytes not a multiple of 16, take
     narrower copies (``load_width``)."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len,
-                                      window=window, logit_cap=logit_cap,
-                                      k_scale=k_scale, v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    _check_kernel_inputs(q, k_cache, v_cache, cache_len, k_scale, v_scale)
-    b, h, _, dh = q.shape
-    hkv, s = k_cache.shape[1], k_cache.shape[2]
-    ns = n_splits(s)
-    out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.empty((b * h * ns,), **f32)
-    l = torch.empty((b * h * ns,), **f32)
-    acc = torch.empty((b * h * ns * dh,), **f32)
-    int8 = k_scale is not None
-    count_launch(decode_attention, 2)
-    _build.check(_build.load("decode_attention", _SIGNATURES)
-                 .decode_attention(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
-        v_cache.data_ptr(), int(int8),
-        k_scale.data_ptr() if int8 else None,
-        v_scale.data_ptr() if int8 else None, cache_len.data_ptr(), b, h,
-        hkv, s, dh, int(window is not None), int(window or 0),
-        int(logit_cap is not None), float(logit_cap or 0.0), dh ** -0.5,
-        split_size(s), load_width(k_cache, v_cache), m.data_ptr(),
-        l.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        _build.stream_of(q)), "decode_attention")
-    return out
+    with kernel_scope("decode_attention", decode_attention, 2) as scope:
+        if q.device.type == "cpu":
+            return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                          window=window, logit_cap=logit_cap,
+                                          k_scale=k_scale, v_scale=v_scale)
+        if q.device.type != "cuda":
+            raise ValueError(f"decode attention runs on cuda or cpu, not "
+                             f"{q.device}")
+        _check_kernel_inputs(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+        b, h, _, dh = q.shape
+        hkv, s = k_cache.shape[1], k_cache.shape[2]
+        ns = n_splits(s)
+        out = torch.empty_like(q)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m = torch.empty((b * h * ns,), **f32)
+        l = torch.empty((b * h * ns,), **f32)
+        acc = torch.empty((b * h * ns * dh,), **f32)
+        int8 = k_scale is not None
+        scope.launched()
+        _build.check(_build.load("decode_attention", _SIGNATURES)
+                     .decode_attention(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
+            v_cache.data_ptr(), int(int8),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, cache_len.data_ptr(), b, h,
+            hkv, s, dh, int(window is not None), int(window or 0),
+            int(logit_cap is not None), float(logit_cap or 0.0), dh ** -0.5,
+            split_size(s), load_width(k_cache, v_cache), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            _build.stream_of(q)), "decode_attention")
+        return out
 
 
 decode_attention.launches = 0
@@ -194,39 +195,41 @@ def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
     dh]: float32 (m [B, Hkv, G, 1], l [B, Hkv, G, 1], acc [B, Hkv, G, 1,
     dh]), the shapes of ``models.attention.decode_attention_partial``. On
     the card two launches (the splits, the combine in partial mode)."""
-    if q.device.type == "cpu":
-        return decode_partial_plain(q, k_cache, v_cache, cache_len,
-                                    logit_cap=logit_cap, k_scale=k_scale,
-                                    v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    _check_kernel_inputs(q, k_cache, v_cache, cache_len, k_scale, v_scale)
-    b, h, _, dh = q.shape
-    hkv, s = k_cache.shape[1], k_cache.shape[2]
-    g = h // hkv
-    ns = n_splits(s)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((b * h * ns,), **f32)
-    l_part = torch.empty((b * h * ns,), **f32)
-    acc_part = torch.empty((b * h * ns * dh,), **f32)
-    m = torch.empty((b, hkv, g, 1), **f32)
-    l = torch.empty((b, hkv, g, 1), **f32)
-    acc = torch.empty((b, hkv, g, 1, dh), **f32)
-    int8 = k_scale is not None
-    count_launch(decode_attention_partial, 2)
-    _build.check(_build.load("decode_attention", _SIGNATURES)
-                 .decode_attention_partial(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
-        v_cache.data_ptr(), int(int8),
-        k_scale.data_ptr() if int8 else None,
-        v_scale.data_ptr() if int8 else None, cache_len.data_ptr(), b, h,
-        hkv, s, dh, int(logit_cap is not None), float(logit_cap or 0.0),
-        dh ** -0.5, split_size(s), load_width(k_cache, v_cache),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _build.stream_of(q)),
-        "decode_attention_partial")
-    return m, l, acc
+    with kernel_scope("decode_attention_partial", decode_attention_partial,
+                      2) as scope:
+        if q.device.type == "cpu":
+            return decode_partial_plain(q, k_cache, v_cache, cache_len,
+                                        logit_cap=logit_cap, k_scale=k_scale,
+                                        v_scale=v_scale)
+        if q.device.type != "cuda":
+            raise ValueError(f"decode attention runs on cuda or cpu, not "
+                             f"{q.device}")
+        _check_kernel_inputs(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+        b, h, _, dh = q.shape
+        hkv, s = k_cache.shape[1], k_cache.shape[2]
+        g = h // hkv
+        ns = n_splits(s)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m_part = torch.empty((b * h * ns,), **f32)
+        l_part = torch.empty((b * h * ns,), **f32)
+        acc_part = torch.empty((b * h * ns * dh,), **f32)
+        m = torch.empty((b, hkv, g, 1), **f32)
+        l = torch.empty((b, hkv, g, 1), **f32)
+        acc = torch.empty((b, hkv, g, 1, dh), **f32)
+        int8 = k_scale is not None
+        scope.launched()
+        _build.check(_build.load("decode_attention", _SIGNATURES)
+                     .decode_attention_partial(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
+            v_cache.data_ptr(), int(int8),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, cache_len.data_ptr(), b, h,
+            hkv, s, dh, int(logit_cap is not None), float(logit_cap or 0.0),
+            dh ** -0.5, split_size(s), load_width(k_cache, v_cache),
+            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), _build.stream_of(q)),
+            "decode_attention_partial")
+        return m, l, acc
 
 
 decode_attention_partial.launches = 0

@@ -27,7 +27,7 @@ import torch
 from repro_torch.models.attention import (flash_attention_bwd_plain,
                                           flash_attention_plain)
 
-from . import _build, count_launch
+from . import _build, kernel_scope
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
@@ -87,7 +87,7 @@ def _fwd_kernel(q, k, v, *, lse: bool, causal, window, logit_cap, q_offset):
     log-sum-exp [B, H, Sq], the float32 output [B, H, Sq, dh] that out
     rounds), the last two only with ``lse`` (None without). In float32
     the float32 output is out itself; in bf16 the kernel writes it beside
-    out."""
+    out. The caller's kernel scope counts the launch."""
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -97,7 +97,6 @@ def _fwd_kernel(q, k, v, *, lse: bool, causal, window, logit_cap, q_offset):
         out_f32 = (out if q.dtype == torch.float32 else
                    torch.empty(q.shape, dtype=torch.float32, device=q.device))
     if out.numel():
-        count_launch(flash_attention_bhsd)
         _build.check(_build.load("flash_attention", _SIGNATURES)
                      .flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -112,26 +111,28 @@ def _fwd_kernel(q, k, v, *, lse: bool, causal, window, logit_cap, q_offset):
 def flash_dq(q, k, v, dout, lse, delta, dq, **mask) -> None:
     """Launch ``flash_dq_kernel`` into ``dq`` (inputs checked by
     ``flash_attention_bwd``)."""
-    b, h, sq, dh = q.shape
-    count_launch(flash_dq)
-    _build.check(_build.load("flash_attention_bwd", _BWD_SIGNATURES)
-                 .flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, k.shape[1],
-        sq, k.shape[2], dh, *_mask_args(q, **mask)), "flash_dq_kernel")
+    with kernel_scope("flash_attention_bwd_dq", flash_dq) as scope:
+        b, h, sq, dh = q.shape
+        scope.launched()
+        _build.check(_build.load("flash_attention_bwd", _BWD_SIGNATURES)
+                     .flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, k.shape[1],
+            sq, k.shape[2], dh, *_mask_args(q, **mask)), "flash_dq_kernel")
 
 
 def flash_dkv(q, k, v, dout, lse, delta, dk, dv, **mask) -> None:
     """Launch ``flash_dkv_kernel`` into ``dk``, ``dv`` (inputs checked by
     ``flash_attention_bwd``)."""
-    b, h, sq, dh = q.shape
-    count_launch(flash_dkv)
-    _build.check(_build.load("flash_attention_bwd", _BWD_SIGNATURES)
-                 .flash_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        h, k.shape[1], sq, k.shape[2], dh, *_mask_args(q, **mask)),
-        "flash_dkv_kernel")
+    with kernel_scope("flash_attention_bwd_dkv", flash_dkv) as scope:
+        b, h, sq, dh = q.shape
+        scope.launched()
+        _build.check(_build.load("flash_attention_bwd", _BWD_SIGNATURES)
+                     .flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            h, k.shape[1], sq, k.shape[2], dh, *_mask_args(q, **mask)),
+            "flash_dkv_kernel")
 
 
 flash_dq.launches = 0
@@ -159,9 +160,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                          f"out (delta = sum(dout * out)), not {out.dtype}")
     mask = dict(causal=causal, window=window, logit_cap=logit_cap,
                 q_offset=q_offset)
-    if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         kv_block=kv_block, **mask)
+    if not q.is_cuda:  # one twin for both kernels
+        with kernel_scope("flash_attention_bwd_dq", flash_dq,
+                          q.numel() > 0), \
+                kernel_scope("flash_attention_bwd_dkv", flash_dkv,
+                             q.numel() > 0 and k.numel() > 0):
+            return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                             kv_block=kv_block, **mask)
     _check_kernel_inputs(q, k, v, out, dout, lse)
     if dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("the flash backward kernels take dout in q's dtype "
@@ -187,14 +192,17 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, logit_cap, q_offset, kv_block):
         mask = dict(causal=causal, window=window, logit_cap=logit_cap,
                     q_offset=q_offset)
-        if q.is_cuda:
-            _check_kernel_inputs(q, k, v)
-            out, lse, out_f32 = _fwd_kernel(q, k, v, lse=True, **mask)
-        else:
-            out_f32, lse = flash_attention_plain(
-                q, k, v, kv_block=kv_block, return_lse=True,
-                out_dtype=torch.float32, **mask)
-            out = out_f32.to(q.dtype)
+        with kernel_scope("flash_attention_fwd", flash_attention_bhsd,
+                          q.numel() > 0) as scope:
+            if q.is_cuda:
+                _check_kernel_inputs(q, k, v)
+                scope.launched()
+                out, lse, out_f32 = _fwd_kernel(q, k, v, lse=True, **mask)
+            else:
+                out_f32, lse = flash_attention_plain(
+                    q, k, v, kv_block=kv_block, return_lse=True,
+                    out_dtype=torch.float32, **mask)
+                out = out_f32.to(q.dtype)
         ctx.save_for_backward(q, k, v, out_f32, lse)
         ctx.mask, ctx.kv_block = mask, kv_block
         return out
@@ -229,10 +237,13 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     q_offset, kv_block)
     mask = dict(causal=causal, window=window, logit_cap=logit_cap,
                 q_offset=q_offset)
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, kv_block=kv_block, **mask)
-    _check_kernel_inputs(q, k, v)
-    return _fwd_kernel(q, k, v, lse=False, **mask)[0]
+    with kernel_scope("flash_attention_fwd", flash_attention_bhsd,
+                      q.numel() > 0) as scope:
+        if not q.is_cuda:
+            return flash_attention_plain(q, k, v, kv_block=kv_block, **mask)
+        _check_kernel_inputs(q, k, v)
+        scope.launched()
+        return _fwd_kernel(q, k, v, lse=False, **mask)[0]
 
 
 flash_attention_bhsd.launches = 0

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.ordering import merge_ladder, merge_round_fan_ins
 
-from . import _build, count_launch
+from . import _build, kernel_scope
 
 # Elements of one super-block (the reference's VMEM budget: 2 arrays × in
 # and out × 4 B × 65536 = 2 MiB); the kernel's schedule does not depend on
@@ -125,12 +125,13 @@ def fused_merge_rounds(keys: torch.Tensor, vals: torch.Tensor | None,
     fan_ins = _round_fan_ins(n, run, max_block, fan_in)
     if not fan_ins:
         return keys, vals, run
-    block = run * math.prod(fan_ins)
-    if not keys.is_cuda:
-        return (*merge_ladder(keys, vals, run, fan_ins), block)
-    _check(keys, vals)
-    count_launch(fused_merge_rounds)
-    return (*merge_passes_c(keys, vals, run, fan_ins), block)
+    with kernel_scope("fused_merge", fused_merge_rounds) as scope:
+        block = run * math.prod(fan_ins)
+        if not keys.is_cuda:
+            return (*merge_ladder(keys, vals, run, fan_ins), block)
+        _check(keys, vals)
+        scope.launched()
+        return (*merge_passes_c(keys, vals, run, fan_ins), block)
 
 
 fused_merge_rounds.launches = 0
@@ -141,14 +142,15 @@ def merge_rung(keys: torch.Tensor, vals: torch.Tensor | None, run: int,
     """One ladder rung: every ``k`` consecutive sorted runs of ``run``
     merged into one, earlier runs winning ties (``ordering.merge_rounds``'s
     ``rung_fn``). Returns (keys, vals); ``vals=None`` merges keys alone."""
-    if not keys.is_cuda:
-        return merge_ladder(keys, vals, run, [k])
-    _check(keys, vals)
-    if k < 2 or keys.shape[0] % (run * k):
-        raise ValueError(f"a rung of {k} runs of {run} does not tile "
-                         f"{keys.shape[0]} elements")
-    count_launch(merge_rung)
-    return merge_passes_c(keys, vals, run, [k])
+    with kernel_scope("merge_rung", merge_rung) as scope:
+        if not keys.is_cuda:
+            return merge_ladder(keys, vals, run, [k])
+        _check(keys, vals)
+        if k < 2 or keys.shape[0] % (run * k):
+            raise ValueError(f"a rung of {k} runs of {run} does not tile "
+                             f"{keys.shape[0]} elements")
+        scope.launched()
+        return merge_passes_c(keys, vals, run, [k])
 
 
 merge_rung.launches = 0

@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.set_partition import (gather_sources_from_counts,
                                             prefix_sum)
 
-from . import _build, count_launch
+from . import _build, kernel_scope
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,24 +48,27 @@ def prefix_partition(values: torch.Tensor, cond: torch.Tensor,
             or values.shape[0] % block):
         raise ValueError("prefix_partition takes values [N] and cond [N] "
                          f"with N a multiple of block ({block})")
-    if not values.is_cuda:
-        return _partition_plain(values, cond, block)
-    if (values.dtype != torch.int32 or cond.dtype != torch.bool
-            or not values.is_contiguous() or not cond.is_contiguous()
-            or cond.device != values.device):
-        raise ValueError("prefix_partition takes contiguous int32 values "
-                         "and bool cond on one CUDA device")
-    n = values.shape[0]
-    out = torch.empty_like(values)
-    n_sel = torch.empty((n // block,), dtype=torch.int32,
-                        device=values.device)
-    if n:
-        count_launch(prefix_partition)
-        _build.check(_build.load("prefix_partition", _SIGNATURES)
-                     .prefix_partition(
-            values.data_ptr(), cond.data_ptr(), n, block, out.data_ptr(),
-            n_sel.data_ptr(), _build.stream_of(values)), "prefix_partition")
-    return out, n_sel
+    with kernel_scope("prefix_partition", prefix_partition,
+                      values.shape[0] > 0) as scope:
+        if not values.is_cuda:
+            return _partition_plain(values, cond, block)
+        if (values.dtype != torch.int32 or cond.dtype != torch.bool
+                or not values.is_contiguous() or not cond.is_contiguous()
+                or cond.device != values.device):
+            raise ValueError("prefix_partition takes contiguous int32 values "
+                             "and bool cond on one CUDA device")
+        n = values.shape[0]
+        out = torch.empty_like(values)
+        n_sel = torch.empty((n // block,), dtype=torch.int32,
+                            device=values.device)
+        if scope.launches:
+            scope.launched()
+            _build.check(_build.load("prefix_partition", _SIGNATURES)
+                         .prefix_partition(
+                values.data_ptr(), cond.data_ptr(), n, block, out.data_ptr(),
+                n_sel.data_ptr(), _build.stream_of(values)),
+                "prefix_partition")
+        return out, n_sel
 
 
 prefix_partition.launches = 0

@@ -27,7 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build, count_launch, refuse_detached
+from . import _build, kernel_scope, refuse_detached
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,24 +75,27 @@ def ptr_seg_sum(ptr: torch.Tensor, x: torch.Tensor,
                              or (x.shape[0] == 0 and rows.shape[0] > 0)):
         raise ValueError("ptr_seg_sum's rows are int32 [E] on x's device, "
                          "into a non-empty x")
-    if not x.is_cuda:
-        return _ptr_seg_sum_plain(ptr, x, rows, mean)
-    if (ptr.dtype != torch.int32 or x.dtype != torch.float32
-            or not ptr.is_contiguous() or not x.is_contiguous()
-            or (rows is not None and not rows.is_contiguous())
-            or ptr.device != x.device):
-        raise ValueError("ptr_seg_sum takes contiguous int32 ptr and float32 "
-                         "x on one CUDA device")
-    n_x, d = x.shape
-    n = ptr.shape[0]
-    out = torch.empty((n - 1, d), dtype=torch.float32, device=x.device)
-    if out.numel():
-        count_launch(ptr_seg_sum)
-        _build.check(_build.load("ptr_scan", _SIGNATURES).ptr_seg_sum(
-            x.data_ptr(), n_x, d, None if rows is None else rows.data_ptr(),
-            ptr.data_ptr(), n, int(mean), out.data_ptr(),
-            _build.stream_of(x)), "ptr_seg_sum")
-    return out
+    with kernel_scope("ptr_seg_sum", ptr_seg_sum,
+                      (ptr.shape[0] - 1) * x.shape[1] > 0) as scope:
+        if not x.is_cuda:
+            return _ptr_seg_sum_plain(ptr, x, rows, mean)
+        if (ptr.dtype != torch.int32 or x.dtype != torch.float32
+                or not ptr.is_contiguous() or not x.is_contiguous()
+                or (rows is not None and not rows.is_contiguous())
+                or ptr.device != x.device):
+            raise ValueError("ptr_seg_sum takes contiguous int32 ptr and "
+                             "float32 x on one CUDA device")
+        n_x, d = x.shape
+        n = ptr.shape[0]
+        out = torch.empty((n - 1, d), dtype=torch.float32, device=x.device)
+        if scope.launches:
+            scope.launched()
+            _build.check(_build.load("ptr_scan", _SIGNATURES).ptr_seg_sum(
+                x.data_ptr(), n_x, d,
+                None if rows is None else rows.data_ptr(),
+                ptr.data_ptr(), n, int(mean), out.data_ptr(),
+                _build.stream_of(x)), "ptr_seg_sum")
+        return out
 
 
 ptr_seg_sum.launches = 0

@@ -26,7 +26,7 @@ from repro_torch.core.ordering import DEFAULT_CHUNK, _chunk_sort
 from repro_torch.core.set_partition import (partition_tiles,
                                             rank_gather_sources)
 
-from . import _build, count_launch
+from . import _build, kernel_scope
 
 # Dynamic shared memory one CTA of an H100 can use.
 MAX_SMEM_BYTES = 232448
@@ -131,31 +131,33 @@ def chunk_sort(keys: torch.Tensor, vals: torch.Tensor | None, chunk: int,
     n = keys.shape[0]
     if chunk <= 0 or n % chunk:
         raise ValueError(f"size {n} is not a multiple of chunk {chunk}")
-    if not keys.is_cuda:
-        return _chunk_sort(keys, vals, chunk, key_bits, radix_bits)
-    _check_cuda_i32(keys, *(() if vals is None else (vals,)))
-    if radix_bits < 1:
-        raise ValueError(f"radix_bits {radix_bits} < 1")
-    n_bits = chunk_sort_bits(key_bits, radix_bits)
-    smem = chunk_sort_smem_bytes(chunk, n_bits, vals is not None)
-    if not smem:
-        most = MAX_PAIR_CHUNK if vals is not None else 32 * max(
-            w * i for w, i in CHUNK_SORT_SHAPES)
-        raise ValueError(f"chunk {chunk} does not fit one CTA's registers "
-                         f"and shared memory: it holds at most {most} "
-                         f"{'pairs' if vals is not None else 'keys'}")
-    out_k = torch.empty_like(keys)
-    out_v = None if vals is None else torch.empty_like(vals)
-    if n:
-        lib = _lib()
-        assert lib.chunk_sort_smem_bytes(chunk, n_bits,
-                                         vals is not None) == smem
-        count_launch(chunk_sort)
-        _build.check(lib.chunk_sort(
-            keys.data_ptr(), None if vals is None else vals.data_ptr(),
-            out_k.data_ptr(), None if out_v is None else out_v.data_ptr(),
-            n // chunk, chunk, n_bits, _build.stream_of(keys)), "chunk_sort")
-    return out_k, out_v
+    with kernel_scope("chunk_sort", chunk_sort, n > 0) as scope:
+        if not keys.is_cuda:
+            return _chunk_sort(keys, vals, chunk, key_bits, radix_bits)
+        _check_cuda_i32(keys, *(() if vals is None else (vals,)))
+        if radix_bits < 1:
+            raise ValueError(f"radix_bits {radix_bits} < 1")
+        n_bits = chunk_sort_bits(key_bits, radix_bits)
+        smem = chunk_sort_smem_bytes(chunk, n_bits, vals is not None)
+        if not smem:
+            most = MAX_PAIR_CHUNK if vals is not None else 32 * max(
+                w * i for w, i in CHUNK_SORT_SHAPES)
+            raise ValueError(f"chunk {chunk} does not fit one CTA's registers "
+                             f"and shared memory: it holds at most {most} "
+                             f"{'pairs' if vals is not None else 'keys'}")
+        out_k = torch.empty_like(keys)
+        out_v = None if vals is None else torch.empty_like(vals)
+        if scope.launches:
+            lib = _lib()
+            assert lib.chunk_sort_smem_bytes(chunk, n_bits,
+                                             vals is not None) == smem
+            scope.launched()
+            _build.check(lib.chunk_sort(
+                keys.data_ptr(), None if vals is None else vals.data_ptr(),
+                out_k.data_ptr(), None if out_v is None else out_v.data_ptr(),
+                n // chunk, chunk, n_bits, _build.stream_of(keys)),
+                "chunk_sort")
+        return out_k, out_v
 
 
 chunk_sort.launches = 0
@@ -231,32 +233,36 @@ def digit_partition_hist(keys: torch.Tensor, vals: torch.Tensor | None,
     n = keys.shape[0]
     if n % tile:
         raise ValueError(f"size {n} is not a multiple of tile {tile}")
-    if not keys.is_cuda:
-        return _partition_hist_plain(keys, vals, shift, tile, radix_bits)
-    _check_cuda_i32(keys, *(() if vals is None else (vals,)))
-    nb = 1 << radix_bits
-    if radix_bits > MAX_RADIX_BITS:
-        raise ValueError(f"radix_bits {radix_bits} > {MAX_RADIX_BITS}: the "
-                         "kernel takes at most 256 buckets")
-    smem = partition_smem_bytes(tile, nb, vals is not None)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"tile {tile} needs {smem} bytes of shared memory; "
-                         f"one CTA has {MAX_SMEM_BYTES}")
-    n_tiles = n // tile
-    pk = torch.empty_like(keys)
-    pv = None if vals is None else torch.empty_like(vals)
-    lbase = torch.empty((n_tiles, nb), dtype=torch.int32, device=keys.device)
-    hist = torch.empty_like(lbase)
-    if n_tiles:
-        lib = _lib()
-        assert lib.digit_partition_smem_bytes(tile, nb, vals is not None) == smem
-        count_launch(digit_partition_hist)
-        _build.check(lib.digit_partition_hist(
-            keys.data_ptr(), None if vals is None else vals.data_ptr(),
-            pk.data_ptr(), None if pv is None else pv.data_ptr(),
-            lbase.data_ptr(), hist.data_ptr(), n_tiles, tile, shift, nb,
-            _build.stream_of(keys)), "digit_partition_hist")
-    return pk, pv, lbase, hist
+    with kernel_scope("digit_partition_hist", digit_partition_hist,
+                      n > 0) as scope:
+        if not keys.is_cuda:
+            return _partition_hist_plain(keys, vals, shift, tile, radix_bits)
+        _check_cuda_i32(keys, *(() if vals is None else (vals,)))
+        nb = 1 << radix_bits
+        if radix_bits > MAX_RADIX_BITS:
+            raise ValueError(f"radix_bits {radix_bits} > {MAX_RADIX_BITS}: "
+                             "the kernel takes at most 256 buckets")
+        smem = partition_smem_bytes(tile, nb, vals is not None)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"tile {tile} needs {smem} bytes of shared "
+                             f"memory; one CTA has {MAX_SMEM_BYTES}")
+        n_tiles = n // tile
+        pk = torch.empty_like(keys)
+        pv = None if vals is None else torch.empty_like(vals)
+        lbase = torch.empty((n_tiles, nb), dtype=torch.int32,
+                            device=keys.device)
+        hist = torch.empty_like(lbase)
+        if scope.launches:
+            lib = _lib()
+            assert lib.digit_partition_smem_bytes(
+                tile, nb, vals is not None) == smem
+            scope.launched()
+            _build.check(lib.digit_partition_hist(
+                keys.data_ptr(), None if vals is None else vals.data_ptr(),
+                pk.data_ptr(), None if pv is None else pv.data_ptr(),
+                lbase.data_ptr(), hist.data_ptr(), n_tiles, tile, shift, nb,
+                _build.stream_of(keys)), "digit_partition_hist")
+        return pk, pv, lbase, hist
 
 
 digit_partition_hist.launches = 0
@@ -267,19 +273,21 @@ def digit_rank_gather(gbase: torch.Tensor, incl_t: torch.Tensor,
                       tile: int) -> torch.Tensor:
     """Source index, in the tile-partitioned layout, of every output slot
     of the stable pass (``set_partition.rank_gather_sources``)."""
-    if not gbase.is_cuda:
-        return rank_gather_sources(gbase, incl_t, excl_t, lbase, tile)
-    _check_cuda_i32(gbase, incl_t, excl_t, lbase)
-    n_tiles, nb = incl_t.shape
-    n = n_tiles * tile
-    out = torch.empty(n, dtype=torch.int32, device=gbase.device)
-    if n:
-        count_launch(digit_rank_gather)
-        _build.check(_lib().digit_rank_gather(
-            gbase.data_ptr(), incl_t.data_ptr(), excl_t.data_ptr(),
-            lbase.data_ptr(), out.data_ptr(), n, n_tiles, tile, nb,
-            _build.stream_of(gbase)), "digit_rank_gather")
-    return out
+    with kernel_scope("digit_rank_gather", digit_rank_gather,
+                      incl_t.shape[0] * tile > 0) as scope:
+        if not gbase.is_cuda:
+            return rank_gather_sources(gbase, incl_t, excl_t, lbase, tile)
+        _check_cuda_i32(gbase, incl_t, excl_t, lbase)
+        n_tiles, nb = incl_t.shape
+        n = n_tiles * tile
+        out = torch.empty(n, dtype=torch.int32, device=gbase.device)
+        if scope.launches:
+            scope.launched()
+            _build.check(_lib().digit_rank_gather(
+                gbase.data_ptr(), incl_t.data_ptr(), excl_t.data_ptr(),
+                lbase.data_ptr(), out.data_ptr(), n, n_tiles, tile, nb,
+                _build.stream_of(gbase)), "digit_rank_gather")
+        return out
 
 
 digit_rank_gather.launches = 0
@@ -364,22 +372,23 @@ def digit_hist(keys: torch.Tensor, shift: int, tile: int = SCATTER_TILE,
     shift) & (2^radix_bits - 1)`` is b; the last tile may be shorter."""
     n = keys.shape[0]
     _check_digit_args(n, tile, radix_bits)
-    if not keys.is_cuda:
-        return _digit_hist_plain(keys, shift, tile, radix_bits)
-    _check_cuda_i32(keys)
-    _check_digit_tile(tile)
-    nb = 1 << radix_bits
-    counts = torch.empty(nb * n_card_tiles(n, tile), dtype=torch.int32,
-                         device=keys.device)
-    if n:
-        lib = _lib()
-        assert lib.digit_hist_smem_bytes(tile, radix_bits) == \
-            digit_smem_bytes(tile, radix_bits, None)
-        count_launch(digit_hist)
-        _build.check(lib.digit_hist(keys.data_ptr(), counts.data_ptr(), n,
-                                    tile, shift, radix_bits,
-                                    _build.stream_of(keys)), "digit_hist")
-    return counts
+    with kernel_scope("digit_hist", digit_hist, n > 0) as scope:
+        if not keys.is_cuda:
+            return _digit_hist_plain(keys, shift, tile, radix_bits)
+        _check_cuda_i32(keys)
+        _check_digit_tile(tile)
+        nb = 1 << radix_bits
+        counts = torch.empty(nb * n_card_tiles(n, tile), dtype=torch.int32,
+                             device=keys.device)
+        if scope.launches:
+            lib = _lib()
+            assert lib.digit_hist_smem_bytes(tile, radix_bits) == \
+                digit_smem_bytes(tile, radix_bits, None)
+            scope.launched()
+            _build.check(lib.digit_hist(keys.data_ptr(), counts.data_ptr(), n,
+                                        tile, shift, radix_bits,
+                                        _build.stream_of(keys)), "digit_hist")
+        return counts
 
 
 digit_hist.launches = 0
@@ -442,25 +451,26 @@ def digit_scatter(keys: torch.Tensor, vals: torch.Tensor | None,
     if offsets.shape != (nb * n_card_tiles(n, tile),):
         raise ValueError(f"offsets {tuple(offsets.shape)} are not [B * T] = "
                          f"[{nb * n_card_tiles(n, tile)}]")
-    if not keys.is_cuda:
-        return _digit_scatter_plain(keys, vals, offsets, shift, tile,
-                                    radix_bits)
-    _check_cuda_i32(keys, offsets, *(() if vals is None else (vals,)))
-    _check_digit_tile(tile)
-    out_k = torch.empty_like(keys)
-    out_v = None if vals is None else torch.empty_like(vals)
-    if n:
-        lib = _lib()
-        assert lib.digit_scatter_smem_bytes(tile, radix_bits,
-                                            vals is not None) == \
-            digit_smem_bytes(tile, radix_bits, vals is not None)
-        count_launch(digit_scatter)
-        _build.check(lib.digit_scatter(
-            keys.data_ptr(), None if vals is None else vals.data_ptr(),
-            offsets.data_ptr(), out_k.data_ptr(),
-            None if out_v is None else out_v.data_ptr(), n, tile, shift,
-            radix_bits, _build.stream_of(keys)), "digit_scatter")
-    return out_k, out_v
+    with kernel_scope("digit_scatter", digit_scatter, n > 0) as scope:
+        if not keys.is_cuda:
+            return _digit_scatter_plain(keys, vals, offsets, shift, tile,
+                                        radix_bits)
+        _check_cuda_i32(keys, offsets, *(() if vals is None else (vals,)))
+        _check_digit_tile(tile)
+        out_k = torch.empty_like(keys)
+        out_v = None if vals is None else torch.empty_like(vals)
+        if scope.launches:
+            lib = _lib()
+            assert lib.digit_scatter_smem_bytes(tile, radix_bits,
+                                                vals is not None) == \
+                digit_smem_bytes(tile, radix_bits, vals is not None)
+            scope.launched()
+            _build.check(lib.digit_scatter(
+                keys.data_ptr(), None if vals is None else vals.data_ptr(),
+                offsets.data_ptr(), out_k.data_ptr(),
+                None if out_v is None else out_v.data_ptr(), n, tile, shift,
+                radix_bits, _build.stream_of(keys)), "digit_scatter")
+        return out_k, out_v
 
 
 digit_scatter.launches = 0

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.graph import take
 
-from . import _build, count_launch
+from . import _build, kernel_scope
 from .common import SENTINEL
 
 _P = ctypes.c_void_p
@@ -64,17 +64,19 @@ def rank_search(sorted_arr: torch.Tensor, queries: torch.Tensor,
     """
     if side not in ("left", "right"):
         raise ValueError(side)
-    if not sorted_arr.is_cuda:
-        return _unrolled_rank(sorted_arr, queries, side)
-    _check_cuda_i32(sorted_arr, queries)
-    out = torch.empty_like(queries)
-    if queries.shape[0]:
-        count_launch(rank_search)
-        _build.check(_lib().rank_search(
-            sorted_arr.data_ptr(), sorted_arr.shape[0], queries.data_ptr(),
-            out.data_ptr(), queries.shape[0], int(side == "right"),
-            _build.stream_of(queries)), "rank_search")
-    return out
+    with kernel_scope("rank_search", rank_search,
+                      queries.shape[0] > 0) as scope:
+        if not sorted_arr.is_cuda:
+            return _unrolled_rank(sorted_arr, queries, side)
+        _check_cuda_i32(sorted_arr, queries)
+        out = torch.empty_like(queries)
+        if scope.launches:
+            scope.launched()
+            _build.check(_lib().rank_search(
+                sorted_arr.data_ptr(), sorted_arr.shape[0], queries.data_ptr(),
+                out.data_ptr(), queries.shape[0], int(side == "right"),
+                _build.stream_of(queries)), "rank_search")
+        return out
 
 
 rank_search.launches = 0
@@ -96,19 +98,20 @@ def rename(sorted_vids: torch.Tensor, slot_to_new: torch.Tensor,
     slot-table gather. Misses and SENTINEL queries give SENTINEL."""
     if sorted_vids.shape != slot_to_new.shape:
         raise ValueError("sorted_vids and slot_to_new differ in shape")
-    if not sorted_vids.is_cuda:
-        return _rename_plain(sorted_vids, slot_to_new, queries)
-    _check_cuda_i32(sorted_vids, slot_to_new, queries)
-    if sorted_vids.shape[0] == 0:
-        raise ValueError("rename needs a non-empty sorted stream")
-    out = torch.empty_like(queries)
-    if queries.shape[0]:
-        count_launch(rename)
-        _build.check(_lib().rename_lookup(
-            sorted_vids.data_ptr(), slot_to_new.data_ptr(),
-            sorted_vids.shape[0], queries.data_ptr(), out.data_ptr(),
-            queries.shape[0], _build.stream_of(queries)), "rename")
-    return out
+    with kernel_scope("rename", rename, queries.shape[0] > 0) as scope:
+        if not sorted_vids.is_cuda:
+            return _rename_plain(sorted_vids, slot_to_new, queries)
+        _check_cuda_i32(sorted_vids, slot_to_new, queries)
+        if sorted_vids.shape[0] == 0:
+            raise ValueError("rename needs a non-empty sorted stream")
+        out = torch.empty_like(queries)
+        if scope.launches:
+            scope.launched()
+            _build.check(_lib().rename_lookup(
+                sorted_vids.data_ptr(), slot_to_new.data_ptr(),
+                sorted_vids.shape[0], queries.data_ptr(), out.data_ptr(),
+                queries.shape[0], _build.stream_of(queries)), "rename")
+        return out
 
 
 rename.launches = 0

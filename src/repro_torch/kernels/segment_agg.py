@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import _build, count_launch, refuse_detached
+from . import _build, kernel_scope, refuse_detached
 
 # the reference's Pallas segment sum has no reverse-mode rule (jax.grad
 # through it raises), and the kernel's wrapper has none either
@@ -132,26 +132,29 @@ def segment_sum_sorted(dst: torch.Tensor, x: torch.Tensor, n_nodes: int,
           or (x.shape[0] == 0 and rows.shape[0] > 0)):
         raise ValueError("segment_sum_sorted's rows are int32 [E] on x's "
                          "device, into a non-empty x")
-    if not dst.is_cuda:
-        return _segment_twin(dst, x, n_nodes, rows, mean)
-    if (dst.dtype != torch.int32 or x.dtype != torch.float32
-            or not dst.is_contiguous() or not x.is_contiguous()
-            or (rows is not None and not rows.is_contiguous())
-            or x.device != dst.device):
-        raise ValueError("segment_sum_sorted takes contiguous int32 dst and "
-                         "float32 x on one CUDA device")
-    n_x, d = x.shape
-    out = torch.empty((n_nodes, d), dtype=torch.float32, device=dst.device)
-    if out.numel():
-        scratch = torch.empty((n_nodes + 3,), dtype=torch.int32,
-                              device=dst.device)
-        count_launch(segment_sum_sorted)
-        _build.check(_build.load("segment_agg", _SIGNATURES).segment_sum_sorted(
-            dst.data_ptr(), dst.shape[0], x.data_ptr(), n_x, d,
-            None if rows is None else rows.data_ptr(), int(mean),
-            out.data_ptr(), n_nodes, scratch.data_ptr(),
-            _build.stream_of(dst)), "segment_sum_sorted")
-    return out
+    with kernel_scope("segment_sum_sorted", segment_sum_sorted,
+                      n_nodes * x.shape[1] > 0) as scope:
+        if not dst.is_cuda:
+            return _segment_twin(dst, x, n_nodes, rows, mean)
+        if (dst.dtype != torch.int32 or x.dtype != torch.float32
+                or not dst.is_contiguous() or not x.is_contiguous()
+                or (rows is not None and not rows.is_contiguous())
+                or x.device != dst.device):
+            raise ValueError("segment_sum_sorted takes contiguous int32 dst "
+                             "and float32 x on one CUDA device")
+        n_x, d = x.shape
+        out = torch.empty((n_nodes, d), dtype=torch.float32, device=dst.device)
+        if scope.launches:
+            scratch = torch.empty((n_nodes + 3,), dtype=torch.int32,
+                                  device=dst.device)
+            scope.launched()
+            _build.check(_build.load(
+                "segment_agg", _SIGNATURES).segment_sum_sorted(
+                dst.data_ptr(), dst.shape[0], x.data_ptr(), n_x, d,
+                None if rows is None else rows.data_ptr(), int(mean),
+                out.data_ptr(), n_nodes, scratch.data_ptr(),
+                _build.stream_of(dst)), "segment_sum_sorted")
+        return out
 
 
 segment_sum_sorted.launches = 0

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.set_count import count_less_than, filter_lookup
 
-from . import _build, count_launch
+from . import _build, kernel_scope
 from .common import SENTINEL, pad_pow2_1d
 
 _P = ctypes.c_void_p
@@ -78,25 +78,27 @@ def set_count_less(elements: torch.Tensor, targets: torch.Tensor
     kernels, each counted in ``launches``: the first sorts each tile of
     ``SORT_TILE`` elements into the scratch (with each tile's min and
     max), the second counts."""
-    if not elements.is_cuda:
-        return count_less_than(elements, targets)
-    for t in (elements, targets):
-        if (t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous()
-                or t.device != elements.device):
-            raise ValueError("set_count_less takes contiguous 1-D int32 "
-                             "CUDA tensors on one device")
-    out = torch.empty_like(targets)
-    if targets.shape[0]:
-        lib = _build.load("set_count", _SIGNATURES)
-        tiles, bounds = set_count_scratch(elements.shape[0], elements.device)
-        if elements.shape[0]:
-            count_launch(set_count_less)
-            _build.check(tile_sort_c(lib, elements, tiles, bounds),
-                         "set_count_less (tile sort)")
-        count_launch(set_count_less)
-        _build.check(count_c(lib, elements.shape[0], targets, out, tiles,
-                             bounds), "set_count_less (count)")
-    return out
+    launches = (targets.shape[0] > 0) * (1 + (elements.shape[0] > 0))
+    with kernel_scope("set_count_less", set_count_less, launches) as scope:
+        if not elements.is_cuda:
+            return count_less_than(elements, targets)
+        for t in (elements, targets):
+            if (t.dtype != torch.int32 or t.ndim != 1
+                    or not t.is_contiguous() or t.device != elements.device):
+                raise ValueError("set_count_less takes contiguous 1-D int32 "
+                                 "CUDA tensors on one device")
+        out = torch.empty_like(targets)
+        if scope.launches:
+            lib = _build.load("set_count", _SIGNATURES)
+            tiles, bounds = set_count_scratch(elements.shape[0],
+                                              elements.device)
+            scope.launched()
+            if elements.shape[0]:
+                _build.check(tile_sort_c(lib, elements, tiles, bounds),
+                             "set_count_less (tile sort)")
+            _build.check(count_c(lib, elements.shape[0], targets, out, tiles,
+                                 bounds), "set_count_less (count)")
+        return out
 
 
 set_count_less.launches = 0
@@ -155,26 +157,28 @@ def filter_tree_lookup(keys: torch.Tensor, payloads: torch.Tensor,
     if keys.shape != payloads.shape:
         raise ValueError("filter_tree_lookup takes keys and payloads of one "
                          "shape")
-    if not keys.is_cuda:
-        return filter_lookup(keys, payloads, targets)
-    for t in (keys, payloads, targets):
-        if (t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous()
-                or t.device != keys.device):
-            raise ValueError("filter_tree_lookup takes contiguous 1-D int32 "
-                             "CUDA tensors on one device")
-    out = torch.empty_like(targets)
-    hit = torch.empty(targets.shape, dtype=torch.bool, device=targets.device)
-    if targets.shape[0]:
-        lib = _build.load("set_count", _SIGNATURES)
-        table = filter_scratch(keys.shape[0], keys.device)
-        if keys.shape[0]:
-            count_launch(filter_tree_lookup)
-        _build.check(build_c(lib, keys, payloads, table),
-                     "filter_tree_lookup (build)")
-        count_launch(filter_tree_lookup)
-        _build.check(probe_c(lib, keys.shape[0], table, targets, out, hit),
-                     "filter_tree_lookup (probe)")
-    return out, hit
+    launches = (targets.shape[0] > 0) * (1 + (keys.shape[0] > 0))
+    with kernel_scope("filter_tree_lookup", filter_tree_lookup,
+                      launches) as scope:
+        if not keys.is_cuda:
+            return filter_lookup(keys, payloads, targets)
+        for t in (keys, payloads, targets):
+            if (t.dtype != torch.int32 or t.ndim != 1
+                    or not t.is_contiguous() or t.device != keys.device):
+                raise ValueError("filter_tree_lookup takes contiguous 1-D "
+                                 "int32 CUDA tensors on one device")
+        out = torch.empty_like(targets)
+        hit = torch.empty(targets.shape, dtype=torch.bool,
+                          device=targets.device)
+        if scope.launches:
+            lib = _build.load("set_count", _SIGNATURES)
+            table = filter_scratch(keys.shape[0], keys.device)
+            scope.launched()
+            _build.check(build_c(lib, keys, payloads, table),
+                         "filter_tree_lookup (build)")
+            _build.check(probe_c(lib, keys.shape[0], table, targets, out, hit),
+                         "filter_tree_lookup (probe)")
+        return out, hit
 
 
 filter_tree_lookup.launches = 0

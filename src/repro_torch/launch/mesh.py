@@ -18,12 +18,36 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 
+def production_mesh_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh: (16, 16) ``data`` ×
+    ``model``, or (2, 16, 16) ``pod`` × ``data`` × ``model``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """(16, 16) ``data`` × ``model``, or (2, 16, 16) ``pod`` × ``data`` ×
-    ``model``, of cards; the world must be that size."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The production mesh of cards; the world must be its size."""
+    shape, axes = production_mesh_shape(multi_pod)
     return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+
+
+class DescribedMesh:
+    """A mesh's axis names and sizes alone (``mesh_dim_names``, ``ndim``,
+    ``size(i)``): what the placement rules read, with no process group
+    and no card (the dry run's meshes)."""
+
+    def __init__(self, shape, names):
+        if len(shape) != len(names):
+            raise ValueError("one axis name a mesh dim")
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
+        self.ndim = len(self.shape)
+
+    def size(self, i: int) -> int:
+        return self.shape[i]
+
+    def __repr__(self) -> str:
+        return f"DescribedMesh({self.shape}, {self.mesh_dim_names})"
 
 
 def make_local_mesh(device: str = "cuda"):

@@ -9,27 +9,38 @@ grok-1-314b); the recommender cells build dlrm-rm2 at each of the four
 
 A cell is a built model plus an input batch made from a seed; calling its
 ``step`` runs one step. ``preprocess_cells(mesh)`` gives the engine's
-three steps over a ``torch.distributed`` mesh (``engine.shard``); the
-reference's compiled programs and shardings of the model cells have no
-counterpart here.
+three steps over a ``torch.distributed`` mesh (``engine.shard``).
+
+``build_cell(arch_id, shape_name, mesh, device)`` is the reference's
+entry: any of the 40 (arch, shape) cells as a ``Cell`` — its step
+function, its arguments (with ``device="meta"`` every parameter, state
+and input is a meta tensor, the stand-in for ``ShapeDtypeStruct``:
+shapes and dtypes, nothing allocated), the reference's skips, and with a
+mesh each argument's placements (``dist/sharding.py``) by the
+reference's rules. A described mesh (``mesh_dim_names``, ``ndim``,
+``size(i)``) is enough; it needs no process group. The placements
+describe the layout; the step function runs on the whole arguments (the
+sharded paths are ``engine.shard``, ``ServeEngine(mesh=)`` and
+``moe_apply_local``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
-                                 get_config)
+                                 get_arch, get_config)
 from repro_torch.core.graph import resolve_device
 from repro_torch.data.synthetic import dlrm_batch, lm_batch
 from repro_torch.models.dlrm import (DLRM, dlrm_forward, dlrm_loss,
                                      dlrm_retrieval)
 from repro_torch.models.gnn import (GNNConfig, GraphBatch, _GNN, gnn_loss,
                                     gnn_model)
-from repro_torch.models.transformer import LM, lm_loss, lm_prefill
+from repro_torch.models.transformer import (LM, lm_decode_step, lm_loss,
+                                            lm_prefill, make_cache)
 from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -45,22 +56,38 @@ class PrefillCell:
         return lm_prefill(self.model, self.tokens)
 
 
+def _drawn(dev: torch.device, shape, dtype, draw) -> torch.Tensor:
+    """``draw()`` (a numpy array) as a tensor on ``dev``; on ``meta`` an
+    empty tensor of ``shape`` and ``dtype`` (nothing drawn)."""
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return torch.from_numpy(np.asarray(draw())).to(dtype=dtype, device=dev)
+
+
+def _lm_config(arch_id: str, smoke: bool, model_axis: int):
+    """The LM config, padded for a model axis above 1 (the reference's
+    ``cfg.padded``)."""
+    cfg = get_config(arch_id, smoke=smoke)
+    return cfg.padded(model_axis) if model_axis > 1 else cfg
+
+
 def lm_prefill_cell(arch_id: str, seq_len: int | None = None,
                     batch: int | None = None, device="cuda", seed: int = 0,
-                    smoke: bool = False) -> PrefillCell:
+                    smoke: bool = False, model_axis: int = 1) -> PrefillCell:
     """The ``prefill_32k`` cell of LM ``arch_id`` (32,768 tokens, batch 32
     unless ``seq_len`` / ``batch`` cut it): the model with random weights
-    from ``seed`` on ``device`` and uniform random tokens from ``seed``."""
+    from ``seed`` on ``device`` and uniform random tokens from ``seed``;
+    the config padded for ``model_axis``."""
     shape = LM_SHAPES["prefill_32k"]
     seq_len = shape["seq_len"] if seq_len is None else seq_len
     batch = shape["global_batch"] if batch is None else batch
-    cfg = get_config(arch_id, smoke=smoke)
+    cfg = _lm_config(arch_id, smoke, model_axis)
     dev = resolve_device(device)
     model = LM(cfg, seed=seed, device=dev)
-    tokens = np.random.default_rng(seed).integers(0, cfg.vocab,
-                                                  (batch, seq_len))
-    return PrefillCell(arch_id, model,
-                       torch.from_numpy(tokens.astype(np.int32)).to(dev))
+    tokens = _drawn(dev, (batch, seq_len), torch.int32,
+                    lambda: np.random.default_rng(seed).integers(
+                        0, cfg.vocab, (batch, seq_len)))
+    return PrefillCell(arch_id, model, tokens)
 
 
 def _train_step(model, loss_fn, opt_cfg: AdamWConfig,
@@ -127,7 +154,7 @@ class TrainCell:
 def lm_train_cell(arch_id: str, n_layers: int | None = None,
                   seq_len: int | None = None, batch: int | None = None,
                   device="cuda", seed: int = 0,
-                  smoke: bool = False) -> TrainCell:
+                  smoke: bool = False, model_axis: int = 1) -> TrainCell:
     """The ``train_4k`` cell of ``arch_id`` (4,096 tokens, batch 256,
     every layer, unless ``seq_len`` / ``batch`` / ``n_layers`` cut it):
     the model with random weights from ``seed`` on ``device``, AdamW with
@@ -135,19 +162,20 @@ def lm_train_cell(arch_id: str, n_layers: int | None = None,
     200,000 or the layout is ``dp_only``, reckoned on the published
     configuration: granite-moe-1b-a400m, qwen1.5-32b and grok-1-314b;
     float32 for gemma2-9b and codeqwen1.5-7b), zero state, and the tokens
-    of ``lm_batch(seed, 0, ...)``."""
+    of ``lm_batch(seed, 0, ...)``; the config padded for ``model_axis``."""
     shape = LM_SHAPES["train_4k"]
     seq_len = shape["seq_len"] if seq_len is None else seq_len
     batch = shape["global_batch"] if batch is None else batch
-    base = get_config(arch_id, smoke=smoke)
+    base = _lm_config(arch_id, smoke, model_axis)
     opt_cfg = AdamWConfig(mom_dtype=train_moments_dtype(base))
     cfg = base if n_layers is None else dataclasses.replace(
         base, n_layers=n_layers)
     dev = resolve_device(device)
     model = LM(cfg, seed=seed, device=dev)
     opt_state = adamw_init(dict(model.named_parameters()), opt_cfg.mom_dtype)
-    tokens = torch.from_numpy(lm_batch(seed, 0, batch, seq_len, cfg.vocab))
-    return TrainCell(arch_id, model, opt_cfg, opt_state, tokens.to(dev))
+    tokens = _drawn(dev, (batch, seq_len), torch.int32,
+                    lambda: lm_batch(seed, 0, batch, seq_len, cfg.vocab))
+    return TrainCell(arch_id, model, opt_cfg, opt_state, tokens)
 
 
 # ================================================================= GNN cells
@@ -191,7 +219,12 @@ def _gnn_batch_specs(cfg: GNNConfig, shape: dict) -> dict:
 def _gnn_batch(specs: dict, shape: dict, seed: int, device) -> GraphBatch:
     """A batch of ``specs`` drawn with numpy from ``seed``: dst-sorted
     edges (within each graph for batched graphs), normal features, labels
-    of ``n_classes`` (or normal regression targets), every row masked in."""
+    of ``n_classes`` (or normal regression targets), every row masked in.
+    On ``meta``, empty tensors of the specs (nothing drawn)."""
+    if torch.device(device).type == "meta":
+        return GraphBatch(n_graphs=specs["n_graphs"], **{
+            k: torch.empty(v[0], dtype=v[1], device=device)
+            for k, v in specs.items() if k != "n_graphs"})
     rng = np.random.default_rng(seed)
     e = specs["edge_dst"][0][0]
     n, d_feat = specs["node_feat"][0]
@@ -314,8 +347,18 @@ def _recsys_cell(arch_id: str, shape_name: str, device="cuda", seed: int = 0,
     model = DLRM(cfg, seed=seed, device=dev) if model is None else model
     n = batch if batch is not None else (
         d["n_candidates"] if d["kind"] == "retrieval" else d["batch"])
-    dense, idx, labels = (torch.from_numpy(a).to(dev) for a in dlrm_batch(
-        seed, 0, n, cfg.n_dense, cfg.n_sparse, cfg.hot, cfg.vocab_size))
+    drawn = []
+
+    def draw(i):
+        if not drawn:
+            drawn.extend(dlrm_batch(seed, 0, n, cfg.n_dense, cfg.n_sparse,
+                                    cfg.hot, cfg.vocab_size))
+        return drawn[i]
+
+    dense = _drawn(dev, (n, cfg.n_dense), torch.float32, lambda: draw(0))
+    idx = _drawn(dev, (n, cfg.n_sparse, cfg.hot), torch.int32,
+                 lambda: draw(1))
+    labels = _drawn(dev, (n,), torch.float32, lambda: draw(2))
     if d["kind"] == "train":
         opt_cfg = AdamWConfig()
         return RecsysCell(arch_id, shape_name, model, (dense, idx, labels),
@@ -341,6 +384,8 @@ class PreprocStep(NamedTuple):
     shape_name: str
     step: object
     note: str
+    # the step's arguments as meta stand-ins (shapes and dtypes alone)
+    args: tuple = ()
 
 
 def preprocess_cells(mesh) -> list[PreprocStep]:
@@ -358,10 +403,20 @@ def preprocess_cells(mesh) -> list[PreprocStep]:
       the whole sharded workflow (``engine.shard.shard_preprocess``).
     """
     from repro_torch.core.costmodel import EngineConfig
+    from repro_torch.core.graph import COO, CSC
     from repro_torch.core.pipeline import sample_subgraph
+    from repro_torch.core.prng import PRNGKey
     from repro_torch.engine.shard import shard_convert, shard_preprocess
     ecfg = EngineConfig(w_upe=8192, n_upe=0)
     fan = PREPROCESS_FANOUTS
+    n, cap = PREPROCESS_NODES, PREPROCESS_CAPACITY
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    coo = COO(dst=meta(cap), src=meta(cap), n_edges=meta(), n_nodes=n)
+    csc = CSC(ptr=meta(n + 1), idx=meta(cap), n_edges=meta(), n_nodes=n)
+    seeds, key = meta(PREPROCESS_SEEDS), PRNGKey(0)
 
     def convert_step(coo):
         return shard_convert(mesh, coo, ecfg)
@@ -374,8 +429,232 @@ def preprocess_cells(mesh) -> list[PreprocStep]:
 
     return [PreprocStep("autognn-convert", "reddit", convert_step,
                         "COO→CSC conversion, edges cut over dp "
-                        "(engine.shard)"),
+                        "(engine.shard)", (coo,)),
             PreprocStep("autognn-sample", "reddit-minibatch", sample_step,
-                        "Selecting+Reindexing of the minibatch"),
+                        "Selecting+Reindexing of the minibatch",
+                        (csc, seeds, key)),
             PreprocStep("autognn-preprocess", "reddit-e2e", e2e_step,
-                        "the whole sharded workflow (engine.shard)")]
+                        "the whole sharded workflow (engine.shard)",
+                        (coo, seeds, key))]
+
+
+# ============================================================ build_cell
+@dataclasses.dataclass
+class Cell:
+    """One (arch, shape) cell: ``fn(*args)`` runs one step on the whole
+    arguments. ``args[0]`` is a parameter dict named as the model's; the
+    cell's own is the model's parameters themselves, and a tensor that is
+    not the model's own is copied into it first (``_bound``), so ``fn``
+    steps the model in place. ``roles`` names each argument (``params``,
+    ``optimizer``, ``cache`` or ``input``); ``placements`` is None without
+    a mesh, else a tree of placement tuples shaped like ``args`` (a graph
+    batch as ``batch_fields``), the layout the reference gives them;
+    ``skipped`` names the reference's reason when the cell is skipped."""
+
+    arch_id: str
+    shape_name: str
+    fn: Callable
+    args: tuple
+    roles: tuple = ()
+    placements: tuple | None = None
+    note: str = ""
+    skipped: str = ""
+
+    @property
+    def key(self) -> str:
+        return f"{self.arch_id}__{self.shape_name}"
+
+
+def _bound(model: torch.nn.Module, params: dict) -> torch.nn.Module:
+    """``model`` with ``params`` as its parameters: each tensor that is
+    not the model's own parameter is copied into it (the cell's own
+    ``args[0]`` copies nothing)."""
+    own = dict(model.named_parameters())
+    if params.keys() != own.keys():
+        raise ValueError("a cell's params are named as its model's "
+                         "parameters")
+    with torch.no_grad():
+        for name, p in own.items():
+            if params[name] is not p:
+                p.copy_(params[name])
+    return model
+
+
+def _opt_placements(mesh, p_pl) -> dict:
+    from repro_torch.dist.sharding import replicated
+    return {"m": p_pl, "v": p_pl, "step": replicated(mesh, ())}
+
+
+def _meta_step(opt_state: dict) -> dict:
+    """AdamW's state with its step counter on the moments' device (a meta
+    cell holds no tensor off meta)."""
+    dev = next(iter(opt_state["m"].values())).device
+    if dev.type == "meta":
+        opt_state = {**opt_state, "step": torch.empty(
+            (), dtype=torch.int32, device=dev)}
+    return opt_state
+
+
+def batch_fields(batch) -> dict[str, torch.Tensor]:
+    """A graph batch's (or any dataclass's) tensor fields by name (the
+    placements' tree)."""
+    return {f.name: getattr(batch, f.name)
+            for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), torch.Tensor)}
+
+
+def _lm_cell(arch_id: str, shape_name: str, mesh, device, seed) -> Cell:
+    """The reference's ``_lm_cell`` rules: the config padded for the
+    model axis; parameters FSDP + tensor parallel (replicated under the
+    ``dp_only`` train layout); AdamW moments in bf16 when n_layers ·
+    d_model > 200,000 or ``dp_only``; decode at batch 1 places the cache's
+    sequence over dp (the reference attends through the sequence-sharded
+    combine there; ``fn`` runs the whole-cache step)."""
+    from repro_torch.dist import sharding as sh
+    spec = get_arch(arch_id)
+    if shape_name in spec.skips:
+        return Cell(arch_id, shape_name, lambda: None, (),
+                    skipped=spec.skips[shape_name])
+    ma = sh.model_axis_size(mesh) if mesh is not None else 1
+    dims = LM_SHAPES[shape_name]
+    b, s, kind = dims["global_batch"], dims["seq_len"], dims["kind"]
+    if kind == "train":
+        cell = lm_train_cell(arch_id, device=device, seed=seed,
+                             model_axis=ma)
+        model = cell.model
+        opt_state = _meta_step(cell.opt_state)
+        args = (dict(model.named_parameters()), opt_state, cell.tokens)
+
+        def fn(params, opt, tokens):
+            return lm_train_step(_bound(model, params), cell.opt_cfg, opt,
+                                 tokens)
+        note = "train_step"
+        roles = ("params", "optimizer", "input")
+    elif kind == "prefill":
+        cell = lm_prefill_cell(arch_id, device=device, seed=seed,
+                               model_axis=ma)
+        model = cell.model
+        args = (dict(model.named_parameters()), cell.tokens)
+
+        def fn(params, tokens):
+            return lm_prefill(_bound(model, params), tokens)
+        note = "serve_step (prefill)"
+        roles = ("params", "input")
+    else:  # decode: one new token against a seq_len KV cache
+        cfg = _lm_config(arch_id, False, ma)
+        dev = resolve_device(device)
+        model = LM(cfg, seed=seed, device=dev)
+        cache = make_cache(cfg, b, s, device=dev)
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        pos = torch.zeros((), dtype=torch.int32, device=dev)
+        args = (dict(model.named_parameters()), cache, tokens, pos)
+        seq_sharded = b == 1  # long context: cut the sequence, not batch
+
+        def fn(params, cache, tokens, pos):
+            return lm_decode_step(_bound(model, params), cache, tokens, pos)
+        note = "serve_step (decode)" + (
+            ", sequence-sharded KV placements" if seq_sharded else "")
+        roles = ("params", "cache", "input", "input")
+    pls = None
+    if mesh is not None:
+        cfg = model.cfg
+        params = args[0]
+        layout = cfg.train_layout if kind == "train" else "tp"
+        p_pl = (sh.replicated(mesh, params) if layout == "dp_only" else
+                sh.lm_param_shardings(mesh, params, fsdp=True,
+                                      n_experts=cfg.moe_experts))
+        dp = sh.dp_axes(mesh)
+        names = sh.axis_names(mesh)
+        if kind == "train":
+            if layout == "dp_only":
+                bdp = tuple(a for a in ("data", "model") if a in names)
+                t_pl = sh.placements(mesh, (bdp, "pod" if "pod" in names
+                                            else None))
+            else:
+                t_pl = sh.placements(mesh, (dp, None))
+            pls = (p_pl, _opt_placements(mesh, p_pl), t_pl)
+        elif kind == "prefill":
+            pls = (p_pl, sh.placements(mesh, (dp, None)))
+        else:
+            pls = (p_pl, sh.lm_cache_shardings(mesh, args[1],
+                                               seq_sharded=seq_sharded),
+                   sh.placements(mesh, (None if seq_sharded else dp,
+                                        None)),
+                   sh.replicated(mesh, ()))
+    return Cell(arch_id, shape_name, fn, args, roles, pls, note)
+
+
+def _gnn_build(arch_id: str, shape_name: str, mesh, device, seed) -> Cell:
+    from repro_torch.dist import sharding as sh
+    cell = _gnn_cell(arch_id, shape_name, device=device, seed=seed)
+    opt_state = _meta_step(cell.opt_state)
+    params = dict(cell.model.named_parameters())
+    args = (params, opt_state, cell.batch)
+
+    def fn(params, opt, batch):
+        return gnn_train_step(_bound(cell.model, params), cell.opt_cfg, opt,
+                              batch)
+    pls = None
+    if mesh is not None:
+        p_pl = sh.replicated(mesh, params)
+        pls = (p_pl, _opt_placements(mesh, p_pl),
+               sh.gnn_batch_shardings(mesh, batch_fields(cell.batch)))
+    return Cell(arch_id, shape_name, fn, args,
+                ("params", "optimizer", "input"), pls,
+                f"train_step ({GNN_SHAPES[shape_name]['kind']})")
+
+
+def _recsys_build(arch_id: str, shape_name: str, mesh, device,
+                  seed) -> Cell:
+    from repro_torch.dist import sharding as sh
+    cell = _recsys_cell(arch_id, shape_name, device=device, seed=seed)
+    kind = RECSYS_SHAPES[shape_name]["kind"]
+    params = dict(cell.model.named_parameters())
+    if kind == "train":
+        opt_state = _meta_step(cell.opt_state)
+        args = (params, opt_state) + cell.inputs
+
+        def fn(params, opt, *inputs):
+            return recsys_train_step(_bound(cell.model, params), cell.opt_cfg,
+                                     opt, inputs)
+        note = "train_step"
+    else:
+        args = (params,) + cell.inputs
+
+        def fn(params, *inputs):
+            return RecsysCell(arch_id, shape_name,
+                              _bound(cell.model, params), inputs).step()
+        note = ("serve_step" if kind == "serve"
+                else "serve_step (retrieval, batched-dot)")
+    pls = None
+    if mesh is not None:
+        dp = sh.dp_axes(mesh)
+        p_pl = sh.dlrm_param_shardings(mesh, params)
+        if kind == "retrieval":
+            ins = (sh.placements(mesh, (None, None)),
+                   sh.placements(mesh, (None, None, None)),
+                   sh.placements(mesh, (dp, None, None)))
+        else:
+            ins = (sh.placements(mesh, (dp, None)),
+                   sh.placements(mesh, (dp, None, None)),
+                   sh.placements(mesh, (dp,)))[:len(cell.inputs)]
+        pls = ((p_pl, _opt_placements(mesh, p_pl)) + ins
+               if kind == "train" else (p_pl,) + ins)
+    roles = ("params",) + ("optimizer",) * (kind == "train") + (
+        "input",) * len(cell.inputs)
+    return Cell(arch_id, shape_name, fn, args, roles, pls, note)
+
+
+def build_cell(arch_id: str, shape_name: str, mesh=None, device="cuda",
+               seed: int = 0) -> Cell:
+    """The (arch, shape) cell of the reference's ``build_cell``, built on
+    ``device`` (``"meta"``: shapes and dtypes, no allocation) through the
+    port's own cells; with ``mesh``, its placements."""
+    family = get_arch(arch_id).family
+    if family == "lm":
+        return _lm_cell(arch_id, shape_name, mesh, device, seed)
+    if family == "gnn":
+        return _gnn_build(arch_id, shape_name, mesh, device, seed)
+    if family == "recsys":
+        return _recsys_build(arch_id, shape_name, mesh, device, seed)
+    raise ValueError(family)

@@ -14,22 +14,38 @@ import torch
 import torch.nn.functional as F
 
 
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``; on ``meta`` (shapes
+    alone: nothing is drawn or allocated) the CPU's."""
+    device = torch.device(device)
+    return torch.Generator(
+        device="cpu" if device.type == "meta" else device).manual_seed(seed)
+
+
+def normal_init(generator: torch.Generator, shape, scale: float,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """N(0, 1) × ``scale`` of ``shape``, drawn in float32 by ``generator``
+    on ``device`` (the generator's device), then cast; on ``meta`` an
+    empty tensor (nothing drawn)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * scale).to(dtype)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, device=None,
                scale: float | None = None) -> torch.Tensor:
-    """N(0, 1) × ``scale`` (default 1/√d_in), drawn in float32 by
-    ``generator`` on ``device`` (the generator's device), then cast."""
+    """N(0, 1) × ``scale`` (default 1/√d_in) [d_in, d_out]
+    (``normal_init``)."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
-                    device=device)
-    return (w * s).to(dtype)
+    return normal_init(generator, (d_in, d_out), s, dtype, device)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype=torch.float32, device=None) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
-                    device=device)
-    return (w * 0.02).to(dtype)
+    return normal_init(generator, (vocab, d), 0.02, dtype, device)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,

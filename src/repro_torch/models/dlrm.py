@@ -36,7 +36,7 @@ from repro_torch.core.graph import SENTINEL
 from repro_torch.core.pipeline import transpose_layout
 from repro_torch.kernels.ptr_scan import GatherRows
 
-from .common import mlp_apply, mlp_init
+from .common import mlp_apply, mlp_init, seeded_generator
 from .gnn import load_reference_params
 
 
@@ -65,7 +65,7 @@ class DLRM(nn.Module):
     def __init__(self, cfg: DLRMConfig, seed: int = 0, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = seeded_generator(seed, device)
         tables = torch.randn(
             (cfg.n_sparse, cfg.vocab_size, cfg.embed_dim), generator=g,
             dtype=torch.float32, device=device).mul_(

@@ -36,7 +36,7 @@ from repro_torch.dist.groups import Reduce, dp_group
 from repro_torch.dist.hints import _current_mesh, mesh_info
 from repro_torch.dist.sharding import _axes_size
 
-from .common import dense_init
+from .common import dense_init, normal_init
 
 
 def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
@@ -46,9 +46,7 @@ def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
     ``w_gate``, ``w_in`` [E, d, d_ff] (1/√d) and ``w_out`` [E, d_ff, d]
     (1/√d_ff) in ``dtype``, each drawn in float32 by ``generator``."""
     def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (w * scale).to(dtype)
+        return normal_init(generator, shape, scale, dtype, device)
     s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
     return {
         "router": dense_init(generator, d_model, n_experts, torch.float32,

@@ -61,7 +61,8 @@ from repro_torch.kernels.flash_attention import flash_attention_bhsd
 
 from .attention import quantize_kv, rope
 from .common import (cross_entropy, dense_init, embed_init, gelu_tanh,
-                     glu_apply, glu_init, rms_norm, softcap)
+                     glu_apply, glu_init, rms_norm, seeded_generator,
+                     softcap)
 from .moe import moe_apply, moe_apply_local, moe_init
 
 
@@ -101,6 +102,23 @@ class LMConfig:
     @property
     def is_moe(self) -> bool:
         return self.moe_experts > 0
+
+    def padded(self, model_axis: int) -> "LMConfig":
+        """The reference's Megatron-style padding, so that every dim cut
+        over a model axis of ``model_axis`` divides it: MHA pads heads and
+        kv heads together; GQA pads kv up to the axis and heads to a
+        multiple of the padded kv; the vocabulary to a multiple of the
+        axis; dh stays."""
+        def up(x, m):
+            return -(-x // m) * m
+        if self.n_kv_heads == self.n_heads:
+            nh = nkv = up(self.n_heads, model_axis)
+        else:
+            nkv = up(self.n_kv_heads, model_axis)
+            nh = up(up(self.n_heads, model_axis), nkv)
+        return dataclasses.replace(
+            self, vocab=up(self.vocab, model_axis), n_kv_heads=nkv,
+            n_heads=nh, head_dim=self.dh)
 
 
 def _norm(cfg: LMConfig, device) -> nn.Parameter:
@@ -168,7 +186,7 @@ class LM(nn.Module):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = seeded_generator(seed, device)
         self.embed = nn.Parameter(embed_init(g, cfg.vocab, cfg.d_model,
                                              cfg.dtype, device))
         # gemma2 runs n_layers // 2 (local, global) pairs

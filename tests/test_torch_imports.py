@@ -86,7 +86,14 @@ def test_port_file_inventory():
                  "src/repro_torch/dist/groups.py",
                  "src/repro_torch/dist/collectives.py",
                  "src/repro_torch/engine/shard.py",
-                 "src/repro_torch/launch/mesh.py"):
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/analysis/__init__.py",
+                 "src/repro_torch/analysis/__main__.py",
+                 "src/repro_torch/analysis/census.py",
+                 "src/repro_torch/analysis/contracts.py",
+                 "src/repro_torch/analysis/checker.py",
+                 "src/repro_torch/analysis/lint.py"):
         assert must in names, must
 
 
@@ -128,6 +135,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.dlrm, repro_torch.train.compress\n"
         "import repro_torch.dist, repro_torch.dist.collectives\n"
         "import repro_torch.engine.shard, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis\n"
+        "import repro_torch.analysis.census, repro_torch.analysis.checker\n"
+        "import repro_torch.analysis.contracts\n"
+        "import repro_torch.analysis.__main__\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "for a in ARCHS:\n"
         "    get_config(a), get_config(a, smoke=True)\n"

@@ -8,12 +8,14 @@ global_radix digit pass, its whole sort and a SLICE_CFG convert cost;
 with ``--what serve``, what serving costs under both configurations; or,
 with ``--what scan``, what the pointer segment sum costs on the serve
 path's own pointers; with ``--what segsum``, what the dst-sorted
-segment sum and the prefix partition cost; or, with ``--what decode``,
-what the decode attention kernel costs.
+segment sum and the prefix partition cost; with ``--what decode``,
+what the decode attention kernel costs; or, with ``--what plain``, what
+the plain path (``use_pallas`` off) costs where GNN training and the
+kernels' twins run it.
 
   python3 tools/slice_ab.py --tree parent=build/ab/parent --tree change=. \\
       --order parent,change,change,parent \\
-      [--what kernels|digit|serve|scan|segsum|decode]
+      [--what kernels|digit|serve|scan|segsum|decode|plain]
 
 A tree is the root of a checkout (unpack an earlier commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Each turn is
@@ -106,6 +108,20 @@ bf16 cache (a boolean mask, no cap: a near function), a checksum of the
 output's bits, and its share of the tree's ``twin_tolerance`` against
 the twin (on the first slot only at 32k); and the tree's split kernel's
 registers, stack and spills (``cuobjdump --dump-resource-usage``).
+
+``--what plain`` times, queued behind a device sleep, the twins whose
+times chip_smoke prints as ``plain_ms`` at its request shape (``SERVE_CAP``
+pairs of keys below ``SERVE_NODES``): ``digit_hist`` and ``digit_scatter``
+(7 bits), the chunk sort (chunk 4096), the fused merge's ladder (runs 4096
+→ 65,536) and one rung above it (``ordering.merge_ladder``), each checked
+against a stable ``torch.sort``; chip_smoke's Reddit-scale COO converted
+under ``SLICE_CFG`` and ``MERGE_CFG`` with ``use_pallas`` off (the plain
+global_radix and chunked_merge paths), checked against the torch.sort
+strategy; and graphsage-reddit's training at full size as
+``launch.train.run_gnn`` builds it (``SampledDataset`` on Reddit's
+synthetic graph, the config the service picks, its convert timed), its
+steps (a batch made and one AdamW step) timed on the host clock after
+two warm-up steps, the median of ``PLAIN_TRAIN_STEPS``.
 
 Each turn prints one JSON line; the whole run also goes to
 ``chiprun_out/slice_ab.json``. Needs a card; the trees' timings are
@@ -224,6 +240,144 @@ def turn(tree: str, seed: int, n_requests: int, reps: int) -> dict:
                              device_ms=prof["device_ms"],
                              kernels=prof["kernels"]),
                 rank_calls=calls)
+
+
+PLAIN_TRAIN_STEPS = 6
+
+
+def turn_plain(tree: str, seed: int) -> dict:
+    """One tree's plain-path readings, in this process."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import ordering, pipeline
+    from repro_torch.core.graph import COO, synthetic_coo
+    from repro_torch.data.sampler import SampledDataset
+    from repro_torch.kernels import radix_sort as trs
+    from repro_torch.launch.serve import MERGE_CFG, SLICE_CFG
+    from repro_torch.launch.steps import gnn_train_step
+    from repro_torch.launch.train import GNN_DATA, gnn_data
+    from repro_torch.models.gnn import gnn_model
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+
+    import repro_torch
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), (
+        repro_torch.__file__, tree)
+    dev = torch.device("cuda", 0)
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    n, bound = cs.SERVE_CAP, cs.SERVE_NODES
+    keys = torch.full((n,), bound, dtype=torch.int32, device=dev)
+    keys[:cs.SERVE_EDGES] = torch.randint(0, bound, (cs.SERVE_EDGES,),
+                                          generator=g, device=dev,
+                                          dtype=torch.int32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    key_bits = bound.bit_length()
+
+    def stable(k, v, block, shift=0, width=32):
+        o = torch.sort(((k >> shift) & ((1 << width) - 1) if width < 32
+                        else k).view(-1, block), dim=1, stable=True).indices
+        return (k.view(-1, block).gather(1, o).reshape(-1),
+                v.view(-1, block).gather(1, o).reshape(-1))
+
+    tile = trs.SCATTER_TILE
+    offs = trs.digit_offsets(trs._digit_hist_plain(keys, 7, tile, 7))
+    got = trs._digit_scatter_plain(keys, vals, offs, 7, tile, 7)
+    want = stable(keys, vals, n, 7, 7)
+    cs.check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+             f"{tree}: the digit_scatter twin == a stable torch.sort")
+    out["digit_hist_plain_ms"] = cs.cuda_ms(
+        lambda: trs._digit_hist_plain(keys, 7, tile, 7), iters=5)
+    out["digit_scatter_plain_ms"] = cs.cuda_ms(
+        lambda: trs._digit_scatter_plain(keys, vals, offs, 7, tile, 7),
+        iters=3)
+
+    def chunk():
+        return ordering._chunk_sort(keys, vals, cs.TILE, key_bits,
+                                    cs.RADIX_BITS)
+    ks, vs = chunk()
+    want = stable(keys, vals, cs.TILE)
+    cs.check(torch.equal(ks, want[0]) and torch.equal(vs, want[1]),
+             f"{tree}: the chunk sort twin == a stable torch.sort")
+    out["chunk_sort_plain_ms"] = cs.cuda_ms(chunk, iters=3, warmup=1)
+    top = 65536
+    fans = [2] * ((top // cs.TILE).bit_length() - 1)
+    fk, fv = ordering.merge_ladder(ks, vs, cs.TILE, fans)
+    want = stable(keys, vals, top)
+    cs.check(torch.equal(fk, want[0]) and torch.equal(fv, want[1]),
+             f"{tree}: the fused merge's ladder == a stable torch.sort")
+    out["fused_merge_plain_ms"] = cs.cuda_ms(
+        lambda: ordering.merge_ladder(ks, vs, cs.TILE, fans), iters=3,
+        warmup=1)
+    rk, rv = ordering.merge_ladder(fk, fv, top, [2])
+    want = stable(keys, vals, 2 * top)
+    cs.check(torch.equal(rk, want[0]) and torch.equal(rv, want[1]),
+             f"{tree}: one plain rung == a stable torch.sort")
+    out["merge_rung_plain_ms"] = cs.cuda_ms(
+        lambda: ordering.merge_ladder(fk, fv, top, [2]), iters=3, warmup=1)
+    del keys, vals, offs, got, want, ks, vs, fk, fv, rk, rv
+
+    coo = synthetic_coo(cs.REDDIT["nodes"], cs.REDDIT["edges"],
+                        cs.CONVERT_CAP, seed, device=dev)
+    base = pipeline.convert_xla(coo, device=dev) if hasattr(
+        pipeline, "convert_xla") else pipeline.convert(
+        coo, dataclasses.replace(SLICE_CFG, use_pallas=False,
+                                 sort_strategy="xla_sort"), device=dev)
+    for tag, cfg in (("slice", SLICE_CFG), ("merge", MERGE_CFG)):
+        cfg = dataclasses.replace(cfg, use_pallas=False)
+        csc = pipeline.convert(coo, cfg, device=dev)
+        cs.check(torch.equal(csc.ptr, base.ptr)
+                 and torch.equal(csc.idx, base.idx),
+                 f"{tree}: the plain {tag} convert == the torch.sort one")
+        del csc
+        torch.cuda.reset_peak_memory_stats()
+        out[f"plain_{tag}_convert_ms"] = cs.cuda_ms(
+            lambda cfg=cfg: pipeline.convert(coo, cfg, device=dev), iters=2,
+            warmup=1)
+        out[f"plain_{tag}_convert_peak_gib"] = (
+            torch.cuda.max_memory_allocated() / 2**30)
+    del coo, base
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dst, src, feats, labels = gnn_data(seed, False)
+    out["train_data_host_s"] = time.perf_counter() - t0
+    n_nodes, _, d_feat, n_classes, batch_size = GNN_DATA[False]
+    cfg = get_config("graphsage-reddit")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = SampledDataset(coo=COO.from_arrays(dst, src, n_nodes, device=dev),
+                        features=torch.from_numpy(feats).to(dev),
+                        labels=torch.from_numpy(labels).to(dev),
+                        fanouts=cfg.sample_sizes, batch_size=batch_size,
+                        seed=seed)
+    torch.cuda.synchronize()
+    out["train_dataset_s"] = time.perf_counter() - t0
+    out["train_engine_cfg"] = ds.engine_cfg.key
+    out["train_convert_ms"] = cs.cuda_ms(
+        lambda: pipeline.convert(ds.coo, ds.engine_cfg, device=dev),
+        iters=2, warmup=1)
+    model = gnn_model(cfg, d_feat, d_edge=4, n_classes=n_classes,
+                      generator=torch.Generator().manual_seed(seed),
+                      device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    opt = adamw_init(dict(model.named_parameters()))
+    secs, losses = [], []
+    for i in range(2 + PLAIN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = gnn_train_step(model, opt_cfg, opt, ds.batch(i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    timed = sorted(secs[2:])
+    out["train_step_ms_median"] = 1e3 * timed[len(timed) // 2]
+    out["train_step_ms"] = [1e3 * t for t in secs]
+    out["train_losses"] = losses
+    return dict(tree=tree, **out)
 
 
 def turn_kernels(tree: str, seed: int) -> dict:
@@ -776,7 +930,7 @@ def main():
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--what", choices=("slice", "kernels", "digit", "serve",
-                                       "scan", "segsum", "decode"),
+                                       "scan", "segsum", "decode", "plain"),
                     default="slice",
                     help="the SLICE_CFG request and rank calls; the chunk "
                     "sort, the filter, the merge kernels and the MERGE_CFG "
@@ -784,7 +938,8 @@ def main():
                     "SLICE_CFG convert; both configurations' serving; "
                     "the pointer segment sum on the path's pointers; "
                     "the dst-sorted segment sum and the prefix partition; "
-                    "or the decode attention kernel")
+                    "the decode attention kernel; or the plain path "
+                    "(the twins, plain converts, GNN training)")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # NAME=DIR, one turn
     args = ap.parse_args()
 
@@ -797,6 +952,7 @@ def main():
                turn_scan(tree, args.seed) if args.what == "scan" else
                turn_segsum(tree, args.seed) if args.what == "segsum" else
                turn_decode(tree, args.seed) if args.what == "decode" else
+               turn_plain(tree, args.seed) if args.what == "plain" else
                turn(tree, args.seed, args.requests, args.reps))
         print(json.dumps(dict(name=name, **out)), flush=True)
         return 0
